@@ -5,13 +5,15 @@ coarse autoregressive GPT stages with device-resident KV caches -> the
 non-causal fine stage -> EnCodec decode to 24 kHz PCM) written in PyTorch,
 with the TPU package's Pallas kernels replaced by hand-written CUDA kernels
 for NVIDIA Hopper (`kernels/`, sources in `csrc/`). It imports torch and
-never jax; the format, tokenizer, params and WAV layers are shared with
-bark_tpu, which loads them without jax.
+nothing of jax or of bark_tpu: the model-file format, the block quantizers,
+the tokenizer and the params are the port's own copies (`io/`, `text/`,
+`params.py`), which tests/test_torch_shared_copies.py holds equal to
+bark_tpu's.
 """
 
 __version__ = "0.1.0"
 
-from bark_tpu.params import (  # noqa: F401
+from bark_tpu_torch.params import (  # noqa: F401
     BarkContextParams,
     EncodingStep,
     Verbosity,
@@ -28,6 +30,7 @@ _API_NAMES = {
     "bark_get_eval_time",
     "bark_reset_statistics",
     "bark_free",
+    "bark_model_quantize",
 }
 
 

@@ -4,8 +4,16 @@ The counterpart of `bark_tpu.api.context` for the fused single-request
 path: `bark_load_model(path, params, seed, device)` -> BarkContext,
 `bark_generate_audio(ctx, text)`, `bark_get_audio_data(_size)`,
 `bark_get_load_time`, `bark_get_eval_time`, `bark_reset_statistics`,
-`bark_free`. Text -> tokens -> semantic (K2 + K3) -> coarse (K2 + K4 per
-window) -> fine -> EnCodec -> 24 kHz PCM, all on `device`.
+`bark_free`, `bark_model_quantize`. Text -> tokens -> semantic (K2 + K3)
+-> coarse (K2 + K4 per window) -> fine -> EnCodec -> 24 kHz PCM, all on
+`device`.
+
+Packed-quantized serving: with `dequantize_on_load=False`, every GPT
+section of the file that is block-quantized in a packable format
+(`io.loader.section_is_quantized`) loads as a qpack (int8 values + block
+scales [+ mins]); the causal stages then decode through the packed kernel
+(K5) and prefill and the fine stage run on a per-call dense copy. Any
+other section loads dense.
 
 Randomness: every stage takes its Gumbel noise as a tensor. The context
 draws it on the device from a `torch.Generator` seeded with `seed`, in the
@@ -14,7 +22,7 @@ may replace it to replay another implementation's noise). temp = 0 stages
 take no noise and are deterministic.
 
 Not ported yet: the stepped path and progress callbacks, streaming,
-long-form, voice presets, packed quantized weights, int8 KV, batching.
+long-form, voice presets, int8 KV, batching.
 """
 
 from __future__ import annotations
@@ -27,16 +35,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bark_tpu.io import ggml
-from bark_tpu.params import BarkContextParams, Verbosity
-from bark_tpu.text import tokenizer
-from bark_tpu_torch.io import loader
+from bark_tpu_torch.io import ggml, loader, quantize
 from bark_tpu_torch.models import encodec
 from bark_tpu_torch.models.config import CodecConfig
 from bark_tpu_torch.ops import sampling
+from bark_tpu_torch.params import BarkContextParams, Verbosity
 from bark_tpu_torch.pipeline import coarse as coarse_pipe
 from bark_tpu_torch.pipeline import fine as fine_pipe
 from bark_tpu_torch.pipeline import semantic as semantic_pipe
+from bark_tpu_torch.text import tokenizer
 
 # codec frames are decoded in multiples of this (as bark_tpu does, where it
 # bounds the compiled programs); the causal decoder makes the right padding
@@ -74,18 +81,12 @@ class BarkContext:
         self.params = params or BarkContextParams()
         self.device = torch.device(device)
         dtype = _DTYPES[self.params.compute_dtype]
-        if not self.params.dequantize_on_load:
-            raise NotImplementedError(
-                "packed quantized weights are not ported to bark_tpu_torch "
-                "yet (dequantize_on_load=False)"
-            )
         self.vocab = tokenizer.Vocab.from_tokens(model.vocab)
-        self.semantic_cfg, self.semantic_params = loader.gpt_params_from_section(
-            model.semantic, dtype, self.device)
-        self.coarse_cfg, self.coarse_params = loader.gpt_params_from_section(
-            model.coarse, dtype, self.device)
-        self.fine_cfg, self.fine_params = loader.gpt_params_from_section(
-            model.fine, dtype, self.device)
+        self.semantic_cfg, self.semantic_params = self._load_stage(
+            model.semantic, dtype)
+        self.coarse_cfg, self.coarse_params = self._load_stage(
+            model.coarse, dtype)
+        self.fine_cfg, self.fine_params = self._load_stage(model.fine, dtype)
         self.codec_cfg = loader.codec_config_from_hparams(model.codec.hparams)
         # the codec stays float32, as the reference keeps it
         self.codec_params = loader.codec_params_from_section(model.codec,
@@ -111,6 +112,17 @@ class BarkContext:
         ctx.codec_params = codec_params
         ctx._finish_init(seed)
         return ctx
+
+    def _load_stage(self, sec, dtype):
+        """(cfg, params): a qpack when dequantize_on_load is False and the
+        section is block-quantized in a packable format, dense otherwise
+        (what the file holds). A qpack whose shapes the packed kernel does
+        not take raises at its first launch on the GPU; nothing falls back
+        to dense."""
+        if not self.params.dequantize_on_load and \
+                loader.section_is_quantized(sec):
+            return loader.gpt_qparams_from_section(sec, dtype, self.device)
+        return loader.gpt_params_from_section(sec, dtype, self.device)
 
     def _finish_init(self, seed: int) -> None:
         self._validate()
@@ -303,8 +315,8 @@ class BarkContext:
 def bark_load_model(model_path: str,
                     params: Optional[BarkContextParams] = None,
                     seed: int = 0, device="cuda") -> BarkContext:
-    """Load ggml_weights.bin (the shared `bark_tpu.io.ggml` reader) onto
-    `device` (bark_load_model, bark.cpp:1165-1184)."""
+    """Load ggml_weights.bin (the port's `io.ggml` reader) onto `device`
+    (bark_load_model, bark.cpp:1165-1184)."""
     t0 = time.perf_counter()
     ctx = BarkContext(ggml.read_model_file(model_path), params, seed, device)
     ctx.stats.t_load_us = int((time.perf_counter() - t0) * 1e6)
@@ -341,3 +353,10 @@ def bark_free(ctx: Optional[BarkContext]) -> None:
     """Drop the context's references; PyTorch frees the tensors."""
     if ctx is not None:
         ctx._programs.clear()
+
+
+def bark_model_quantize(fname_inp: str, fname_out: str, ftype) -> bool:
+    """Rewrite a model file with block-quantized GPT weights (bark.cpp
+    bark_model_quantize); `ftype` is a `ggml.GGMLFType` value. The codec
+    stays f32."""
+    return quantize.model_quantize(fname_inp, fname_out, int(ftype))

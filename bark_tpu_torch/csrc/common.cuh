@@ -19,6 +19,7 @@ typedef __nv_bfloat16 bf16;
 // dtype codes shared with kernels/_build.py
 #define BARK_F32 0
 #define BARK_BF16 1
+#define BARK_F16 2  // scales and mins of packed weights only
 
 #define BARK_EPS_NORM 1e-5f
 
@@ -53,6 +54,52 @@ struct BarkGPTWeights {
   int n_in_vocab;
   int n_out_vocab;
   int dtype;            // BARK_F32 or BARK_BF16
+};
+
+// Device pointers of one GPT stage's packed-quantized params (a qpack of
+// io/loader.py): int8 values with per-32-row scales and, when has_min,
+// mins, blocked along each weight's input axis; norms, biases and wpe
+// dense in the params dtype. Mins are null when has_min is 0.
+struct BarkGPTQWeights {
+  const void* wte_q;    // (n_in_vocab, D) int8
+  const void* wte_s;    // (n_in_vocab, D/32) scales
+  const void* wte_m;
+  const void* wpe;      // (block_size, D)
+  const void* ln1_g;    // (L, D)
+  const void* ln1_b;
+  const void* ln2_g;
+  const void* ln2_b;
+  const void* qkv_q;    // (L, D, 3D) int8
+  const void* qkv_s;    // (L, D/32, 3D)
+  const void* qkv_m;
+  const void* qkv_b;    // (L, 3D)
+  const void* proj_q;   // (L, D, D)
+  const void* proj_s;
+  const void* proj_m;
+  const void* proj_b;
+  const void* fc_q;     // (L, D, 4D)
+  const void* fc_s;
+  const void* fc_m;
+  const void* fc_b;
+  const void* out_q;    // (L, 4D, D)
+  const void* out_s;    // (L, 4D/32, D)
+  const void* out_m;
+  const void* out_b;
+  const void* ln_f_g;   // (D,)
+  const void* ln_f_b;
+  const void* lm_q;     // (D, v_pad) int8, the LM head transposed and
+  const void* lm_s;     // (D/32, v_pad)        zero-padded
+  const void* lm_m;
+  int n_layer;
+  int n_head;
+  int n_embd;
+  int block_size;
+  int n_in_vocab;
+  int n_out_vocab;
+  int v_pad;            // ceil(n_out_vocab / n_embd) * n_embd
+  int dtype;            // BARK_F32 or BARK_BF16
+  int scale_dtype;      // BARK_F16 or BARK_F32
+  int has_min;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -150,6 +197,10 @@ __device__ void block_layer_norm(const T* x, const T* g, const T* b,
 extern "C" int bark_launch_lm_head(const BarkGPTWeights* w, const void* x_row,
                                    float* logits, int lo, int hi,
                                    cudaStream_t stream);
+extern "C" int bark_launch_attn_decode(int dtype, const void* qkv,
+                                       void* k_cache, void* v_cache,
+                                       int n_past, int D, int n_head,
+                                       void* ctx, cudaStream_t stream);
 extern "C" int bark_launch_embed_token(const BarkGPTWeights* w,
                                        const int* tok, int n_past, void* x,
                                        cudaStream_t stream);

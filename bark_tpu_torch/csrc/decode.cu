@@ -264,6 +264,17 @@ __global__ void __launch_bounds__(ATT_THREADS)
   }
 }
 
+// Attention of one decode step for one layer: one block per head.
+template <typename T>
+int attn_decode_t(const T* qkv, T* kc, T* vc, int n_past, int D, int n_head,
+                  T* ctx, cudaStream_t st) {
+  const float scale = (float)(1.0 / sqrt((double)(D / n_head)));
+  attn_decode_kernel<T>
+      <<<n_head, ATT_THREADS, (n_past + 1) * sizeof(float), st>>>(
+          qkv, kc, vc, n_past, D, scale, ctx);
+  return (int)cudaGetLastError();
+}
+
 // logits[v] = dot(LN_f(x), head[v, :]) for v in [lo, hi), f32. One warp per
 // vocab row of the (V, D) head; every block recomputes ln_f of the one row.
 template <typename T>
@@ -317,7 +328,6 @@ int decode_step_t(const BarkGPTWeights* w, const int* tok, int n_past,
   T* h = (T*)h_;
   T* kc = (T*)k_cache;
   T* vc = (T*)v_cache;
-  const float scale = (float)(1.0 / sqrt((double)(D / w->n_head)));
   int err = bark_launch_embed_token(w, tok, n_past, x, st);
   if (err) return err;
   for (int l = 0; l < L; ++l) {
@@ -330,10 +340,10 @@ int decode_step_t(const BarkGPTWeights* w, const int* tok, int n_past,
         (const T*)w->qkv_b + l * 3 * LD, D, 3 * D, nullptr, qkv, partial,
         tickets, st);
     if (err) return err;
-    attn_decode_kernel<T>
-        <<<w->n_head, ATT_THREADS, (n_past + 1) * sizeof(float), st>>>(
-            qkv, kc + l * (size_t)S * D, vc + l * (size_t)S * D, n_past, D,
-            scale, ctx);
+    err = attn_decode_t<T>(qkv, kc + l * (size_t)S * D,
+                           vc + l * (size_t)S * D, n_past, D, w->n_head, ctx,
+                           st);
+    if (err) return err;
     err = gemv<T, EPI_RESID, false>(
         ctx, nullptr, nullptr, (const T*)w->proj_w + l * LD * D,
         (const T*)w->proj_b + l * LD, D, D, x, x, partial, tickets, st);
@@ -356,6 +366,19 @@ int decode_step_t(const BarkGPTWeights* w, const int* tok, int n_past,
 }
 
 }  // namespace
+
+extern "C" int bark_launch_attn_decode(int dtype, const void* qkv,
+                                       void* k_cache, void* v_cache,
+                                       int n_past, int D, int n_head,
+                                       void* ctx, cudaStream_t stream) {
+  if (dtype == BARK_BF16)
+    return attn_decode_t<bf16>((const bf16*)qkv, (bf16*)k_cache,
+                               (bf16*)v_cache, n_past, D, n_head, (bf16*)ctx,
+                               stream);
+  return attn_decode_t<float>((const float*)qkv, (float*)k_cache,
+                              (float*)v_cache, n_past, D, n_head, (float*)ctx,
+                              stream);
+}
 
 extern "C" int bark_launch_lm_head(const BarkGPTWeights* w, const void* x_row,
                                    float* logits, int lo, int hi,

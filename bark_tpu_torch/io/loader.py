@@ -1,11 +1,16 @@
-"""Turn parsed ggml_weights.bin sections (the shared `bark_tpu.io.ggml`
-reader) into PyTorch params dicts laid out like the JAX package's.
+"""Turn parsed ggml_weights.bin sections (the port's `io.ggml` reader) into
+PyTorch params dicts laid out like the JAX package's.
 
 ggml stores a matmul weight used as `ggml_mul_mat(W, x)` with numpy-order
 shape (out_features, in_features); the compute path wants `x @ W`, so the
 c_attn/c_proj/c_fc projection weights are transposed here, once, at load
 (`bark_tpu.io.loader.gpt_params_from_section`). Embedding tables and LM
 heads keep their file orientation.
+
+A block-quantized section can instead load as a qpack (int8 values plus
+per-32 block scales and, for the offset formats, mins), the layout of
+`bark_tpu.io.loader.gpt_qparams_from_section`, which the packed decode
+kernel (K5) reads as it is.
 """
 
 from __future__ import annotations
@@ -15,8 +20,16 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from bark_tpu.io.ggml import CodecSection, GGMLType, GPTSection
+from bark_tpu_torch.io import quant
+from bark_tpu_torch.io.ggml import (
+    PACKABLE_TYPES,
+    QUANT_NAME,
+    CodecSection,
+    GGMLType,
+    GPTSection,
+)
 from bark_tpu_torch.models.config import RATIOS, CodecConfig, GPTConfig
+from bark_tpu_torch.models.gpt import is_qpack
 
 
 def gpt_config_from_hparams(hp) -> GPTConfig:
@@ -117,6 +130,211 @@ def gpt_params_from_section(
         "blocks": blocks,
     }
     return cfg, params_from_numpy(params_np, dtype, device)
+
+
+# ------------------------------------------------------ quantized serving
+
+
+def section_is_quantized(sec: GPTSection) -> bool:
+    """True when every projection weight, wte table and LM head of the
+    section is stored in a block type that repacks losslessly into per-32
+    block scales (`ggml.PACKABLE_TYPES`; q2_k/q3_k/q6_k have per-16
+    sub-scales and load dense)."""
+    names = [n for n in sec.tensors if n.endswith("/w") or "/wte/" in n
+             or "/lm_head/" in n]
+    return bool(names) and all(
+        sec.tensors[n].ttype in PACKABLE_TYPES for n in names
+    )
+
+
+def _scale_leaf(name: str) -> bool:
+    return name.endswith("_s") or name.endswith("_m")
+
+
+def _scale_leaves(tree):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _scale_leaves(v)
+        elif _scale_leaf(k):
+            yield v
+
+
+def _scales_f16_lossless(qpack_np) -> bool:
+    """True iff every scale/min leaf of a host-side qpack round-trips
+    through f16 exactly (always for q4_0/q4_1/q5_0/q5_1/q8_0, whose file
+    scales are f16; generally not for the k-quants' d*sc products)."""
+    return all(
+        np.array_equal(a, a.astype(np.float16).astype(np.float32))
+        for a in _scale_leaves(qpack_np)
+    )
+
+
+def qparams_from_numpy(tree, dtype, device):
+    """Carry a qpack of numpy arrays (a JAX qpack brought to the host, or
+    one built here) into torch tensors on `device`: int8 values stay int8;
+    a scale or min leaf stays float16 or float32, and an int16 one (the JAX
+    package ships f16 scales as their bit patterns) becomes float16 by a
+    bit view; every other float leaf goes to `dtype`."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = qparams_from_numpy(v, dtype, device)
+            continue
+        a = np.array(v, order="C")
+        if a.dtype == np.int8:
+            t = torch.from_numpy(a)
+        elif _scale_leaf(k) and a.dtype == np.int16:
+            t = torch.from_numpy(a).view(torch.float16)
+        elif _scale_leaf(k) and a.dtype in (np.float16, np.float32):
+            t = torch.from_numpy(a)
+        else:
+            t = torch.from_numpy(a.astype(np.float32)).to(dtype)
+        out[k] = t.to(device)
+    return out
+
+
+def gpt_qparams_from_section(sec: GPTSection, dtype, device):
+    """The packed-quantized params of a block-quantized section, leaf for
+    leaf the layout of `bark_tpu.io.loader.gpt_qparams_from_section`
+    (blocks run along the file-contiguous input axis):
+
+      blocks.*_q  (L, Din, Dout) int8   blocks.*_s (L, Din/32, Dout)
+      wte_q       (n_wtes, V, D) int8   wte_s      (n_wtes, V, D/32)
+      lm_q        (D, v_pad) int8       lm_s       (D/32, v_pad)
+      [*_m mins, shaped as *_s, when an offset format (q4_1/q5_1/q4_k/
+       q5_k) is present]
+
+    with v_pad = ceil(V/D)*D: single-head stages keep their LM head
+    transposed and zero-padded for the kernel. Multi-head (fine) stages
+    keep file orientation instead: lm_heads_q (n_heads, V, D) int8,
+    lm_heads_s (n_heads, V, D/32). Scales and mins are float16 where that
+    is lossless, float32 otherwise; norms, biases and wpe are dense in
+    `dtype`. Returns (cfg, qpack); raises ValueError when a target tensor
+    is not block-quantized."""
+    cfg = gpt_config_from_hparams(sec.hparams)
+    L, D, V = cfg.n_layer, cfg.n_embd, cfg.n_out_vocab
+    v_pad = -(-V // D) * D
+    has_min = any(
+        rec.ttype in QUANT_NAME
+        and QUANT_NAME[rec.ttype] in ("q4_1", "q5_1", "q4_k", "q5_k")
+        for rec in sec.tensors.values()
+    )
+
+    def unpack(name, file_shape):
+        rec = sec.tensors.get(name)
+        if rec is None or rec.ttype not in QUANT_NAME:
+            raise ValueError(f"tensor {name} is not block-quantized")
+        q, s, m = quant.repack_to_int8(
+            np.frombuffer(bytes(rec.data), np.uint8), QUANT_NAME[rec.ttype],
+            int(np.prod(file_shape)),
+        )
+        rows, cols = file_shape
+        return (q.reshape(rows, cols), s.reshape(rows, cols // 32),
+                m.reshape(rows, cols // 32))
+
+    def dense(name, shape):
+        rec = sec.tensors.get(name)
+        return np.zeros(shape, np.float32) if rec is None else rec.to_float32()
+
+    def stacked(fmt, n, shape):
+        return np.stack([dense(fmt.format(i=i), shape) for i in range(n)])
+
+    blocks = {
+        "ln1_g": stacked("model/h{i}/ln_1/g", L, (D,)),
+        "ln1_b": stacked("model/h{i}/ln_1/b", L, (D,)),
+        "ln2_g": stacked("model/h{i}/ln_2/g", L, (D,)),
+        "ln2_b": stacked("model/h{i}/ln_2/b", L, (D,)),
+        "qkv_b": stacked("model/h{i}/attn/c_attn/b", L, (3 * D,)),
+        "proj_b": stacked("model/h{i}/attn/c_proj/b", L, (D,)),
+        "fc_b": stacked("model/h{i}/mlp/c_fc/b", L, (4 * D,)),
+        "out_b": stacked("model/h{i}/mlp/c_proj/b", L, (D,)),
+    }
+    for key, fmt, shape in (
+        ("qkv", "model/h{i}/attn/c_attn/w", (3 * D, D)),
+        ("proj", "model/h{i}/attn/c_proj/w", (D, D)),
+        ("fc", "model/h{i}/mlp/c_fc/w", (4 * D, D)),
+        ("out", "model/h{i}/mlp/c_proj/w", (D, 4 * D)),
+    ):
+        # transposed to (in, out), as the dense loader lays projections out
+        triples = [unpack(fmt.format(i=i), shape) for i in range(L)]
+        for j, suffix in enumerate(("_q", "_s", "_m")[:3 if has_min else 2]):
+            blocks[key + suffix] = np.stack([t[j].T for t in triples])
+
+    wtes = [unpack(f"model/wte/{i}", (cfg.n_in_vocab, D))
+            for i in range(cfg.n_wtes)]
+    heads = [unpack(f"model/lm_head/{i}", (V, D))
+             for i in range(cfg.n_lm_heads)]
+    suffixes = ("_q", "_s", "_m")[:3 if has_min else 2]
+    qpack = {
+        "wpe": dense("model/wpe", (cfg.block_size, D)),
+        "ln_f_g": dense("model/ln_f/g", (D,)),
+        "ln_f_b": dense("model/ln_f/b", (D,)),
+        "blocks": blocks,
+    }
+    for j, suffix in enumerate(suffixes):
+        qpack["wte" + suffix] = np.stack([t[j] for t in wtes])
+    if cfg.n_lm_heads == 1:
+        for j, suffix in enumerate(suffixes):
+            a = heads[0][j].T  # (D or D/32, V)
+            padded = np.zeros((a.shape[0], v_pad), a.dtype)
+            padded[:, :V] = a
+            qpack["lm" + suffix] = padded
+    else:
+        for j, suffix in enumerate(suffixes):
+            qpack["lm_heads" + suffix] = np.stack([t[j] for t in heads])
+
+    sdt = np.float16 if _scales_f16_lossless(qpack) else np.float32
+
+    def cast_scales(tree):
+        return {k: cast_scales(v) if isinstance(v, dict)
+                else v.astype(sdt) if _scale_leaf(k) else v
+                for k, v in tree.items()}
+
+    return cfg, qparams_from_numpy(cast_scales(qpack), dtype, device)
+
+
+def densify(cfg: GPTConfig, params) -> Dict:
+    """`dense_from_qpack` of a qpack, or `params` itself when it is dense.
+    A stage program calls it once per call, never per chunk or window: it
+    is a full pass over the weights."""
+    return dense_from_qpack(cfg, params) if is_qpack(params) else params
+
+
+def dense_from_qpack(cfg: GPTConfig, qp, dtype=None) -> Dict:
+    """The dense params dict of a qpack, bit-equal to dequantize-at-load:
+    values * scales [+ mins] in f32, then one cast to the params dtype.
+    Leaves that are dense in the qpack are shared, not copied."""
+    dtype = dtype or qp["wpe"].dtype
+    blocks = qp["blocks"]
+
+    def dq(q, s, m, axis):
+        w = q.float() * torch.repeat_interleave(s.float(), 32, dim=axis)
+        if m is not None:
+            w = w + torch.repeat_interleave(m.float(), 32, dim=axis)
+        return w.to(dtype)
+
+    def proj(key):
+        return dq(blocks[f"{key}_q"], blocks[f"{key}_s"],
+                  blocks.get(f"{key}_m"), 1)
+
+    if "lm_heads_q" in qp:  # multi-head (fine): file orientation
+        lm_head = dq(qp["lm_heads_q"], qp["lm_heads_s"],
+                     qp.get("lm_heads_m"), 2)
+    else:  # (D, v_pad) -> (1, V, D)
+        lm_t = dq(qp["lm_q"], qp["lm_s"], qp.get("lm_m"), 0)
+        lm_head = lm_t[:, :cfg.n_out_vocab].T.contiguous()[None]
+    dense_blocks = {k: v for k, v in blocks.items()
+                    if k.endswith("_g") or k.endswith("_b")}
+    for key in ("qkv", "proj", "fc", "out"):
+        dense_blocks[f"{key}_w"] = proj(key)
+    return {
+        "wte": dq(qp["wte_q"], qp["wte_s"], qp.get("wte_m"), 2),
+        "wpe": qp["wpe"],
+        "lm_head": lm_head,
+        "ln_f_g": qp["ln_f_g"],
+        "ln_f_b": qp["ln_f_b"],
+        "blocks": dense_blocks,
+    }
 
 
 # ------------------------------------------------------------------ codec

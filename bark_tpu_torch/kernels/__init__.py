@@ -2,6 +2,7 @@
 that run their plain PyTorch version on CPU tensors:
 
 - decode: K1, one decode step through all layers
+- qdecode: K5, the decode step on packed-quantized weights
 - prefill: K2, causal prefill into the decode caches
 - semantic: K3, a chunk of semantic steps with sampling and the EOS test
 - window: K4, one coarse sliding window
@@ -15,7 +16,8 @@ from __future__ import annotations
 
 import importlib
 
-KERNEL_MODULES = ("decode", "prefill", "semantic", "window", "sample")
+KERNEL_MODULES = ("decode", "qdecode", "prefill", "semantic", "window",
+                  "sample")
 
 
 def _modules():

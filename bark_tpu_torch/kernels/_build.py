@@ -2,9 +2,10 @@
 
 The sources in `bark_tpu_torch/csrc/` compile with nvcc into ONE shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds), at first use, into `bark_tpu_torch/_build/`, keyed by a hash of
-the sources and flags. Nothing here runs at import time: the CPU tests
-import every module on a machine with no nvcc.
+seconds; one nvcc per source, all started together, then one link), at
+first use, into `bark_tpu_torch/_build/`, keyed by a hash of the sources
+and flags. Nothing here runs at import time: the CPU tests import every
+module on a machine with no nvcc.
 
 Every C entry launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns cudaGetLastError() of its
@@ -24,15 +25,18 @@ from pathlib import Path
 
 import torch
 
+from bark_tpu_torch.models.gpt import is_qpack
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SCALE_CODES = {torch.float32: 0, torch.float16: 2}  # packed scales and mins
 
 _lib = None
 
@@ -56,12 +60,35 @@ class GPTWeights(ctypes.Structure):
     ]
 
 
+_QPTRS = (
+    "wte_q", "wte_s", "wte_m", "wpe", "ln1_g", "ln1_b", "ln2_g", "ln2_b",
+    "qkv_q", "qkv_s", "qkv_m", "qkv_b", "proj_q", "proj_s", "proj_m",
+    "proj_b", "fc_q", "fc_s", "fc_m", "fc_b", "out_q", "out_s", "out_m",
+    "out_b", "ln_f_g", "ln_f_b", "lm_q", "lm_s", "lm_m",
+)
+
+
+class GPTQWeights(ctypes.Structure):
+    """Mirror of `BarkGPTQWeights` in csrc/common.cuh."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in _QPTRS] + [
+        (name, ctypes.c_int)
+        for name in (
+            "n_layer", "n_head", "n_embd", "block_size", "n_in_vocab",
+            "n_out_vocab", "v_pad", "dtype", "scale_dtype", "has_min",
+        )
+    ]
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # (weights*, tok*, n_past, kc, vc, x, qkv, ctx, h, partial, tickets,
     #  logits, lo, hi, stream)
     "bark_decode_step": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                          _I, _P],
+    # (qweights*, then as bark_decode_step)
+    "bark_qdecode_step": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _P],
     # (weights*, x_emb, n_valid, kc, vc, x, hb, q, ctx, ff, logits, lo, hi,
     #  stream)
     "bark_prefill": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -99,6 +126,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbark_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise with the output of the first that
+    fails. Returns their stdout + stderr, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{o}")
+    return outs
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the keyed shared library unless it exists;
     returns its path. nvcc's `-Xptxas -v` report (registers, shared memory
@@ -107,23 +148,18 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    with tempfile.NamedTemporaryFile(
-        dir=BUILD_DIR, suffix=".so", delete=False
-    ) as tmp:
-        tmp_path = tmp.name
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-Xptxas", "-v",
-         "-o", tmp_path, *cus],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp_path)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    report_path().write_text(proc.stdout + proc.stderr)
-    os.replace(tmp_path, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        objs, cmds = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            objs.append(os.path.join(tmp, src.stem + ".o"))
+            cmds.append([nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-Xptxas",
+                         "-v", "-c", "-o", objs[-1], str(src)])
+        report = _run_all(cmds)
+        lib_tmp = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]])
+        report_path().write_text("".join(report))
+        os.replace(lib_tmp, out)
     return out
 
 
@@ -158,44 +194,58 @@ def stream_ptr(device) -> int:
 # ------------------------------------------------------------ weights
 
 
-_TOP_KEYS = ("wte", "wpe", "lm_head", "ln_f_g", "ln_f_b")
-_BLOCK_KEYS = ("ln1_g", "ln1_b", "ln2_g", "ln2_b", "qkv_w", "qkv_b",
-               "proj_w", "proj_b", "fc_w", "fc_b", "out_w", "out_b")
+_PROJ_KN = {"qkv": (1, 3), "proj": (1, 1), "fc": (1, 4), "out": (4, 1)}
 
 
-def _param_tensors(params):
-    """The tensors of a params dict that the kernels read, by struct field."""
-    b = params["blocks"]
-    return {**{k: params[k] for k in _TOP_KEYS},
-            **{k: b[k] for k in _BLOCK_KEYS}}
+def _layout(cfg, params):
+    """{struct field: (tensor or None, shape, dtype)} of everything the
+    kernels read from a dense params dict or a qpack (mins only when the
+    qpack has them), with the shapes and dtypes the kernels take. Packed
+    blocks of 32 run along each weight's input axis: the rows of a
+    projection or of the LM head tile, the columns of a wte row."""
+    L, D, S = cfg.n_layer, cfg.n_embd, cfg.block_size
+    dtype = params["wpe"].dtype
+    want = {"wpe": ((S, D), dtype), "ln_f_g": ((D,), dtype),
+            "ln_f_b": ((D,), dtype)}
+    for k in ("ln1_g", "ln1_b", "ln2_g", "ln2_b"):
+        want[k] = ((L, D), dtype)
+    for key, (k, n) in _PROJ_KN.items():
+        want[key + "_b"] = ((L, n * D), dtype)
+    wte = (cfg.n_wtes, cfg.n_in_vocab, D)
+    if not is_qpack(params):
+        want["wte"] = (wte, dtype)
+        want["lm_head"] = ((cfg.n_lm_heads, cfg.n_out_vocab, D), dtype)
+        for key, (k, n) in _PROJ_KN.items():
+            want[key + "_w"] = ((L, k * D, n * D), dtype)
+    else:
+        sdt = params["wte_s"].dtype
+        v_pad = -(-cfg.n_out_vocab // D) * D
+        packed = {"wte": (wte, (*wte[:2], D // 32)),
+                  "lm": ((D, v_pad), (D // 32, v_pad))}
+        for key, (k, n) in _PROJ_KN.items():
+            packed[key] = ((L, k * D, n * D), (L, k * D // 32, n * D))
+        for key, (qshape, sshape) in packed.items():
+            want[key + "_q"] = (qshape, torch.int8)
+            want[key + "_s"] = (sshape, sdt)
+            if "wte_m" in params:
+                want[key + "_m"] = (sshape, sdt)
+    blocks = params["blocks"]
+    return {f: (params.get(f, blocks.get(f)), shape, dt)
+            for f, (shape, dt) in want.items()}
 
 
 class StageWeights:
-    """The C view of one stage's params dict: the `GPTWeights` struct of
-    its device pointers, plus the scratch tensors its kernels reuse from
-    call to call (one stream, so reuse is ordered). It holds its tensors
-    weakly, and `matches` tells whether the dict still holds the very
-    tensors (and storages) the struct points into."""
+    """The C view of one stage's params dict, dense or packed: the
+    `GPTWeights` or `GPTQWeights` struct of its device pointers, plus the
+    scratch tensors its kernels reuse from call to call (one stream, so
+    reuse is ordered). It holds its tensors weakly, and `matches` tells
+    whether the dict still holds the very tensors (and storages) the
+    struct points into."""
 
     def __init__(self, cfg, params):
-        t = _param_tensors(params)
+        layout = _layout(cfg, params)
         L, D, S = cfg.n_layer, cfg.n_embd, cfg.block_size
-        shapes = {
-            "wte": (cfg.n_wtes, cfg.n_in_vocab, D),
-            "wpe": (S, D),
-            "lm_head": (cfg.n_lm_heads, cfg.n_out_vocab, D),
-            "ln_f_g": (D,),
-            "ln_f_b": (D,),
-            "qkv_w": (L, D, 3 * D),
-            "proj_w": (L, D, D),
-            "fc_w": (L, D, 4 * D),
-            "out_w": (L, 4 * D, D),
-        }
-        for k, n in (("ln1_g", D), ("ln1_b", D), ("ln2_g", D), ("ln2_b", D),
-                     ("qkv_b", 3 * D), ("proj_b", D), ("fc_b", 4 * D),
-                     ("out_b", D)):
-            shapes[k] = (L, n)
-        dtype, device = t["wpe"].dtype, t["wpe"].device
+        dtype, device = params["wpe"].dtype, params["wpe"].device
         if device.type != "cuda" or dtype not in DTYPE_CODES:
             raise ValueError(
                 f"kernels take float32/bfloat16 params on a CUDA device, "
@@ -206,31 +256,48 @@ class StageWeights:
                 f"kernels take n_embd % 64 == 0, head_dim 64 and "
                 f"block_size <= 1024, got {cfg}"
             )
-        for name, shape in shapes.items():
-            x = t[name]
-            if (tuple(x.shape) != shape or x.dtype != dtype
-                    or x.device != device or not x.is_contiguous()):
+        self.packed = is_qpack(params)
+        if self.packed and params["wte_s"].dtype not in SCALE_CODES:
+            raise ValueError(f"packed scales: want float16 or float32, got "
+                             f"{params['wte_s'].dtype}")
+        for name, (x, shape, want) in layout.items():
+            if x is None:
+                raise ValueError(f"param {name} is missing")
+            # the packed kernels read 4 int8 values or scales at a time
+            if (tuple(x.shape) != shape or x.dtype != want
+                    or x.device != device or not x.is_contiguous()
+                    or (self.packed and x.data_ptr() % 16)):
                 raise ValueError(
                     f"param {name}: {tuple(x.shape)} {x.dtype} on "
-                    f"{x.device}, want contiguous {shape} {dtype} on {device}"
+                    f"{x.device}, want contiguous {shape} {want} on "
+                    f"{device}" + (", 16-byte aligned" if self.packed else "")
                 )
         self.cfg, self.dtype, self.device = cfg, dtype, device
-        self._refs = {k: weakref.ref(x) for k, x in t.items()}
-        self._ptrs = {k: x.data_ptr() for k, x in t.items()}
-        self.struct = GPTWeights(
-            **self._ptrs,
-            n_layer=L, n_head=cfg.n_head, n_embd=D, block_size=S,
-            n_in_vocab=cfg.n_in_vocab, n_out_vocab=cfg.n_out_vocab,
-            dtype=DTYPE_CODES[dtype],
-        )
+        self._refs = {k: weakref.ref(x) for k, (x, _, _) in layout.items()}
+        self._ptrs = {k: x.data_ptr() for k, (x, _, _) in layout.items()}
+        dims = dict(n_layer=L, n_head=cfg.n_head, n_embd=D, block_size=S,
+                    n_in_vocab=cfg.n_in_vocab, n_out_vocab=cfg.n_out_vocab,
+                    dtype=DTYPE_CODES[dtype])
+        if self.packed:
+            self.struct = GPTQWeights(
+                **self._ptrs, **dims, v_pad=layout["lm_q"][1][1],
+                scale_dtype=SCALE_CODES[params["wte_s"].dtype],
+                has_min=int("wte_m" in params),
+            )
+        else:
+            self.struct = GPTWeights(**self._ptrs, **dims)
         self.ref = ctypes.addressof(self.struct)
         self._scratch = {}
 
     def matches(self, cfg, params) -> bool:
-        if self.cfg != cfg:
+        if self.cfg != cfg or self.packed != is_qpack(params):
             return False
-        for k, x in _param_tensors(params).items():
-            if x is not self._refs[k]() or x.data_ptr() != self._ptrs[k]:
+        layout = _layout(cfg, params)
+        if layout.keys() != self._refs.keys():
+            return False
+        for k, (x, _, _) in layout.items():
+            if (x is None or x is not self._refs[k]()
+                    or x.data_ptr() != self._ptrs[k]):
                 return False
         return True
 
@@ -263,11 +330,7 @@ class StageWeights:
 _stages = {}  # id(params dict) -> its StageWeights
 
 
-def stage_weights(cfg, params) -> StageWeights:
-    """The `StageWeights` of a params dict, built and validated when the
-    dict is first seen and again whenever a tensor in it was replaced (so
-    the kernels never read weights the dict no longer holds). Entries
-    whose tensors were freed are dropped when a new one is built."""
+def _stage(cfg, params) -> StageWeights:
     w = _stages.get(id(params))
     if w is None or not w.matches(cfg, params):
         for key in [k for k, v in _stages.items() if not v.alive()]:
@@ -275,6 +338,24 @@ def stage_weights(cfg, params) -> StageWeights:
         w = StageWeights(cfg, params)
         _stages[id(params)] = w
     return w
+
+
+def stage_weights(cfg, params) -> StageWeights:
+    """The `StageWeights` of a dense params dict, built and validated when
+    the dict is first seen and again whenever a tensor in it was replaced
+    (so the kernels never read weights the dict no longer holds). Entries
+    whose tensors were freed are dropped when a new one is built."""
+    if is_qpack(params):
+        raise ValueError("stage_weights takes dense params, got a qpack")
+    return _stage(cfg, params)
+
+
+def stage_qweights(cfg, qpack) -> StageWeights:
+    """`stage_weights` for a packed-quantized params dict (a qpack of
+    io/loader.py), with the same identity and data_ptr re-validation."""
+    if not is_qpack(qpack):
+        raise ValueError("stage_qweights takes a qpack, got dense params")
+    return _stage(cfg, qpack)
 
 
 def f32_on(t, device, n: int, name: str):

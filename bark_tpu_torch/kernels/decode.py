@@ -6,7 +6,9 @@ tensor the wrapper launches the hand-written kernel of `csrc/decode.cu`
 GEMV proj + residual, LN-GEMV fc + GELU, GEMV out + residual], ln_f + LM
 head) through one C call; on a CPU tensor it runs the plain version, the
 reference `models.gpt.decode_step`. There is no other path: a CUDA tensor
-the kernel does not take raises.
+the kernel does not take raises. Packed-quantized params (a qpack) go to
+the packed kernel K5 (`kernels.qdecode`) on CUDA tensors, and to the same
+reference on CPU tensors, which then computes what K5 computes.
 
 `lm_window=(lo, hi)`: only those logit columns are computed, the rest are
 0 (the coarse sampler reads only its two codebook windows).
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from bark_tpu_torch.kernels import _build
+from bark_tpu_torch.kernels import _build, qdecode
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 
@@ -35,8 +37,9 @@ def window_logits(logits, lm_window):
 
 def decode_step_plain(cfg: GPTConfig, params, token, k_cache, v_cache,
                       n_past: int, lm_window=None):
-    """The plain PyTorch version: `gpt.decode_step` (caches updated in
-    place at row n_past), logits zeroed outside lm_window."""
+    """The plain PyTorch version of K1, and of K5 for a qpack:
+    `gpt.decode_step` (caches updated in place at row n_past), logits
+    zeroed outside lm_window."""
     logits = gpt.decode_step(cfg, params, token, k_cache, v_cache, n_past)
     return window_logits(logits, lm_window)
 
@@ -66,7 +69,9 @@ def decode_step_fused(cfg: GPTConfig, params, token, k_cache, v_cache,
     if k_cache.device.type == "cpu":
         return decode_step_plain(cfg, params, token, k_cache, v_cache,
                                  n_past, lm_window)
-    w = _build.stage_weights(cfg, params)
+    packed = gpt.is_qpack(params)
+    w = (_build.stage_qweights if packed else _build.stage_weights)(
+        cfg, params)
     w.check_cache(k_cache, v_cache)
     if not 0 <= n_past < cfg.block_size:
         raise ValueError(f"n_past {n_past} outside [0, {cfg.block_size})")
@@ -78,7 +83,7 @@ def decode_step_fused(cfg: GPTConfig, params, token, k_cache, v_cache,
     if out is None:
         out = torch.empty((V,), dtype=torch.float32, device=w.device)
     _build.f32_on(out, w.device, V, "logits")
-    rc = _build.lib().bark_decode_step(
+    args = (
         w.ref, tok.data_ptr(), n_past, k_cache.data_ptr(),
         v_cache.data_ptr(), w.scratch("x", D).data_ptr(),
         w.scratch("qkv", 3 * D).data_ptr(), w.scratch("ctx", D).data_ptr(),
@@ -87,6 +92,9 @@ def decode_step_fused(cfg: GPTConfig, params, token, k_cache, v_cache,
         w.scratch("tickets", 1024, dtype=torch.int32).data_ptr(),
         out.data_ptr(), lo, hi, _build.stream_ptr(w.device),
     )
+    if packed:
+        return qdecode.decode_step_packed(args, out)
+    rc = _build.lib().bark_decode_step(*args)
     _build.check("decode_step_fused", rc)
     launches += 1
     return out

@@ -13,7 +13,9 @@ On CUDA tensors a step is two launches: `sample_window` of
 device memory, and K1 (`kernels.decode.decode_step_fused`), which embeds
 that token from device memory. Nothing waits on the host inside the
 chunk; the caller reads the K flags once. On CPU tensors the plain version
-runs (`ops.sampling.sample` + `gpt.decode_step`).
+runs (`ops.sampling.sample` + `gpt.decode_step`). A qpack is taken as it
+is: its K1 steps are then the packed kernel K5 (`kernels.qdecode`), and
+the plain version decodes from the qpack as K5 does.
 """
 
 from __future__ import annotations

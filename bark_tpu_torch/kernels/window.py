@@ -10,6 +10,7 @@ offset-carrying token `base + argmax`, and decodes it at slot
 On CUDA tensors a step is `sample_window` (csrc/sample.cu, through
 `kernels.sample`) then K1, with no host read inside the window; on CPU
 tensors the plain version runs (`ops.sampling.sample` + `gpt.decode_step`).
+A qpack is taken as it is, as in K3: the steps are then K5 launches.
 """
 
 from __future__ import annotations

@@ -12,6 +12,13 @@ caches) and its numerics:
   the attention weights cast to the V dtype before the context product;
 - tanh-GELU; a residual stream in the params dtype; f32 logits.
 
+Every function that runs the causal stages (`decode_step`,
+`transformer` and what they call) also takes a qpack, the packed-quantized
+params of `io.loader.gpt_qparams_from_section`, and then computes what the
+JAX package's packed decode kernel computes (`_qdot`, `_embed_token` of
+`bark_tpu.kernels.decode`): see `qdot` and `embed_rows`. Prefill and the
+fine stage run on a dense copy (`io.loader.dense_from_qpack`).
+
 This module is the plain reference every hand-written kernel of
 `bark_tpu_torch.kernels` is compared with. KV caches are updated in place
 (the JAX version returns new arrays): callers hand the same cache tensors
@@ -58,6 +65,51 @@ def _dot(a, b):
     return torch.matmul(a.float(), b.float())
 
 
+def is_qpack(params) -> bool:
+    """True for packed-quantized params (int8 values + block scales)."""
+    return "wte_q" in params
+
+
+def _blocksums(x):
+    """(..., K) -> (..., K/32) f32: the sum of each 32-value block."""
+    x32 = x.float()
+    return x32.reshape(*x32.shape[:-1], -1, 32).sum(dim=-1)
+
+
+def qdot(x, q, s, m=None):
+    """x @ W for a packed (K, N) weight, as the packed kernel computes it:
+    the weight is (q * s) with each scale repeated over its 32 rows, in
+    f32, rounded to x's dtype; the product accumulates in f32; where the
+    format has mins, the exact min term blocksums(x) @ m is added in f32
+    after the product (in bf16 this is not the same number as a dense
+    (q*s + m) weight rounded once). Returns f32."""
+    w = q.float() * torch.repeat_interleave(s.float(), 32, dim=-2)
+    out = _dot(x, w.to(x.dtype))
+    if m is not None:
+        out = out + torch.matmul(_blocksums(x), m.float())
+    return out
+
+
+def _proj(x, layer, key: str):
+    """x @ the layer's `key` projection (dense or packed), f32."""
+    if key + "_w" in layer:
+        return _dot(x, layer[key + "_w"])
+    return qdot(x, layer[key + "_q"], layer[key + "_s"], layer.get(key + "_m"))
+
+
+def embed_rows(params: Params, tokens, table: int = 0):
+    """Rows `tokens` of wte table `table` in the params dtype. A packed row
+    is (q * s [+ m]) in f32, then cast: bit-equal to the densified table."""
+    if not is_qpack(params):
+        return params["wte"][table][tokens]
+    row = params["wte_q"][table][tokens].float() * torch.repeat_interleave(
+        params["wte_s"][table][tokens].float(), 32, dim=-1)
+    if "wte_m" in params:
+        row = row + torch.repeat_interleave(
+            params["wte_m"][table][tokens].float(), 32, dim=-1)
+    return row.to(params["wpe"].dtype)
+
+
 def layer_norm(x, g, b):
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
@@ -95,7 +147,7 @@ def _block(cfg: GPTConfig, x, layer, k_cache, v_cache, n_past, mask):
     D = cfg.n_embd
     dt = x.dtype
     h = layer_norm(x, layer["ln1_g"], layer["ln1_b"])
-    qkv = _dot(h, layer["qkv_w"]).to(dt) + layer["qkv_b"]
+    qkv = _proj(h, layer, "qkv").to(dt) + layer["qkv_b"]
     q, k, v = qkv[:, :D], qkv[:, D : 2 * D], qkv[:, 2 * D :]
     if k_cache is not None:
         T = x.shape[0]
@@ -104,10 +156,10 @@ def _block(cfg: GPTConfig, x, layer, k_cache, v_cache, n_past, mask):
         attn = _attention(q, k_cache, v_cache, mask, cfg)
     else:
         attn = _attention(q, k, v, mask, cfg)
-    x = x + (_dot(attn, layer["proj_w"]).to(dt) + layer["proj_b"])
+    x = x + (_proj(attn, layer, "proj").to(dt) + layer["proj_b"])
     h = layer_norm(x, layer["ln2_g"], layer["ln2_b"])
-    h = gelu(_dot(h, layer["fc_w"]).to(dt) + layer["fc_b"])
-    return x + (_dot(h, layer["out_w"]).to(dt) + layer["out_b"])
+    h = gelu(_proj(h, layer, "fc").to(dt) + layer["fc_b"])
+    return x + (_proj(h, layer, "out").to(dt) + layer["out_b"])
 
 
 def transformer(cfg: GPTConfig, params: Params, x, k_caches, v_caches,
@@ -122,7 +174,12 @@ def transformer(cfg: GPTConfig, params: Params, x, k_caches, v_caches,
 
 
 def logits_last(cfg: GPTConfig, params: Params, hidden_last):
-    """LM head on one position: (D,) -> (n_out_vocab,) f32."""
+    """LM head on one position: (D,) -> (n_out_vocab,) f32. A packed head
+    is the transposed, zero-padded (D, v_pad) tile."""
+    if is_qpack(params):
+        logits = qdot(hidden_last[None], params["lm_q"], params["lm_s"],
+                      params.get("lm_m"))
+        return logits[0, :cfg.n_out_vocab]
     return _dot(params["lm_head"][0], hidden_last)
 
 
@@ -156,9 +213,9 @@ def decode_step(cfg: GPTConfig, params: Params, token, k_caches, v_caches,
                 n_past: int):
     """One token at slot `n_past`. `token` is an int or a one-element int
     tensor. Writes cache row n_past of every layer; returns f32 logits."""
-    wte = params["wte"][0]
-    tok = torch.as_tensor(token, device=wte.device).reshape(1).long()
-    x = wte[tok] + params["wpe"][n_past : n_past + 1]
+    wpe = params["wpe"]
+    tok = torch.as_tensor(token, device=wpe.device).reshape(1).long()
+    x = embed_rows(params, tok) + wpe[n_past : n_past + 1]
     mask = (torch.arange(cfg.block_size, device=x.device) <= n_past)[None, :]
     hidden = transformer(cfg, params, x, k_caches, v_caches, n_past, mask)
     return logits_last(cfg, params, hidden[0])

@@ -6,7 +6,9 @@ rebuilt from the last ~209 semantic tokens (right-padded to 256 with
 coarse_semantic_pad_token), coarse_infer_token and the last <= 630
 generated coarse tokens; n_past restarts at 0 with a prefill (K2), and
 the window's steps run as K4, alternating the two codebook logit windows
-and keeping the offset on the emitted token.
+and keeping the offset on the emitted token. A qpack is densified once per
+call, not per window: the context embedding and K2 read the dense copy,
+K4 decodes from the qpack.
 
 `stc_fraction`, `coarse_schedule` and `max_coarse_steps` are copies of the
 JAX module's integer-exact schedule (that module imports jax);
@@ -22,11 +24,12 @@ from typing import Tuple
 
 import torch
 
-from bark_tpu.params import BarkContextParams
 from bark_tpu_torch.kernels import prefill as kpre
 from bark_tpu_torch.kernels import window as kwin
+from bark_tpu_torch.io import loader
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
+from bark_tpu_torch.params import BarkContextParams
 
 # 256 semantic slots + 1 infer token + up to max_coarse_history coarse tokens
 CTX_SEMANTIC = 256
@@ -95,7 +98,8 @@ def make_coarse_stage_program(cfg: GPTConfig, bparams: BarkContextParams, *,
                            device=device)
         out = torch.zeros((hist_cap + n_steps + sws,), dtype=torch.int32,
                           device=device)
-        wte = params["wte"][0]
+        dense = loader.densify(cfg, params)
+        wte = dense["wte"][0]
         kc, vc = gpt.init_kv_cache(cfg, wte.dtype, device)
         for w in range(n_windows):
             g = w * sws  # tokens generated so far
@@ -108,7 +112,7 @@ def make_coarse_stage_program(cfg: GPTConfig, bparams: BarkContextParams, *,
                 out[hist_start:hist_start + hist_cap],
             ])[:ctx_size]
             ctx_len = CTX_SEMANTIC + 1 + min(g, hist_cap)
-            logits = kpre.prefill_fused(cfg, params, wte[ctx.long()], kc, vc,
+            logits = kpre.prefill_fused(cfg, dense, wte[ctx.long()], kc, vc,
                                         ctx_len, lm_window=lm_window)
             toks = kwin.coarse_window_fused(
                 cfg, params, logits, kc, vc, ctx_len, g,

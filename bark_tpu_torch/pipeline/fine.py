@@ -9,17 +9,20 @@ refined codebook by codebook (one full non-causal forward per codebook,
 every position sampled at fine_temp from its first codebook_size logits,
 positions before the block's fill start kept).
 
-Plain PyTorch: the JAX package has no Pallas kernel in this stage.
+Plain PyTorch: the JAX package has no Pallas kernel in this stage. A qpack
+is densified once per stage call (bit-equal to dequantize-at-load), so the
+forwards are exactly the dense ones.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bark_tpu.params import BarkContextParams
+from bark_tpu_torch.io import loader
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 from bark_tpu_torch.ops import sampling
+from bark_tpu_torch.params import BarkContextParams
 
 
 def fine_schedule(n_frames: int, block: int):
@@ -40,6 +43,7 @@ def make_fine_stage_program(cfg: GPTConfig, bparams: BarkContextParams):
     cbs, fine_temp = bparams.codebook_size, bparams.fine_temp
 
     def run(params, codes, n_frames: int, noise):
+        params = loader.densify(cfg, params)
         device = params["wpe"].device
         padded_len, n_loops = fine_schedule(n_frames, block)
         in_arr = torch.full((padded_len, n_fine), cbs, dtype=torch.int32,

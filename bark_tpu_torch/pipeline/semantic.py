@@ -8,15 +8,19 @@ loop stops when `tok == semantic_vocab_size` or `eos_p >= min_eos_p`
 WITHOUT appending the stopping token; at most max_steps tokens.
 
 The prefill is K2 and each chunk is K3 (on CPU tensors, their plain
-versions). The host reads the K stop flags once per chunk and appends the
-tokens before the first stop, exactly as the JAX package's chunked loop
-does; step g uses noise row g, as the stepped JAX loop uses key subs[g].
+versions). Packed-quantized params (a qpack) are densified once per call
+(`io.loader.densify`): the prompt embedding and K2 read the dense copy, K3
+decodes from the qpack (its K1 steps are then the packed kernel, K5). The
+host reads the K stop flags once per chunk and appends the tokens before
+the first stop, exactly as the JAX package's chunked loop does; step g
+uses noise row g, as the stepped JAX loop uses key subs[g].
 """
 
 from __future__ import annotations
 
 import torch
 
+from bark_tpu_torch.io import loader
 from bark_tpu_torch.kernels import prefill as kpre
 from bark_tpu_torch.kernels import semantic as ksem
 from bark_tpu_torch.models import gpt
@@ -34,9 +38,10 @@ def make_semantic_program(cfg: GPTConfig, *, temp: float, max_steps: int,
 
     def run(params, tokens513, noise, min_eos_p: float):
         dtype, device = params["wpe"].dtype, params["wpe"].device
-        x_emb = gpt.embed_prompt_merged(cfg, params, tokens513)
+        dense = loader.densify(cfg, params)
+        x_emb = gpt.embed_prompt_merged(cfg, dense, tokens513)
         kc, vc = gpt.init_kv_cache(cfg, dtype, device)
-        logits = kpre.prefill_fused(cfg, params, x_emb, kc, vc, PROMPT_ROWS)
+        logits = kpre.prefill_fused(cfg, dense, x_emb, kc, vc, PROMPT_ROWS)
         out = torch.zeros((max_steps,), dtype=torch.int32, device=device)
         count = 0
         while count < max_steps:

@@ -4,18 +4,33 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, each fatal on failure (exit code 1, and no result lines):
-  1. build the CUDA kernels from bark_tpu_torch/csrc (nvcc, sm_90a);
+  1. build the CUDA kernels from bark_tpu_torch/csrc (nvcc, sm_90a, one
+     process per source);
   2. compare each kernel K1-K4 with its plain PyTorch version at bark-small
      shapes, in bf16 and in f32 (TF32 off), each error beside its
-     tolerance; time both;
+     tolerance; then K5 (the packed decode step) the same way on random
+     qpacks of four formats (q8_0, q4_0: f16 scales; q4_1: f16 scales and
+     mins; q4_k: f32 scales and mins), and K3/K4 over a q8_0 qpack; time
+     each against its plain version;
   3. check a small model end to end against the port's plain CPU run with
-     the same noise (tokens exact, audio within tolerance), TF32 still off;
+     the same noise (tokens exact, audio within tolerance), TF32 still off:
+     dense weights given as parts, then the same model written to a
+     ggml_weights.bin, quantized to q8_0 and loaded packed;
   4. answer 3 bark_generate_audio requests on bark-small with random bf16
      weights, different prompts and seeds, at PyTorch's default precision
      settings; check the audio and that every kernel was launched by them;
-  5. print the RTF and stage times, the kernel table as one JSON line, the
+  4b. answer packed requests on bark-small qpacks built from a seed on the
+     card (bf16 dense leaves): 2 in q4_0, then 1 each in q8_0, q4_1 and
+     q4_k; check the audio and that K5 was launched by each;
+  5. print the RTFs and stage times, the kernel table as one JSON line, the
      card's name and power limit, and last the contract line
      {"ok": true, "device": {...}}.
+
+Each path of phases 4 and 4b is driven with the launch counts set to 0
+just before it and read just after. A kernel's bound is the least time the
+card could take for the same work: the bytes it must move (each input read
+once, each output written once) at 3.35 TB/s, or its operations at the
+peak rate of its dtype, whichever is larger.
 
 Long outputs (nvcc's -Xptxas -v report) go to chiprun_out/. The script
 exits non-zero without a GPU, and when run outside a checkout.
@@ -41,19 +56,32 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # layers.
 TOL = {"float32": 2e-3, "bfloat16": 1e-1}
 
-KERNELS = {  # name -> (source, TPU kernel it replaces)
-    "decode_step_fused": ("bark_tpu_torch/csrc/decode.cu",
-                          "bark_tpu/kernels/decode.py:2392"),
-    "prefill_fused": ("bark_tpu_torch/csrc/prefill.cu",
-                      "bark_tpu/kernels/prefill.py:683"),
-    "semantic_chunk_fused": ("bark_tpu_torch/csrc/sample.cu",
-                             "bark_tpu/kernels/semantic.py:555"),
-    "coarse_window_fused": ("bark_tpu_torch/csrc/sample.cu",
-                            "bark_tpu/kernels/window.py:419"),
+# packed formats of K5: name -> (lowest value, highest value, scale dtype
+# name, has mins), the ranges repack_to_int8 gives each format's values
+QFORMATS = {
+    "q8_0": (-127, 127, "float16", False),
+    "q4_0": (-8, 7, "float16", False),
+    "q4_1": (0, 15, "float16", True),
+    "q4_k": (0, 15, "float32", True),
 }
-MODULE_OF = {"decode_step_fused": "decode", "prefill_fused": "prefill",
-             "semantic_chunk_fused": "semantic",
-             "coarse_window_fused": "window"}
+K5 = "qdecode_step_fused"
+
+KERNELS = {  # name -> (source, TPU kernel it replaces, launch-count module)
+    "decode_step_fused": ("bark_tpu_torch/csrc/decode.cu",
+                          "bark_tpu/kernels/decode.py:2392", "decode"),
+    "prefill_fused": ("bark_tpu_torch/csrc/prefill.cu",
+                      "bark_tpu/kernels/prefill.py:683", "prefill"),
+    "semantic_chunk_fused": ("bark_tpu_torch/csrc/sample.cu",
+                             "bark_tpu/kernels/semantic.py:555", "semantic"),
+    "coarse_window_fused": ("bark_tpu_torch/csrc/sample.cu",
+                            "bark_tpu/kernels/window.py:419", "window"),
+    **{f"{K5}[{fmt}]": ("bark_tpu_torch/csrc/qdecode.cu",
+                        "bark_tpu/kernels/decode.py:1016", "qdecode")
+       for fmt in QFORMATS},
+}
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no TF32
 
 
 def log(*a):
@@ -96,20 +124,82 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def decode_cost(cfg, params, n_past: int, lm_window=None, steps: int = 1):
+    """(bytes, flops) of `steps` decode steps from slot n_past: every
+    weight read once (only the embedding rows and LM-head columns the
+    steps use), the live cache rows read and the new ones written, the f32
+    logits written; 2 flops a weight and 4 a cache value per step."""
+    D, L, V = cfg.n_embd, cfg.n_layer, cfg.n_out_vocab
+    lo, hi = lm_window or (0, V)
+    blocks = params["blocks"]
+    item = params["wpe"].element_size()
+    total = sum(nbytes(t) for t in blocks.values())
+    total += nbytes(params["ln_f_g"]) + nbytes(params["ln_f_b"])
+    if "wte_q" in params:  # an int8 row and its scales [and mins]
+        sc = sum(params[k].element_size() for k in ("wte_s", "wte_m")
+                 if k in params)
+        row, col = D + D // 32 * sc, D + D // 32 * sc
+    else:
+        row, col = D * item, D * item
+    total += steps * (row + D * item) + (hi - lo) * col
+    total += 2 * L * (n_past + steps) * D * item + 4 * V
+    flops = sum(2 * L * 12 * D * D + 2 * (hi - lo) * D
+                + 4 * L * D * (n_past + j + 1) for j in range(steps))
+    return total, flops
+
+
+def prefill_cost(cfg, params, T: int, lm_window=None):
+    """(bytes, flops) of a T-row prefill: the weights once, the embedded
+    rows and positions read, the cache rows and the logits written; the
+    projections' and the causal attention's flops."""
+    D, L, V = cfg.n_embd, cfg.n_layer, cfg.n_out_vocab
+    lo, hi = lm_window or (0, V)
+    item = params["wpe"].element_size()
+    total = sum(nbytes(t) for t in params["blocks"].values())
+    total += (hi - lo) * D * item + 2 * T * D * item
+    total += 2 * L * T * D * item + 4 * V
+    flops = 2 * T * L * 12 * D * D + 2 * L * D * T * (T + 1) + 2 * (hi - lo) * D
+    return total, flops
+
+
+def bound(cost, dtype_name: str):
+    """(bound_ms, bound_by) of a (bytes, flops) cost."""
+    t_bytes = cost[0] / HBM_BYTES_PER_S * 1e3
+    t_ops = cost[1] / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 class Checks:
     def __init__(self):
         self.errors = {}  # (kernel, dtype) -> max abs err
-        self.times = {}   # kernel -> (ms, plain_ms)
+        self.times = {}   # kernel -> (ms, plain_ms, (bytes, flops))
 
     def record(self, kernel, dtype_name, what, err):
         tol = TOL[dtype_name]
         key = (kernel, dtype_name)
         self.errors[key] = max(self.errors.get(key, 0.0), err)
         ok = err <= tol
-        log(f"  {kernel:22s} {dtype_name:9s} {what:34s} max|err| "
+        log(f"  {kernel:26s} {dtype_name:9s} {what:34s} max|err| "
             f"{err:.3e}  tol {tol:.0e}  {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{kernel} {dtype_name} {what}: {err} > {tol}")
+
+
+def filled_cache(cfg, rows: int, dtype, gen):
+    """KV caches on the card with rows [0, rows) drawn from `gen`."""
+    import torch
+
+    from bark_tpu_torch.models import gpt
+
+    kc, vc = gpt.init_kv_cache(cfg, dtype, gen.device)
+    for c in (kc, vc):
+        c[:, :rows] = torch.randn(c[:, :rows].shape, generator=gen,
+                                  device=gen.device).to(dtype)
+    return kc, vc
 
 
 def kernel_checks(checks: Checks, dtype, timed: bool):
@@ -141,14 +231,6 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
                                           device=dev).to(dtype))
         return p
 
-    def filled_cache(cfg, rows):
-        kc, vc = gpt.init_kv_cache(cfg, dtype, dev)
-        kc[:, :rows] = torch.randn(kc[:, :rows].shape, generator=gen,
-                                   device=dev).to(dtype)
-        vc[:, :rows] = torch.randn(vc[:, :rows].shape, generator=gen,
-                                   device=dev).to(dtype)
-        return kc, vc
-
     sem_p, coarse_p = params_for(sem_cfg), params_for(coarse_cfg)
 
     # K1 at n_past 0, 300, 1023 (full head) and 300 with the coarse window
@@ -156,7 +238,7 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
                                 (sem_cfg, sem_p, 300, None),
                                 (sem_cfg, sem_p, 1023, None),
                                 (coarse_cfg, coarse_p, 300, lmw)):
-        kc, vc = filled_cache(cfg, n_past)
+        kc, vc = filled_cache(cfg, n_past, dtype, gen)
         kc2, vc2 = kc.clone(), vc.clone()
         tok = 1234
         out = kdec.decode_step_fused(cfg, p, tok, kc, vc, n_past,
@@ -172,13 +254,14 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
         if win is not None and float(out[: win[0]].abs().max()) != 0.0:
             raise AssertionError("logits outside lm_window are not zero")
     if timed:
-        kc, vc = filled_cache(sem_cfg, 300)
+        kc, vc = filled_cache(sem_cfg, 300, dtype, gen)
         tok_t = torch.tensor([1234], dtype=torch.int32, device=dev)
         ms = cuda_ms(lambda: kdec.decode_step_fused(
             sem_cfg, sem_p, tok_t, kc, vc, 300), 50)
         plain = cuda_ms(lambda: kdec.decode_step_plain(
             sem_cfg, sem_p, tok_t, kc, vc, 300), 10)
-        checks.times["decode_step_fused"] = (ms, plain)
+        checks.times["decode_step_fused"] = (
+            ms, plain, decode_cost(sem_cfg, sem_p, 300))
 
     # K2 at T = 257 (semantic prompt) and 887 (coarse re-prime, windowed)
     for cfg, p, T, win in ((sem_cfg, sem_p, 257, None),
@@ -200,7 +283,8 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
             coarse_cfg, coarse_p, x_emb, kc, vc, 887, lm_window=lmw), 10)
         plain = cuda_ms(lambda: kpre.prefill_plain(
             coarse_cfg, coarse_p, x_emb, kc, vc, 887, lmw), 3)
-        checks.times["prefill_fused"] = (ms, plain)
+        checks.times["prefill_fused"] = (
+            ms, plain, prefill_cost(coarse_cfg, coarse_p, 887, lmw))
 
     # K3: one 16-step chunk after the 257-row prompt, temp 0.7. In f32 the
     # chunk must give the plain version's tokens and flags exactly; in bf16
@@ -233,7 +317,9 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
             sem_cfg, sem_p, logits0, kc0, vc0, *args, **kw), 3)
         plain = cuda_ms(lambda: ksem.semantic_chunk_plain(
             sem_cfg, sem_p, logits0, kc0, vc0, *args, **kw), 1)
-        checks.times["semantic_chunk_fused"] = (ms, plain)
+        nb, fl = decode_cost(sem_cfg, sem_p, 257 + 3, steps=16)
+        checks.times["semantic_chunk_fused"] = (
+            ms, plain, (nb + 16 * sem_cfg.n_out_vocab * 4, fl))
 
     # K4: one 60-step window after an 887-row re-prime, temp 0.7, step
     # parity odd; the same exactness rule as K3, the error taken on the
@@ -269,15 +355,169 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
             coarse_cfg, coarse_p, logits0, kc0, vc0, 887, 1, noise, **kw), 2)
         plain = cuda_ms(lambda: kwin.coarse_window_plain(
             coarse_cfg, coarse_p, logits0, kc0, vc0, 887, 1, noise, **kw), 1)
-        checks.times["coarse_window_fused"] = (ms, plain)
+        nb, fl = decode_cost(coarse_cfg, coarse_p, 887, lmw, steps=60)
+        checks.times["coarse_window_fused"] = (ms, plain,
+                                               (nb + 60 * cbs * 4, fl))
 
 
-def small_model_parts(device):
-    """A small model (2 layers, width 128, head dim 64, a tiny token space
-    and codec) as `BarkContext.from_parts` takes it: f32 weights drawn on
-    the host from fixed seeds, so every device gets the same ones."""
-    import numpy as np
+def random_qpack(cfg, fmt: str, dtype, gen, dev):
+    """A qpack at cfg's widths (the layout of io.loader's
+    gpt_qparams_from_section), built on the card from `gen`: values drawn
+    in fmt's range, per-block scales around 0.02 / std(values), mins that
+    centre each block, so every weight is ~N(0, 0.02) as in
+    gpt.init_params; dense leaves in `dtype` with non-zero biases and LN
+    affines. v_pad columns of a single LM head are zero."""
     import torch
+
+    qlo, qhi, sname, has_min = QFORMATS[fmt]
+    sdt = getattr(torch, sname)
+    L, D, V = cfg.n_layer, cfg.n_embd, cfg.n_out_vocab
+    base = 0.02 / (((qhi - qlo + 1) ** 2 - 1) / 12) ** 0.5
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    def randn(*shape, scale=0.02):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    def packed(tree, key, shape, sshape):
+        tree[key + "_q"] = torch.randint(
+            qlo, qhi + 1, shape, generator=gen, device=dev,
+            dtype=torch.int32).to(torch.int8)
+        s = base * uniform(sshape, 0.5, 1.5)
+        tree[key + "_s"] = s.to(sdt)
+        if has_min:
+            tree[key + "_m"] = (-0.5 * (qlo + qhi) * s
+                                * uniform(sshape, 0.8, 1.2)).to(sdt)
+
+    blocks = {}
+    for k in ("ln1", "ln2"):
+        blocks[k + "_g"] = (1.0 + randn(L, D)).to(dtype)
+        blocks[k + "_b"] = randn(L, D)
+    for key, (k, n) in {"qkv": (D, 3 * D), "proj": (D, D),
+                        "fc": (D, 4 * D), "out": (4 * D, D)}.items():
+        packed(blocks, key, (L, k, n), (L, k // 32, n))
+        blocks[key + "_b"] = randn(L, n)
+    qp = {"wpe": randn(cfg.block_size, D), "ln_f_g": (1.0 + randn(D)).to(dtype),
+          "ln_f_b": randn(D), "blocks": blocks}
+    packed(qp, "wte", (cfg.n_wtes, cfg.n_in_vocab, D),
+           (cfg.n_wtes, cfg.n_in_vocab, D // 32))
+    if cfg.n_lm_heads == 1:
+        v_pad = -(-V // D) * D
+        packed(qp, "lm", (D, v_pad), (D // 32, v_pad))
+        for k in ("lm_q", "lm_s", "lm_m"):
+            if k in qp:
+                qp[k][:, V:] = 0
+    else:
+        packed(qp, "lm_heads", (cfg.n_lm_heads, V, D),
+               (cfg.n_lm_heads, V, D // 32))
+    return qp
+
+
+def qkernel_checks(checks: Checks, dtype, timed: bool):
+    """Phase 2 for K5, one dtype: the packed decode step against its plain
+    version (models.gpt on the same qpack) for every format of QFORMATS at
+    n_past 0/300/1023 on the full head and 300 on the coarse window; K3
+    and K4 over a q8_0 qpack in f32, tokens equal."""
+    import torch
+
+    from bark_tpu_torch.kernels import decode as kdec
+    from bark_tpu_torch.kernels import qdecode as kq
+    from bark_tpu_torch.kernels import semantic as ksem
+    from bark_tpu_torch.kernels import window as kwin
+    from bark_tpu_torch.models.presets import BARK_SMALL
+    from bark_tpu_torch.ops import sampling
+
+    dev = torch.device("cuda")
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    sem_cfg, coarse_cfg = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+    svs, cbs = 10000, 1024
+    lmw = (svs, svs + 2 * cbs)
+
+    for fmt in QFORMATS:
+        kname = f"{K5}[{fmt}]"
+        sem_q = random_qpack(sem_cfg, fmt, dtype, gen, dev)
+        coarse_q = random_qpack(coarse_cfg, fmt, dtype, gen, dev)
+        for cfg, qp, n_past, win in ((sem_cfg, sem_q, 0, None),
+                                     (sem_cfg, sem_q, 300, None),
+                                     (sem_cfg, sem_q, 1023, None),
+                                     (coarse_cfg, coarse_q, 300, lmw)):
+            kc, vc = filled_cache(cfg, n_past, dtype, gen)
+            kc2, vc2 = kc.clone(), vc.clone()
+            before = kq.launches
+            out = kdec.decode_step_fused(cfg, qp, 4321, kc, vc, n_past,
+                                         lm_window=win)
+            if kq.launches != before + 1:
+                raise AssertionError(f"{kname} did not launch K5")
+            ref = kdec.decode_step_plain(cfg, qp, 4321, kc2, vc2, n_past,
+                                         win)
+            tag = f"n_past {n_past}" + (" lm_window" if win else "")
+            checks.record(kname, name, f"logits {tag}", max_err(out, ref))
+            checks.record(kname, name, f"K/V row {tag}",
+                          max(max_err(kc[:, n_past], kc2[:, n_past]),
+                              max_err(vc[:, n_past], vc2[:, n_past])))
+            if win is not None and (float(out[:win[0]].abs().max()) != 0.0
+                                    or float(out[win[1]:].abs().max())
+                                    != 0.0):
+                raise AssertionError("logits outside lm_window are not zero")
+        if timed:
+            kc, vc = filled_cache(sem_cfg, 300, dtype, gen)
+            tok_t = torch.tensor([4321], dtype=torch.int32, device=dev)
+            ms = cuda_ms(lambda: kdec.decode_step_fused(
+                sem_cfg, sem_q, tok_t, kc, vc, 300), 50)
+            plain = cuda_ms(lambda: kdec.decode_step_plain(
+                sem_cfg, sem_q, tok_t, kc, vc, 300), 10)
+            checks.times[kname] = (ms, plain,
+                                   decode_cost(sem_cfg, sem_q, 300))
+        if fmt == "q8_0" and dtype == torch.float32:
+            # K3: 16 steps after a 257-row context; K4: 60 steps after 887
+            noise = sampling.gumbel((32, sem_cfg.n_out_vocab), gen, dev)
+            logits0 = torch.randn(sem_cfg.n_out_vocab, generator=gen,
+                                  device=dev)
+            kc, vc = filled_cache(sem_cfg, 257, dtype, gen)
+            kc2, vc2 = kc.clone(), vc.clone()
+            kw = dict(K=16, temp=0.7, semantic_vocab_size=svs)
+            args = (257, 3, noise, 2.0)
+            toks, flags, lg = ksem.semantic_chunk_fused(
+                sem_cfg, sem_q, logits0, kc, vc, *args, **kw)
+            rtoks, rflags, rlg = ksem.semantic_chunk_plain(
+                sem_cfg, sem_q, logits0, kc2, vc2, *args, **kw)
+            if (toks.tolist() != rtoks.tolist()
+                    or flags.tolist() != rflags.tolist()):
+                raise AssertionError("K3 over q8_0: tokens/flags differ")
+            checks.record(kname, name, "K3 logits after 16 steps",
+                          max_err(lg, rlg))
+            noise = sampling.gumbel((60, cbs), gen, dev)
+            logits0 = torch.randn(coarse_cfg.n_out_vocab, generator=gen,
+                                  device=dev)
+            kc, vc = filled_cache(coarse_cfg, 887, dtype, gen)
+            kc2, vc2 = kc.clone(), vc.clone()
+            kw = dict(sws=60, temp=0.7, semantic_vocab_size=svs,
+                      codebook_size=cbs, lm_window=lmw)
+            toks = kwin.coarse_window_fused(coarse_cfg, coarse_q, logits0,
+                                            kc, vc, 887, 1, noise, **kw)
+            rtoks = kwin.coarse_window_plain(coarse_cfg, coarse_q, logits0,
+                                             kc2, vc2, 887, 1, noise, **kw)
+            if toks.tolist() != rtoks.tolist():
+                raise AssertionError("K4 over q8_0: tokens differ")
+            rows = slice(887, 947)
+            checks.record(kname, name, "K4 K/V rows of 60 steps",
+                          max(max_err(kc[:, rows], kc2[:, rows]),
+                              max_err(vc[:, rows], vc2[:, rows])))
+            log(f"  K3 (16 steps) and K4 (60 steps) over q8_0: tokens "
+                f"equal, f32")
+        del sem_q, coarse_q
+        torch.cuda.empty_cache()
+
+
+def small_model_trees():
+    """A small model (2 layers, width 128, head dim 64, a tiny token space
+    and codec): {stage: (cfg, f32 numpy params)} and (codec cfg, f32 numpy
+    codec params), drawn on the host from fixed seeds, so every device
+    gets the same weights."""
+    import numpy as np
 
     from bark_tpu_torch.io import loader
     from bark_tpu_torch.models import gpt
@@ -291,20 +531,112 @@ def small_model_parts(device):
             if k.endswith("_b") and not k.startswith("ln"):
                 tree["blocks"][k] = (rng.randn(*v.shape) * 0.08).astype(
                     np.float32)
-        return cfg, loader.params_from_numpy(tree, torch.float32, device)
+        return cfg, tree
 
     codec_cfg = CodecConfig(hidden_dim=16, n_filters=2, n_bins=8, n_q_total=8)
-    return dict(
-        vocab_tokens=SMALL_VOCAB,
+    stages = dict(
         semantic=stage(1, block_size=320, n_in_vocab=182, n_out_vocab=16),
         coarse=stage(2, block_size=384, n_in_vocab=34, n_out_vocab=32),
         fine=stage(3, block_size=64, n_in_vocab=9, n_out_vocab=9,
                    n_lm_heads=7, n_wtes=8),
-        codec_cfg=codec_cfg,
-        codec_params=loader.params_from_numpy(
-            loader.codec_init_params_numpy(codec_cfg, 4, scale=0.15),
-            torch.float32, device),
     )
+    return stages, (codec_cfg, loader.codec_init_params_numpy(
+        codec_cfg, 4, scale=0.15))
+
+
+def small_model_parts(device):
+    """The small model as `BarkContext.from_parts` takes it, on device."""
+    import torch
+
+    from bark_tpu_torch.io import loader
+
+    stages, (codec_cfg, codec_tree) = small_model_trees()
+    parts = {name: (cfg, loader.params_from_numpy(tree, torch.float32,
+                                                  device))
+             for name, (cfg, tree) in stages.items()}
+    return dict(
+        vocab_tokens=SMALL_VOCAB, **parts, codec_cfg=codec_cfg,
+        codec_params=loader.params_from_numpy(codec_tree, torch.float32,
+                                              device),
+    )
+
+
+_GPT_NAMES = {  # params key -> tensor name under model/h{i}/
+    "ln1_g": "ln_1/g", "ln1_b": "ln_1/b", "ln2_g": "ln_2/g",
+    "ln2_b": "ln_2/b", "qkv_w": "attn/c_attn/w", "qkv_b": "attn/c_attn/b",
+    "proj_w": "attn/c_proj/w", "proj_b": "attn/c_proj/b",
+    "fc_w": "mlp/c_fc/w", "fc_b": "mlp/c_fc/b", "out_w": "mlp/c_proj/w",
+    "out_b": "mlp/c_proj/b",
+}
+
+
+def write_small_model(path: str) -> None:
+    """The small model as an f32 ggml_weights.bin (the layout the port's
+    loader reads back: projections stored (out, in), the codec's decoder
+    and RVQ tensors under their converter names)."""
+    import numpy as np
+
+    from bark_tpu_torch.io import ggml
+
+    def records(items):
+        return {n: ggml.TensorRecord.from_array(
+            n, np.ascontiguousarray(a, np.float32), ggml.GGMLType.F32)
+            for n, a in items}
+
+    def gpt_section(cfg, tree):
+        items = [(f"model/wte/{i}", t) for i, t in enumerate(tree["wte"])]
+        items += [("model/wpe", tree["wpe"]),
+                  ("model/ln_f/g", tree["ln_f_g"]),
+                  ("model/ln_f/b", tree["ln_f_b"])]
+        items += [(f"model/lm_head/{i}", t)
+                  for i, t in enumerate(tree["lm_head"])]
+        for l in range(cfg.n_layer):
+            items += [(f"model/h{l}/{n}", tree["blocks"][k][l].T
+                       if k.endswith("_w") else tree["blocks"][k][l])
+                      for k, n in _GPT_NAMES.items()]
+        hp = ggml.GPTHParams(
+            n_layer=cfg.n_layer, n_head=cfg.n_head, n_embd=cfg.n_embd,
+            block_size=cfg.block_size, bias=int(cfg.bias),
+            n_in_vocab=cfg.n_in_vocab, n_out_vocab=cfg.n_out_vocab,
+            n_lm_heads=cfg.n_lm_heads, n_wtes=cfg.n_wtes, ftype=0)
+        return ggml.GPTSection(hparams=hp, tensors=records(items))
+
+    def conv(name, w, b):
+        return [(f"{name}.weight", w), (f"{name}.bias", b)]
+
+    stages, (ccfg, ctree) = small_model_trees()
+    dec = ctree["decoder"]
+    items = [(f"quantizer.vq.layers.{i}._codebook.embed", e)
+             for i, e in enumerate(ctree["quantizer"])]
+    items += conv("decoder.model.0.conv.conv", dec["conv_in_w"],
+                  dec["conv_in_b"])
+    for l, lstm in enumerate(dec["lstm"]):
+        items += [(f"decoder.model.1.lstm.{k}_l{l}", lstm[v]) for k, v in (
+            ("weight_ih", "w_ih"), ("weight_hh", "w_hh"),
+            ("bias_ih", "b_ih"), ("bias_hh", "b_hh"))]
+    for i, st in enumerate(dec["stages"]):
+        idx = 3 + 3 * i
+        items += conv(f"decoder.model.{idx}.convtr.convtr", st["convtr_w"],
+                      st["convtr_b"])
+        for blk, key in (("block.1", "block1"), ("block.3", "block3"),
+                         ("shortcut", "shortcut")):
+            items += conv(f"decoder.model.{idx + 1}.{blk}.conv.conv",
+                          st[key + "_w"], st[key + "_b"])
+    items += conv("decoder.model.15.conv.conv", dec["conv_out_w"],
+                  dec["conv_out_b"])
+    codec = ggml.CodecSection(
+        hparams=ggml.CodecHParams(
+            in_channels=ccfg.in_channels, hidden_dim=ccfg.hidden_dim,
+            n_filters=ccfg.n_filters, kernel_size=ccfg.kernel_size,
+            residual_kernel_size=ccfg.residual_kernel_size,
+            n_bins=ccfg.n_bins, bandwidth=6, sample_rate=ccfg.sample_rate,
+            ftype=0),
+        tensors=records(items))
+    ggml.write_model_file(path, ggml.ModelFile(
+        vocab=list(SMALL_VOCAB),
+        **{n: gpt_section(*stages[n]) for n in ("semantic", "coarse",
+                                                 "fine")},
+        codec=codec))
 
 
 # the small model's token space (16 semantic tokens, codebooks of 8)
@@ -320,31 +652,45 @@ SMALL_PARAMS = dict(
 )
 
 
-def small_model_reference():
+def small_model_reference(packed_path=None):
     """Phase 3: the small model generates on the GPU through the kernels
     and on the CPU through the plain versions, in f32 with the same noise:
     tokens must be equal, audio within 1e-3 (cuDNN's convolutions and LSTM
-    sum in another order)."""
+    sum in another order). With `packed_path` (a quantized model file) it
+    is loaded with dequantize_on_load=False, so the GPU run decodes through
+    K5; otherwise the dense parts are given directly."""
     import numpy as np
     import torch
 
     import bark_tpu_torch as bt
+    from bark_tpu_torch.kernels import qdecode as kq
     from bark_tpu_torch.ops import sampling
 
     runs = {}
     for device in ("cpu", "cuda"):
-        ctx = bt.BarkContext.from_parts(
-            **small_model_parts(device),
-            params=bt.BarkContextParams(**SMALL_PARAMS), seed=0,
-            device=device)
+        params = bt.BarkContextParams(**SMALL_PARAMS,
+                                      dequantize_on_load=not packed_path)
+        if packed_path:
+            ctx = bt.bark_load_model(packed_path, params, seed=0,
+                                     device=device)
+            for stage in ("semantic", "coarse", "fine"):
+                if "wte_q" not in getattr(ctx, stage + "_params"):
+                    raise AssertionError(f"{stage} did not load packed")
+        else:
+            ctx = bt.BarkContext.from_parts(
+                **small_model_parts(device), params=params, seed=0,
+                device=device)
         # both runs draw the same noise on the CPU, in the same order
         gen = torch.Generator().manual_seed(11)
         ctx.noise_source = (
             lambda stage, shape, g=gen, d=device:
             sampling.gumbel(shape, g, "cpu").to(d)
         )
+        before = kq.launches
         if not bt.bark_generate_audio(ctx, "hello world"):
             raise AssertionError(f"small model generate failed on {device}")
+        if packed_path and device == "cuda" and kq.launches == before:
+            raise AssertionError("the packed small model did not launch K5")
         runs[device] = ctx
     cpu, gpu = runs["cpu"], runs["cuda"]
     for name in ("semantic_tokens", "coarse_tokens", "fine_tokens"):
@@ -352,59 +698,75 @@ def small_model_reference():
             raise AssertionError(f"small model: {name} differ CPU vs GPU")
     audio = bt.bark_get_audio_data(gpu)
     err = float(np.abs(bt.bark_get_audio_data(cpu) - audio).max())
-    log(f"  small model: tokens equal in all stages, audio max|err| "
-        f"{err:.3e} (tol 1e-3), {audio.size} samples")
+    log(f"  small model{' (q8_0, packed)' if packed_path else ''}: tokens "
+        f"equal in all stages, audio max|err| {err:.3e} (tol 1e-3), "
+        f"{audio.size} samples")
     if err > 1e-3 or not np.isfinite(audio).all():
         raise AssertionError(f"small model audio differs: {err}")
 
 
-def bark_small_requests():
-    """Phase 4: bark-small at full width, random bf16 weights, 138 semantic
+PROMPTS = ("hello world", "this is a benchmark of the bark pipeline",
+           "a speech test")
+VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "hello", "world", "this", "is",
+         "a", "benchmark", "of", "the", "bark", "pipeline", "speech", "test"]
+
+
+def bark_small_stages(fmt=None):
+    """bark-small's three stages at full width on the card, from a seed:
+    random bf16 weights, or with `fmt` random qpacks of that format (bf16
+    dense leaves)."""
+    import torch
+
+    from bark_tpu_torch.models import gpt
+    from bark_tpu_torch.models.presets import BARK_SMALL
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return {
+        name: (cfg, gpt.init_params(cfg, gen, torch.bfloat16, dev)
+               if fmt is None else
+               random_qpack(cfg, fmt, torch.bfloat16, gen, dev))
+        for name, cfg in BARK_SMALL.items()
+    }
+
+
+def bark_small_requests(stages, n: int, label: str, need):
+    """Phases 4 and 4b: n requests on bark-small (`stages`), 138 semantic
     steps with the EOS-probability stop off (bench.py's workload), at
     PyTorch's default precision settings (cuDNN TF32 on for the f32 codec,
-    matmul TF32 off)."""
+    matmul TF32 off), driven with the launch counts set to 0 just before
+    and read just after. Every kernel module in `need` must have been
+    launched; returns (per-request results, counts)."""
     import numpy as np
     import torch
 
     import bark_tpu_torch as bt
     from bark_tpu_torch import kernels
     from bark_tpu_torch.io import loader
-    from bark_tpu_torch.models import gpt
-    from bark_tpu_torch.models.presets import BARK_SMALL, ENCODEC_24KHZ
+    from bark_tpu_torch.models.presets import ENCODEC_24KHZ
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    stages = {
-        name: (BARK_SMALL[name],
-               gpt.init_params(BARK_SMALL[name], gen, torch.bfloat16, dev))
-        for name in ("semantic", "coarse", "fine")
-    }
     codec = loader.params_from_numpy(
         loader.codec_init_params_numpy(ENCODEC_24KHZ, 3), torch.float32, dev)
     params = bt.BarkContextParams(compute_dtype="bfloat16",
                                   n_steps_text_encoder=138, min_eos_p=2.0,
                                   stage_sync=True)
-    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "hello", "world", "this",
-             "is", "a", "benchmark", "of", "the", "bark", "pipeline",
-             "speech", "test"]
-    prompts = ("hello world", "this is a benchmark of the bark pipeline",
-               "a speech test")
     kernels.reset_launches()
     results = []
-    for seed, text in enumerate(prompts, start=1):
+    for seed, text in enumerate(PROMPTS[:n], start=1):
         ctx = bt.BarkContext.from_parts(
-            vocab_tokens=vocab, semantic=stages["semantic"],
+            vocab_tokens=VOCAB, semantic=stages["semantic"],
             coarse=stages["coarse"], fine=stages["fine"],
             codec_cfg=ENCODEC_24KHZ, codec_params=codec, params=params,
             seed=seed, device=dev,
         )
         if not bt.bark_generate_audio(ctx, text):
-            raise AssertionError(f"request {seed} produced no audio")
+            raise AssertionError(f"{label} request {seed} produced no audio")
         audio = bt.bark_get_audio_data(ctx)
         n_frames = ctx.fine_tokens.shape[0]
         if audio.shape != (n_frames * 320,) or not np.isfinite(audio).all():
             raise AssertionError(
-                f"request {seed}: audio {audio.shape}, finite "
+                f"{label} request {seed}: audio {audio.shape}, finite "
                 f"{np.isfinite(audio).all()}, want ({n_frames * 320},)")
         s = ctx.stats
         results.append(dict(
@@ -416,12 +778,26 @@ def bark_small_requests():
             codec_s=(s.t_eval_us - s.t_semantic_us - s.t_coarse_us
                      - s.t_fine_us) / 1e6,
         ))
-        log(f"  request {seed}: {json.dumps(results[-1])}")
+        log(f"  {label} request {seed}: {json.dumps(results[-1])}")
     counts = kernels.launch_counts()
-    log(f"  kernel launches in the 3 requests: {counts}")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the path was not launched: {counts}")
+    log(f"  kernel launches in the {n} {label} requests: {counts}")
+    if min(counts[m] for m in need) <= 0:
+        raise AssertionError(f"a kernel of the {label} path was not "
+                             f"launched: {counts}")
     return results, counts
+
+
+def rtf(results) -> float:
+    return (sum(r["eval_s"] for r in results)
+            / sum(r["audio_s"] for r in results))
+
+
+def log_requests(label, results):
+    for r in results:
+        log(f"  {label} request {r['seed']}: eval {r['eval_s']:.3f} s = "
+            f"semantic {r['semantic_s']:.3f} + coarse {r['coarse_s']:.3f} + "
+            f"fine {r['fine_s']:.3f} + codec/rest {r['codec_s']:.3f} s for "
+            f"{r['audio_s']:.3f} s of audio")
 
 
 def main() -> int:
@@ -461,35 +837,73 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             log(f"phase 2: kernels vs plain, {dtype}")
             kernel_checks(checks, dtype, timed=dtype == torch.bfloat16)
+            log(f"phase 2: K5 (packed decode step) vs plain, {dtype}")
+            qkernel_checks(checks, dtype, timed=dtype == torch.bfloat16)
         log("phase 3: small model, GPU kernels vs CPU plain")
         small_model_reference()
+        import bark_tpu_torch as bt
+
+        dense_path = os.path.join(OUT_DIR, "small_f32.bin")
+        q8_path = os.path.join(OUT_DIR, "small_q8_0.bin")
+        write_small_model(dense_path)
+        bt.bark_model_quantize(dense_path, q8_path, 7)  # MOSTLY_Q8_0
+        log("phase 3: small model from a q8_0 file, packed, GPU vs CPU")
+        small_model_reference(q8_path)
+        for path in (dense_path, q8_path):
+            os.unlink(path)
     log(f"phase 4: bark-small, 3 requests (PyTorch defaults: cuDNN TF32 "
         f"{torch.backends.cudnn.allow_tf32}, matmul TF32 "
         f"{torch.backends.cuda.matmul.allow_tf32})")
-    results, counts = bark_small_requests()
-    if "jax" in sys.modules:
-        raise AssertionError("the port's run imported jax")
+    dense_need = ("decode", "prefill", "semantic", "window", "sample")
+    results, counts = bark_small_requests(bark_small_stages(), 3, "dense",
+                                          dense_need)
+    log("phase 4b: bark-small on packed-quantized weights")
+    packed_need = ("qdecode", "prefill", "semantic", "window", "sample")
+    t0 = time.perf_counter()
+    stages = bark_small_stages("q4_0")
+    torch.cuda.synchronize()
+    log(f"  q4_0 qpacks of the three stages built on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    q_results, q_counts = bark_small_requests(stages, 2, "q4_0", packed_need)
+    if q_counts["decode"] != 0:
+        raise AssertionError("the packed path launched the dense K1")
+    k5_launches = {"q4_0": q_counts["qdecode"]}
+    del stages
+    for fmt in ("q8_0", "q4_1", "q4_k"):
+        _, c = bark_small_requests(bark_small_stages(fmt), 1, fmt,
+                                   packed_need)
+        k5_launches[fmt] = c["qdecode"]
+    torch.cuda.empty_cache()
+    foreign = sorted(k for k in sys.modules
+                     if k.split(".")[0] in ("jax", "jaxlib", "bark_tpu"))
+    if foreign:
+        raise AssertionError(f"the port's run imported {foreign}")
 
     timed = results[1:]  # request 1 also pays first-use costs
-    rtf = sum(r["eval_s"] for r in timed) / sum(r["audio_s"] for r in timed)
-    log(f"RTF (requests 2-3, bf16, batch 1): {rtf:.4f} on {smi}")
-    for r in results:
-        log(f"  request {r['seed']}: eval {r['eval_s']:.3f} s = semantic "
-            f"{r['semantic_s']:.3f} + coarse {r['coarse_s']:.3f} + fine "
-            f"{r['fine_s']:.3f} + codec/rest {r['codec_s']:.3f} s for "
-            f"{r['audio_s']:.3f} s of audio")
+    log(f"RTF (dense bf16, requests 2-3, batch 1): {rtf(timed):.4f} on {smi}")
+    log_requests("dense", results)
+    log(f"RTF (q4_0 qpack, bf16 dense leaves, requests 1-2, batch 1): "
+        f"{rtf(q_results):.4f} on {smi}")
+    log_requests("q4_0", q_results)
     table = []
-    for name, (src, replaces) in KERNELS.items():
-        ms, plain = checks.times[name]
-        log(f"  {name:22s} {ms:9.3f} ms  plain {plain:9.3f} ms  (bf16)")
+    for name, (src, replaces, module) in KERNELS.items():
+        ms, plain, cost = checks.times[name]
+        bound_ms, bound_by = bound(cost, "bfloat16")
+        fmt = name[len(K5) + 1:-1] if name.startswith(K5) else None
+        launches = k5_launches[fmt] if fmt else counts[module]
+        log(f"  {name:26s} {ms:9.3f} ms  plain {plain:9.3f} ms  bound "
+            f"{bound_ms:7.4f} ms ({bound_by})  launches {launches}  (bf16)")
         table.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts[MODULE_OF[name]],
+            launches=launches,
             max_abs_err=checks.errors[(name, "bfloat16")],
             max_abs_err_f32=checks.errors[(name, "float32")],
-            ms=ms, plain_ms=plain,
+            ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, bytes=cost[0], flops=cost[1],
         ))
-    print(json.dumps(dict(rtf=rtf, requests=results, build_s=build_s)))
+    print(json.dumps(dict(rtf=rtf(timed), requests=results,
+                          rtf_q4_0=rtf(q_results), requests_q4_0=q_results,
+                          build_s=build_s)))
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

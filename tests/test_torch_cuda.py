@@ -1,8 +1,9 @@
 """bark_tpu_torch's CUDA kernels against their plain PyTorch versions on
 the card, at a small model (2 layers, width 128, head dim 64) in f32 with
 TF32 off: tokens and flags equal, logits and cache rows within 1e-4 (f32
-sums in another order). Marked `cuda`; without a GPU they skip. On the
-machine with the card:
+sums in another order). K5, the packed step, runs on qpacks loaded from
+sections quantized in q8_0, q4_0, q4_1, q5_1 and q4_k. Marked `cuda`;
+without a GPU they skip. On the machine with the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
@@ -148,3 +149,127 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, params):
         kdec.decode_step_fused(odd, dict(params), 1, kc, vc, 0)
     kernels.reset_launches()
     assert set(kernels.launch_counts().values()) == {0}
+
+
+# ------------------------------------------------------------ K5 (packed)
+
+QCFG = dataclasses.replace(CFG, block_size=512)
+QFORMATS = ("Q8_0", "Q4_0", "Q4_1", "Q5_1", "Q4_K")
+
+
+def _qsection(qt: str):
+    """A width-128 section whose projections, wte and LM head are stored
+    in block type `qt` (the port's ggml writer and quantizers)."""
+    import numpy as np
+
+    from bark_tpu_torch.io import ggml
+
+    rng = np.random.default_rng(3)
+    D, t = QCFG.n_embd, {}
+
+    def add(name, arr, ttype=ggml.GGMLType.F32):
+        t[name] = ggml.TensorRecord.from_array(name, arr.astype(np.float32),
+                                               ttype)
+
+    def rnd(*shape):
+        return rng.normal(0, 0.08, shape)
+
+    q = ggml.GGMLType[qt]
+    add("model/wte/0", rnd(QCFG.n_in_vocab, D), q)
+    add("model/wpe", rnd(QCFG.block_size, D))
+    add("model/lm_head/0", rnd(QCFG.n_out_vocab, D), q)
+    add("model/ln_f/g", 1 + rnd(D))
+    add("model/ln_f/b", rnd(D))
+    for i in range(QCFG.n_layer):
+        for n in ("ln_1", "ln_2"):
+            add(f"model/h{i}/{n}/g", 1 + rnd(D))
+            add(f"model/h{i}/{n}/b", rnd(D))
+        for n, shape in (("attn/c_attn", (3 * D, D)), ("attn/c_proj", (D, D)),
+                         ("mlp/c_fc", (4 * D, D)),
+                         ("mlp/c_proj", (D, 4 * D))):
+            add(f"model/h{i}/{n}/w", rnd(*shape), q)
+            add(f"model/h{i}/{n}/b", rnd(shape[0]))
+    hp = ggml.GPTHParams(
+        n_layer=QCFG.n_layer, n_head=QCFG.n_head, n_embd=D,
+        block_size=QCFG.block_size, bias=1, n_in_vocab=QCFG.n_in_vocab,
+        n_out_vocab=QCFG.n_out_vocab, n_lm_heads=1, n_wtes=1, ftype=int(q))
+    return ggml.GPTSection(hparams=hp, tensors=t)
+
+
+@pytest.fixture(scope="module", params=QFORMATS)
+def qpack(dev, request):
+    from bark_tpu_torch.io import loader
+
+    cfg, qp = loader.gpt_qparams_from_section(_qsection(request.param),
+                                              torch.float32, dev)
+    assert cfg == QCFG
+    return qp
+
+
+@pytest.mark.parametrize("n_past,win", [(0, None), (40, None), (511, None),
+                                        (40, (32, 160))])
+def test_packed_decode_kernel(dev, qpack, n_past, win):
+    from bark_tpu_torch.kernels import qdecode
+
+    kc, vc = _caches(dev, n_past)
+    kc2, vc2 = kc.clone(), vc.clone()
+    before, dense_before = qdecode.launches, kdec.launches
+    out = kdec.decode_step_fused(QCFG, qpack, 17, kc, vc, n_past,
+                                 lm_window=win)
+    assert qdecode.launches == before + 1 and kdec.launches == dense_before
+    ref = kdec.decode_step_plain(QCFG, qpack, 17, kc2, vc2, n_past, win)
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
+    torch.testing.assert_close(kc, kc2, rtol=0, atol=ATOL)
+    torch.testing.assert_close(vc, vc2, rtol=0, atol=ATOL)
+
+
+def test_packed_chunk_and_window_kernels(dev, qpack):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    noise = sampling.gumbel((16, QCFG.n_out_vocab), gen, dev)
+    logits0 = torch.randn(QCFG.n_out_vocab, generator=gen, device=dev) * 2
+    kc, vc = _caches(dev, 40)
+    kc2, vc2 = kc.clone(), vc.clone()
+    kw = dict(K=8, temp=0.7, semantic_vocab_size=150)
+    t, f, _ = ksem.semantic_chunk_fused(QCFG, qpack, logits0, kc, vc, 40, 0,
+                                        noise, 2.0, **kw)
+    rt, rf, _ = ksem.semantic_chunk_plain(QCFG, qpack, logits0, kc2, vc2, 40,
+                                          0, noise, 2.0, **kw)
+    assert t.tolist() == rt.tolist() and f.tolist() == rf.tolist()
+    kw = dict(sws=10, temp=0.7, semantic_vocab_size=32, codebook_size=64,
+              lm_window=(32, 160))
+    t = kwin.coarse_window_fused(QCFG, qpack, logits0, kc, vc, 60, 1,
+                                 noise[:10, :64], **kw)
+    rt = kwin.coarse_window_plain(QCFG, qpack, logits0, kc2, vc2, 60, 1,
+                                  noise[:10, :64], **kw)
+    assert t.tolist() == rt.tolist()
+    torch.testing.assert_close(vc[:, 60:70], vc2[:, 60:70], rtol=0,
+                               atol=ATOL)
+
+
+def test_packed_kernel_follows_a_replaced_tensor(dev, qpack):
+    p = {**qpack, "blocks": dict(qpack["blocks"])}
+    kc, vc = gpt.init_kv_cache(QCFG, torch.float32, dev)
+    kdec.decode_step_fused(QCFG, p, 17, kc, vc, 0)
+    p["blocks"]["fc_s"] = p["blocks"]["fc_s"] * 2
+    p["lm_q"] = -p["lm_q"]
+    kc2, vc2 = kc.clone(), vc.clone()
+    out = kdec.decode_step_fused(QCFG, p, 17, kc, vc, 0)
+    ref = kdec.decode_step_plain(QCFG, p, 17, kc2, vc2, 0)
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
+
+
+def test_packed_wrapper_refuses_what_the_kernel_does_not_take(dev, qpack):
+    kc, vc = gpt.init_kv_cache(QCFG, torch.float32, dev)
+    bad = {**qpack, "wte_s": qpack["wte_s"].to(torch.bfloat16)}
+    with pytest.raises(ValueError):  # scales neither f16 nor f32
+        kdec.decode_step_fused(QCFG, bad, 1, kc, vc, 0)
+    blocks = dict(qpack["blocks"])
+    blocks["qkv_q"] = torch.empty(blocks["qkv_q"].numel() + 1,
+                                  dtype=torch.int8, device=dev)[1:].view(
+        blocks["qkv_q"].shape)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        kdec.decode_step_fused(QCFG, {**qpack, "blocks": blocks}, 1, kc, vc,
+                               0)
+    fine = {k: v for k, v in qpack.items() if not k.startswith("lm_")}
+    with pytest.raises(ValueError):  # no single LM head tile
+        kdec.decode_step_fused(QCFG, fine, 1, kc, vc, 0)

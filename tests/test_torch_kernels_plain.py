@@ -184,4 +184,5 @@ def test_cpu_calls_count_no_launches():
                               codebook_size=64, lm_window=(32, 160))
     tkdec.decode_step_fused(cfg, tp, 3, kc, vc, 12)
     assert tkernels.launch_counts() == {
-        "decode": 0, "prefill": 0, "semantic": 0, "window": 0, "sample": 0}
+        "decode": 0, "qdecode": 0, "prefill": 0, "semantic": 0, "window": 0,
+        "sample": 0}

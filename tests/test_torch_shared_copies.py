@@ -1,0 +1,157 @@
+"""The port's own copies of bark_tpu's jax-free host modules (params,
+tokenizer, the ggml reader and writer, the block quantizers, the file
+quantizer) against their originals, on seeded data: equal defaults,
+equal token lists, record-for-record equal model files read by the other
+package's reader, bit-equal quantized blocks and byte-equal quantized
+files."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from bark_tpu import params as jparams
+from bark_tpu.io import ggml as jggml
+from bark_tpu.io import quant as jquant
+from bark_tpu.io import quantize as jquantize
+from bark_tpu.text import tokenizer as jtok
+from bark_tpu_torch import params as tparams
+from bark_tpu_torch.io import ggml as tggml
+from bark_tpu_torch.io import quant as tquant
+from bark_tpu_torch.io import quantize as tquantize
+from bark_tpu_torch.text import tokenizer as ttok
+
+from tiny_model import VOCAB, build_tiny_model, tiny_params
+
+QTYPES = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0",
+          "q2_k", "q3_k", "q4_k", "q5_k", "q6_k")
+
+
+def test_params_defaults_equal():
+    jf = dataclasses.fields(jparams.BarkContextParams)
+    tf = dataclasses.fields(tparams.BarkContextParams)
+    assert [f.name for f in tf] == [f.name for f in jf]
+    j, t = jparams.BarkContextParams(), tparams.BarkContextParams()
+    for f in jf:
+        assert getattr(t, f.name) == getattr(j, f.name), f.name
+    assert tparams.bark_context_default_params() == t
+    for enum in ("Verbosity", "EncodingStep"):
+        je, te = getattr(jparams, enum), getattr(tparams, enum)
+        assert [(m.name, m.value) for m in te] == [(m.name, m.value)
+                                                   for m in je]
+        assert all(te[m.name] == m for m in je)  # IntEnums compare as ints
+
+
+TEXTS = [
+    "hello world",
+    "Hello, World! the 42 wo",
+    "héllo wörld àçñ — ünïcode ☃ stays out",
+    "a" * 40 + " tok3 ## [CLS] 1234567 !?",
+    " ".join(["hello world the a"] * 90),  # past 256 tokens
+    "",
+]
+
+
+@pytest.mark.parametrize("text", TEXTS, ids=range(len(TEXTS)))
+def test_tokenizer_equal(text):
+    vocab = VOCAB + ["h", "##e", "##l", "##o", "w", "!", "?", ",", "4",
+                     "##2", "1", "##234567", "[", "]", "#", "C", "##LS"]
+    jv, tv = jtok.Vocab.from_tokens(vocab), ttok.Vocab.from_tokens(vocab)
+    for n in (256, 16):
+        assert (ttok.bert_tokenize(tv, text, n)
+                == jtok.bert_tokenize(jv, text, n))
+    for block in (256, 1024):
+        for p in (jparams.BarkContextParams(), tiny_params()):
+            j = jtok.tokenize_input(jv, text, p, block_size=block)
+            assert ttok.tokenize_input(tv, text, p, block_size=block) == j
+
+
+def _records_equal(a, b):
+    assert list(a.tensors) == list(b.tensors)
+    assert dataclasses.asdict(a.hparams) == dataclasses.asdict(b.hparams)
+    for name, ra in a.tensors.items():
+        rb = b.tensors[name]
+        assert (ra.shape, int(ra.ttype)) == (rb.shape, int(rb.ttype)), name
+        assert bytes(ra.data) == bytes(rb.data), name
+
+
+def _models_equal(a, b):
+    assert a.vocab == b.vocab
+    for sec in ("semantic", "coarse", "fine", "codec"):
+        _records_equal(getattr(a, sec), getattr(b, sec))
+
+
+@pytest.mark.parametrize("ftype", ["f32", "q5_1"])
+def test_model_files_read_across(tmp_path, ftype):
+    """A file written by each package reads record for record the same
+    with the other's reader."""
+    src = str(tmp_path / "w.bin")
+    jggml.write_model_file(src, build_tiny_model())
+    if ftype != "f32":
+        path = str(tmp_path / "wq.bin")
+        jquantize.model_quantize(src, path,
+                                 int(jggml.GGMLFType.MOSTLY_Q5_1))
+    else:
+        path = src
+    jm = jggml.read_model_file(path)
+    tm = tggml.read_model_file(path)
+    _models_equal(tm, jm)
+    back = str(tmp_path / "back.bin")
+    tggml.write_model_file(back, tm)
+    _models_equal(jggml.read_model_file(back), jm)
+    assert open(back, "rb").read() == open(path, "rb").read()
+
+
+@pytest.mark.parametrize("qtype", QTYPES)
+def test_block_codecs_bit_equal(qtype):
+    """quantize_blocks / dequantize_blocks of both packages on seeded data,
+    small and past the size where bark_tpu hands the simple formats to its
+    C++ codec."""
+    rng = np.random.default_rng(5)
+    for n in (256 * 3, 256 * 96):
+        x = (rng.standard_normal(n) * rng.uniform(0.01, 3.0)).astype(
+            np.float32)
+        x[::97] = 0.0  # zero runs inside some blocks
+        raw = jquant.quantize_blocks(x, qtype)
+        np.testing.assert_array_equal(tquant.quantize_blocks(x, qtype), raw)
+        np.testing.assert_array_equal(
+            tquant.dequantize_blocks(raw, qtype, n),
+            jquant.dequantize_blocks(raw, qtype, n))
+
+
+@pytest.mark.parametrize("qtype", tquant.PACKABLE)
+def test_repack_bit_equal(qtype):
+    assert tquant.PACKABLE == jquant.PACKABLE
+    x = (np.random.default_rng(6).standard_normal(256 * 24) * 0.1).astype(
+        np.float32)
+    raw = jquant.quantize_blocks(x, qtype)
+    for a, b in zip(tquant.repack_to_int8(raw, qtype, x.size),
+                    jquant.repack_to_int8(raw, qtype, x.size)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_format_tables_equal():
+    assert tquant.BLOCK_BYTES == jquant.BLOCK_BYTES
+    assert tquant.BLOCK_ELEMS == jquant.BLOCK_ELEMS
+    assert ({int(k): v for k, v in tggml.QUANT_NAME.items()}
+            == {int(k): v for k, v in jggml.QUANT_NAME.items()})
+    assert ({int(k): int(v) for k, v in tggml.FTYPE_TO_TYPE.items()}
+            == {int(k): int(v) for k, v in jggml.FTYPE_TO_TYPE.items()})
+    assert ({int(t) for t in tggml.PACKABLE_TYPES}
+            == {int(t) for t in jggml.PACKABLE_TYPES})
+    assert tquantize.QUANTIZE_NAME_PATTERNS == jquantize.QUANTIZE_NAME_PATTERNS
+
+
+@pytest.mark.parametrize("ftype,n_embd", [("MOSTLY_Q4_0", 32),
+                                          ("MOSTLY_Q8_0", 32),
+                                          ("MOSTLY_Q5_1", 32),
+                                          ("MOSTLY_Q4_K", 256)])
+def test_model_quantize_byte_equal(tmp_path, ftype, n_embd):
+    src = str(tmp_path / "w.bin")
+    jggml.write_model_file(src, build_tiny_model(n_embd=n_embd))
+    ft = int(jggml.GGMLFType[ftype])
+    jout, tout = str(tmp_path / "j.bin"), str(tmp_path / "t.bin")
+    assert jquantize.model_quantize(src, jout, ft)
+    assert tquantize.model_quantize(src, tout, ft)
+    assert open(tout, "rb").read() == open(jout, "rb").read()
