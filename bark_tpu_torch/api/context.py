@@ -15,14 +15,22 @@ scales [+ mins]); the causal stages then decode through the packed kernel
 (K5) and prefill and the fine stage run on a per-call dense copy. Any
 other section loads dense.
 
+Batched serving: `BarkContext.generate_audio_batch(texts)` runs up to
+32 prompts through one batched pipeline (K8 prefills, K9 semantic chunks
+and K10 coarse windows over the batched decode step K7, which reads each
+weight once per step for every lane), then the fine stage and the codec
+per lane.
+
 Randomness: every stage takes its Gumbel noise as a tensor. The context
 draws it on the device from a `torch.Generator` seeded with `seed`, in the
-stage order semantic, coarse, fine (`noise_source(stage, shape)`; a test
-may replace it to replay another implementation's noise). temp = 0 stages
+stage order semantic, coarse, fine (`noise_source(stage, shape)`, and
+`lane_noise_source(stage, lane, shape)` for a batch lane; a test may
+replace either to replay another implementation's noise). temp = 0 stages
 take no noise and are deterministic.
 
 Not ported yet: the stepped path and progress callbacks, streaming,
-long-form, voice presets, int8 KV, batching.
+long-form, voice presets, int8 KV, packed weights on the batched path, the
+server's batch worker.
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ import numpy as np
 import torch
 
 from bark_tpu_torch.io import ggml, loader, quantize
-from bark_tpu_torch.models import encodec
+from bark_tpu_torch.kernels import bdecode as kbdec
+from bark_tpu_torch.models import encodec, gpt
 from bark_tpu_torch.models.config import CodecConfig
 from bark_tpu_torch.ops import sampling
 from bark_tpu_torch.params import BarkContextParams, Verbosity
@@ -136,6 +145,7 @@ class BarkContext:
         self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.noise_source = self._gumbel
+        self.lane_noise_source = self._lane_gumbel
         self.stats = BarkStatistics()
         self.tokens = np.zeros((0,), np.int32)
         self.semantic_tokens = np.zeros((0,), np.int32)
@@ -174,6 +184,10 @@ class BarkContext:
     def _gumbel(self, stage: str, shape):
         del stage
         return sampling.gumbel(shape, self.generator, self.device)
+
+    def _lane_gumbel(self, stage: str, lane: int, shape):
+        del lane
+        return self._gumbel(stage, shape)
 
     def _program(self, name: str):
         if name not in self._programs:
@@ -250,13 +264,8 @@ class BarkContext:
         # --- fine: plain PyTorch block refinement
         t0 = time.perf_counter()
         n_frames = n_steps // p.n_coarse_codebooks
-        _, n_loops = fine_pipe.fine_schedule(n_frames,
-                                             self.fine_cfg.block_size)
-        noise = (None if p.fine_temp == 0.0 else self.noise_source(
-            "fine", (n_loops, p.n_fine_codebooks - p.n_coarse_codebooks,
-                     self.fine_cfg.block_size, p.codebook_size)))
         fine_buf = self._program("fine")(self.fine_params, codes, n_frames,
-                                         noise)
+                                         self._fine_noise(n_frames))
         self._sync()
         self.stats.t_fine_us += int((time.perf_counter() - t0) * 1e6)
 
@@ -269,6 +278,126 @@ class BarkContext:
         self.stats.n_sample_coarse += n_steps
         self.stats.n_sample_fine += int(self.fine_tokens.size)
         return True
+
+    def generate_audio_batch(self, texts, voices=None) -> list:
+        """Generate B utterances through one batched pipeline (the JAX
+        package's `generate_audio_batch`, its server's batching path):
+        one K8 prefill and K9 chunks for every lane's semantic stage, one
+        K8 prefill and one K10 window per shared coarse window, then the
+        fine stage and the codec per lane. Returns one f32 PCM array per
+        prompt, in order (empty for a lane that generated no semantic
+        token). Adds to the aggregate statistics; keeps no per-utterance
+        tokens.
+
+        Randomness: each lane takes the noise of the single-request path,
+        drawn stage-major (every lane's semantic noise, then every lane's
+        coarse noise, then every lane's fine noise) through
+        `lane_noise_source(stage, lane, shape)`, which a test may replace
+        to replay another implementation's noise per lane. The JAX package
+        pads the batch to a power of two, which bounds what it compiles;
+        the port has nothing to compile and runs exactly B lanes.
+
+        At most `bdecode.MAX_LANES` prompts; packed-quantized stages and
+        voice presets are not ported to this path and raise."""
+        return [lane["audio"] for lane in self._generate_batch(texts, voices)]
+
+    def _generate_batch(self, texts, voices=None) -> list:
+        """`generate_audio_batch`, returning for each lane a dict of numpy
+        arrays: its semantic tokens, coarse codes (n_frames, n_coarse),
+        fine codes (n_frames, n_fine) and audio (all empty for a lane with
+        no semantic token)."""
+        p = self.params
+        t_start = time.perf_counter()
+        B = len(texts)
+        if B == 0:
+            return []
+        if B > kbdec.MAX_LANES:
+            raise ValueError(f"generate_audio_batch takes at most "
+                             f"{kbdec.MAX_LANES} prompts, got {B}")
+        if voices is not None:
+            raise NotImplementedError("voice presets are not ported yet")
+        for stage in ("semantic", "coarse", "fine"):
+            if gpt.is_qpack(getattr(self, stage + "_params")):
+                raise NotImplementedError(
+                    f"packed-quantized weights ({stage} stage) on the "
+                    f"batched path are not ported yet")
+        dev = self.device
+        prompts = torch.as_tensor(np.stack([
+            np.asarray(tokenizer.tokenize_input(
+                self.vocab, t, p, block_size=self.semantic_cfg.block_size),
+                np.int32)
+            for t in texts]), device=dev)
+
+        # --- semantic: one batched prefill (K8) + lockstep chunks (K9)
+        t0 = time.perf_counter()
+        noise = None
+        if p.temp != 0.0:
+            shape = (p.n_steps_text_encoder, self.semantic_cfg.n_out_vocab)
+            noise = torch.empty((B, *shape), dtype=torch.float32, device=dev)
+            for b in range(B):
+                noise[b] = self.lane_noise_source("semantic", b, shape)
+        sem_out, counts = semantic_pipe.make_semantic_program_batched(
+            self.semantic_cfg, temp=p.temp, max_steps=p.n_steps_text_encoder,
+            semantic_vocab_size=p.semantic_vocab_size,
+        )(self.semantic_params, prompts, noise, p.min_eos_p)
+        del noise
+        self._sync()
+        self.stats.t_semantic_us += int((time.perf_counter() - t0) * 1e6)
+        live = [b for b in range(B) if counts[b] > 0]
+
+        # --- coarse: per shared window, K8 + K10 over the running lanes
+        t0 = time.perf_counter()
+        noises = None
+        if p.temp != 0.0:
+            noises = [self.lane_noise_source("coarse", b, (
+                coarse_pipe.coarse_schedule(counts[b], p)[3],
+                p.sliding_window_size, p.codebook_size)) for b in live]
+        codes, n_steps = ([], []) if not live else \
+            coarse_pipe.make_coarse_stage_program_batched(
+                self.coarse_cfg, p,
+                ctx_size=min(COARSE_CTX_SIZE, self.coarse_cfg.block_size),
+            )(self.coarse_params, [sem_out[b, :counts[b]] for b in live],
+              noises)
+        self._sync()
+        self.stats.t_coarse_us += int((time.perf_counter() - t0) * 1e6)
+
+        # --- fine and codec, per lane
+        t0 = time.perf_counter()
+        n_frames = [s // p.n_coarse_codebooks for s in n_steps]
+        noises = [self._fine_noise(n, lane=b) for b, n in zip(live, n_frames)]
+        fine = [self._program("fine")(self.fine_params, c, n, z)
+                for c, n, z in zip(codes, n_frames, noises)]
+        self._sync()
+        self.stats.t_fine_us += int((time.perf_counter() - t0) * 1e6)
+        empty = np.zeros((0,), np.int32)
+        outs = [dict(semantic=empty, coarse=empty.reshape(0, 0),
+                     fine=empty.reshape(0, 0),
+                     audio=np.zeros((0,), np.float32)) for _ in range(B)]
+        for i, (b, buf, n) in enumerate(zip(live, fine, n_frames)):
+            outs[b] = dict(
+                semantic=sem_out[b, :counts[b]].cpu().numpy(),
+                coarse=codes[i].cpu().numpy(), fine=buf[:n].cpu().numpy(),
+                audio=self._decode_codec(buf, n).cpu().numpy())
+        self.stats.n_sample_semantic += sum(counts)
+        self.stats.n_sample_coarse += sum(n_steps)
+        self.stats.n_sample_fine += sum(n_frames) * p.n_fine_codebooks
+        self.stats.t_eval_us += int((time.perf_counter() - t_start) * 1e6)
+        return outs
+
+    def _fine_noise(self, n_frames: int, lane=None):
+        """The fine stage's (n_loops, n_fine - n_coarse, block_size,
+        codebook_size) noise for n_frames (None at fine_temp 0), from
+        `noise_source`, or from `lane_noise_source` for a batch lane."""
+        p = self.params
+        if p.fine_temp == 0.0:
+            return None
+        _, n_loops = fine_pipe.fine_schedule(n_frames,
+                                             self.fine_cfg.block_size)
+        shape = (n_loops, p.n_fine_codebooks - p.n_coarse_codebooks,
+                 self.fine_cfg.block_size, p.codebook_size)
+        if lane is None:
+            return self.noise_source("fine", shape)
+        return self.lane_noise_source("fine", lane, shape)
 
     def _decode_codec(self, fine_buf, n_frames: int):
         """RVQ decode + SEANet synthesis of the first n_frames rows

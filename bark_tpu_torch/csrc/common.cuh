@@ -192,6 +192,55 @@ __device__ void block_layer_norm(const T* x, const T* g, const T* b,
   __syncthreads();
 }
 
+// LayerNorm statistics of one (K,) row computed by one warp (no block
+// barrier, so every warp of a block can take its own row): the mean and
+// 1/sqrt(var + eps), both passes in f32.
+template <typename T>
+__device__ __forceinline__ void warp_ln_stats(const T* x, int K, float& mean,
+                                              float& inv) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.0f;
+  for (int i = lane; i < K; i += 32) s += to_f32(x[i]);
+  mean = warp_sum(s) / (float)K;
+  float sq = 0.0f;
+  for (int i = lane; i < K; i += 32) {
+    const float d = to_f32(x[i]) - mean;
+    sq += d * d;
+  }
+  inv = 1.0f / sqrtf(warp_sum(sq) / (float)K + BARK_EPS_NORM);
+}
+
+// Two consecutive values of a row as f32 (p 4-byte aligned for bf16, 8-byte
+// for f32).
+__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load2(const bf16* p, float& a, float& b) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  a = __low2float(v);
+  b = __high2float(v);
+}
+
+// 8 consecutive values of a row as f32, from one 16-byte (bf16) or two
+// 16-byte (f32) loads; p is 16-byte aligned.
+__device__ __forceinline__ void load8(const bf16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __low2float(h[i]);
+    v[2 * i + 1] = __high2float(h[i]);
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
 // Host-side launchers shared between translation units (all return
 // cudaGetLastError() of their launches).
 extern "C" int bark_launch_lm_head(const BarkGPTWeights* w, const void* x_row,
@@ -201,6 +250,22 @@ extern "C" int bark_launch_attn_decode(int dtype, const void* qkv,
                                        void* k_cache, void* v_cache,
                                        int n_past, int D, int n_head,
                                        void* ctx, cudaStream_t stream);
+// K7's attention: K1's for B lanes, lane b's (S, D) cache slab at k_cache
+// + b * S * D, its qkv row b of (B, 3D), its context row b of (B, D), at
+// its own slot n_past[b] (B ints in device memory).
+extern "C" int bark_launch_attn_decode_batched(int dtype, const void* qkv,
+                                               void* k_cache, void* v_cache,
+                                               const int* n_past, int B,
+                                               int S, int D, int n_head,
+                                               void* ctx,
+                                               cudaStream_t stream);
 extern "C" int bark_launch_embed_token(const BarkGPTWeights* w,
                                        const int* tok, int n_past, void* x,
                                        cudaStream_t stream);
+// K7's LM head for B rows of x (row rows[b] of x for lane b when rows is
+// not null, else row b) into logits (B, n_out_vocab) over [lo, hi); the
+// columns outside are left as they were.
+extern "C" int bark_launch_lm_head_batched(const BarkGPTWeights* w,
+                                           const void* x, const int* rows,
+                                           int B, float* logits, int lo,
+                                           int hi, cudaStream_t stream);

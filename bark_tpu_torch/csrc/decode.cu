@@ -43,23 +43,6 @@ constexpr int LM_WARPS = 8;       // one vocab row per warp
 
 enum { EPI_PLAIN = 0, EPI_GELU = 1, EPI_RESID = 2 };
 
-template <typename T>
-__device__ __forceinline__ void load2(const T* p, float& a, float& b);
-template <>
-__device__ __forceinline__ void load2<float>(const float* p, float& a,
-                                             float& b) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  a = v.x;
-  b = v.y;
-}
-template <>
-__device__ __forceinline__ void load2<bf16>(const bf16* p, float& a,
-                                            float& b) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  a = __low2float(v);
-  b = __high2float(v);
-}
-
 // out = epilogue(round(in @ W) + bias), in = LN(x) when LN else x.
 // x: (K,), W: (K, N) row-major, out/resid: (N,). resid may alias out.
 //
@@ -110,10 +93,10 @@ __global__ void __launch_bounds__(GEMV_THREADS)
     int k = warp;
     for (; k + 3 * GEMV_WARPS < rows; k += 4 * GEMV_WARPS) {
       float w0, w1, w2, w3, w4, w5, w6, w7;
-      load2<T>(wp + (size_t)k * N, w0, w1);
-      load2<T>(wp + (size_t)(k + GEMV_WARPS) * N, w2, w3);
-      load2<T>(wp + (size_t)(k + 2 * GEMV_WARPS) * N, w4, w5);
-      load2<T>(wp + (size_t)(k + 3 * GEMV_WARPS) * N, w6, w7);
+      load2(wp + (size_t)k * N, w0, w1);
+      load2(wp + (size_t)(k + GEMV_WARPS) * N, w2, w3);
+      load2(wp + (size_t)(k + 2 * GEMV_WARPS) * N, w4, w5);
+      load2(wp + (size_t)(k + 3 * GEMV_WARPS) * N, w6, w7);
       const float x0 = xs[k], x1 = xs[k + GEMV_WARPS];
       const float x2 = xs[k + 2 * GEMV_WARPS], x3 = xs[k + 3 * GEMV_WARPS];
       a0 = fmaf(x0, w0, a0);
@@ -127,7 +110,7 @@ __global__ void __launch_bounds__(GEMV_THREADS)
     }
     for (; k < rows; k += GEMV_WARPS) {
       float w0, w1;
-      load2<T>(wp + (size_t)k * N, w0, w1);
+      load2(wp + (size_t)k * N, w0, w1);
       a0 = fmaf(xs[k], w0, a0);
       a1 = fmaf(xs[k], w1, a1);
     }
@@ -179,41 +162,41 @@ int gemv(const T* x, const T* ln_g, const T* ln_b, const T* W,
   return (int)cudaGetLastError();
 }
 
-// 8 consecutive values of a row as f32, from one 16-byte (bf16) or two
-// 16-byte (f32) loads; p is 16-byte aligned.
-__device__ __forceinline__ void load8(const bf16* p, float* v) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __low2float(h[i]);
-    v[2 * i + 1] = __high2float(h[i]);
-  }
-}
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// One block per head: write the fresh k/v row of this head into the cache
-// at n_past, then scores over rows 0..n_past in shared memory, an f32
-// softmax, the weights rounded to T (the reference casts them to the V
+// One block per (head, lane): write the fresh k/v row of this head into
+// the cache at n_past, then scores over rows 0..n_past in shared memory, an
+// f32 softmax, the weights rounded to T (the reference casts them to the V
 // dtype), and the context. Each thread scores whole key rows (16-byte
 // loads, many rows in flight); for the context, groups of 8 threads each
 // read one V row with 16-byte loads, and the groups' partial sums are
 // added in a fixed order. The caches are read with coherent loads: the
-// block reads back the row it has just written.
+// block reads back the row it has just written. K1 launches one lane at
+// the slot `n_past`; K7 launches lane b = blockIdx.y on its (S, D) slab at
+// slot n_past_dev[b] (a slot outside the cache writes a NaN context and no
+// cache row).
 template <typename T>
 __global__ void __launch_bounds__(ATT_THREADS)
     attn_decode_kernel(const T* __restrict__ qkv, T* kc, T* vc, int n_past,
-                       int D, float scale, T* __restrict__ ctx) {
+                       const int* __restrict__ n_past_dev, int S, int D,
+                       float scale, T* __restrict__ ctx) {
   constexpr int KG = ATT_THREADS / (HD / 8);  // key groups of the V pass
   extern __shared__ float sc[];  // n_past + 1 scores
   __shared__ float q[HD];
   __shared__ float red[32];
   __shared__ float part[KG][HD + 1];
   const int off = blockIdx.x * HD;
+  if (n_past_dev != nullptr) {
+    const int b = blockIdx.y;
+    n_past = n_past_dev[b];
+    qkv += (size_t)b * 3 * D;
+    kc += (size_t)b * S * D;
+    vc += (size_t)b * S * D;
+    ctx += (size_t)b * D;
+    if (n_past < 0 || n_past >= S) {
+      for (int d = threadIdx.x; d < HD; d += blockDim.x)
+        ctx[off + d] = from_f32<T>(NAN);
+      return;
+    }
+  }
   T* krow = kc + (size_t)n_past * D + off;
   T* vrow = vc + (size_t)n_past * D + off;
   for (int d = threadIdx.x; d < HD; d += blockDim.x) {
@@ -264,14 +247,16 @@ __global__ void __launch_bounds__(ATT_THREADS)
   }
 }
 
-// Attention of one decode step for one layer: one block per head.
+// Attention of one decode step for one layer: one block per head and lane.
 template <typename T>
-int attn_decode_t(const T* qkv, T* kc, T* vc, int n_past, int D, int n_head,
+int attn_decode_t(const T* qkv, T* kc, T* vc, int n_past,
+                  const int* n_past_dev, int B, int S, int D, int n_head,
                   T* ctx, cudaStream_t st) {
   const float scale = (float)(1.0 / sqrt((double)(D / n_head)));
+  const int rows = n_past_dev != nullptr ? S : n_past + 1;
   attn_decode_kernel<T>
-      <<<n_head, ATT_THREADS, (n_past + 1) * sizeof(float), st>>>(
-          qkv, kc, vc, n_past, D, scale, ctx);
+      <<<dim3(n_head, B), ATT_THREADS, rows * sizeof(float), st>>>(
+          qkv, kc, vc, n_past, n_past_dev, S, D, scale, ctx);
   return (int)cudaGetLastError();
 }
 
@@ -292,7 +277,7 @@ __global__ void __launch_bounds__(LM_WARPS * 32)
   float s = 0.0f;
   for (int i = 2 * lane; i < D; i += 64) {
     float a, c;
-    load2<T>(row + i, a, c);
+    load2(row + i, a, c);
     s = fmaf(hs[i], a, s);
     s = fmaf(hs[i + 1], c, s);
   }
@@ -341,8 +326,8 @@ int decode_step_t(const BarkGPTWeights* w, const int* tok, int n_past,
         tickets, st);
     if (err) return err;
     err = attn_decode_t<T>(qkv, kc + l * (size_t)S * D,
-                           vc + l * (size_t)S * D, n_past, D, w->n_head, ctx,
-                           st);
+                           vc + l * (size_t)S * D, n_past, nullptr, 1, S, D,
+                           w->n_head, ctx, st);
     if (err) return err;
     err = gemv<T, EPI_RESID, false>(
         ctx, nullptr, nullptr, (const T*)w->proj_w + l * LD * D,
@@ -373,11 +358,26 @@ extern "C" int bark_launch_attn_decode(int dtype, const void* qkv,
                                        void* ctx, cudaStream_t stream) {
   if (dtype == BARK_BF16)
     return attn_decode_t<bf16>((const bf16*)qkv, (bf16*)k_cache,
-                               (bf16*)v_cache, n_past, D, n_head, (bf16*)ctx,
-                               stream);
+                               (bf16*)v_cache, n_past, nullptr, 1, 0, D,
+                               n_head, (bf16*)ctx, stream);
   return attn_decode_t<float>((const float*)qkv, (float*)k_cache,
-                              (float*)v_cache, n_past, D, n_head, (float*)ctx,
-                              stream);
+                              (float*)v_cache, n_past, nullptr, 1, 0, D,
+                              n_head, (float*)ctx, stream);
+}
+
+extern "C" int bark_launch_attn_decode_batched(int dtype, const void* qkv,
+                                               void* k_cache, void* v_cache,
+                                               const int* n_past, int B,
+                                               int S, int D, int n_head,
+                                               void* ctx,
+                                               cudaStream_t stream) {
+  if (dtype == BARK_BF16)
+    return attn_decode_t<bf16>((const bf16*)qkv, (bf16*)k_cache,
+                               (bf16*)v_cache, 0, n_past, B, S, D, n_head,
+                               (bf16*)ctx, stream);
+  return attn_decode_t<float>((const float*)qkv, (float*)k_cache,
+                              (float*)v_cache, 0, n_past, B, S, D, n_head,
+                              (float*)ctx, stream);
 }
 
 extern "C" int bark_launch_lm_head(const BarkGPTWeights* w, const void* x_row,

@@ -1,7 +1,9 @@
-// K2: causal prefill of n_valid rows into the decode caches.
+// K2: causal prefill of n_valid rows into the decode caches, and K8, the
+// same for B lanes at once.
 //
 // Replaces bark_tpu/kernels/prefill.py `prefill_fused` (the Pallas kernel
-// `_prefill_kernel`, layer loop `_lane_layers`): x = x_emb + wpe, then
+// `_prefill_kernel`, layer loop `_lane_layers`) and `prefill_fused_batched`
+// (`_prefill_kernel_batched`): x = x_emb + wpe, then
 // L x [LN1 -> QKV (k, v rows written into cache[l, row]) -> causal
 // attention -> proj + residual -> LN2 -> fc -> tanh-GELU -> out + residual],
 // then ln_f and the LM head of row n_valid-1 over [lo, hi) (K1's kernel).
@@ -27,6 +29,16 @@
 // does), V tiles through shared memory for the context. Not yet done:
 // wgmma/TMA pipelines, fusing LN into the GEMM prologue, a flash-style
 // single pass.
+//
+// K8 stacks the B lanes' live rows into one M = sum(n_valid) row block, so
+// each projection is ONE GEMM whose weights stream once for every lane
+// (the bound is K2's, with T = M). Only three places need the lane, and
+// read it from small host-built tables (`RowMap`): the embedding (which
+// x_emb row and position a stacked row has), the QKV epilogue (which cache
+// row of which lane's slab its k, v go to), and attention, whose query
+// tiles never straddle two lanes and each read their own lane's cache slab
+// and n_valid. The LM head is K7's batched head on each lane's last live
+// row.
 #include <mma.h>
 
 #include "common.cuh"
@@ -54,13 +66,30 @@ constexpr int C_LD = BN + 4;     // f32 output tile
 constexpr int GEMM_SMEM =
     BK * A_LD32 * 4 + BK * B_LD32 * 4 + BM * C_LD * 4;  // f32 path, largest
 
+// Where each stacked row of a batched prefill (K8) comes from and goes to,
+// as device int32 tables; every pointer is null for K2's one lane (stacked
+// row m is then row m, position m, cache row m, and the query tiles are
+// consecutive).
+struct RowMap {
+  const int* src;     // (M,) x_emb row of stacked row m: lane * T + pos
+  const int* pos;     // (M,) its position
+  const int* slot;    // (M,) its cache row in the layer's (B, S, D) slabs
+  const int* tiles;   // (n_tiles, 3): lane, first query row, lane's row 0
+  const int* lane_n;  // (B,) live rows of each lane
+  const int* last;    // (B,) stacked row of each lane's last live row
+};
+
 template <typename T>
 __global__ void embed_rows_kernel(const T* __restrict__ x_emb,
                                   const T* __restrict__ wpe, int n, int D,
-                                  T* __restrict__ x) {
+                                  RowMap map, T* __restrict__ x) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < (size_t)n * D)
-    x[i] = from_f32<T>(round_t<T>(to_f32(x_emb[i]) + to_f32(wpe[i])));
+  if (i >= (size_t)n * D) return;
+  const int m = (int)(i / D), d = (int)(i % D);
+  const size_t src = map.src != nullptr ? map.src[m] : m;
+  const size_t pos = map.pos != nullptr ? map.pos[m] : m;
+  x[i] = from_f32<T>(round_t<T>(to_f32(x_emb[src * D + d]) +
+                                to_f32(wpe[pos * D + d])));
 }
 
 template <typename T>
@@ -77,9 +106,10 @@ __global__ void __launch_bounds__(LN_THREADS)
 
 struct GemmOut {
   void* out;     // GELU: (M, N); RESID: x (M, N), updated in place; QKV: q (M, D)
-  void* kc;      // QKV: this layer's (S, D) cache slabs
+  void* kc;      // QKV: this layer's (S, D) cache slabs, (B, S, D) for K8
   void* vc;
   int D;         // QKV: model width
+  const int* slot;  // QKV: cache row of each stacked row (null: row m)
 };
 
 // C = A (M, K) @ B (K, N), both row-major in T, f32 accumulate; rows >= M
@@ -186,8 +216,9 @@ __global__ void __launch_bounds__(GEMM_THREADS)
     v = round_t<T>(v + to_f32(bias[n]));
     if (EPI == GE_QKV) {
       const int D = o.D, which = n / D, col = n % D;
+      const size_t row = which == 0 || o.slot == nullptr ? m : o.slot[m];
       T* dst = which == 0 ? (T*)o.out : (which == 1 ? (T*)o.kc : (T*)o.vc);
-      dst[(size_t)m * D + col] = from_f32<T>(v);
+      dst[row * D + col] = from_f32<T>(v);
     } else if (EPI == GE_GELU) {
       ((T*)o.out)[(size_t)m * N + n] = from_f32<T>(round_t<T>(gelu_tanh(v)));
     } else {
@@ -198,17 +229,31 @@ __global__ void __launch_bounds__(GEMM_THREADS)
 }
 
 // Causal attention for query rows [r0, r0+QT) of one head over keys
-// [0, min(r0+QT, n)). Dynamic shared memory: QT x ld f32 scores.
+// [0, min(r0+QT, n)). Dynamic shared memory: QT x ld f32 scores. With
+// map.tiles (K8) the tile's lane, r0 and stacked row of the lane's row 0
+// come from the table, and the lane's (S, D) cache slab and n_valid are
+// used.
 template <typename T>
 __global__ void __launch_bounds__(PA_THREADS)
     attn_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                        const T* __restrict__ vc, int n, int D, int ld,
-                        float scale, T* __restrict__ ctx) {
+                        const T* __restrict__ vc, int n, int S, int D,
+                        int ld, float scale, RowMap map,
+                        T* __restrict__ ctx) {
   extern __shared__ float sc[];
   __shared__ float qs[QT][HD + 1];
   __shared__ float ts[KT][HD + 1];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int off = blockIdx.x * HD, r0 = blockIdx.y * QT;
+  const int off = blockIdx.x * HD;
+  int r0 = blockIdx.y * QT;
+  if (map.tiles != nullptr) {
+    const int* t = map.tiles + 3 * blockIdx.y;
+    n = map.lane_n[t[0]];
+    kc += (size_t)t[0] * S * D;
+    vc += (size_t)t[0] * S * D;
+    r0 = t[1];
+    q += (size_t)t[2] * D;
+    ctx += (size_t)t[2] * D;
+  }
   const int nq = min(QT, n - r0);
   const int kmax = min(r0 + QT, n);
   for (int idx = tid; idx < QT * HD; idx += PA_THREADS) {
@@ -288,21 +333,24 @@ int gemm(const T* A, const T* B, const T* bias, int M, int N, int K,
   return (int)cudaGetLastError();
 }
 
+// The prefill of M stacked rows of B lanes (K2: B = 1, M = n_valid, a null
+// map); max_n is the longest lane's n_valid, n_tiles the attention's query
+// tiles.
 template <typename T>
-int prefill_t(const BarkGPTWeights* w, const void* x_emb, int n_valid,
-              void* k_cache, void* v_cache, void* x_, void* hb_, void* q_,
-              void* ctx_, void* ff_, float* logits, int lo, int hi,
-              cudaStream_t st) {
+int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
+              int max_n, int n_tiles, const RowMap& map, void* k_cache,
+              void* v_cache, void* x_, void* hb_, void* q_, void* ctx_,
+              void* ff_, float* logits, int lo, int hi, cudaStream_t st) {
   const int L = w->n_layer, D = w->n_embd, S = w->block_size;
   const int V = w->n_out_vocab;
-  const size_t LD = (size_t)D;
+  const size_t LD = (size_t)D, slab = (size_t)B * S * D;
   T* x = (T*)x_;
   T* hb = (T*)hb_;
   T* qb = (T*)q_;
   T* ctx = (T*)ctx_;
   T* ff = (T*)ff_;
   const float scale = (float)(1.0 / sqrt((double)(D / w->n_head)));
-  const int ld = cdiv(n_valid, 4) * 4;
+  const int ld = cdiv(max_n, 4) * 4;
   const size_t att_smem = (size_t)QT * ld * sizeof(float);
   // up to QT x 1024 scores (64 KB) beyond the default 48 KB window; set on
   // every call (one host call), so that it holds on whatever device is
@@ -311,46 +359,47 @@ int prefill_t(const BarkGPTWeights* w, const void* x_emb, int n_valid,
       attn_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       QT * 1024 * (int)sizeof(float));
   if (err) return err;
-  const int total = n_valid * D;
+  const int total = M * D;
   embed_rows_kernel<T><<<cdiv(total, 256), 256, 0, st>>>(
-      (const T*)x_emb, (const T*)w->wpe, n_valid, D, x);
+      (const T*)x_emb, (const T*)w->wpe, M, D, map, x);
   err = (int)cudaGetLastError();
   if (err) return err;
   for (int l = 0; l < L; ++l) {
-    T* kc = (T*)k_cache + l * (size_t)S * D;
-    T* vc = (T*)v_cache + l * (size_t)S * D;
-    ln_rows_kernel<T><<<n_valid, LN_THREADS, D * sizeof(float), st>>>(
+    T* kc = (T*)k_cache + l * slab;
+    T* vc = (T*)v_cache + l * slab;
+    ln_rows_kernel<T><<<M, LN_THREADS, D * sizeof(float), st>>>(
         x, (const T*)w->ln1_g + l * LD, (const T*)w->ln1_b + l * LD, D, hb);
     err = gemm<T, GE_QKV>(hb, (const T*)w->qkv_w + l * LD * 3 * D,
-                          (const T*)w->qkv_b + l * 3 * LD, n_valid, 3 * D, D,
-                          GemmOut{qb, kc, vc, D}, st);
+                          (const T*)w->qkv_b + l * 3 * LD, M, 3 * D, D,
+                          GemmOut{qb, kc, vc, D, map.slot}, st);
     if (err) return err;
     attn_prefill_kernel<T>
-        <<<dim3(w->n_head, cdiv(n_valid, QT)), PA_THREADS, att_smem, st>>>(
-            qb, kc, vc, n_valid, D, ld, scale, ctx);
+        <<<dim3(w->n_head, n_tiles), PA_THREADS, att_smem, st>>>(
+            qb, kc, vc, M, S, D, ld, scale, map, ctx);
     err = (int)cudaGetLastError();
     if (err) return err;
     err = gemm<T, GE_RESID>(ctx, (const T*)w->proj_w + l * LD * D,
-                            (const T*)w->proj_b + l * LD, n_valid, D, D,
-                            GemmOut{x, nullptr, nullptr, D}, st);
+                            (const T*)w->proj_b + l * LD, M, D, D,
+                            GemmOut{x, nullptr, nullptr, D, nullptr}, st);
     if (err) return err;
-    ln_rows_kernel<T><<<n_valid, LN_THREADS, D * sizeof(float), st>>>(
+    ln_rows_kernel<T><<<M, LN_THREADS, D * sizeof(float), st>>>(
         x, (const T*)w->ln2_g + l * LD, (const T*)w->ln2_b + l * LD, D, hb);
     err = gemm<T, GE_GELU>(hb, (const T*)w->fc_w + l * LD * 4 * D,
-                           (const T*)w->fc_b + l * 4 * LD, n_valid, 4 * D, D,
-                           GemmOut{ff, nullptr, nullptr, D}, st);
+                           (const T*)w->fc_b + l * 4 * LD, M, 4 * D, D,
+                           GemmOut{ff, nullptr, nullptr, D, nullptr}, st);
     if (err) return err;
     err = gemm<T, GE_RESID>(ff, (const T*)w->out_w + l * LD * 4 * D,
-                            (const T*)w->out_b + l * LD, n_valid, D, 4 * D,
-                            GemmOut{x, nullptr, nullptr, D}, st);
+                            (const T*)w->out_b + l * LD, M, D, 4 * D,
+                            GemmOut{x, nullptr, nullptr, D, nullptr}, st);
     if (err) return err;
   }
   if (lo > 0 || hi < V) {
-    err = (int)cudaMemsetAsync(logits, 0, V * sizeof(float), st);
+    err = (int)cudaMemsetAsync(logits, 0, (size_t)B * V * sizeof(float), st);
     if (err) return err;
   }
-  return bark_launch_lm_head(w, x + (size_t)(n_valid - 1) * D, logits, lo, hi,
-                             st);
+  if (map.last != nullptr)
+    return bark_launch_lm_head_batched(w, x, map.last, B, logits, lo, hi, st);
+  return bark_launch_lm_head(w, x + (size_t)(M - 1) * D, logits, lo, hi, st);
 }
 
 }  // namespace
@@ -369,9 +418,42 @@ extern "C" int bark_prefill(const BarkGPTWeights* w, const void* x_emb,
   if (w->n_embd / w->n_head != HD || w->n_embd % BN || n_valid <= 0 ||
       n_valid > w->block_size || w->block_size > 1024)
     return -1;
+  const RowMap map{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  const int n_tiles = cdiv(n_valid, QT);
   if (w->dtype == BARK_BF16)
-    return prefill_t<bf16>(w, x_emb, n_valid, k_cache, v_cache, x, hb, q, ctx,
-                           ff, logits, lo, hi, stream);
-  return prefill_t<float>(w, x_emb, n_valid, k_cache, v_cache, x, hb, q, ctx,
-                          ff, logits, lo, hi, stream);
+    return prefill_t<bf16>(w, x_emb, 1, n_valid, n_valid, n_tiles, map,
+                           k_cache, v_cache, x, hb, q, ctx, ff, logits, lo,
+                           hi, stream);
+  return prefill_t<float>(w, x_emb, 1, n_valid, n_valid, n_tiles, map,
+                          k_cache, v_cache, x, hb, q, ctx, ff, logits, lo, hi,
+                          stream);
+}
+
+// K8. Returns as bark_prefill. x_emb is (B, T, D); the caches are
+// (L, B, S, D); `tables` is one device int32 buffer holding, in order,
+// src, pos, slot (M each), tiles (3 * n_tiles), lane_n and last (B each)
+// of `RowMap`, for M = sum(lane_n) stacked rows; max_n = max(lane_n) and
+// n_tiles = sum(ceil(lane_n / 16)) (query tiles of 16 rows). x, hb, q,
+// ctx (M, D) and ff (M, 4D) are scratch in the params dtype; logits (B,
+// n_out_vocab) f32 are those of each lane's last live row, zero outside
+// [lo, hi).
+extern "C" int bark_prefill_batched(const BarkGPTWeights* w,
+                                    const void* x_emb, int B, int M,
+                                    int max_n, int n_tiles, const int* tables,
+                                    void* k_cache, void* v_cache, void* x,
+                                    void* hb, void* q, void* ctx, void* ff,
+                                    float* logits, int lo, int hi,
+                                    cudaStream_t stream) {
+  if (w->n_embd / w->n_head != HD || w->n_embd % BN || B <= 0 || M <= 0 ||
+      max_n <= 0 || max_n > w->block_size || w->block_size > 1024 ||
+      n_tiles <= 0)
+    return -1;
+  const RowMap map{tables, tables + M, tables + 2 * M, tables + 3 * M,
+                   tables + 3 * M + 3 * n_tiles,
+                   tables + 3 * M + 3 * n_tiles + B};
+  if (w->dtype == BARK_BF16)
+    return prefill_t<bf16>(w, x_emb, B, M, max_n, n_tiles, map, k_cache,
+                           v_cache, x, hb, q, ctx, ff, logits, lo, hi, stream);
+  return prefill_t<float>(w, x_emb, B, M, max_n, n_tiles, map, k_cache,
+                          v_cache, x, hb, q, ctx, ff, logits, lo, hi, stream);
 }

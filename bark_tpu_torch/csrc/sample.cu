@@ -1,21 +1,24 @@
 // K3/K4 sampling and embedding: the in-kernel sampler and token embed of
 // bark_tpu/kernels/semantic.py `semantic_chunk_fused` (`_semantic_kernel`)
-// and bark_tpu/kernels/window.py `coarse_window_fused` (`_window_kernel`).
+// and bark_tpu/kernels/window.py `coarse_window_fused` (`_window_kernel`);
+// the sampler also serves B lanes in one launch for K9 and K10, the
+// batched kernels (`_semantic_kernel_batched`, `_window_kernel_batched`).
 //
-// sample_window: one block reduces logits[base : base+n] / temp + noise to
-// the argmax, lowest index winning ties as jnp.argmax does, and in the same
-// launch the EOS mass softmax(logits / temp')[last] (temp' = temp, or 0.7 at
-// temp 0: the reference's hardcoded divide). It writes the token (base +
-// index, offset-carrying for the coarse window) and the stop flag to device
-// memory, so a chunk or window never waits on the host.
+// sample_rows: block b reduces lane b's logits[base : base+n] / temp +
+// noise to the argmax, lowest index winning ties as jnp.argmax does, and
+// in the same launch the EOS mass softmax(logits / temp')[last] (temp' =
+// temp, or 0.7 at temp 0: the reference's hardcoded divide). It writes
+// the token (base + index, offset-carrying for the coarse window) and the
+// stop flag to device memory, so a chunk or window never waits on the
+// host.
 //
 // embed_token: x = wte[tok] + wpe[n_past], reading tok from device memory.
 //
-// What bounds them: neither moves more than 40 KB (a 10048-wide logit row
-// and its noise row, or one embedding row), so both are bound by launch
-// latency, not by bandwidth or arithmetic. The design keeps each to a
-// single block and a single launch, with no host round trip; removing the
-// launches altogether (folding them into the decode step, or a CUDA graph
+// What bounds them: neither moves more than 40 KB per lane (a 10048-wide
+// logit row and its noise row, or one embedding row), so both are bound by
+// launch latency, not by bandwidth or arithmetic. The design keeps each to
+// one block per lane and a single launch, with no host round trip;
+// removing the launches altogether (folding them into the decode step, or a CUDA graph
 // over the whole chunk) is later work.
 #include <limits.h>
 
@@ -55,11 +58,13 @@ __device__ __forceinline__ void argmax_merge(float& v, int& i, float ov,
 }
 
 __global__ void __launch_bounds__(SAMPLE_THREADS)
-    sample_window_kernel(const float* __restrict__ logits, int base, int n,
-                         const float* __restrict__ noise, float temp,
-                         int with_eos, int stop_token, float min_eos_p,
-                         int* __restrict__ tok_out,
-                         int* __restrict__ flag_out) {
+    sample_rows_kernel(const float* __restrict__ logits, int ld_logits,
+                       int base, int n, const float* __restrict__ noise,
+                       int ld_noise, float temp, int with_eos, int stop_token,
+                       float min_eos_p, int* __restrict__ tok_out,
+                       int* __restrict__ flag_out) {
+  logits += (size_t)blockIdx.x * ld_logits;
+  if (noise != nullptr) noise += (size_t)blockIdx.x * ld_noise;
   __shared__ float rv[32];
   __shared__ int ri[32];
   __shared__ float red[32];
@@ -117,9 +122,10 @@ __global__ void __launch_bounds__(SAMPLE_THREADS)
   }
   if (threadIdx.x == 0) {
     const int tok = base + (bi == INT_MAX ? 0 : bi);
-    tok_out[0] = tok;
+    tok_out[blockIdx.x] = tok;
     if (flag_out != nullptr)
-      flag_out[0] = (int)(with_eos && (tok == stop_token || eos_p >= min_eos_p));
+      flag_out[blockIdx.x] =
+          (int)(with_eos && (tok == stop_token || eos_p >= min_eos_p));
   }
 }
 
@@ -139,18 +145,20 @@ extern "C" int bark_launch_embed_token(const BarkGPTWeights* w,
   return (int)cudaGetLastError();
 }
 
-// tok_out[0] = base + argmax(logits[base:base+n] / temp + noise) (argmax of
-// the logits at temp 0; noise may be null then). With with_eos, flag_out[0]
-// = tok == stop_token or softmax(logits[base:base+n] / temp')[n-1] >=
-// min_eos_p. flag_out may be null.
-extern "C" int bark_sample_window(const float* logits, int base, int n,
-                                  const float* noise, float temp, int with_eos,
-                                  int stop_token, float min_eos_p,
-                                  int* tok_out, int* flag_out,
-                                  cudaStream_t stream) {
-  if (n <= 0 || (temp != 0.0f && noise == nullptr)) return -1;
-  sample_window_kernel<<<1, SAMPLE_THREADS, 0, stream>>>(
-      logits, base, n, noise, temp, with_eos, stop_token, min_eos_p, tok_out,
-      flag_out);
+// For each lane b < B, with its logits row at logits + b * ld_logits and
+// its noise row at noise + b * ld_noise: tok_out[b] = base +
+// argmax(logits[base:base+n] / temp + noise[0:n]) (argmax of the logits at
+// temp 0; noise may be null then). With with_eos, flag_out[b] = tok ==
+// stop_token or softmax(logits[base:base+n] / temp')[n-1] >= min_eos_p.
+// flag_out may be null.
+extern "C" int bark_sample_rows(const float* logits, int ld_logits, int base,
+                                int n, const float* noise, int ld_noise,
+                                float temp, int with_eos, int stop_token,
+                                float min_eos_p, int B, int* tok_out,
+                                int* flag_out, cudaStream_t stream) {
+  if (n <= 0 || B <= 0 || (temp != 0.0f && noise == nullptr)) return -1;
+  sample_rows_kernel<<<B, SAMPLE_THREADS, 0, stream>>>(
+      logits, ld_logits, base, n, noise, ld_noise, temp, with_eos, stop_token,
+      min_eos_p, tok_out, flag_out);
   return (int)cudaGetLastError();
 }

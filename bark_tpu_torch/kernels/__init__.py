@@ -6,7 +6,12 @@ that run their plain PyTorch version on CPU tensors:
 - prefill: K2, causal prefill into the decode caches
 - semantic: K3, a chunk of semantic steps with sampling and the EOS test
 - window: K4, one coarse sliding window
-- sample: the sampler launch that K3 and K4 share
+- sample: the sampler launch that K3 and K4 share, and K9 and K10 over B
+  lanes
+- bdecode: K7, one decode step of B lanes (each weight read once for all)
+- bprefill: K8, B lanes' prefills stacked into one row block
+- bsemantic: K9, a chunk of semantic steps of B lanes in lockstep
+- bwindow: K10, one coarse sliding window of B lanes
 
 Each module keeps `launches`, the count of kernel launches through its
 wrapper (never of plain-version calls).
@@ -17,7 +22,7 @@ from __future__ import annotations
 import importlib
 
 KERNEL_MODULES = ("decode", "qdecode", "prefill", "semantic", "window",
-                  "sample")
+                  "sample", "bdecode", "bprefill", "bsemantic", "bwindow")
 
 
 def _modules():

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -92,9 +93,18 @@ _SIGNATURES = {
     # (weights*, x_emb, n_valid, kc, vc, x, hb, q, ctx, ff, logits, lo, hi,
     #  stream)
     "bark_prefill": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # (logits, base, n, noise, temp, with_eos, stop_token, min_eos_p,
-    #  tok_out, flag_out, stream)
-    "bark_sample_window": [_P, _I, _I, _P, _F, _I, _I, _F, _P, _P, _P],
+    # (weights*, B, tok*, n_past*, kc, vc, x, qkv, ctx, h, partial, tickets,
+    #  logits, lo, hi, stream)
+    "bark_decode_step_batched": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _I, _I, _P],
+    # (weights*, x_emb, B, M, max_n, n_tiles, tables, kc, vc, x, hb, q, ctx,
+    #  ff, logits, lo, hi, stream)
+    "bark_prefill_batched": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _I, _I, _P],
+    # (logits, ld_logits, base, n, noise, ld_noise, temp, with_eos,
+    #  stop_token, min_eos_p, B, tok_out, flag_out, stream)
+    "bark_sample_rows": [_P, _I, _I, _I, _P, _I, _F, _I, _I, _F, _I, _P, _P,
+                         _P],
 }
 
 
@@ -305,19 +315,27 @@ class StageWeights:
         return all(r() is not None for r in self._refs.values())
 
     def scratch(self, name: str, *shape, dtype=None):
-        """A reused scratch tensor (params dtype unless `dtype`); int32
-        scratch starts zeroed (the kernels leave their tickets at 0)."""
+        """A reused scratch tensor of `shape` (params dtype unless
+        `dtype`), a view of a flat buffer that grows to the largest size
+        asked for under `name`; int32 scratch starts zeroed (the kernels
+        leave their tickets at 0)."""
+        dtype = dtype or self.dtype
+        numel = math.prod(shape)
         t = self._scratch.get(name)
-        if t is None or tuple(t.shape) != shape:
-            dtype = dtype or self.dtype
+        if t is None or t.numel() < numel or t.dtype != dtype:
             t = (torch.zeros if dtype == torch.int32 else torch.empty)(
-                shape, dtype=dtype, device=self.device)
+                (numel,), dtype=dtype, device=self.device)
             self._scratch[name] = t
-        return t
+        return t[:numel].view(shape)
 
-    def check_cache(self, k_cache, v_cache):
+    def check_cache(self, k_cache, v_cache, batch=None):
+        """Raise unless the caches are contiguous (L, S, D), or
+        (L, batch, S, D) when `batch` is given, in the params dtype on the
+        params' device."""
         cfg = self.cfg
         shape = (cfg.n_layer, cfg.block_size, cfg.n_embd)
+        if batch is not None:
+            shape = (cfg.n_layer, batch, *shape[1:])
         for t in (k_cache, v_cache):
             if (tuple(t.shape) != shape or t.dtype != self.dtype
                     or t.device != self.device or not t.is_contiguous()):
@@ -356,6 +374,16 @@ def stage_qweights(cfg, qpack) -> StageWeights:
     if not is_qpack(qpack):
         raise ValueError("stage_qweights takes a qpack, got dense params")
     return _stage(cfg, qpack)
+
+
+def device_ints(values, device):
+    """An int32 tensor of `values` on `device`, uploaded from pinned host
+    memory without waiting for the stream: the kernels read it in stream
+    order, so the host never stalls on the device for a slot table."""
+    host = torch.tensor(values, dtype=torch.int32)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
 
 
 def f32_on(t, device, n: int, name: str):

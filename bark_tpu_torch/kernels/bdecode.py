@@ -1,0 +1,105 @@
+"""K7: one token through every layer of a GPT stage for B lanes at once.
+
+The counterpart of `bark_tpu.kernels.decode.decode_step_fused_batched`. On
+CUDA tensors the wrapper launches the hand-written kernels of
+`csrc/bdecode.cu` through one C call per step: each weight streams once
+for all B lanes, every lane decodes at its own slot `n_past[b]` and writes
+its K/V row at `[l, b, n_past[b]]` of the flat (L, B, S, D) caches. On CPU
+tensors the plain version runs: `gpt.decode_step` on each lane's (L, S, D)
+view at its own slot, which is what the JAX package's off-TPU `vmap`
+computes. A CUDA tensor the kernel does not take raises (head_dim != 64,
+n_embd % 64, more than MAX_LANES lanes, a packed-quantized stage); there
+is no other path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bark_tpu_torch.kernels import _build
+from bark_tpu_torch.kernels.decode import decode_step_plain
+from bark_tpu_torch.models import gpt
+from bark_tpu_torch.models.config import GPTConfig
+
+MAX_LANES = 32  # lanes one batched step takes (csrc/bdecode.cu MAX_LANES)
+
+launches = 0  # kernel launches through `decode_step_fused_batched`
+
+
+def _host_ints(v):
+    return v.tolist() if torch.is_tensor(v) else [int(x) for x in v]
+
+
+def decode_step_batched_plain(cfg: GPTConfig, params, tokens, k_cache,
+                              v_cache, n_past, lm_window=None):
+    """The plain PyTorch version of K7: `decode_step_plain` (K1's) on each
+    lane's (L, S, D) cache view at its own slot; (B, n_out_vocab) f32."""
+    return torch.stack([
+        decode_step_plain(cfg, params, t, k_cache[:, b], v_cache[:, b], n,
+                          lm_window)
+        for b, (t, n) in enumerate(zip(_host_ints(tokens),
+                                       _host_ints(n_past)))
+    ])
+
+
+def lane_ints(v, B: int, device, name: str, hi: int):
+    """A (B,) int32 tensor on `device` for a kernel to read: a tensor there
+    is taken as it is (its values are not checked on the host: the kernels
+    turn an out-of-range token or slot into NaN, never into a stray
+    write); B Python ints are checked against [0, hi) and uploaded."""
+    if torch.is_tensor(v) and v.device == device:
+        if v.numel() != B:
+            raise ValueError(f"{name}: want {B} values, got {v.numel()}")
+        return v.reshape(B).to(torch.int32).contiguous()
+    vals = _host_ints(v)
+    if len(vals) != B or not all(0 <= x < hi for x in vals):
+        raise ValueError(f"{name}: want {B} values in [0, {hi}), got {vals}")
+    return _build.device_ints(vals, device)
+
+
+def decode_step_fused_batched(cfg: GPTConfig, params, tokens, k_cache,
+                              v_cache, n_past, *, lm_window=None, out=None):
+    """One decode step of B lanes. `tokens` and `n_past` are (B,) int
+    tensors on the caches' device (read there by the kernel) or B ints;
+    lane b decodes tokens[b] at slot n_past[b] and writes K/V row
+    n_past[b] of lane b of every layer of the (L, B, S, D) caches in
+    place. Returns the (B, n_out_vocab) f32 logits (into `out` when
+    given), zero outside lm_window."""
+    global launches
+    if k_cache.device.type == "cpu":
+        return decode_step_batched_plain(cfg, params, tokens, k_cache,
+                                         v_cache, n_past, lm_window)
+    if gpt.is_qpack(params):
+        raise NotImplementedError(
+            "packed-quantized weights on the batched decode step (K7 with "
+            "quant=True) are not ported yet")
+    w = _build.stage_weights(cfg, params)
+    B = k_cache.shape[1] if k_cache.dim() == 4 else 0
+    if not 1 <= B <= MAX_LANES:
+        raise ValueError(f"batched caches: want (L, B, S, D) with 1 <= B <= "
+                         f"{MAX_LANES}, got {tuple(k_cache.shape)}")
+    w.check_cache(k_cache, v_cache, batch=B)
+    V, D = cfg.n_out_vocab, cfg.n_embd
+    lo, hi = lm_window if lm_window is not None else (0, V)
+    if not 0 <= lo <= hi <= V:
+        raise ValueError(f"lm_window {lm_window} outside [0, {V}]")
+    tok = lane_ints(tokens, B, w.device, "tokens", cfg.n_in_vocab)
+    npt = lane_ints(n_past, B, w.device, "n_past", cfg.block_size)
+    if out is None:
+        out = torch.empty((B, V), dtype=torch.float32, device=w.device)
+    if tuple(out.shape) != (B, V):
+        raise ValueError(f"out: want ({B}, {V}), got {tuple(out.shape)}")
+    _build.f32_on(out, w.device, B * V, "logits")
+    rc = _build.lib().bark_decode_step_batched(
+        w.ref, B, tok.data_ptr(), npt.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), w.scratch("x", B, D).data_ptr(),
+        w.scratch("qkv", B, 3 * D).data_ptr(),
+        w.scratch("ctx", B, D).data_ptr(),
+        w.scratch("h", B, 4 * D).data_ptr(),
+        w.scratch("partial", B << 16, dtype=torch.float32).data_ptr(),
+        w.scratch("tickets", 1024, dtype=torch.int32).data_ptr(),
+        out.data_ptr(), lo, hi, _build.stream_ptr(w.device),
+    )
+    _build.check("decode_step_fused_batched", rc)
+    launches += 1
+    return out

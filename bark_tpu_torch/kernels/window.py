@@ -26,7 +26,8 @@ from bark_tpu_torch.ops import sampling
 launches = 0  # launches of the window kernels through `coarse_window_fused`
 
 
-def _base(step: int, svs: int, cbs: int) -> int:
+def codebook_base(step: int, svs: int, cbs: int) -> int:
+    """The first logit of global step `step`'s codebook window."""
     return svs + (0 if step % 2 == 0 else cbs)
 
 
@@ -38,7 +39,7 @@ def coarse_window_plain(cfg: GPTConfig, params, logits0, k_cache, v_cache,
     svs, cbs = semantic_vocab_size, codebook_size
     logits, toks = logits0, []
     for j in range(sws):
-        base = _base(step_idx0 + j, svs, cbs)
+        base = codebook_base(step_idx0 + j, svs, cbs)
         rel_tok, _ = sampling.sample(
             logits[base:base + cbs], temp, None if temp == 0.0 else noise[j]
         )
@@ -78,7 +79,7 @@ def coarse_window_fused(cfg: GPTConfig, params, logits0, k_cache, v_cache,
     buf = _build.f32_on(logits0, dev, V, "logits0").clone()
     toks = torch.empty((sws,), dtype=torch.int32, device=dev)
     for j in range(sws):
-        sample_window(buf, _base(step_idx0 + j, svs, cbs), cbs,
+        sample_window(buf, codebook_base(step_idx0 + j, svs, cbs), cbs,
                       None if temp == 0.0 else noise[j], temp,
                       toks[j:j + 1])
         decode_step_fused(cfg, params, toks[j:j + 1], k_cache, v_cache,

@@ -50,9 +50,14 @@ from bark_tpu_torch.models.config import EPS_NORM, GPTConfig
 Params = Dict[str, object]
 
 
-def init_kv_cache(cfg: GPTConfig, dtype, device):
-    """(k, v) caches shaped (L, block_size, n_embd), zero-filled."""
+def init_kv_cache(cfg: GPTConfig, dtype, device, batch=None):
+    """(k, v) caches shaped (L, block_size, n_embd), or (L, batch,
+    block_size, n_embd) for `batch` lanes (the flat layout of the JAX
+    package's batched caches; lane b's (L, S, D) view is `cache[:, b]`),
+    zero-filled."""
     shape = (cfg.n_layer, cfg.block_size, cfg.n_embd)
+    if batch is not None:
+        shape = (cfg.n_layer, batch, *shape[1:])
     return (
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),
@@ -187,13 +192,14 @@ def logits_last(cfg: GPTConfig, params: Params, hidden_last):
 
 
 def embed_prompt_merged(cfg: GPTConfig, params: Params, tokens513):
-    """merge_ctx embedding of the 513-token semantic prompt -> (257, D)."""
+    """merge_ctx embedding of the 513-token semantic prompt -> (257, D);
+    (B, 513) prompts give (B, 257, D)."""
     wte = params["wte"][0]
     t = tokens513.long()
-    text = wte[t[:256]]
-    hist = wte[t[256:512]]
-    infer = wte[t[512:]]
-    return torch.cat([text + hist, infer], dim=0)
+    text = wte[t[..., :256]]
+    hist = wte[t[..., 256:512]]
+    infer = wte[t[..., 512:]]
+    return torch.cat([text + hist, infer], dim=-2)
 
 
 def prefill(cfg: GPTConfig, params: Params, x_emb, k_caches, v_caches,

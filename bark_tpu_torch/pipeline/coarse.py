@@ -24,6 +24,8 @@ from typing import Tuple
 
 import torch
 
+from bark_tpu_torch.kernels import bprefill as kbpre
+from bark_tpu_torch.kernels import bwindow as kbwin
 from bark_tpu_torch.kernels import prefill as kpre
 from bark_tpu_torch.kernels import window as kwin
 from bark_tpu_torch.io import loader
@@ -124,6 +126,83 @@ def make_coarse_stage_program(cfg: GPTConfig, bparams: BarkContextParams, *,
         codes = out[:n_steps].reshape(-1, n_cc) - svs
         codes = codes - torch.arange(n_cc, dtype=torch.int32,
                                      device=device)[None, :] * cbs
+        return codes, n_steps
+
+    return run
+
+
+def make_coarse_stage_program_batched(cfg: GPTConfig,
+                                      bparams: BarkContextParams, *,
+                                      ctx_size: int):
+    """The counterpart of `bark_tpu.pipeline.coarse.
+    make_coarse_stage_program_batched`, with the empty voice history: the
+    lanes share the window counter, and each window is one K8 prefill of
+    the running lanes' contexts and one K10 window over them.
+
+    fn(params, sems: B (n_sem_b,) int tensors, noises: B (n_windows_b,
+    sws, codebook_size) f32 tensors or None at temp 0) -> (codes: B
+    (n_steps_b // n_cc, n_cc) int32 de-offset tensors, n_steps: B ints).
+    Lane b's codes are those of `make_coarse_stage_program` given
+    noises[b]. Where the JAX program keeps decoding a lane past its own
+    n_steps and masks what it writes, this one leaves such a lane out of
+    the later windows: the lanes are ordered by n_steps, longest first, so
+    a window's running lanes are a leading slice of every per-lane tensor
+    (no gather, no host round trip). Dense params only."""
+    p = bparams
+    num, den = stc_fraction(p)
+    n_cc, sws = p.n_coarse_codebooks, p.sliding_window_size
+    hist_cap = p.max_coarse_history
+    max_sem_hist = max(1, hist_cap * den // num)
+    svs, cbs = p.semantic_vocab_size, p.codebook_size
+    lm_window = (svs, svs + n_cc * cbs)
+    if n_cc != 2:
+        raise ValueError("the coarse window samples exactly 2 codebooks")
+
+    def run(params, sems, noises):
+        device = params["wpe"].device
+        n_steps = [coarse_schedule(int(s.shape[0]), p)[2] for s in sems]
+        order = sorted(range(len(sems)), key=lambda b: -n_steps[b])
+        B = len(order)
+        steps = [n_steps[b] for b in order]  # descending
+        width = max(int(s.shape[0]) for s in sems) + CTX_SEMANTIC
+        # per lane, [new tokens | pad...] as in the single-lane program
+        sem_full = torch.full((B, width), p.coarse_semantic_pad_token,
+                              dtype=torch.int32, device=device)
+        for i, b in enumerate(order):
+            sem_full[i, :sems[b].shape[0]] = sems[b].to(device)
+        infer = torch.full((B, 1), p.coarse_infer_token, dtype=torch.int32,
+                           device=device)
+        out = torch.zeros((B, hist_cap + steps[0] + sws), dtype=torch.int32,
+                          device=device)
+        wte = params["wte"][0]
+        for w in range(-(-steps[0] // sws)):
+            g = w * sws  # tokens generated so far, by every running lane
+            Ba = sum(1 for s in steps if g < s)
+            semantic_idx = (2 * g * den + num) // (2 * num)
+            lo = max(semantic_idx - max_sem_hist, 0)
+            hist_start = max(g - hist_cap, 0)
+            ctx = torch.cat([
+                sem_full[:Ba, lo:lo + CTX_SEMANTIC], infer[:Ba],
+                out[:Ba, hist_start:hist_start + hist_cap],
+            ], dim=1)[:, :ctx_size]
+            ctx_len = CTX_SEMANTIC + 1 + min(g, hist_cap)
+            kc, vc = gpt.init_kv_cache(cfg, wte.dtype, device, batch=Ba)
+            logits = kbpre.prefill_fused_batched(
+                cfg, params, wte[ctx.long()], kc, vc, [ctx_len] * Ba,
+                lm_window=lm_window)
+            noise = (None if p.temp == 0.0 else torch.stack(
+                [noises[b][w] for b in order[:Ba]], dim=1))
+            toks = kbwin.coarse_window_fused_batched(
+                cfg, params, logits, kc, vc, [ctx_len] * Ba, g, noise,
+                sws=sws, temp=p.temp, semantic_vocab_size=svs,
+                codebook_size=cbs, lm_window=lm_window,
+            )
+            out[:Ba, g:g + sws] = toks
+        offs = svs + torch.arange(n_cc, dtype=torch.int32,
+                                  device=device)[None, :] * cbs
+        codes = [None] * B
+        for i, b in enumerate(order):
+            codes[b] = out[i, :steps[i]].reshape(-1, n_cc) - offs
         return codes, n_steps
 
     return run

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from bark_tpu_torch.io import loader
+from bark_tpu_torch.kernels import bprefill as kbpre
+from bark_tpu_torch.kernels import bsemantic as kbsem
 from bark_tpu_torch.kernels import prefill as kpre
 from bark_tpu_torch.kernels import semantic as ksem
 from bark_tpu_torch.models import gpt
@@ -58,5 +60,56 @@ def make_semantic_program(cfg: GPTConfig, *, temp: float, max_steps: int,
             if first_stop < CHUNK:
                 break
         return out, count
+
+    return run
+
+
+def make_semantic_program_batched(cfg: GPTConfig, *, temp: float,
+                                  max_steps: int, semantic_vocab_size: int):
+    """The counterpart of `bark_tpu.pipeline.semantic.
+    make_semantic_program_batched`: B lanes through one K8 prefill of
+    B x 257 rows, then K9 chunks of CHUNK steps in lockstep until every
+    lane has stopped or max_steps.
+
+    fn(params, tokens513 (B, 513) int tensor, noise (B, max_steps,
+    n_out_vocab) f32 or None at temp 0, min_eos_p) -> (tokens (B,
+    max_steps) int32 on the params' device, counts: B ints). Lane b's
+    tokens and count are those of `make_semantic_program` given noise[b]:
+    a running lane's count is the chunk's global step, so the host reads
+    each chunk's (B, CHUNK) stop flags once and freezes a lane at its first
+    stop, appending nothing after it. A stopped lane keeps decoding in the
+    kernel; its later tokens land past its count and are zeroed. Dense
+    params only."""
+
+    def run(params, tokens513, noise, min_eos_p: float):
+        dtype, device = params["wpe"].dtype, params["wpe"].device
+        B = tokens513.shape[0]
+        x_emb = gpt.embed_prompt_merged(cfg, params, tokens513)
+        kc, vc = gpt.init_kv_cache(cfg, dtype, device, batch=B)
+        logits = kbpre.prefill_fused_batched(cfg, params, x_emb.contiguous(),
+                                             kc, vc, [PROMPT_ROWS] * B)
+        chunks, counts, done, g0 = [], [0] * B, [False] * B, 0
+        while not all(done) and g0 < max_steps:
+            toks, flags, logits = kbsem.semantic_chunk_fused_batched(
+                cfg, params, logits, kc, vc, PROMPT_ROWS, g0, noise,
+                min_eos_p, K=CHUNK, temp=temp,
+                semantic_vocab_size=semantic_vocab_size,
+            )
+            chunks.append(toks)
+            for b, lane_flags in enumerate(flags.tolist()):
+                if done[b]:
+                    continue
+                first_stop = (lane_flags.index(1) if any(lane_flags)
+                              else CHUNK)
+                counts[b] += min(first_stop, max_steps - g0)
+                done[b] = first_stop < CHUNK or counts[b] >= max_steps
+            g0 += CHUNK
+        out = torch.zeros((B, max_steps), dtype=torch.int32, device=device)
+        if chunks:
+            toks = torch.cat(chunks, dim=1)[:, :max_steps]
+            keep = (torch.arange(toks.shape[1], device=device)[None, :]
+                    < torch.tensor(counts, device=device)[:, None])
+            out[:, :toks.shape[1]] = torch.where(keep, toks, 0)
+        return out, counts
 
     return run

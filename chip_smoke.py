@@ -22,11 +22,25 @@ Phases, each fatal on failure (exit code 1, and no result lines):
   4b. answer packed requests on bark-small qpacks built from a seed on the
      card (bf16 dense leaves): 2 in q4_0, then 1 each in q8_0, q4_1 and
      q4_k; check the audio and that K5 was launched by each;
-  5. print the RTFs and stage times, the kernel table as one JSON line, the
-     card's name and power limit, and last the contract line
-     {"ok": true, "device": {...}}.
+  4c. answer batched requests on bark-small (`generate_audio_batch` of 1, 8
+     and 32 prompts); check the audio, that K7-K10 and the sampler were
+     launched, that the single-lane kernels were not, and that no plain
+     version ran (the plain references `gpt.decode_step` and `gpt.prefill`
+     are counted while the batches run);
+  5. print the RTFs, the batched throughput and stage times, the kernel
+     table as one JSON line (every kernel that reaches `pl.pallas_call` in
+     the JAX package: the ported ones under "kernels", the others under
+     "to_port"), the card's name and power limit, and last the contract
+     line {"ok": true, "device": {...}}.
 
-Each path of phases 4 and 4b is driven with the launch counts set to 0
+Phase 2 also checks the batched kernels K7-K10 against their plain
+versions at the lane counts phase 4c gives them (K7 at B 1/3/8/32 with
+n_past 0/300/1023; K8 over 3, 8 and 32 lanes with n_valid 257 to 887; K9
+over 16 steps of 4, 8 and 32 lanes; K10 over 60 steps of 4 and 8 lanes
+and 12 of 32), and phase 3 the small model's batched generation on the
+GPU against the CPU (tokens equal).
+
+Each path of phases 4, 4b and 4c is driven with the launch counts set to 0
 just before it and read just after. A kernel's bound is the least time the
 card could take for the same work: the bytes it must move (each input read
 once, each output written once) at 3.35 TB/s, or its operations at the
@@ -66,6 +80,9 @@ QFORMATS = {
 }
 K5 = "qdecode_step_fused"
 
+K7 = "decode_step_fused_batched"
+BATCHES = (1, 8, 32)  # phase 4c's batch sizes, and K7's timed ones
+
 KERNELS = {  # name -> (source, TPU kernel it replaces, launch-count module)
     "decode_step_fused": ("bark_tpu_torch/csrc/decode.cu",
                           "bark_tpu/kernels/decode.py:2392", "decode"),
@@ -78,6 +95,25 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, launch-count module)
     **{f"{K5}[{fmt}]": ("bark_tpu_torch/csrc/qdecode.cu",
                         "bark_tpu/kernels/decode.py:1016", "qdecode")
        for fmt in QFORMATS},
+    **{f"{K7}[B={b}]": ("bark_tpu_torch/csrc/bdecode.cu",
+                        "bark_tpu/kernels/decode.py:2043", "bdecode")
+       for b in BATCHES},
+    "prefill_fused_batched": ("bark_tpu_torch/csrc/prefill.cu",
+                              "bark_tpu/kernels/prefill.py:971", "bprefill"),
+    "semantic_chunk_fused_batched": ("bark_tpu_torch/csrc/sample.cu",
+                                     "bark_tpu/kernels/semantic.py:1239",
+                                     "bsemantic"),
+    "coarse_window_fused_batched": ("bark_tpu_torch/csrc/sample.cu",
+                                    "bark_tpu/kernels/window.py:1117",
+                                    "bwindow"),
+}
+# the JAX package's kernels still to port, by what the table calls them
+TO_PORT = {
+    "K5-batched (packed weights inside K7/K9/K10)":
+        "bark_tpu/kernels/decode.py:2043",
+    "K6 (int8 KV inside K1/K3/K4/K7/K9/K10)":
+        "bark_tpu/kernels/decode.py:1033",
+    "probes (DMA, cache and lowering probes)": "tools/tpu_dma_probe.py:55",
 }
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -128,11 +164,13 @@ def nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
-def decode_cost(cfg, params, n_past: int, lm_window=None, steps: int = 1):
-    """(bytes, flops) of `steps` decode steps from slot n_past: every
-    weight read once (only the embedding rows and LM-head columns the
-    steps use), the live cache rows read and the new ones written, the f32
-    logits written; 2 flops a weight and 4 a cache value per step."""
+def decode_cost(cfg, params, n_past: int, lm_window=None, steps: int = 1,
+                lanes: int = 1):
+    """(bytes, flops) of `steps` decode steps of `lanes` lanes, each from
+    slot n_past: every weight read once for all of them (only the embedding
+    rows and LM-head columns the steps use), each lane's live cache rows
+    read and new ones written, its f32 logits written; 2 flops a weight and
+    4 a cache value per step and lane."""
     D, L, V = cfg.n_embd, cfg.n_layer, cfg.n_out_vocab
     lo, hi = lm_window or (0, V)
     blocks = params["blocks"]
@@ -145,24 +183,28 @@ def decode_cost(cfg, params, n_past: int, lm_window=None, steps: int = 1):
         row, col = D + D // 32 * sc, D + D // 32 * sc
     else:
         row, col = D * item, D * item
-    total += steps * (row + D * item) + (hi - lo) * col
-    total += 2 * L * (n_past + steps) * D * item + 4 * V
-    flops = sum(2 * L * 12 * D * D + 2 * (hi - lo) * D
-                + 4 * L * D * (n_past + j + 1) for j in range(steps))
+    total += lanes * steps * (row + D * item) + (hi - lo) * col
+    total += lanes * (2 * L * (n_past + steps) * D * item + 4 * V)
+    flops = lanes * sum(2 * L * 12 * D * D + 2 * (hi - lo) * D
+                        + 4 * L * D * (n_past + j + 1) for j in range(steps))
     return total, flops
 
 
-def prefill_cost(cfg, params, T: int, lm_window=None):
-    """(bytes, flops) of a T-row prefill: the weights once, the embedded
-    rows and positions read, the cache rows and the logits written; the
-    projections' and the causal attention's flops."""
+def prefill_cost(cfg, params, T, lm_window=None):
+    """(bytes, flops) of a T-row prefill, or of one lane per entry of a
+    list T: the weights once, each lane's embedded rows and positions read,
+    its cache rows and logits written; the projections' and the causal
+    attention's flops."""
     D, L, V = cfg.n_embd, cfg.n_layer, cfg.n_out_vocab
     lo, hi = lm_window or (0, V)
     item = params["wpe"].element_size()
     total = sum(nbytes(t) for t in params["blocks"].values())
-    total += (hi - lo) * D * item + 2 * T * D * item
-    total += 2 * L * T * D * item + 4 * V
-    flops = 2 * T * L * 12 * D * D + 2 * L * D * T * (T + 1) + 2 * (hi - lo) * D
+    total += (hi - lo) * D * item
+    flops = 0
+    for t in (T if isinstance(T, (list, tuple)) else [T]):
+        total += 2 * t * D * item + 2 * L * t * D * item + 4 * V
+        flops += (2 * t * L * 12 * D * D + 2 * L * D * t * (t + 1)
+                  + 2 * (hi - lo) * D)
     return total, flops
 
 
@@ -202,6 +244,21 @@ def filled_cache(cfg, rows: int, dtype, gen):
     return kc, vc
 
 
+def random_stage_params(cfg, gen, dtype):
+    """gpt.init_params on the card with non-zero biases and LN affines, so
+    every epilogue term counts."""
+    import torch
+
+    from bark_tpu_torch.models import gpt
+
+    p = gpt.init_params(cfg, gen, dtype, gen.device)
+    for k, v in p["blocks"].items():
+        if k.endswith("_b") or k.endswith("_g"):
+            v.add_(0.02 * torch.randn(v.shape, generator=gen,
+                                      device=gen.device).to(dtype))
+    return p
+
+
 def kernel_checks(checks: Checks, dtype, timed: bool):
     """Phase 2 for one dtype: K1-K4 against their plain versions on
     bark-small shapes and random weights."""
@@ -222,16 +279,8 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
     svs, cbs = 10000, 1024
     lmw = (svs, svs + 2 * cbs)
 
-    def params_for(cfg):
-        p = gpt.init_params(cfg, gen, dtype, dev)
-        # non-zero biases and LN affines, so every epilogue term counts
-        for k, v in p["blocks"].items():
-            if k.endswith("_b") or k.endswith("_g"):
-                v.add_(0.02 * torch.randn(v.shape, generator=gen,
-                                          device=dev).to(dtype))
-        return p
-
-    sem_p, coarse_p = params_for(sem_cfg), params_for(coarse_cfg)
+    sem_p = random_stage_params(sem_cfg, gen, dtype)
+    coarse_p = random_stage_params(coarse_cfg, gen, dtype)
 
     # K1 at n_past 0, 300, 1023 (full head) and 300 with the coarse window
     for cfg, p, n_past, win in ((sem_cfg, sem_p, 0, None),
@@ -512,6 +561,240 @@ def qkernel_checks(checks: Checks, dtype, timed: bool):
         torch.cuda.empty_cache()
 
 
+def filled_batched_cache(cfg, B: int, rows: int, dtype, gen):
+    """(L, B, S, D) KV caches on the card with rows [0, rows) of every
+    lane drawn from `gen`."""
+    import torch
+
+    from bark_tpu_torch.models import gpt
+
+    kc, vc = gpt.init_kv_cache(cfg, dtype, gen.device, batch=B)
+    for c in (kc, vc):
+        c[:, :, :rows] = torch.randn(c[:, :, :rows].shape, generator=gen,
+                                     device=gen.device).to(dtype)
+    return kc, vc
+
+
+def batched_kernel_checks(checks: Checks, dtype, timed: bool):
+    """Phase 2 for K7-K10, one dtype: each batched kernel against its plain
+    version (its single-lane plain version lane by lane) on bark-small
+    shapes and random weights, up to the 32 lanes of phase 4c. K7 at B
+    1/3/8/32 with n_past cycling 0/300/1023 on the full head, and at B 8 on
+    the coarse window; K8 over 3 and 32 lanes of 257 rows and 4, 8 and 32
+    lanes of 257 to 887 rows; K9 (16 steps) over 4, 8 and 32 lanes; K10 (60
+    steps) over 4 and 8 lanes and 12 steps over 32; tokens and flags equal
+    in f32 (in bf16 over one step, as for K3 and K4). Timed in bf16, on
+    inputs checked first: K7 at B 1/8/32 at n_past 300, K8 over 8 lanes of
+    887 rows, K9 and K10 over 8 lanes."""
+    import torch
+
+    from bark_tpu_torch.kernels import _build
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import bprefill as kbpre
+    from bark_tpu_torch.kernels import bsemantic as kbsem
+    from bark_tpu_torch.kernels import bwindow as kbwin
+    from bark_tpu_torch.models import gpt
+    from bark_tpu_torch.models.presets import BARK_SMALL
+    from bark_tpu_torch.ops import sampling
+
+    dev = torch.device("cuda")
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    gen = torch.Generator(device=dev).manual_seed(27)
+    sem_cfg, coarse_cfg = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+    svs, cbs = 10000, 1024
+    lmw = (svs, svs + 2 * cbs)
+    sem_p = random_stage_params(sem_cfg, gen, dtype)
+    coarse_p = random_stage_params(coarse_cfg, gen, dtype)
+
+    def lane_tokens(cfg, B):
+        return torch.randint(0, cfg.n_in_vocab, (B,), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    # K7
+    for cfg, p, B, win in ((sem_cfg, sem_p, 1, None), (sem_cfg, sem_p, 3, None),
+                           (sem_cfg, sem_p, 8, None),
+                           (sem_cfg, sem_p, 32, None),
+                           (coarse_cfg, coarse_p, 8, lmw)):
+        n_past = [(0, 300, 1023)[b % 3] for b in range(B)]
+        toks = lane_tokens(cfg, B)
+        kc, vc = filled_batched_cache(cfg, B, 1023, dtype, gen)
+        kc2, vc2 = kc.clone(), vc.clone()
+        out = kbdec.decode_step_fused_batched(cfg, p, toks, kc, vc, n_past,
+                                              lm_window=win)
+        ref = kbdec.decode_step_batched_plain(cfg, p, toks, kc2, vc2, n_past,
+                                              win)
+        tag = f"B {B}" + (" lm_window" if win else "")
+        checks.record(K7, name, f"logits {tag}", max_err(out, ref))
+        checks.record(K7, name, f"K/V rows {tag}", max(
+            max(max_err(kc[:, b, n], kc2[:, b, n]),
+                max_err(vc[:, b, n], vc2[:, b, n]))
+            for b, n in enumerate(n_past)))
+        if win is not None and (float(out[:, :win[0]].abs().max()) != 0.0
+                                or float(out[:, win[1]:].abs().max()) != 0.0):
+            raise AssertionError("K7: logits outside lm_window are not zero")
+        del kc, vc, kc2, vc2
+    if timed:
+        for B in BATCHES:
+            kc, vc = filled_batched_cache(sem_cfg, B, 300, dtype, gen)
+            toks = lane_tokens(sem_cfg, B)
+            slots = _build.device_ints([300] * B, dev)
+            ms = cuda_ms(lambda: kbdec.decode_step_fused_batched(
+                sem_cfg, sem_p, toks, kc, vc, slots), 50)
+            plain = cuda_ms(lambda: kbdec.decode_step_batched_plain(
+                sem_cfg, sem_p, toks, kc, vc, [300] * B), 1 if B > 8 else 3)
+            checks.times[f"{K7}[B={B}]"] = (
+                ms, plain, decode_cost(sem_cfg, sem_p, 300, lanes=B))
+            del kc, vc
+        torch.cuda.empty_cache()
+
+    # K8: per-lane contexts of different lengths, up to the 32 lanes the
+    # batched path gives it: the semantic prompts (32 x 257 stacked rows)
+    # and coarse re-primes of 257 to 887 rows; the timed case (8 x 887) is
+    # checked on the inputs it is timed on
+    mixed = (887, 257, 600, 431, 800, 350, 700, 500)
+    for cfg, p, n_valid, win in (
+            (sem_cfg, sem_p, [257] * 3, None),
+            (sem_cfg, sem_p, [257] * 32, None),
+            (coarse_cfg, coarse_p, [887, 257, 600, 431], lmw),
+            (coarse_cfg, coarse_p, [887] * 8, lmw),
+            (coarse_cfg, coarse_p, [mixed[b % 8] for b in range(32)], lmw)):
+        B, T = len(n_valid), max(n_valid)
+        x_emb = p["wte"][0][torch.randint(
+            0, cfg.n_in_vocab, (B * T,), generator=gen, device=dev)].reshape(
+            B, T, cfg.n_embd)
+        kc, vc = gpt.init_kv_cache(cfg, dtype, dev, batch=B)
+        kc2, vc2 = gpt.init_kv_cache(cfg, dtype, dev, batch=B)
+        out = kbpre.prefill_fused_batched(cfg, p, x_emb, kc, vc, n_valid,
+                                          lm_window=win)
+        ref = kbpre.prefill_batched_plain(cfg, p, x_emb, kc2, vc2, n_valid,
+                                          win)
+        tag = (f"{B} lanes, n_valid {min(n_valid)}-{max(n_valid)}"
+               + (" lm_window" if win else ""))
+        checks.record("prefill_fused_batched", name, f"logits {tag}",
+                      max_err(out, ref))
+        checks.record("prefill_fused_batched", name, f"K/V rows {tag}", max(
+            max(max_err(kc[:, b, :n], kc2[:, b, :n]),
+                max_err(vc[:, b, :n], vc2[:, b, :n]))
+            for b, n in enumerate(n_valid)))
+        if timed and n_valid == [887] * 8:
+            ms = cuda_ms(lambda: kbpre.prefill_fused_batched(
+                cfg, p, x_emb, kc, vc, n_valid, lm_window=win), 5)
+            plain = cuda_ms(lambda: kbpre.prefill_batched_plain(
+                cfg, p, x_emb, kc2, vc2, n_valid, win), 1)
+            checks.times["prefill_fused_batched"] = (
+                ms, plain, prefill_cost(cfg, p, n_valid, win))
+        del x_emb, kc, vc, kc2, vc2
+    torch.cuda.empty_cache()
+
+    # K9: 16 steps after 257-row prompts, temp 0.7, over 4, 8 (timed) and 32
+    # lanes
+    def sem_start(B):
+        x_emb = sem_p["wte"][0][torch.randint(
+            0, sem_cfg.n_in_vocab, (B * 257,), generator=gen,
+            device=dev)].reshape(B, 257, -1)
+        kc, vc = gpt.init_kv_cache(sem_cfg, dtype, dev, batch=B)
+        logits = kbpre.prefill_batched_plain(sem_cfg, sem_p, x_emb, kc, vc,
+                                             [257] * B)
+        return logits, kc, vc
+
+    for B in (4, 8, 32):
+        noise = sampling.gumbel((B, 32, sem_cfg.n_out_vocab), gen, dev)
+        logits0, kc0, vc0 = sem_start(B)
+        args = (257, 3, noise, 2.0)
+        for K in ((16,) if dtype == torch.float32 else (16, 1)):
+            kw = dict(K=K, temp=0.7, semantic_vocab_size=svs)
+            kc, vc = kc0.clone(), vc0.clone()
+            kc2, vc2 = kc0.clone(), vc0.clone()
+            toks, flags, lg = kbsem.semantic_chunk_fused_batched(
+                sem_cfg, sem_p, logits0, kc, vc, *args, **kw)
+            rtoks, rflags, rlg = kbsem.semantic_chunk_batched_plain(
+                sem_cfg, sem_p, logits0, kc2, vc2, *args, **kw)
+            same = int((toks.cpu() == rtoks.cpu()).sum())
+            flags_same = bool((flags.cpu() == rflags.cpu()).all())
+            log(f"  semantic_chunk_fused_batched {name:9s} B={B} K={K}: "
+                f"tokens equal {same}/{B * K}, flags equal {flags_same}")
+            if dtype == torch.float32 or K == 1:
+                if same != B * K or not flags_same:
+                    raise AssertionError(
+                        f"K9 {name} B={B} K={K}: tokens/flags differ")
+                checks.record("semantic_chunk_fused_batched", name,
+                              f"logits, {B} lanes, {K} steps",
+                              max_err(lg, rlg))
+            del kc, vc, kc2, vc2
+        if timed and B == 8:  # the inputs checked just above
+            kw = dict(K=16, temp=0.7, semantic_vocab_size=svs)
+            ms = cuda_ms(lambda: kbsem.semantic_chunk_fused_batched(
+                sem_cfg, sem_p, logits0, kc0, vc0, *args, **kw), 3)
+            plain = cuda_ms(lambda: kbsem.semantic_chunk_batched_plain(
+                sem_cfg, sem_p, logits0, kc0, vc0, *args, **kw), 1)
+            nb, fl = decode_cost(sem_cfg, sem_p, 257 + 3, steps=16, lanes=B)
+            checks.times["semantic_chunk_fused_batched"] = (
+                ms, plain, (nb + B * 16 * sem_cfg.n_out_vocab * 4, fl))
+        del noise, kc0, vc0
+        torch.cuda.empty_cache()
+
+    # K10: one window, step parity odd: 60 steps of 4 lanes with contexts of
+    # 887, 700, 500 and 257 rows, 60 steps of 8 lanes of 887 (timed), and 12
+    # steps of 32 lanes cycling the 4 contexts
+    def coarse_start(ctx_len):
+        B = len(ctx_len)
+        x_emb = coarse_p["wte"][0][torch.randint(
+            0, coarse_cfg.n_in_vocab, (B * 887,), generator=gen,
+            device=dev)].reshape(B, 887, -1)
+        kc, vc = gpt.init_kv_cache(coarse_cfg, dtype, dev, batch=B)
+        logits = kbpre.prefill_batched_plain(coarse_cfg, coarse_p, x_emb, kc,
+                                             vc, ctx_len, lmw)
+        return logits, kc, vc
+
+    cycle = [887, 700, 500, 257]
+    for ctx_len, steps in ((cycle, 60), ([887] * 8, 60),
+                           ([cycle[b % 4] for b in range(32)], 12)):
+        B = len(ctx_len)
+        noise = sampling.gumbel((steps, B, cbs), gen, dev)
+        logits0, kc0, vc0 = coarse_start(ctx_len)
+        for sws in ((steps,) if dtype == torch.float32 else (steps, 1)):
+            kw = dict(sws=sws, temp=0.7, semantic_vocab_size=svs,
+                      codebook_size=cbs, lm_window=lmw)
+            kc, vc = kc0.clone(), vc0.clone()
+            kc2, vc2 = kc0.clone(), vc0.clone()
+            toks = kbwin.coarse_window_fused_batched(
+                coarse_cfg, coarse_p, logits0, kc, vc, ctx_len, 1,
+                noise[:sws], **kw)
+            rtoks = kbwin.coarse_window_batched_plain(
+                coarse_cfg, coarse_p, logits0, kc2, vc2, ctx_len, 1,
+                noise[:sws], **kw)
+            same = int((toks.cpu() == rtoks.cpu()).sum())
+            log(f"  coarse_window_fused_batched  {name:9s} B={B} sws={sws}: "
+                f"tokens equal {same}/{B * sws}")
+            if dtype == torch.float32 or sws == 1:
+                if same != B * sws:
+                    raise AssertionError(
+                        f"K10 {name} B={B} sws={sws}: tokens differ")
+                checks.record("coarse_window_fused_batched", name,
+                              f"K/V rows, {B} lanes, {sws} steps", max(
+                                  max(max_err(kc[:, b, c:c + sws],
+                                              kc2[:, b, c:c + sws]),
+                                      max_err(vc[:, b, c:c + sws],
+                                              vc2[:, b, c:c + sws]))
+                                  for b, c in enumerate(ctx_len)))
+            del kc, vc, kc2, vc2
+        if timed and B == 8:  # the inputs checked just above
+            kw = dict(sws=60, temp=0.7, semantic_vocab_size=svs,
+                      codebook_size=cbs, lm_window=lmw)
+            ms = cuda_ms(lambda: kbwin.coarse_window_fused_batched(
+                coarse_cfg, coarse_p, logits0, kc0, vc0, ctx_len, 1, noise,
+                **kw), 2)
+            plain = cuda_ms(lambda: kbwin.coarse_window_batched_plain(
+                coarse_cfg, coarse_p, logits0, kc0, vc0, ctx_len, 1, noise,
+                **kw), 1)
+            nb, fl = decode_cost(coarse_cfg, coarse_p, 887, lmw, steps=60,
+                                 lanes=B)
+            checks.times["coarse_window_fused_batched"] = (
+                ms, plain, (nb + 60 * B * cbs * 4, fl))
+        del noise, kc0, vc0
+        torch.cuda.empty_cache()
+
+
 def small_model_trees():
     """A small model (2 layers, width 128, head dim 64, a tiny token space
     and codec): {stage: (cfg, f32 numpy params)} and (codec cfg, f32 numpy
@@ -705,6 +988,52 @@ def small_model_reference(packed_path=None):
         raise AssertionError(f"small model audio differs: {err}")
 
 
+def small_model_batched_reference():
+    """Phase 3, batched: `generate_audio_batch` of 3 prompts on the small
+    model through K7-K10 on the GPU and through their plain versions on
+    the CPU, f32, with the same per-lane noise: every lane's semantic,
+    coarse and fine tokens equal, audio within 1e-3."""
+    import numpy as np
+    import torch
+
+    import bark_tpu_torch as bt
+    from bark_tpu_torch import kernels
+    from bark_tpu_torch.ops import sampling
+
+    texts = ["hello world", "the a", "world hello the a"]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        ctx = bt.BarkContext.from_parts(
+            **small_model_parts(device),
+            params=bt.BarkContextParams(**SMALL_PARAMS), seed=0,
+            device=device)
+        ctx.lane_noise_source = (
+            lambda stage, lane, shape, d=device: sampling.gumbel(
+                shape, torch.Generator().manual_seed(
+                    100 * lane + len(stage)), "cpu").to(d))
+        kernels.reset_launches()
+        runs[device] = ctx._generate_batch(texts)
+        if device == "cuda":
+            counts = kernels.launch_counts()
+            if min(counts[m] for m in ("bdecode", "bprefill", "bsemantic",
+                                       "bwindow")) <= 0:
+                raise AssertionError(f"small model batch: a batched kernel "
+                                     f"was not launched: {counts}")
+    err = 0.0
+    for b, (cpu, gpu) in enumerate(zip(runs["cpu"], runs["cuda"])):
+        for key in ("semantic", "coarse", "fine"):
+            if not np.array_equal(cpu[key], gpu[key]):
+                raise AssertionError(f"small model batch lane {b}: {key} "
+                                     f"tokens differ CPU vs GPU")
+        if cpu["audio"].size == 0 or not np.isfinite(gpu["audio"]).all():
+            raise AssertionError(f"small model batch lane {b}: no audio")
+        err = max(err, float(np.abs(cpu["audio"] - gpu["audio"]).max()))
+    log(f"  small model, batch of {len(texts)}: tokens equal in all stages "
+        f"and lanes, audio max|err| {err:.3e} (tol 1e-3)")
+    if err > 1e-3:
+        raise AssertionError(f"small model batch audio differs: {err}")
+
+
 PROMPTS = ("hello world", "this is a benchmark of the bark pipeline",
            "a speech test")
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "hello", "world", "this", "is",
@@ -787,6 +1116,90 @@ def bark_small_requests(stages, n: int, label: str, need):
     return results, counts
 
 
+@contextlib.contextmanager
+def counted_plain_calls():
+    """Count calls of the plain references every plain version of K1-K4
+    and K7-K10 runs (`gpt.decode_step`, `gpt.prefill`) inside."""
+    from bark_tpu_torch.models import gpt
+
+    calls = {"decode_step": 0, "prefill": 0}
+    saved = {k: getattr(gpt, k) for k in calls}
+
+    def counting(k):
+        def fn(*a, **kw):
+            calls[k] += 1
+            return saved[k](*a, **kw)
+        return fn
+
+    for k in calls:
+        setattr(gpt, k, counting(k))
+    try:
+        yield calls
+    finally:
+        for k, f in saved.items():
+            setattr(gpt, k, f)
+
+
+def bark_small_batch(stages, B: int):
+    """Phase 4c: one `generate_audio_batch` of B prompts on bark-small
+    (`stages`, dense bf16), 138 semantic steps with the EOS-probability
+    stop off, at PyTorch's default precision settings, driven with the
+    launch counts set to 0 just before and read just after. K7-K10 and the
+    sampler must have launched, K1-K5 must not have, and no plain version
+    may have run. Returns the batch's result."""
+    import numpy as np
+    import torch
+
+    import bark_tpu_torch as bt
+    from bark_tpu_torch import kernels
+    from bark_tpu_torch.io import loader
+    from bark_tpu_torch.models.presets import ENCODEC_24KHZ
+
+    dev = torch.device("cuda")
+    codec = loader.params_from_numpy(
+        loader.codec_init_params_numpy(ENCODEC_24KHZ, 3), torch.float32, dev)
+    ctx = bt.BarkContext.from_parts(
+        vocab_tokens=VOCAB, semantic=stages["semantic"],
+        coarse=stages["coarse"], fine=stages["fine"],
+        codec_cfg=ENCODEC_24KHZ, codec_params=codec,
+        params=bt.BarkContextParams(compute_dtype="bfloat16",
+                                    n_steps_text_encoder=138, min_eos_p=2.0,
+                                    stage_sync=True),
+        seed=100 + B, device=dev,
+    )
+    texts = [PROMPTS[b % len(PROMPTS)] for b in range(B)]
+    kernels.reset_launches()
+    with counted_plain_calls() as plain:
+        outs = ctx.generate_audio_batch(texts)
+    counts = kernels.launch_counts()
+    log(f"  batch of {B}: kernel launches {counts}, plain calls {plain}")
+    for b, a in enumerate(outs):
+        if a.size == 0 or a.size % 320 or not np.isfinite(a).all():
+            raise AssertionError(f"batch of {B}, lane {b}: audio {a.shape}, "
+                                 f"finite {np.isfinite(a).all()}")
+    if (min(counts[m] for m in ("bdecode", "bprefill", "bsemantic",
+                                "bwindow", "sample")) <= 0
+            or any(counts[m] for m in ("decode", "qdecode", "prefill",
+                                       "semantic", "window"))
+            or any(plain.values())):
+        raise AssertionError(f"batch of {B} did not run on K7-K10 alone: "
+                             f"{counts}, plain calls {plain}")
+    s = ctx.stats
+    audio_s = sum(a.size for a in outs) / 24000
+    eval_s = s.t_eval_us / 1e6
+    return dict(
+        B=B, audio_s=audio_s, eval_s=eval_s,
+        rtf_per_request=eval_s / (audio_s / B),
+        audio_s_per_wall_s=audio_s / eval_s,
+        semantic_s=s.t_semantic_us / 1e6, coarse_s=s.t_coarse_us / 1e6,
+        fine_s=s.t_fine_us / 1e6,
+        codec_s=(s.t_eval_us - s.t_semantic_us - s.t_coarse_us
+                 - s.t_fine_us) / 1e6,
+        semantic_tokens=s.n_sample_semantic, coarse_steps=s.n_sample_coarse,
+        launches=counts,
+    )
+
+
 def rtf(results) -> float:
     return (sum(r["eval_s"] for r in results)
             / sum(r["audio_s"] for r in results))
@@ -839,8 +1252,13 @@ def main() -> int:
             kernel_checks(checks, dtype, timed=dtype == torch.bfloat16)
             log(f"phase 2: K5 (packed decode step) vs plain, {dtype}")
             qkernel_checks(checks, dtype, timed=dtype == torch.bfloat16)
+            log(f"phase 2: K7-K10 (batched kernels) vs plain, {dtype}")
+            batched_kernel_checks(checks, dtype,
+                                  timed=dtype == torch.bfloat16)
         log("phase 3: small model, GPU kernels vs CPU plain")
         small_model_reference()
+        log("phase 3: small model, batched, GPU kernels vs CPU plain")
+        small_model_batched_reference()
         import bark_tpu_torch as bt
 
         dense_path = os.path.join(OUT_DIR, "small_f32.bin")
@@ -874,6 +1292,12 @@ def main() -> int:
                                    packed_need)
         k5_launches[fmt] = c["qdecode"]
     torch.cuda.empty_cache()
+    log(f"phase 4c: bark-small batched requests, B in {BATCHES}")
+    stages = bark_small_stages()
+    bark_small_batch(stages, 2)  # first use of the batched path: not kept
+    batches = [bark_small_batch(stages, B) for B in BATCHES]
+    del stages
+    torch.cuda.empty_cache()
     foreign = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "bark_tpu"))
     if foreign:
@@ -885,26 +1309,42 @@ def main() -> int:
     log(f"RTF (q4_0 qpack, bf16 dense leaves, requests 1-2, batch 1): "
         f"{rtf(q_results):.4f} on {smi}")
     log_requests("q4_0", q_results)
+    for r in batches:
+        log(f"  batch of {r['B']:2d}: eval {r['eval_s']:.3f} s = semantic "
+            f"{r['semantic_s']:.3f} + coarse {r['coarse_s']:.3f} + fine "
+            f"{r['fine_s']:.3f} + codec/rest {r['codec_s']:.3f} s; RTF per "
+            f"request {r['rtf_per_request']:.4f}, "
+            f"{r['audio_s_per_wall_s']:.3f} audio-s per wall-s on {smi}")
+    batch_launches = {r["B"]: r["launches"] for r in batches}
     table = []
     for name, (src, replaces, module) in KERNELS.items():
         ms, plain, cost = checks.times[name]
         bound_ms, bound_by = bound(cost, "bfloat16")
-        fmt = name[len(K5) + 1:-1] if name.startswith(K5) else None
-        launches = k5_launches[fmt] if fmt else counts[module]
-        log(f"  {name:26s} {ms:9.3f} ms  plain {plain:9.3f} ms  bound "
+        if name.startswith(K5):
+            launches = k5_launches[name[len(K5) + 1:-1]]
+        elif name.startswith(K7):
+            launches = batch_launches[int(name[len(K7) + 3:-1])][module]
+        elif module.startswith("b"):
+            launches = sum(c[module] for c in batch_launches.values())
+        else:
+            launches = counts[module]
+        key = K7 if name.startswith(K7) else name
+        log(f"  {name:30s} {ms:9.3f} ms  plain {plain:9.3f} ms  bound "
             f"{bound_ms:7.4f} ms ({bound_by})  launches {launches}  (bf16)")
         table.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches,
-            max_abs_err=checks.errors[(name, "bfloat16")],
-            max_abs_err_f32=checks.errors[(name, "float32")],
+            launches=launches, state="ported",
+            max_abs_err=checks.errors[(key, "bfloat16")],
+            max_abs_err_f32=checks.errors[(key, "float32")],
             ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, bytes=cost[0], flops=cost[1],
         ))
     print(json.dumps(dict(rtf=rtf(timed), requests=results,
                           rtf_q4_0=rtf(q_results), requests_q4_0=q_results,
-                          build_s=build_s)))
-    print(json.dumps({"kernels": table}))
+                          batches=batches, build_s=build_s)))
+    print(json.dumps({"kernels": table, "to_port": [
+        dict(name=n, replaces=r, state="to port") for n, r in
+        TO_PORT.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

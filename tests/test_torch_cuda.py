@@ -273,3 +273,124 @@ def test_packed_wrapper_refuses_what_the_kernel_does_not_take(dev, qpack):
     fine = {k: v for k, v in qpack.items() if not k.startswith("lm_")}
     with pytest.raises(ValueError):  # no single LM head tile
         kdec.decode_step_fused(QCFG, fine, 1, kc, vc, 0)
+
+
+# ------------------------------------------------------- K7-K10 (batched)
+
+
+def _bcaches(dev, B, rows):
+    kc, vc = gpt.init_kv_cache(CFG, torch.float32, dev, batch=B)
+    g = torch.Generator(device=dev).manual_seed(B)
+    kc[:, :, :rows] = torch.randn(kc[:, :, :rows].shape, generator=g,
+                                  device=dev)
+    vc[:, :, :rows] = torch.randn(vc[:, :, :rows].shape, generator=g,
+                                  device=dev)
+    return kc, vc
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 32])
+@pytest.mark.parametrize("win", [None, (32, 160)], ids=["head", "window"])
+def test_batched_decode_kernel(dev, params, B, win):
+    from bark_tpu_torch.kernels import bdecode as kbdec
+
+    n_past = [(0, 40, 511)[b % 3] for b in range(B)]
+    toks = [(17 + 7 * b) % CFG.n_in_vocab for b in range(B)]
+    kc, vc = _bcaches(dev, B, 511)
+    kc2, vc2 = kc.clone(), vc.clone()
+    before = kbdec.launches
+    out = kbdec.decode_step_fused_batched(CFG, params, toks, kc, vc, n_past,
+                                          lm_window=win)
+    assert kbdec.launches == before + 1
+    ref = kbdec.decode_step_batched_plain(CFG, params, toks, kc2, vc2,
+                                          n_past, win)
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
+    torch.testing.assert_close(kc, kc2, rtol=0, atol=ATOL)
+    torch.testing.assert_close(vc, vc2, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("n_valid,win", [([257, 300, 1, 512], None),
+                                         ([64, 17], (32, 160)),
+                                         ([(257, 300, 1, 512, 64)[b % 5]
+                                           for b in range(32)], (32, 160))])
+def test_batched_prefill_kernel(dev, params, n_valid, win):
+    from bark_tpu_torch.kernels import bprefill as kbpre
+
+    B, T = len(n_valid), max(n_valid)
+    idx = torch.arange(B * T, device=dev) % CFG.n_in_vocab
+    x = params["wte"][0][idx].reshape(B, T, CFG.n_embd)
+    kc, vc = gpt.init_kv_cache(CFG, torch.float32, dev, batch=B)
+    kc2, vc2 = kc.clone(), vc.clone()
+    out = kbpre.prefill_fused_batched(CFG, params, x, kc, vc, n_valid,
+                                      lm_window=win)
+    ref = kbpre.prefill_batched_plain(CFG, params, x, kc2, vc2, n_valid, win)
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
+    for b, n in enumerate(n_valid):
+        torch.testing.assert_close(kc[:, b, :n], kc2[:, b, :n], rtol=0,
+                                   atol=ATOL)
+        torch.testing.assert_close(vc[:, b, :n], vc2[:, b, :n], rtol=0,
+                                   atol=ATOL)
+        assert not kc[:, b, n:].any()  # dead rows are not written
+
+
+@pytest.mark.parametrize("B", [4, 32])
+@pytest.mark.parametrize("temp,min_eos_p", [(0.7, 2.0), (0.7, 0.006),
+                                            (0.0, 2.0)])
+def test_batched_semantic_chunk_kernel(dev, params, temp, min_eos_p, B):
+    from bark_tpu_torch.kernels import bsemantic as kbsem
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    noise = sampling.gumbel((B, 16, CFG.n_out_vocab), gen, dev)
+    kc, vc = _bcaches(dev, B, 40)
+    kc2, vc2 = kc.clone(), vc.clone()
+    logits0 = torch.randn(B, CFG.n_out_vocab, generator=gen, device=dev) * 2
+    args = (40, 3, noise, min_eos_p)
+    kw = dict(K=8, temp=temp, semantic_vocab_size=150)
+    t, f, lg = kbsem.semantic_chunk_fused_batched(CFG, params, logits0, kc,
+                                                  vc, *args, **kw)
+    rt, rf, rlg = kbsem.semantic_chunk_batched_plain(CFG, params, logits0,
+                                                     kc2, vc2, *args, **kw)
+    assert t.tolist() == rt.tolist() and f.tolist() == rf.tolist()
+    torch.testing.assert_close(lg, rlg, rtol=0, atol=ATOL)
+    torch.testing.assert_close(kc[:, :, 43:51], kc2[:, :, 43:51], rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("B", [4, 32])
+@pytest.mark.parametrize("temp,step0", [(0.7, 0), (0.7, 1), (0.0, 0)])
+def test_batched_coarse_window_kernel(dev, params, temp, step0, B):
+    from bark_tpu_torch.kernels import bwindow as kbwin
+
+    ctx_len = [(40, 41, 100, 7)[b % 4] for b in range(B)]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    noise = sampling.gumbel((10, B, 64), gen, dev)
+    kc, vc = _bcaches(dev, B, 100)
+    kc2, vc2 = kc.clone(), vc.clone()
+    logits0 = torch.randn(B, CFG.n_out_vocab, generator=gen, device=dev) * 2
+    kw = dict(sws=10, temp=temp, semantic_vocab_size=32, codebook_size=64,
+              lm_window=(32, 160))
+    t = kbwin.coarse_window_fused_batched(CFG, params, logits0, kc, vc,
+                                          ctx_len, step0, noise, **kw)
+    rt = kbwin.coarse_window_batched_plain(CFG, params, logits0, kc2, vc2,
+                                           ctx_len, step0, noise, **kw)
+    assert t.tolist() == rt.tolist()
+    for b, c in enumerate(ctx_len):
+        torch.testing.assert_close(vc[:, b, c:c + 10], vc2[:, b, c:c + 10],
+                                   rtol=0, atol=ATOL)
+
+
+def test_batched_wrappers_refuse_what_the_kernels_do_not_take(dev, params):
+    from bark_tpu_torch.io import loader
+    from bark_tpu_torch.kernels import bdecode as kbdec
+
+    kc, vc = gpt.init_kv_cache(CFG, torch.float32, dev, batch=33)
+    with pytest.raises(ValueError):  # more lanes than the kernel takes
+        kbdec.decode_step_fused_batched(CFG, params, [1] * 33, kc, vc,
+                                        [0] * 33)
+    kc, vc = gpt.init_kv_cache(CFG, torch.float32, dev, batch=2)
+    with pytest.raises(ValueError):  # n_past outside the cache
+        kbdec.decode_step_fused_batched(CFG, params, [1, 2], kc, vc,
+                                        [0, CFG.block_size])
+    _, qp = loader.gpt_qparams_from_section(_qsection("Q8_0"), torch.float32,
+                                            dev)
+    with pytest.raises(NotImplementedError):  # packed weights: not ported
+        kbdec.decode_step_fused_batched(QCFG, qp, [1, 2], kc, vc, [0, 0])

@@ -25,43 +25,44 @@ AUDIO_ATOL = 1e-4
 TEXT = "hello world"
 
 
-def replay_bark_tpu_noise(seed: int):
-    """A `noise_source` for the port that returns exactly the Gumbel rows
-    bark_tpu's generate draws for `seed` (jax.random.categorical(k, l) is
-    argmax(l + gumbel(k, l.shape)))."""
-    key = jax.random.PRNGKey(seed)
-    keys = {}
-    for stage in ("semantic", "coarse", "fine"):
-        key, keys[stage] = jax.random.split(key)
+def gumbel_from_key(stage: str, k, shape):
+    """The Gumbel rows bark_tpu's `stage` draws from its stage key `k`
+    (jax.random.categorical(k, l) is argmax(l + gumbel(k, l.shape)))."""
 
     def gumbel(k, shape):
         return jax.random.gumbel(k, shape, jnp.float32)
 
-    def source(stage, shape):
-        k = keys[stage]
-        if stage == "semantic":  # (max_steps, n_out)
-            subs = jax.random.split(k, shape[0])
-            g = jax.vmap(lambda s: gumbel(s, shape[1:]))(subs)
-        elif stage == "coarse":  # (n_windows, sws, cbs)
-            rows = []
-            for _ in range(shape[0]):
-                k, sub = jax.random.split(k)
-                subs = jax.random.split(sub, shape[1])
-                rows.append(jax.vmap(lambda s: gumbel(s, shape[2:]))(subs))
-            g = jnp.stack(rows)
-        else:  # (n_loops, n_fine - n_coarse, block, cbs)
-            blocks = []
-            for _ in range(shape[0]):
-                k, sub = jax.random.split(k)
-                books = []
-                for _ in range(shape[1]):
-                    sub, s = jax.random.split(sub)
-                    books.append(gumbel(s, shape[2:]))
-                blocks.append(jnp.stack(books))
-            g = jnp.stack(blocks)
-        return torch.from_numpy(np.array(g))
+    if stage == "semantic":  # (max_steps, n_out)
+        subs = jax.random.split(k, shape[0])
+        g = jax.vmap(lambda s: gumbel(s, shape[1:]))(subs)
+    elif stage == "coarse":  # (n_windows, sws, cbs)
+        rows = []
+        for _ in range(shape[0]):
+            k, sub = jax.random.split(k)
+            subs = jax.random.split(sub, shape[1])
+            rows.append(jax.vmap(lambda s: gumbel(s, shape[2:]))(subs))
+        g = jnp.stack(rows)
+    else:  # (n_loops, n_fine - n_coarse, block, cbs)
+        blocks = []
+        for _ in range(shape[0]):
+            k, sub = jax.random.split(k)
+            books = []
+            for _ in range(shape[1]):
+                sub, s = jax.random.split(sub)
+                books.append(gumbel(s, shape[2:]))
+            blocks.append(jnp.stack(books))
+        g = jnp.stack(blocks)
+    return torch.from_numpy(np.array(g))
 
-    return source
+
+def replay_bark_tpu_noise(seed: int):
+    """A `noise_source` for the port that returns exactly the Gumbel rows
+    bark_tpu's generate draws for `seed`."""
+    key = jax.random.PRNGKey(seed)
+    keys = {}
+    for stage in ("semantic", "coarse", "fine"):
+        key, keys[stage] = jax.random.split(key)
+    return lambda stage, shape: gumbel_from_key(stage, keys[stage], shape)
 
 
 @pytest.fixture(scope="module")

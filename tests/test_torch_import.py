@@ -1,6 +1,7 @@
 """The PyTorch port imports torch and never jax, and nothing of bark_tpu:
 every bark_tpu_torch module is imported in a fresh interpreter, and the
-CPU API runs there on a tiny model file (dense and packed), and neither
+CPU API runs there on a tiny model file (dense and packed, and the batched
+`generate_audio_batch` on the dense one), and neither
 jax nor any bark_tpu module may show up in sys.modules (the machine with
 the GPU has no jax). No source line of the port or of chip_smoke.py
 imports bark_tpu."""
@@ -57,6 +58,10 @@ for path, packed in zip(paths, (False, True)):
     assert ("wte_q" in ctx.coarse_params) == packed
     assert bt.bark_generate_audio(ctx, "hello world")
     assert np.isfinite(bt.bark_get_audio_data(ctx)).all()
+    if not packed:  # the batched path takes dense weights
+        outs = ctx.generate_audio_batch(["hello world", "the a"])
+        assert len(outs) == 2 and all(np.isfinite(o).all() and o.size
+                                      for o in outs)
 bt.bark_model_quantize(paths[0], paths[0] + ".q4", 2)
 assert not foreign(), foreign()
 print("ok")
