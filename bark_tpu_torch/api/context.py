@@ -28,8 +28,13 @@ stage order semantic, coarse, fine (`noise_source(stage, shape)`, and
 replace either to replay another implementation's noise). temp = 0 stages
 take no noise and are deterministic.
 
+The int8 KV cache: `kv_cache_dtype="int8"` gives every causal stage, on
+the single-request, packed and batched paths alike, the JAX package's
+int8 cache (`gpt.init_kv_cache(quant=True)`), read and written by the
+int8 kernels K6 (`kernels.kv8`) inside K1/K5/K7 and K2/K8.
+
 Not ported yet: the stepped path and progress callbacks, streaming,
-long-form, voice presets, int8 KV, packed weights on the batched path, the
+long-form, voice presets, packed weights on the batched path, the
 server's batch worker.
 """
 
@@ -140,8 +145,10 @@ class BarkContext:
             raise NotImplementedError(
                 "top_k/top_p sampling is not ported to bark_tpu_torch yet"
             )
-        if p.kv_cache_dtype != "params":
-            raise NotImplementedError("int8 KV is not ported yet")
+        if p.kv_cache_dtype not in ("params", "int8"):
+            raise ValueError(f"kv_cache_dtype {p.kv_cache_dtype!r}: want "
+                             f"'params' or 'int8'")
+        self.kv_quant = p.kv_cache_dtype == "int8"
         self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.noise_source = self._gumbel
@@ -197,11 +204,13 @@ class BarkContext:
                     self.semantic_cfg, temp=p.temp,
                     max_steps=p.n_steps_text_encoder,
                     semantic_vocab_size=p.semantic_vocab_size,
+                    kv_quant=self.kv_quant,
                 )
             elif name == "coarse":
                 prog = coarse_pipe.make_coarse_stage_program(
                     self.coarse_cfg, p,
                     ctx_size=min(COARSE_CTX_SIZE, self.coarse_cfg.block_size),
+                    kv_quant=self.kv_quant,
                 )
             else:
                 prog = fine_pipe.make_fine_stage_program(self.fine_cfg, p)
@@ -338,7 +347,7 @@ class BarkContext:
                 noise[b] = self.lane_noise_source("semantic", b, shape)
         sem_out, counts = semantic_pipe.make_semantic_program_batched(
             self.semantic_cfg, temp=p.temp, max_steps=p.n_steps_text_encoder,
-            semantic_vocab_size=p.semantic_vocab_size,
+            semantic_vocab_size=p.semantic_vocab_size, kv_quant=self.kv_quant,
         )(self.semantic_params, prompts, noise, p.min_eos_p)
         del noise
         self._sync()
@@ -356,6 +365,7 @@ class BarkContext:
             coarse_pipe.make_coarse_stage_program_batched(
                 self.coarse_cfg, p,
                 ctx_size=min(COARSE_CTX_SIZE, self.coarse_cfg.block_size),
+                kv_quant=self.kv_quant,
             )(self.coarse_params, [sem_out[b, :counts[b]] for b in live],
               noises)
         self._sync()

@@ -306,13 +306,13 @@ int blm_head_t(const BarkGPTWeights* w, const void* x, const int* rows,
 
 template <typename T>
 int bdecode_step_t(const BarkGPTWeights* w, int B, const int* tok,
-                   const int* n_past, void* k_cache, void* v_cache, void* x_,
-                   void* qkv_, void* ctx_, void* h_, float* partial,
+                   const int* n_past, const BarkKV& kv, void* x_, void* qkv_,
+                   void* ctx_, void* h_, float* partial,
                    unsigned int* tickets, float* logits, int lo, int hi,
                    cudaStream_t st) {
   const int L = w->n_layer, D = w->n_embd, S = w->block_size;
   const int V = w->n_out_vocab;
-  const size_t LD = (size_t)D, slab = (size_t)B * S * D;
+  const size_t LD = (size_t)D, slab = (size_t)B * S;  // rows a layer
   T* x = (T*)x_;
   T* qkv = (T*)qkv_;
   T* ctx = (T*)ctx_;
@@ -332,9 +332,9 @@ int bdecode_step_t(const BarkGPTWeights* w, int B, const int* tok,
         (const T*)w->qkv_b + l * 3 * LD, D, 3 * D, nullptr, qkv, partial,
         tickets, st);
     if (err) return err;
-    err = bark_launch_attn_decode_batched(w->dtype, qkv, (T*)k_cache + l * slab,
-                                          (T*)v_cache + l * slab, n_past, B,
-                                          S, D, w->n_head, ctx, st);
+    err = bark_launch_attn_decode_batched(
+        w->dtype, qkv, kv_at(kv, l * slab, D, sizeof(T)), n_past, B, S, D,
+        w->n_head, ctx, st);
     if (err) return err;
     err = bgemv<T, EPI_RESID, false>(
         B, ctx, nullptr, nullptr, (const T*)w->proj_w + l * LD * D,
@@ -371,25 +371,26 @@ extern "C" int bark_launch_lm_head_batched(const BarkGPTWeights* w,
 // Returns cudaGetLastError() after the launches (0 on success; -1 for a
 // shape the kernels do not take). tok and n_past are B int32 each in
 // device memory; k_cache and v_cache the stage's (L, B, S, D) caches, row
-// n_past[b] of lane b of every layer written in place; x (B, D), qkv
+// n_past[b] of lane b of every layer written in place (int8 with the
+// (L, B, S) f32 row scales k_scale and v_scale when given: K6a); x (B, D), qkv
 // (B, 3D), ctx (B, D) and h (B, 4D) caller-allocated scratch in the params
 // dtype, partial B * 65536 f32 of scratch, tickets 1024 zeroed uint32
 // (left zeroed); logits (B, n_out_vocab) f32, zero outside [lo, hi).
 extern "C" int bark_decode_step_batched(const BarkGPTWeights* w, int B,
                                         const int* tok, const int* n_past,
-                                        void* k_cache, void* v_cache, void* x,
-                                        void* qkv, void* ctx, void* h,
+                                        void* k_cache, void* v_cache,
+                                        float* k_scale, float* v_scale,
+                                        void* x, void* qkv, void* ctx, void* h,
                                         float* partial, unsigned int* tickets,
                                         float* logits, int lo, int hi,
                                         cudaStream_t stream) {
   if (w->n_embd / w->n_head != 64 || w->n_embd % GEMV_COLS || B < 1 ||
-      B > MAX_LANES)
+      B > MAX_LANES || (k_scale == nullptr) != (v_scale == nullptr))
     return -1;
+  const BarkKV kv{k_cache, v_cache, k_scale, v_scale};
   if (w->dtype == BARK_BF16)
-    return bdecode_step_t<bf16>(w, B, tok, n_past, k_cache, v_cache, x, qkv,
-                                ctx, h, partial, tickets, logits, lo, hi,
-                                stream);
-  return bdecode_step_t<float>(w, B, tok, n_past, k_cache, v_cache, x, qkv,
-                               ctx, h, partial, tickets, logits, lo, hi,
-                               stream);
+    return bdecode_step_t<bf16>(w, B, tok, n_past, kv, x, qkv, ctx, h,
+                                partial, tickets, logits, lo, hi, stream);
+  return bdecode_step_t<float>(w, B, tok, n_past, kv, x, qkv, ctx, h,
+                               partial, tickets, logits, lo, hi, stream);
 }

@@ -241,23 +241,58 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+// ------------------------------------------------------------ int8 KV (K6)
+
+// One slab of a stage's KV caches (a layer's, or a layer's B lanes'): the
+// K and V values in the params dtype, or int8 when the f32 row scales ks
+// and vs are given (the `{"q", "s"}` caches of models/gpt.init_kv_cache
+// with quant=True, dequantized as q * s).
+struct BarkKV {
+  void* k;
+  void* v;
+  float* ks;  // null for a dense cache
+  float* vs;
+};
+
+// The slab `rows` cache rows (of D values, `elem` bytes each when dense)
+// past the start of `c`: layer l of an (L, [B,] S, D) cache is
+// kv_at(c, l * [B *] S, ...).
+inline BarkKV kv_at(const BarkKV& c, size_t rows, int D, size_t elem) {
+  const size_t bytes = rows * D * (c.ks != nullptr ? 1 : elem);
+  return {(char*)c.k + bytes, (char*)c.v + bytes,
+          c.ks != nullptr ? c.ks + rows : nullptr,
+          c.vs != nullptr ? c.vs + rows : nullptr};
+}
+
+// Per-row symmetric int8 quantization, models/gpt.quantize_kv_rows: the
+// scale is amax / 127 (a true division: no fast-math flags are used), its
+// inverse 1 / s (0 for a zero row), and a value is round-half-even(x * inv)
+// clipped to +-127.
+__device__ __forceinline__ float i8_scale(float amax) { return amax / 127.0f; }
+__device__ __forceinline__ float i8_inv(float s) {
+  return s > 0.0f ? 1.0f / s : 0.0f;
+}
+__device__ __forceinline__ signed char quant_i8(float x, float inv) {
+  const float r = rintf(__fmul_rn(x, inv));
+  return (signed char)(int)fminf(fmaxf(r, -127.0f), 127.0f);
+}
+
 // Host-side launchers shared between translation units (all return
 // cudaGetLastError() of their launches).
 extern "C" int bark_launch_lm_head(const BarkGPTWeights* w, const void* x_row,
                                    float* logits, int lo, int hi,
                                    cudaStream_t stream);
-extern "C" int bark_launch_attn_decode(int dtype, const void* qkv,
-                                       void* k_cache, void* v_cache,
+// One layer's decode attention (K1's, or K6a's for an int8 `kv`).
+extern "C" int bark_launch_attn_decode(int dtype, const void* qkv, BarkKV kv,
                                        int n_past, int D, int n_head,
                                        void* ctx, cudaStream_t stream);
-// K7's attention: K1's for B lanes, lane b's (S, D) cache slab at k_cache
-// + b * S * D, its qkv row b of (B, 3D), its context row b of (B, D), at
-// its own slot n_past[b] (B ints in device memory).
+// K7's attention: K1's (or K6a's) for B lanes, lane b's (S, D) cache slab
+// at S * b rows into `kv`, its qkv row b of (B, 3D), its context row b of
+// (B, D), at its own slot n_past[b] (B ints in device memory).
 extern "C" int bark_launch_attn_decode_batched(int dtype, const void* qkv,
-                                               void* k_cache, void* v_cache,
-                                               const int* n_past, int B,
-                                               int S, int D, int n_head,
-                                               void* ctx,
+                                               BarkKV kv, const int* n_past,
+                                               int B, int S, int D,
+                                               int n_head, void* ctx,
                                                cudaStream_t stream);
 extern "C" int bark_launch_embed_token(const BarkGPTWeights* w,
                                        const int* tok, int n_past, void* x,

@@ -25,6 +25,10 @@
 // kernels a layer, plus embed and LM head), so the host pays one ctypes
 // call per token. Not yet done: CUDA graphs, a persistent kernel, a
 // split-K attention, wgmma/TMA.
+//
+// With an int8 cache (K6) the attention of every layer is K6a,
+// `attn_decode_i8_kernel` below, also for K5 and K7 (through
+// bark_launch_attn_decode and bark_launch_attn_decode_batched).
 #include <algorithm>
 
 #include "common.cuh"
@@ -247,16 +251,153 @@ __global__ void __launch_bounds__(ATT_THREADS)
   }
 }
 
-// Attention of one decode step for one layer: one block per head and lane.
+// K6a: attn_decode_kernel on the int8 cache (int8 (S, D) slabs with f32
+// row scales). Replaces the kv_quant branches of bark_tpu/kernels/
+// decode.py (`_quant_row` :1045, `_quant_qseg` :1033, `_attend_lane(_scr)`
+// :1055/:1109, :1603-1634 and :1937-1982), computing what the JAX
+// package's XLA path computes (models/gpt.py `_kv_update`,
+// `_attention_int8`), in its order:
+//  (i) the fresh K and V rows (params dtype, in qkv) get their row scales
+//      from the amax over all D, which every head's block computes alike
+//      (a max is exact in any order), so no block waits on another; a
+//      block writes its head's 64 int8 values of each row at slot n_past,
+//      the head-0 block the two scales, and each block scores the fresh
+//      row with its own copy of the scales, never reading the slot's
+//      scale another block writes;
+// (ii) q * (1/sqrt(64)) is quantized over the head's 64 dims;
+// (iii) a key row's score is the exact integer dot of the two int8
+//      vectors (__dp4a over 16 words), then (score * s_q) * s_k;
+// (iv) the f32 softmax, weights rounded to T, as the dense kernel;
+//  (v) V rows dequantized as round_t<T>(q * s_v), the context summed with
+//      f32 FMAs.
+// What bounds it: the cache bytes, half the bf16 kernel's (a quarter of
+// the f32 one's) plus 4 bytes of scale a row; one launch a layer, as the
+// dense kernel (an extra quantize launch would cost ~6 us a layer at this
+// latency-bound step).
 template <typename T>
-int attn_decode_t(const T* qkv, T* kc, T* vc, int n_past,
-                  const int* n_past_dev, int B, int S, int D, int n_head,
-                  T* ctx, cudaStream_t st) {
+__global__ void __launch_bounds__(ATT_THREADS)
+    attn_decode_i8_kernel(const T* __restrict__ qkv, signed char* kc,
+                          signed char* vc, float* ks, float* vs, int n_past,
+                          const int* __restrict__ n_past_dev, int S, int D,
+                          float scale, T* __restrict__ ctx) {
+  constexpr int KG = ATT_THREADS / (HD / 8);  // key groups of the V pass
+  extern __shared__ float sc[];  // n_past + 1 scores
+  __shared__ int qw[HD / 4];     // the quantized q, 4 int8 a word
+  __shared__ float red[32];
+  __shared__ float part[KG][HD + 1];
+  const int off = blockIdx.x * HD;
+  if (n_past_dev != nullptr) {
+    const int b = blockIdx.y;
+    n_past = n_past_dev[b];
+    qkv += (size_t)b * 3 * D;
+    kc += (size_t)b * S * D;
+    vc += (size_t)b * S * D;
+    ks += (size_t)b * S;
+    vs += (size_t)b * S;
+    ctx += (size_t)b * D;
+    if (n_past < 0 || n_past >= S) {
+      for (int d = threadIdx.x; d < HD; d += blockDim.x)
+        ctx[off + d] = from_f32<T>(NAN);
+      return;
+    }
+  }
+  // (i) the fresh rows' scales over all D, and this head's int8 values
+  const T* knew = qkv + D;
+  const T* vnew = qkv + 2 * D;
+  float ka = 0.0f, va = 0.0f;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    ka = fmaxf(ka, fabsf(to_f32(knew[i])));
+    va = fmaxf(va, fabsf(to_f32(vnew[i])));
+  }
+  const float sk = i8_scale(block_max(ka, red));
+  const float sv = i8_scale(block_max(va, red));
+  if (threadIdx.x < HD) {
+    const int d = threadIdx.x;
+    kc[(size_t)n_past * D + off + d] = quant_i8(to_f32(knew[off + d]),
+                                                i8_inv(sk));
+    vc[(size_t)n_past * D + off + d] = quant_i8(to_f32(vnew[off + d]),
+                                                i8_inv(sv));
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    ks[n_past] = sk;
+    vs[n_past] = sv;
+  }
+  // (ii) q, quantized over the head
+  float qv = 0.0f;
+  if (threadIdx.x < HD) qv = to_f32(qkv[off + threadIdx.x]) * scale;
+  const float sq = i8_scale(block_max(fabsf(qv), red));
+  if (threadIdx.x < HD)
+    reinterpret_cast<signed char*>(qw)[threadIdx.x] =
+        quant_i8(qv, i8_inv(sq));
+  __syncthreads();
+  // (iii) scores: whole key rows per thread, 4 x 16-byte loads each
+  const int n = n_past + 1;
+  float m = -INFINITY;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const int4* kr = reinterpret_cast<const int4*>(kc + (size_t)j * D + off);
+    int acc = 0;
+#pragma unroll
+    for (int w = 0; w < HD / 16; ++w) {
+      const int4 u = kr[w];
+      acc = __dp4a(u.x, qw[4 * w], acc);
+      acc = __dp4a(u.y, qw[4 * w + 1], acc);
+      acc = __dp4a(u.z, qw[4 * w + 2], acc);
+      acc = __dp4a(u.w, qw[4 * w + 3], acc);
+    }
+    const float s = ((float)acc * sq) * (j == n_past ? sk : ks[j]);
+    sc[j] = s;
+    m = fmaxf(m, s);
+  }
+  // (iv) softmax
+  m = block_max(m, red);
+  float sum = 0.0f;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const float e = expf(sc[j] - m);
+    sc[j] = e;
+    sum += e;
+  }
+  sum = block_sum(sum, red);
+  for (int j = threadIdx.x; j < n; j += blockDim.x)
+    sc[j] = round_t<T>(sc[j] / sum);
+  __syncthreads();
+  // (v) context: groups of 8 threads read one V row, 8 bytes a thread
+  const int dg = (threadIdx.x % (HD / 8)) * 8, kg = threadIdx.x / (HD / 8);
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int j = kg; j < n; j += KG) {
+    const int2 u =
+        *reinterpret_cast<const int2*>(vc + (size_t)j * D + off + dg);
+    const signed char* v8 = reinterpret_cast<const signed char*>(&u);
+    const float s = j == n_past ? sv : vs[j];
+    const float p = sc[j];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      acc[i] = fmaf(p, round_t<T>((float)v8[i] * s), acc[i]);
+  }
+  for (int i = 0; i < 8; ++i) part[kg][dg + i] = acc[i];
+  __syncthreads();
+  if (threadIdx.x < HD) {
+    float t = 0.0f;
+    for (int g = 0; g < KG; ++g) t += part[g][threadIdx.x];
+    ctx[off + threadIdx.x] = from_f32<T>(t);
+  }
+}
+
+// Attention of one decode step for one layer: one block per head and lane,
+// K6a for an int8 cache.
+template <typename T>
+int attn_decode_t(const T* qkv, BarkKV kv, int n_past, const int* n_past_dev,
+                  int B, int S, int D, int n_head, T* ctx, cudaStream_t st) {
   const float scale = (float)(1.0 / sqrt((double)(D / n_head)));
   const int rows = n_past_dev != nullptr ? S : n_past + 1;
-  attn_decode_kernel<T>
-      <<<dim3(n_head, B), ATT_THREADS, rows * sizeof(float), st>>>(
-          qkv, kc, vc, n_past, n_past_dev, S, D, scale, ctx);
+  const dim3 grid(n_head, B);
+  const size_t smem = rows * sizeof(float);
+  if (kv.ks != nullptr)
+    attn_decode_i8_kernel<T><<<grid, ATT_THREADS, smem, st>>>(
+        qkv, (signed char*)kv.k, (signed char*)kv.v, kv.ks, kv.vs, n_past,
+        n_past_dev, S, D, scale, ctx);
+  else
+    attn_decode_kernel<T><<<grid, ATT_THREADS, smem, st>>>(
+        qkv, (T*)kv.k, (T*)kv.v, n_past, n_past_dev, S, D, scale, ctx);
   return (int)cudaGetLastError();
 }
 
@@ -300,10 +441,9 @@ int lm_head_t(const BarkGPTWeights* w, const void* x_row, float* logits,
 
 template <typename T>
 int decode_step_t(const BarkGPTWeights* w, const int* tok, int n_past,
-                  void* k_cache, void* v_cache, void* x_, void* qkv_,
-                  void* ctx_, void* h_, float* partial,
-                  unsigned int* tickets, float* logits, int lo, int hi,
-                  cudaStream_t st) {
+                  const BarkKV& kv, void* x_, void* qkv_, void* ctx_,
+                  void* h_, float* partial, unsigned int* tickets,
+                  float* logits, int lo, int hi, cudaStream_t st) {
   const int L = w->n_layer, D = w->n_embd, S = w->block_size;
   const int V = w->n_out_vocab;
   const size_t LD = (size_t)D;
@@ -311,8 +451,6 @@ int decode_step_t(const BarkGPTWeights* w, const int* tok, int n_past,
   T* qkv = (T*)qkv_;
   T* ctx = (T*)ctx_;
   T* h = (T*)h_;
-  T* kc = (T*)k_cache;
-  T* vc = (T*)v_cache;
   int err = bark_launch_embed_token(w, tok, n_past, x, st);
   if (err) return err;
   for (int l = 0; l < L; ++l) {
@@ -325,9 +463,8 @@ int decode_step_t(const BarkGPTWeights* w, const int* tok, int n_past,
         (const T*)w->qkv_b + l * 3 * LD, D, 3 * D, nullptr, qkv, partial,
         tickets, st);
     if (err) return err;
-    err = attn_decode_t<T>(qkv, kc + l * (size_t)S * D,
-                           vc + l * (size_t)S * D, n_past, nullptr, 1, S, D,
-                           w->n_head, ctx, st);
+    err = attn_decode_t<T>(qkv, kv_at(kv, (size_t)l * S, D, sizeof(T)),
+                           n_past, nullptr, 1, S, D, w->n_head, ctx, st);
     if (err) return err;
     err = gemv<T, EPI_RESID, false>(
         ctx, nullptr, nullptr, (const T*)w->proj_w + l * LD * D,
@@ -352,32 +489,26 @@ int decode_step_t(const BarkGPTWeights* w, const int* tok, int n_past,
 
 }  // namespace
 
-extern "C" int bark_launch_attn_decode(int dtype, const void* qkv,
-                                       void* k_cache, void* v_cache,
+extern "C" int bark_launch_attn_decode(int dtype, const void* qkv, BarkKV kv,
                                        int n_past, int D, int n_head,
                                        void* ctx, cudaStream_t stream) {
   if (dtype == BARK_BF16)
-    return attn_decode_t<bf16>((const bf16*)qkv, (bf16*)k_cache,
-                               (bf16*)v_cache, n_past, nullptr, 1, 0, D,
-                               n_head, (bf16*)ctx, stream);
-  return attn_decode_t<float>((const float*)qkv, (float*)k_cache,
-                              (float*)v_cache, n_past, nullptr, 1, 0, D,
-                              n_head, (float*)ctx, stream);
+    return attn_decode_t<bf16>((const bf16*)qkv, kv, n_past, nullptr, 1, 0,
+                               D, n_head, (bf16*)ctx, stream);
+  return attn_decode_t<float>((const float*)qkv, kv, n_past, nullptr, 1, 0,
+                              D, n_head, (float*)ctx, stream);
 }
 
 extern "C" int bark_launch_attn_decode_batched(int dtype, const void* qkv,
-                                               void* k_cache, void* v_cache,
-                                               const int* n_past, int B,
-                                               int S, int D, int n_head,
-                                               void* ctx,
+                                               BarkKV kv, const int* n_past,
+                                               int B, int S, int D,
+                                               int n_head, void* ctx,
                                                cudaStream_t stream) {
   if (dtype == BARK_BF16)
-    return attn_decode_t<bf16>((const bf16*)qkv, (bf16*)k_cache,
-                               (bf16*)v_cache, 0, n_past, B, S, D, n_head,
-                               (bf16*)ctx, stream);
-  return attn_decode_t<float>((const float*)qkv, (float*)k_cache,
-                              (float*)v_cache, 0, n_past, B, S, D, n_head,
-                              (float*)ctx, stream);
+    return attn_decode_t<bf16>((const bf16*)qkv, kv, 0, n_past, B, S, D,
+                               n_head, (bf16*)ctx, stream);
+  return attn_decode_t<float>((const float*)qkv, kv, 0, n_past, B, S, D,
+                              n_head, (float*)ctx, stream);
 }
 
 extern "C" int bark_launch_lm_head(const BarkGPTWeights* w, const void* x_row,
@@ -389,20 +520,26 @@ extern "C" int bark_launch_lm_head(const BarkGPTWeights* w, const void* x_row,
 }
 
 // Returns cudaGetLastError() after the launches (0 on success). k_cache and
-// v_cache are the stage's (L, S, D) caches; x (D), qkv (3D), ctx (D) and
-// h (4D) are caller-allocated scratch in the params dtype, partial is
-// 65536 f32 of scratch, tickets 1024 zeroed uint32 (left zeroed); logits is
-// (n_out_vocab,) f32, zero outside [lo, hi).
+// v_cache are the stage's (L, S, D) caches, in the params dtype when
+// k_scale and v_scale are null, else int8 with those (L, S) f32 row scales
+// (K6a); x (D), qkv (3D), ctx (D) and h (4D) are caller-allocated scratch
+// in the params dtype, partial is 65536 f32 of scratch, tickets 1024
+// zeroed uint32 (left zeroed); logits is (n_out_vocab,) f32, zero outside
+// [lo, hi).
 extern "C" int bark_decode_step(const BarkGPTWeights* w, const int* tok,
                                 int n_past, void* k_cache, void* v_cache,
-                                void* x, void* qkv, void* ctx, void* h,
+                                float* k_scale, float* v_scale, void* x,
+                                void* qkv, void* ctx, void* h,
                                 float* partial, unsigned int* tickets,
                                 float* logits, int lo, int hi,
                                 cudaStream_t stream) {
-  if (w->n_embd / w->n_head != HD || w->n_embd % GEMV_COLS) return -1;
+  if (w->n_embd / w->n_head != HD || w->n_embd % GEMV_COLS ||
+      (k_scale == nullptr) != (v_scale == nullptr))
+    return -1;
+  const BarkKV kv{k_cache, v_cache, k_scale, v_scale};
   if (w->dtype == BARK_BF16)
-    return decode_step_t<bf16>(w, tok, n_past, k_cache, v_cache, x, qkv, ctx,
-                               h, partial, tickets, logits, lo, hi, stream);
-  return decode_step_t<float>(w, tok, n_past, k_cache, v_cache, x, qkv, ctx,
-                              h, partial, tickets, logits, lo, hi, stream);
+    return decode_step_t<bf16>(w, tok, n_past, kv, x, qkv, ctx, h, partial,
+                               tickets, logits, lo, hi, stream);
+  return decode_step_t<float>(w, tok, n_past, kv, x, qkv, ctx, h, partial,
+                              tickets, logits, lo, hi, stream);
 }

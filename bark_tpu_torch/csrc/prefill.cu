@@ -39,6 +39,13 @@
 // tiles never straddle two lanes and each read their own lane's cache slab
 // and n_valid. The LM head is K7's batched head on each lane's last live
 // row.
+//
+// With int8 caches (K6) the QKV epilogue writes k, v in T to scratch, K6b
+// (`quant_rows_kernel`) quantizes each row into its cache row, one launch
+// a layer, and the attention is K6c (`attn_prefill_i8_kernel`). The JAX
+// package runs such a prefill in XLA; both compute models/gpt.py's int8
+// path. What bounds them: K6b moves ~3 bytes a K/V value, K6c reads int8
+// tiles; both are small beside the projections' GEMMs.
 #include <mma.h>
 
 #include "common.cuh"
@@ -325,6 +332,167 @@ __global__ void __launch_bounds__(PA_THREADS)
       ctx[(size_t)(r0 + i) * D + off + d0 + t] = from_f32<T>(acc[t]);
 }
 
+// K6b: quantize the QKV epilogue's K (blockIdx.y 0) or V (1) row m of
+// `rows` ((2, M, D) in T) into its cache row (m, or map.slot[m] for K8) of
+// the layer's int8 slab, with its f32 scale: the row's amax over D, then
+// models/gpt.quantize_kv_rows' formula. One block per (row, K or V).
+// Replaces the JAX package's XLA `_kv_update` of an int8 cache in prefill
+// (bark_tpu/models/gpt.py:212; its Pallas prefill takes no int8 cache).
+template <typename T>
+__global__ void __launch_bounds__(LN_THREADS)
+    quant_rows_kernel(const T* __restrict__ rows, int M, int D,
+                      const int* __restrict__ slot, signed char* kq,
+                      signed char* vq, float* ks, float* vs) {
+  __shared__ float red[32];
+  const int m = blockIdx.x;
+  const bool is_v = blockIdx.y != 0;
+  const T* x = rows + ((size_t)blockIdx.y * M + m) * D;
+  float a = 0.0f;
+  for (int i = threadIdx.x; i < D; i += blockDim.x)
+    a = fmaxf(a, fabsf(to_f32(x[i])));
+  const float s = i8_scale(block_max(a, red)), inv = i8_inv(s);
+  const size_t row = slot != nullptr ? slot[m] : m;
+  signed char* q = (is_v ? vq : kq) + row * D;
+  for (int i = threadIdx.x; i < D; i += blockDim.x)
+    q[i] = quant_i8(to_f32(x[i]), inv);
+  if (threadIdx.x == 0) (is_v ? vs : ks)[row] = s;
+}
+
+// K6c: attn_prefill_kernel on the int8 cache, as models/gpt.py
+// `_attention_int8` computes it: the query tile's rows are quantized per
+// (row, head) in shared memory (q * (1/sqrt(64)), scale amax / 127), key
+// tiles are staged as int8 with their row scales and scored with integer
+// __dp4a dots, (score * s_q) * s_k; value tiles are dequantized to T as
+// they are staged (round_t<T>(q * s_v)). The causal softmax and the exact
+// zeros past each row are attn_prefill_kernel's. Replaces the JAX
+// package's XLA attention of an int8 prefill (bark_tpu/models/gpt.py:273;
+// its Pallas prefill takes no int8 cache).
+template <typename T>
+__global__ void __launch_bounds__(PA_THREADS)
+    attn_prefill_i8_kernel(const T* __restrict__ q,
+                           const signed char* __restrict__ kc,
+                           const signed char* __restrict__ vc,
+                           const float* __restrict__ ks,
+                           const float* __restrict__ vs, int n, int S, int D,
+                           int ld, float scale, RowMap map,
+                           T* __restrict__ ctx) {
+  extern __shared__ float sc[];
+  __shared__ int qw[QT][HD / 4 + 1];   // int8 query rows, 4 a word
+  __shared__ float qs[QT];             // their scales
+  __shared__ int kw[KT][HD / 4 + 1];   // int8 key tile
+  __shared__ float kts[KT];            // its row scales
+  __shared__ float ts[KT][HD + 1];     // dequantized value tile
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int off = blockIdx.x * HD;
+  int r0 = blockIdx.y * QT;
+  if (map.tiles != nullptr) {
+    const int* t = map.tiles + 3 * blockIdx.y;
+    n = map.lane_n[t[0]];
+    kc += (size_t)t[0] * S * D;
+    vc += (size_t)t[0] * S * D;
+    ks += (size_t)t[0] * S;
+    vs += (size_t)t[0] * S;
+    r0 = t[1];
+    q += (size_t)t[2] * D;
+    ctx += (size_t)t[2] * D;
+  }
+  const int nq = min(QT, n - r0);
+  const int kmax = min(r0 + QT, n);
+  // quantize the query tile: one warp per row, 2 dims a lane
+  for (int i = warp; i < QT; i += PA_THREADS / 32) {
+    float v0 = 0.0f, v1 = 0.0f;
+    if (i < nq) {
+      const T* row = q + (size_t)(r0 + i) * D + off;
+      v0 = to_f32(row[lane]) * scale;
+      v1 = to_f32(row[lane + 32]) * scale;
+    }
+    const float s = i8_scale(warp_max(fmaxf(fabsf(v0), fabsf(v1))));
+    signed char* qb = reinterpret_cast<signed char*>(qw[i]);
+    qb[lane] = quant_i8(v0, i8_inv(s));
+    qb[lane + 32] = quant_i8(v1, i8_inv(s));
+    if (lane == 0) qs[i] = s;
+  }
+  // scores: thread (key j, rows ig*4 .. ig*4+3) per tile of KT keys
+  {
+    const int j = tid % KT, ig = tid / KT;
+    for (int k0 = 0; k0 < kmax; k0 += KT) {
+      __syncthreads();
+      for (int idx = tid; idx < KT * HD / 16; idx += PA_THREADS) {
+        const int jj = idx / (HD / 16), c = idx % (HD / 16);
+        int4 u = make_int4(0, 0, 0, 0);
+        if (k0 + jj < kmax)
+          u = *reinterpret_cast<const int4*>(kc + (size_t)(k0 + jj) * D +
+                                             off + 16 * c);
+        kw[jj][4 * c] = u.x;
+        kw[jj][4 * c + 1] = u.y;
+        kw[jj][4 * c + 2] = u.z;
+        kw[jj][4 * c + 3] = u.w;
+      }
+      if (tid < KT) kts[tid] = k0 + tid < kmax ? ks[k0 + tid] : 0.0f;
+      __syncthreads();
+      if (k0 + j < kmax) {
+        for (int ii = 0; ii < QT / 4; ++ii) {
+          const int i = ig * (QT / 4) + ii;
+          int acc = 0;
+#pragma unroll
+          for (int w = 0; w < HD / 4; ++w)
+            acc = __dp4a(qw[i][w], kw[j][w], acc);
+          sc[i * ld + k0 + j] = ((float)acc * qs[i]) * kts[j];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // softmax per query row over its causal keys [0, row], as
+  // attn_prefill_kernel
+  for (int i = warp; i < QT; i += PA_THREADS / 32) {
+    const int nk = min(r0 + i + 1, kmax);
+    float* s = sc + i * ld;
+    float m = -INFINITY;
+    for (int j = lane; j < nk; j += 32) m = fmaxf(m, s[j]);
+    m = warp_max(m);
+    float sum = 0.0f;
+    for (int j = lane; j < nk; j += 32) {
+      const float e = expf(s[j] - m);
+      s[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < nk; j += 32) s[j] = round_t<T>(s[j] / sum);
+    for (int j = nk + lane; j < kmax; j += 32) s[j] = 0.0f;
+  }
+  // context: thread (row i, dims d0 .. d0+3)
+  const int i = tid / (HD / 4), d0 = (tid % (HD / 4)) * 4;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int k0 = 0; k0 < kmax; k0 += KT) {
+    __syncthreads();
+    for (int idx = tid; idx < KT * HD / 4; idx += PA_THREADS) {
+      const int jj = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
+      if (k0 + jj < kmax) {
+        const char4 c = *reinterpret_cast<const char4*>(
+            vc + (size_t)(k0 + jj) * D + off + d);
+        const float s = vs[k0 + jj];
+        ts[jj][d] = round_t<T>((float)c.x * s);
+        ts[jj][d + 1] = round_t<T>((float)c.y * s);
+        ts[jj][d + 2] = round_t<T>((float)c.z * s);
+        ts[jj][d + 3] = round_t<T>((float)c.w * s);
+      } else {
+        ts[jj][d] = ts[jj][d + 1] = ts[jj][d + 2] = ts[jj][d + 3] = 0.0f;
+      }
+    }
+    __syncthreads();
+    const int nk = min(KT, kmax - k0);
+    const float* p = sc + i * ld + k0;
+    for (int j = 0; j < nk; ++j) {
+      const float pj = p[j];
+      for (int t = 0; t < 4; ++t) acc[t] = fmaf(pj, ts[j][d0 + t], acc[t]);
+    }
+  }
+  if (i < nq)
+    for (int t = 0; t < 4; ++t)
+      ctx[(size_t)(r0 + i) * D + off + d0 + t] = from_f32<T>(acc[t]);
+}
+
 template <typename T, int EPI>
 int gemm(const T* A, const T* B, const T* bias, int M, int N, int K,
          GemmOut o, cudaStream_t st) {
@@ -335,20 +503,23 @@ int gemm(const T* A, const T* B, const T* bias, int M, int N, int K,
 
 // The prefill of M stacked rows of B lanes (K2: B = 1, M = n_valid, a null
 // map); max_n is the longest lane's n_valid, n_tiles the attention's query
-// tiles.
+// tiles. An int8 `kv` (K6) takes kv_rows, (2, M, D) scratch in T for the
+// K/V rows that K6b quantizes.
 template <typename T>
 int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
-              int max_n, int n_tiles, const RowMap& map, void* k_cache,
-              void* v_cache, void* x_, void* hb_, void* q_, void* ctx_,
-              void* ff_, float* logits, int lo, int hi, cudaStream_t st) {
+              int max_n, int n_tiles, const RowMap& map, const BarkKV& kv,
+              void* x_, void* hb_, void* q_, void* ctx_, void* ff_,
+              void* kv_rows, float* logits, int lo, int hi, cudaStream_t st) {
   const int L = w->n_layer, D = w->n_embd, S = w->block_size;
   const int V = w->n_out_vocab;
-  const size_t LD = (size_t)D, slab = (size_t)B * S * D;
+  const size_t LD = (size_t)D, slab = (size_t)B * S;  // cache rows a layer
+  const bool quant = kv.ks != nullptr;
   T* x = (T*)x_;
   T* hb = (T*)hb_;
   T* qb = (T*)q_;
   T* ctx = (T*)ctx_;
   T* ff = (T*)ff_;
+  T* rows = (T*)kv_rows;
   const float scale = (float)(1.0 / sqrt((double)(D / w->n_head)));
   const int ld = cdiv(max_n, 4) * 4;
   const size_t att_smem = (size_t)QT * ld * sizeof(float);
@@ -356,7 +527,9 @@ int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
   // every call (one host call), so that it holds on whatever device is
   // current and a refusal is reported here, not as a failed launch
   int err = (int)cudaFuncSetAttribute(
-      attn_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      quant ? (const void*)attn_prefill_i8_kernel<T>
+            : (const void*)attn_prefill_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       QT * 1024 * (int)sizeof(float));
   if (err) return err;
   const int total = M * D;
@@ -364,18 +537,32 @@ int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
       (const T*)x_emb, (const T*)w->wpe, M, D, map, x);
   err = (int)cudaGetLastError();
   if (err) return err;
+  const dim3 att_grid(w->n_head, n_tiles);
   for (int l = 0; l < L; ++l) {
-    T* kc = (T*)k_cache + l * slab;
-    T* vc = (T*)v_cache + l * slab;
+    const BarkKV c = kv_at(kv, l * slab, D, sizeof(T));
     ln_rows_kernel<T><<<M, LN_THREADS, D * sizeof(float), st>>>(
         x, (const T*)w->ln1_g + l * LD, (const T*)w->ln1_b + l * LD, D, hb);
+    // the K/V rows go to the cache, or to kv_rows for K6b to quantize
+    const GemmOut qkv_out = quant
+        ? GemmOut{qb, rows, rows + (size_t)M * D, D, nullptr}
+        : GemmOut{qb, c.k, c.v, D, map.slot};
     err = gemm<T, GE_QKV>(hb, (const T*)w->qkv_w + l * LD * 3 * D,
                           (const T*)w->qkv_b + l * 3 * LD, M, 3 * D, D,
-                          GemmOut{qb, kc, vc, D, map.slot}, st);
+                          qkv_out, st);
     if (err) return err;
-    attn_prefill_kernel<T>
-        <<<dim3(w->n_head, n_tiles), PA_THREADS, att_smem, st>>>(
-            qb, kc, vc, M, S, D, ld, scale, map, ctx);
+    if (quant) {
+      quant_rows_kernel<T><<<dim3(M, 2), LN_THREADS, 0, st>>>(
+          rows, M, D, map.slot, (signed char*)c.k, (signed char*)c.v, c.ks,
+          c.vs);
+      err = (int)cudaGetLastError();
+      if (err) return err;
+      attn_prefill_i8_kernel<T><<<att_grid, PA_THREADS, att_smem, st>>>(
+          qb, (const signed char*)c.k, (const signed char*)c.v, c.ks, c.vs,
+          M, S, D, ld, scale, map, ctx);
+    } else {
+      attn_prefill_kernel<T><<<att_grid, PA_THREADS, att_smem, st>>>(
+          qb, (const T*)c.k, (const T*)c.v, M, S, D, ld, scale, map, ctx);
+    }
     err = (int)cudaGetLastError();
     if (err) return err;
     err = gemm<T, GE_RESID>(ctx, (const T*)w->proj_w + l * LD * D,
@@ -407,53 +594,61 @@ int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
 // Returns cudaGetLastError() after the launches (0 on success). x_emb holds
 // >= n_valid rows (T, D) of token embeddings without positions; cache rows
 // [0, n_valid) of every layer are written, later rows are left as they
-// were. x, hb, q, ctx (n_valid, D) and ff (n_valid, 4D) are caller-allocated
-// scratch in the params dtype; logits (n_out_vocab,) f32 are those of row
-// n_valid-1, zero outside [lo, hi).
+// were. The caches are int8 with (L, S) f32 row scales when k_scale and
+// v_scale are given (K6b, K6c), and kv_rows is then (2, n_valid, D) scratch
+// in the params dtype. x, hb, q, ctx (n_valid, D) and ff (n_valid, 4D) are
+// caller-allocated scratch in the params dtype; logits (n_out_vocab,) f32
+// are those of row n_valid-1, zero outside [lo, hi).
 extern "C" int bark_prefill(const BarkGPTWeights* w, const void* x_emb,
                             int n_valid, void* k_cache, void* v_cache,
-                            void* x, void* hb, void* q, void* ctx, void* ff,
+                            float* k_scale, float* v_scale, void* x, void* hb,
+                            void* q, void* ctx, void* ff, void* kv_rows,
                             float* logits, int lo, int hi,
                             cudaStream_t stream) {
   if (w->n_embd / w->n_head != HD || w->n_embd % BN || n_valid <= 0 ||
-      n_valid > w->block_size || w->block_size > 1024)
+      n_valid > w->block_size || w->block_size > 1024 ||
+      (k_scale == nullptr) != (v_scale == nullptr) ||
+      (k_scale != nullptr && kv_rows == nullptr))
     return -1;
   const RowMap map{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  const BarkKV kv{k_cache, v_cache, k_scale, v_scale};
   const int n_tiles = cdiv(n_valid, QT);
   if (w->dtype == BARK_BF16)
-    return prefill_t<bf16>(w, x_emb, 1, n_valid, n_valid, n_tiles, map,
-                           k_cache, v_cache, x, hb, q, ctx, ff, logits, lo,
-                           hi, stream);
-  return prefill_t<float>(w, x_emb, 1, n_valid, n_valid, n_tiles, map,
-                          k_cache, v_cache, x, hb, q, ctx, ff, logits, lo, hi,
-                          stream);
+    return prefill_t<bf16>(w, x_emb, 1, n_valid, n_valid, n_tiles, map, kv, x,
+                           hb, q, ctx, ff, kv_rows, logits, lo, hi, stream);
+  return prefill_t<float>(w, x_emb, 1, n_valid, n_valid, n_tiles, map, kv, x,
+                          hb, q, ctx, ff, kv_rows, logits, lo, hi, stream);
 }
 
 // K8. Returns as bark_prefill. x_emb is (B, T, D); the caches are
 // (L, B, S, D); `tables` is one device int32 buffer holding, in order,
 // src, pos, slot (M each), tiles (3 * n_tiles), lane_n and last (B each)
 // of `RowMap`, for M = sum(lane_n) stacked rows; max_n = max(lane_n) and
-// n_tiles = sum(ceil(lane_n / 16)) (query tiles of 16 rows). x, hb, q,
+// n_tiles = sum(ceil(lane_n / 16)) (query tiles of 16 rows). Int8 caches
+// take (L, B, S) f32 row scales and kv_rows, as bark_prefill. x, hb, q,
 // ctx (M, D) and ff (M, 4D) are scratch in the params dtype; logits (B,
 // n_out_vocab) f32 are those of each lane's last live row, zero outside
 // [lo, hi).
 extern "C" int bark_prefill_batched(const BarkGPTWeights* w,
                                     const void* x_emb, int B, int M,
                                     int max_n, int n_tiles, const int* tables,
-                                    void* k_cache, void* v_cache, void* x,
+                                    void* k_cache, void* v_cache,
+                                    float* k_scale, float* v_scale, void* x,
                                     void* hb, void* q, void* ctx, void* ff,
-                                    float* logits, int lo, int hi,
-                                    cudaStream_t stream) {
+                                    void* kv_rows, float* logits, int lo,
+                                    int hi, cudaStream_t stream) {
   if (w->n_embd / w->n_head != HD || w->n_embd % BN || B <= 0 || M <= 0 ||
       max_n <= 0 || max_n > w->block_size || w->block_size > 1024 ||
-      n_tiles <= 0)
+      n_tiles <= 0 || (k_scale == nullptr) != (v_scale == nullptr) ||
+      (k_scale != nullptr && kv_rows == nullptr))
     return -1;
   const RowMap map{tables, tables + M, tables + 2 * M, tables + 3 * M,
                    tables + 3 * M + 3 * n_tiles,
                    tables + 3 * M + 3 * n_tiles + B};
+  const BarkKV kv{k_cache, v_cache, k_scale, v_scale};
   if (w->dtype == BARK_BF16)
-    return prefill_t<bf16>(w, x_emb, B, M, max_n, n_tiles, map, k_cache,
-                           v_cache, x, hb, q, ctx, ff, logits, lo, hi, stream);
-  return prefill_t<float>(w, x_emb, B, M, max_n, n_tiles, map, k_cache,
-                          v_cache, x, hb, q, ctx, ff, logits, lo, hi, stream);
+    return prefill_t<bf16>(w, x_emb, B, M, max_n, n_tiles, map, kv, x, hb, q,
+                           ctx, ff, kv_rows, logits, lo, hi, stream);
+  return prefill_t<float>(w, x_emb, B, M, max_n, n_tiles, map, kv, x, hb, q,
+                          ctx, ff, kv_rows, logits, lo, hi, stream);
 }

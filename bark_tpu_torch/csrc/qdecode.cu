@@ -231,10 +231,9 @@ __global__ void __launch_bounds__(QEMBED_THREADS)
 
 template <typename T, typename S, bool HM>
 int qdecode_step_t(const BarkGPTQWeights* w, const int* tok, int n_past,
-                   void* k_cache, void* v_cache, void* x_, void* qkv_,
-                   void* ctx_, void* h_, float* partial,
-                   unsigned int* tickets, float* logits, int lo, int hi,
-                   cudaStream_t st) {
+                   const BarkKV& kv, void* x_, void* qkv_, void* ctx_,
+                   void* h_, float* partial, unsigned int* tickets,
+                   float* logits, int lo, int hi, cudaStream_t st) {
   const int L = w->n_layer, D = w->n_embd, S_ = w->block_size;
   const int V = w->n_out_vocab;
   const size_t LD = (size_t)D;
@@ -274,9 +273,9 @@ int qdecode_step_t(const BarkGPTQWeights* w, const int* tok, int n_past,
         mo(qkv_m, so(l, D, 3 * D)), (const T*)w->qkv_b + l * 3 * LD, D,
         3 * D, 0, 3 * D, 0, 0, nullptr, qkv, partial, tickets, st);
     if (err) return err;
-    err = bark_launch_attn_decode(w->dtype, qkv, (T*)k_cache + l * S_ * LD,
-                                  (T*)v_cache + l * S_ * LD, n_past, D,
-                                  w->n_head, ctx, st);
+    err = bark_launch_attn_decode(w->dtype, qkv,
+                                  kv_at(kv, (size_t)l * S_, D, sizeof(T)),
+                                  n_past, D, w->n_head, ctx, st);
     if (err) return err;
     err = qgemv<T, S, HM, EPI_RESID, false>(
         ctx, nullptr, nullptr, proj_q + wo(l, D, D), proj_s + so(l, D, D),
@@ -309,45 +308,48 @@ int qdecode_step_t(const BarkGPTQWeights* w, const int* tok, int n_past,
 
 template <typename T>
 int qdecode_step_dt(const BarkGPTQWeights* w, const int* tok, int n_past,
-                    void* kc, void* vc, void* x, void* qkv, void* ctx, void* h,
+                    const BarkKV& kv, void* x, void* qkv, void* ctx, void* h,
                     float* partial, unsigned int* tickets, float* logits,
                     int lo, int hi, cudaStream_t st) {
   if (w->scale_dtype == BARK_F16) {
     if (w->has_min)
-      return qdecode_step_t<T, __half, true>(w, tok, n_past, kc, vc, x, qkv,
-                                             ctx, h, partial, tickets, logits,
-                                             lo, hi, st);
-    return qdecode_step_t<T, __half, false>(w, tok, n_past, kc, vc, x, qkv,
-                                            ctx, h, partial, tickets, logits,
-                                            lo, hi, st);
+      return qdecode_step_t<T, __half, true>(w, tok, n_past, kv, x, qkv, ctx,
+                                             h, partial, tickets, logits, lo,
+                                             hi, st);
+    return qdecode_step_t<T, __half, false>(w, tok, n_past, kv, x, qkv, ctx,
+                                            h, partial, tickets, logits, lo,
+                                            hi, st);
   }
   if (w->has_min)
-    return qdecode_step_t<T, float, true>(w, tok, n_past, kc, vc, x, qkv, ctx,
-                                          h, partial, tickets, logits, lo, hi,
+    return qdecode_step_t<T, float, true>(w, tok, n_past, kv, x, qkv, ctx, h,
+                                          partial, tickets, logits, lo, hi,
                                           st);
-  return qdecode_step_t<T, float, false>(w, tok, n_past, kc, vc, x, qkv, ctx,
-                                         h, partial, tickets, logits, lo, hi,
+  return qdecode_step_t<T, float, false>(w, tok, n_past, kv, x, qkv, ctx, h,
+                                         partial, tickets, logits, lo, hi,
                                          st);
 }
 
 }  // namespace
 
 // The packed decode step; arguments and scratch as bark_decode_step
-// (csrc/decode.cu). Returns cudaGetLastError() after the launches (0 on
-// success), or -1 for a shape or format the kernels do not take.
+// (csrc/decode.cu), int8 caches (K6a) included. Returns cudaGetLastError()
+// after the launches (0 on success), or -1 for a shape or format the
+// kernels do not take.
 extern "C" int bark_qdecode_step(const BarkGPTQWeights* w, const int* tok,
                                  int n_past, void* k_cache, void* v_cache,
-                                 void* x, void* qkv, void* ctx, void* h,
+                                 float* k_scale, float* v_scale, void* x,
+                                 void* qkv, void* ctx, void* h,
                                  float* partial, unsigned int* tickets,
                                  float* logits, int lo, int hi,
                                  cudaStream_t stream) {
   if (w->n_embd / w->n_head != 64 || w->n_embd % 64 || w->v_pad % w->n_embd)
     return -1;
   if (w->scale_dtype != BARK_F16 && w->scale_dtype != BARK_F32) return -1;
+  if ((k_scale == nullptr) != (v_scale == nullptr)) return -1;
+  const BarkKV kv{k_cache, v_cache, k_scale, v_scale};
   if (w->dtype == BARK_BF16)
-    return qdecode_step_dt<bf16>(w, tok, n_past, k_cache, v_cache, x, qkv,
-                                 ctx, h, partial, tickets, logits, lo, hi,
-                                 stream);
-  return qdecode_step_dt<float>(w, tok, n_past, k_cache, v_cache, x, qkv, ctx,
-                                h, partial, tickets, logits, lo, hi, stream);
+    return qdecode_step_dt<bf16>(w, tok, n_past, kv, x, qkv, ctx, h, partial,
+                                 tickets, logits, lo, hi, stream);
+  return qdecode_step_dt<float>(w, tok, n_past, kv, x, qkv, ctx, h, partial,
+                                tickets, logits, lo, hi, stream);
 }

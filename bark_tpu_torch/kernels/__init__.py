@@ -12,6 +12,8 @@ that run their plain PyTorch version on CPU tensors:
 - bprefill: K8, B lanes' prefills stacked into one row block
 - bsemantic: K9, a chunk of semantic steps of B lanes in lockstep
 - bwindow: K10, one coarse sliding window of B lanes
+- kv8: K6, the int8 KV cache's kernels inside K1, K5, K7 (decode
+  attention) and K2, K8 (row quantizer and prefill attention)
 
 Each module keeps `launches`, the count of kernel launches through its
 wrapper (never of plain-version calls).
@@ -22,7 +24,8 @@ from __future__ import annotations
 import importlib
 
 KERNEL_MODULES = ("decode", "qdecode", "prefill", "semantic", "window",
-                  "sample", "bdecode", "bprefill", "bsemantic", "bwindow")
+                  "sample", "bdecode", "bprefill", "bsemantic", "bwindow",
+                  "kv8")
 
 
 def _modules():

@@ -81,26 +81,39 @@ class GPTQWeights(ctypes.Structure):
     ]
 
 
+class BarkKV(ctypes.Structure):
+    """Mirror of `BarkKV` in csrc/common.cuh (passed by value)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in ("k", "v", "ks", "vs")]
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kc, vc, ks, vs: the caches as `StageWeights.check_cache` returns them (ks
+# and vs, the row scales of an int8 cache, null for a dense one)
 _SIGNATURES = {
-    # (weights*, tok*, n_past, kc, vc, x, qkv, ctx, h, partial, tickets,
-    #  logits, lo, hi, stream)
-    "bark_decode_step": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                         _I, _P],
+    # one layer's decode attention of B lanes: (dtype, qkv, kv, n_past*, B,
+    #  S, D, n_head, ctx, stream)
+    "bark_launch_attn_decode_batched": [_I, _P, BarkKV, _P, _I, _I, _I, _I,
+                                        _P, _P],
+    # (weights*, tok*, n_past, kc, vc, ks, vs, x, qkv, ctx, h, partial,
+    #  tickets, logits, lo, hi, stream)
+    "bark_decode_step": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _I, _I, _P],
     # (qweights*, then as bark_decode_step)
-    "bark_qdecode_step": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _P],
-    # (weights*, x_emb, n_valid, kc, vc, x, hb, q, ctx, ff, logits, lo, hi,
-    #  stream)
-    "bark_prefill": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # (weights*, B, tok*, n_past*, kc, vc, x, qkv, ctx, h, partial, tickets,
+    "bark_qdecode_step": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _I, _I, _P],
+    # (weights*, x_emb, n_valid, kc, vc, ks, vs, x, hb, q, ctx, ff, kv,
     #  logits, lo, hi, stream)
+    "bark_prefill": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _P],
+    # (weights*, B, tok*, n_past*, kc, vc, ks, vs, x, qkv, ctx, h, partial,
+    #  tickets, logits, lo, hi, stream)
     "bark_decode_step_batched": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _I, _I, _P],
-    # (weights*, x_emb, B, M, max_n, n_tiles, tables, kc, vc, x, hb, q, ctx,
-    #  ff, logits, lo, hi, stream)
+                                 _P, _P, _P, _P, _I, _I, _P],
+    # (weights*, x_emb, B, M, max_n, n_tiles, tables, kc, vc, ks, vs, x, hb,
+    #  q, ctx, ff, kv, logits, lo, hi, stream)
     "bark_prefill_batched": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _P, _I, _I, _P],
+                             _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # (logits, ld_logits, base, n, noise, ld_noise, temp, with_eos,
     #  stop_token, min_eos_p, B, tok_out, flag_out, stream)
     "bark_sample_rows": [_P, _I, _I, _I, _P, _I, _F, _I, _I, _F, _I, _P, _P,
@@ -331,18 +344,37 @@ class StageWeights:
     def check_cache(self, k_cache, v_cache, batch=None):
         """Raise unless the caches are contiguous (L, S, D), or
         (L, batch, S, D) when `batch` is given, in the params dtype on the
-        params' device."""
+        params' device; or both int8 caches of `gpt.init_kv_cache(quant=
+        True)`: int8 values of that shape and contiguous f32 row scales of
+        its leading dims. Returns the (k, v, k scales, v scales) pointers
+        the C entry points take, the scales None for a dense cache."""
         cfg = self.cfg
         shape = (cfg.n_layer, cfg.block_size, cfg.n_embd)
         if batch is not None:
             shape = (cfg.n_layer, batch, *shape[1:])
-        for t in (k_cache, v_cache):
-            if (tuple(t.shape) != shape or t.dtype != self.dtype
-                    or t.device != self.device or not t.is_contiguous()):
-                raise ValueError(
-                    f"KV cache: {tuple(t.shape)} {t.dtype} on {t.device}, "
-                    f"want contiguous {shape} {self.dtype} on {self.device}"
-                )
+        quant = isinstance(k_cache, dict)
+        if isinstance(v_cache, dict) != quant:
+            raise ValueError("KV cache: k and v must both be int8 or dense")
+        want = [(shape, torch.int8, "q"), (shape[:-1], torch.float32, "s")] \
+            if quant else [(shape, self.dtype, None)]
+        for want_shape, want_dtype, key in want:
+            for c in (k_cache, v_cache):
+                t = c if key is None else c.get(key)
+                if t is None or not torch.is_tensor(t):
+                    raise ValueError(f"int8 KV cache: {key!r} is missing")
+                if (tuple(t.shape) != want_shape or t.dtype != want_dtype
+                        or t.device != self.device
+                        or not t.is_contiguous()):
+                    raise ValueError(
+                        f"KV cache{'' if key is None else ' ' + key}: "
+                        f"{tuple(t.shape)} {t.dtype} on {t.device}, want "
+                        f"contiguous {want_shape} {want_dtype} on "
+                        f"{self.device}"
+                    )
+        if quant:
+            return (k_cache["q"].data_ptr(), v_cache["q"].data_ptr(),
+                    k_cache["s"].data_ptr(), v_cache["s"].data_ptr())
+        return k_cache.data_ptr(), v_cache.data_ptr(), None, None
 
 
 _stages = {}  # id(params dict) -> its StageWeights

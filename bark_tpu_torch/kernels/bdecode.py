@@ -9,14 +9,15 @@ tensors the plain version runs: `gpt.decode_step` on each lane's (L, S, D)
 view at its own slot, which is what the JAX package's off-TPU `vmap`
 computes. A CUDA tensor the kernel does not take raises (head_dim != 64,
 n_embd % 64, more than MAX_LANES lanes, a packed-quantized stage); there
-is no other path.
+is no other path. Int8 caches (`gpt.init_kv_cache(quant=True, batch=B)`)
+run K6a as each layer's attention (`kernels.kv8`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from bark_tpu_torch.kernels import _build
+from bark_tpu_torch.kernels import _build, kv8
 from bark_tpu_torch.kernels.decode import decode_step_plain
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
@@ -35,8 +36,8 @@ def decode_step_batched_plain(cfg: GPTConfig, params, tokens, k_cache,
     """The plain PyTorch version of K7: `decode_step_plain` (K1's) on each
     lane's (L, S, D) cache view at its own slot; (B, n_out_vocab) f32."""
     return torch.stack([
-        decode_step_plain(cfg, params, t, k_cache[:, b], v_cache[:, b], n,
-                          lm_window)
+        decode_step_plain(cfg, params, t, gpt.kv_lane(k_cache, b),
+                          gpt.kv_lane(v_cache, b), n, lm_window)
         for b, (t, n) in enumerate(zip(_host_ints(tokens),
                                        _host_ints(n_past)))
     ])
@@ -66,7 +67,7 @@ def decode_step_fused_batched(cfg: GPTConfig, params, tokens, k_cache,
     place. Returns the (B, n_out_vocab) f32 logits (into `out` when
     given), zero outside lm_window."""
     global launches
-    if k_cache.device.type == "cpu":
+    if gpt.kv_device(k_cache).type == "cpu":
         return decode_step_batched_plain(cfg, params, tokens, k_cache,
                                          v_cache, n_past, lm_window)
     if gpt.is_qpack(params):
@@ -74,11 +75,8 @@ def decode_step_fused_batched(cfg: GPTConfig, params, tokens, k_cache,
             "packed-quantized weights on the batched decode step (K7 with "
             "quant=True) are not ported yet")
     w = _build.stage_weights(cfg, params)
-    B = k_cache.shape[1] if k_cache.dim() == 4 else 0
-    if not 1 <= B <= MAX_LANES:
-        raise ValueError(f"batched caches: want (L, B, S, D) with 1 <= B <= "
-                         f"{MAX_LANES}, got {tuple(k_cache.shape)}")
-    w.check_cache(k_cache, v_cache, batch=B)
+    B = lane_count(k_cache)
+    caches = w.check_cache(k_cache, v_cache, batch=B)
     V, D = cfg.n_out_vocab, cfg.n_embd
     lo, hi = lm_window if lm_window is not None else (0, V)
     if not 0 <= lo <= hi <= V:
@@ -91,8 +89,8 @@ def decode_step_fused_batched(cfg: GPTConfig, params, tokens, k_cache,
         raise ValueError(f"out: want ({B}, {V}), got {tuple(out.shape)}")
     _build.f32_on(out, w.device, B * V, "logits")
     rc = _build.lib().bark_decode_step_batched(
-        w.ref, B, tok.data_ptr(), npt.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), w.scratch("x", B, D).data_ptr(),
+        w.ref, B, tok.data_ptr(), npt.data_ptr(), *caches,
+        w.scratch("x", B, D).data_ptr(),
         w.scratch("qkv", B, 3 * D).data_ptr(),
         w.scratch("ctx", B, D).data_ptr(),
         w.scratch("h", B, 4 * D).data_ptr(),
@@ -102,4 +100,16 @@ def decode_step_fused_batched(cfg: GPTConfig, params, tokens, k_cache,
     )
     _build.check("decode_step_fused_batched", rc)
     launches += 1
+    kv8.count(caches)
     return out
+
+
+def lane_count(k_cache) -> int:
+    """B of (L, B, S, D) batched caches (dense or int8); raise unless
+    1 <= B <= MAX_LANES."""
+    t = k_cache["q"] if isinstance(k_cache, dict) else k_cache
+    B = t.shape[1] if t.dim() == 4 else 0
+    if not 1 <= B <= MAX_LANES:
+        raise ValueError(f"batched caches: want (L, B, S, D) with 1 <= B <= "
+                         f"{MAX_LANES}, got {tuple(t.shape)}")
+    return B

@@ -11,7 +11,9 @@ version runs: K2's plain version (`gpt.prefill`) per lane, on its (L, S, D)
 cache view with its own n_valid.
 
 Only each lane's n_valid live rows are computed and written; the logits
-are those of each lane's row n_valid[b] - 1.
+are those of each lane's row n_valid[b] - 1. Int8 caches run K2's int8
+kernels (K6b, K6c: `kernels.kv8`), K6b writing each stacked row's K/V at
+its lane's cache row.
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bark_tpu_torch.kernels import _build
+from bark_tpu_torch.kernels import _build, kv8
 from bark_tpu_torch.kernels.bdecode import MAX_LANES
-from bark_tpu_torch.kernels.prefill import prefill_plain
+from bark_tpu_torch.kernels.prefill import kv_rows, prefill_plain
+from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 
 QUERY_TILE = 16  # query rows per attention block (csrc/prefill.cu QT)
@@ -33,8 +36,8 @@ def prefill_batched_plain(cfg: GPTConfig, params, x_emb, k_cache, v_cache,
                           n_valid, lm_window=None):
     """The plain PyTorch version of K8: K2's plain version on each lane."""
     return torch.stack([
-        prefill_plain(cfg, params, x_emb[b], k_cache[:, b], v_cache[:, b],
-                      int(n), lm_window)
+        prefill_plain(cfg, params, x_emb[b], gpt.kv_lane(k_cache, b),
+                      gpt.kv_lane(v_cache, b), int(n), lm_window)
         for b, n in enumerate(n_valid)
     ])
 
@@ -66,7 +69,7 @@ def prefill_fused_batched(cfg: GPTConfig, params, x_emb, k_cache, v_cache,
     row n_valid[b] - 1, zero outside lm_window. `n_valid` is B ints."""
     global launches
     n_valid = [int(n) for n in n_valid]
-    if k_cache.device.type == "cpu":
+    if gpt.kv_device(k_cache).type == "cpu":
         return prefill_batched_plain(cfg, params, x_emb, k_cache, v_cache,
                                      n_valid, lm_window)
     w = _build.stage_weights(cfg, params)
@@ -81,7 +84,7 @@ def prefill_fused_batched(cfg: GPTConfig, params, x_emb, k_cache, v_cache,
     if not 1 <= B <= MAX_LANES or len(n_valid) != B:
         raise ValueError(f"want 1 <= B <= {MAX_LANES} lanes and B n_valid, "
                          f"got B {B} and {n_valid}")
-    w.check_cache(k_cache, v_cache, batch=B)
+    caches = w.check_cache(k_cache, v_cache, batch=B)
     if not all(1 <= n <= min(T, S) for n in n_valid):
         raise ValueError(f"n_valid {n_valid} outside [1, {min(T, S)}]")
     lo, hi = lm_window if lm_window is not None else (0, V)
@@ -92,12 +95,13 @@ def prefill_fused_batched(cfg: GPTConfig, params, x_emb, k_cache, v_cache,
     logits = torch.empty((B, V), dtype=torch.float32, device=w.device)
     rc = _build.lib().bark_prefill_batched(
         w.ref, x_emb.data_ptr(), B, M, max(n_valid), n_tiles,
-        tables.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        tables.data_ptr(), *caches,
         w.scratch("p_x", M, D).data_ptr(), w.scratch("p_hb", M, D).data_ptr(),
         w.scratch("p_q", M, D).data_ptr(), w.scratch("p_ctx", M, D).data_ptr(),
-        w.scratch("p_ff", M, 4 * D).data_ptr(), logits.data_ptr(), lo, hi,
-        _build.stream_ptr(w.device),
+        w.scratch("p_ff", M, 4 * D).data_ptr(), kv_rows(w, caches, M),
+        logits.data_ptr(), lo, hi, _build.stream_ptr(w.device),
     )
     _build.check("prefill_fused_batched", rc)
     launches += 1
+    kv8.count(caches)
     return logits

@@ -17,7 +17,8 @@ On CUDA tensors a step is two launches: `sample_window` over the B rows
 and K7 (`kernels.bdecode`), which embeds those tokens from there, at the
 step's row of a (K, B) slot table uploaded once per chunk. Nothing waits
 on the host inside the chunk. On CPU tensors the plain version runs: K3's
-plain version on each lane.
+plain version on each lane. Int8 caches are taken as they are: the K7
+steps then run K6a (`kernels.kv8`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from bark_tpu_torch.kernels import _build
 from bark_tpu_torch.kernels.bdecode import decode_step_fused_batched
 from bark_tpu_torch.kernels.sample import sample_window
 from bark_tpu_torch.kernels.semantic import semantic_chunk_plain
+from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 
 launches = 0  # chunks run through `semantic_chunk_fused_batched`
@@ -41,9 +43,10 @@ def semantic_chunk_batched_plain(cfg: GPTConfig, params, logits, k_cache,
     logits, cache view and noise."""
     outs = [
         semantic_chunk_plain(
-            cfg, params, logits[b], k_cache[:, b], v_cache[:, b], ctx_len,
-            count0, None if temp == 0.0 else noise[b], min_eos_p, K=K,
-            temp=temp, semantic_vocab_size=semantic_vocab_size)
+            cfg, params, logits[b], gpt.kv_lane(k_cache, b),
+            gpt.kv_lane(v_cache, b), ctx_len, count0,
+            None if temp == 0.0 else noise[b], min_eos_p, K=K, temp=temp,
+            semantic_vocab_size=semantic_vocab_size)
         for b in range(logits.shape[0])
     ]
     return tuple(torch.stack(x) for x in zip(*outs))
@@ -60,13 +63,13 @@ def semantic_chunk_fused_batched(cfg: GPTConfig, params, logits, k_cache,
     stop-at-step-j, logits (B, n_out_vocab) f32 after the last step); the
     (L, B, S, D) caches are updated in place."""
     global launches
-    if k_cache.device.type == "cpu":
+    if gpt.kv_device(k_cache).type == "cpu":
         return semantic_chunk_batched_plain(
             cfg, params, logits, k_cache, v_cache, ctx_len, count0, noise,
             min_eos_p, K=K, temp=temp,
             semantic_vocab_size=semantic_vocab_size,
         )
-    dev, V, S = k_cache.device, cfg.n_out_vocab, cfg.block_size
+    dev, V, S = gpt.kv_device(k_cache), cfg.n_out_vocab, cfg.block_size
     B = logits.shape[0]
     if logits.dim() != 2 or logits.shape[1] != V:
         raise ValueError(f"logits: want (B, {V}), got {tuple(logits.shape)}")

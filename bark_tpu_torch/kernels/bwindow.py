@@ -12,7 +12,7 @@ On CUDA tensors a step is one `sample_window` launch over the B rows
 (`kernels.sample`) and one K7 step (`kernels.bdecode`), whose per-lane
 slots are the step's row of a (sws, B) table uploaded once per window; no
 host read inside the window. On CPU tensors the plain version runs: K4's
-plain version on each lane.
+plain version on each lane. Int8 caches are taken as in K9.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from bark_tpu_torch.kernels import _build
 from bark_tpu_torch.kernels.bdecode import decode_step_fused_batched
 from bark_tpu_torch.kernels.sample import sample_window
 from bark_tpu_torch.kernels.window import codebook_base, coarse_window_plain
+from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 
 launches = 0  # windows run through `coarse_window_fused_batched`
@@ -37,8 +38,8 @@ def coarse_window_batched_plain(cfg: GPTConfig, params, logits0, k_cache,
     logits, cache view, context length and noise."""
     return torch.stack([
         coarse_window_plain(
-            cfg, params, logits0[b], k_cache[:, b], v_cache[:, b],
-            int(ctx_len[b]), step_idx0,
+            cfg, params, logits0[b], gpt.kv_lane(k_cache, b),
+            gpt.kv_lane(v_cache, b), int(ctx_len[b]), step_idx0,
             None if temp == 0.0 else noise[:, b], sws=sws, temp=temp,
             semantic_vocab_size=semantic_vocab_size,
             codebook_size=codebook_size, lm_window=lm_window)
@@ -58,14 +59,14 @@ def coarse_window_fused_batched(cfg: GPTConfig, params, logits0, k_cache,
     rows [ctx_len[b], ctx_len[b] + sws)."""
     global launches
     ctx_len = [int(c) for c in ctx_len]
-    if k_cache.device.type == "cpu":
+    if gpt.kv_device(k_cache).type == "cpu":
         return coarse_window_batched_plain(
             cfg, params, logits0, k_cache, v_cache, ctx_len, step_idx0,
             noise, sws=sws, temp=temp,
             semantic_vocab_size=semantic_vocab_size,
             codebook_size=codebook_size, lm_window=lm_window,
         )
-    dev, V = k_cache.device, cfg.n_out_vocab
+    dev, V = gpt.kv_device(k_cache), cfg.n_out_vocab
     svs, cbs = semantic_vocab_size, codebook_size
     B = logits0.shape[0]
     if logits0.dim() != 2 or logits0.shape[1] != V or len(ctx_len) != B:

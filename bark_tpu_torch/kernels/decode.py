@@ -12,13 +12,17 @@ reference on CPU tensors, which then computes what K5 computes.
 
 `lm_window=(lo, hi)`: only those logit columns are computed, the rest are
 0 (the coarse sampler reads only its two codebook windows).
+
+The caches may be the int8 caches of `gpt.init_kv_cache(quant=True)`: the
+same C call then runs K6a (csrc/decode.cu `attn_decode_i8_kernel`) as
+each layer's attention, in K1 and in K5 alike.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bark_tpu_torch.kernels import _build, qdecode
+from bark_tpu_torch.kernels import _build, kv8, qdecode
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 
@@ -62,17 +66,18 @@ def _token_on(token, device):
 def decode_step_fused(cfg: GPTConfig, params, token, k_cache, v_cache,
                       n_past: int, *, lm_window=None, out=None):
     """One decode step: writes K/V row `n_past` of every layer of the
-    (L, S, D) caches in place and returns the (n_out_vocab,) f32 logits
-    (into `out` when given). `token` is an int or a one-element int
-    tensor; `n_past` a Python int in [0, block_size)."""
+    (L, S, D) caches (dense or int8) in place and returns the
+    (n_out_vocab,) f32 logits (into `out` when given). `token` is an int
+    or a one-element int tensor; `n_past` a Python int in
+    [0, block_size)."""
     global launches
-    if k_cache.device.type == "cpu":
+    if gpt.kv_device(k_cache).type == "cpu":
         return decode_step_plain(cfg, params, token, k_cache, v_cache,
                                  n_past, lm_window)
     packed = gpt.is_qpack(params)
     w = (_build.stage_qweights if packed else _build.stage_weights)(
         cfg, params)
-    w.check_cache(k_cache, v_cache)
+    caches = w.check_cache(k_cache, v_cache)
     if not 0 <= n_past < cfg.block_size:
         raise ValueError(f"n_past {n_past} outside [0, {cfg.block_size})")
     V, D = cfg.n_out_vocab, cfg.n_embd
@@ -84,8 +89,7 @@ def decode_step_fused(cfg: GPTConfig, params, token, k_cache, v_cache,
         out = torch.empty((V,), dtype=torch.float32, device=w.device)
     _build.f32_on(out, w.device, V, "logits")
     args = (
-        w.ref, tok.data_ptr(), n_past, k_cache.data_ptr(),
-        v_cache.data_ptr(), w.scratch("x", D).data_ptr(),
+        w.ref, tok.data_ptr(), n_past, *caches, w.scratch("x", D).data_ptr(),
         w.scratch("qkv", 3 * D).data_ptr(), w.scratch("ctx", D).data_ptr(),
         w.scratch("h", 4 * D).data_ptr(),
         w.scratch("partial", 1 << 16, dtype=torch.float32).data_ptr(),
@@ -93,8 +97,10 @@ def decode_step_fused(cfg: GPTConfig, params, token, k_cache, v_cache,
         out.data_ptr(), lo, hi, _build.stream_ptr(w.device),
     )
     if packed:
-        return qdecode.decode_step_packed(args, out)
-    rc = _build.lib().bark_decode_step(*args)
-    _build.check("decode_step_fused", rc)
-    launches += 1
+        qdecode.decode_step_packed(args, out)
+    else:
+        rc = _build.lib().bark_decode_step(*args)
+        _build.check("decode_step_fused", rc)
+        launches += 1
+    kv8.count(caches)
     return out

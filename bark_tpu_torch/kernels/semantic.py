@@ -15,7 +15,9 @@ that token from device memory. Nothing waits on the host inside the
 chunk; the caller reads the K flags once. On CPU tensors the plain version
 runs (`ops.sampling.sample` + `gpt.decode_step`). A qpack is taken as it
 is: its K1 steps are then the packed kernel K5 (`kernels.qdecode`), and
-the plain version decodes from the qpack as K5 does.
+the plain version decodes from the qpack as K5 does. Int8 caches
+(`gpt.init_kv_cache(quant=True)`) are taken too: the K1/K5 steps then run
+K6a (`kernels.kv8`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from bark_tpu_torch.kernels import _build
 from bark_tpu_torch.kernels.decode import decode_step_fused, decode_step_plain
 from bark_tpu_torch.kernels.sample import sample_window
+from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 from bark_tpu_torch.ops import sampling
 
@@ -57,13 +60,13 @@ def semantic_chunk_fused(cfg: GPTConfig, params, logits, k_cache, v_cache,
     logits (n_out_vocab,) f32 after the last step); the caches are updated
     in place."""
     global launches
-    if k_cache.device.type == "cpu":
+    if gpt.kv_device(k_cache).type == "cpu":
         return semantic_chunk_plain(
             cfg, params, logits, k_cache, v_cache, ctx_len, count0, noise,
             min_eos_p, K=K, temp=temp,
             semantic_vocab_size=semantic_vocab_size,
         )
-    dev, V = k_cache.device, cfg.n_out_vocab
+    dev, V = gpt.kv_device(k_cache), cfg.n_out_vocab
     if temp != 0.0 and (noise.dim() != 2 or noise.shape[1] != V):
         raise ValueError(f"noise: want (max_steps, {V}), got {noise.shape}")
     buf = _build.f32_on(logits, dev, V, "logits").clone()

@@ -11,6 +11,7 @@ On CUDA tensors a step is `sample_window` (csrc/sample.cu, through
 `kernels.sample`) then K1, with no host read inside the window; on CPU
 tensors the plain version runs (`ops.sampling.sample` + `gpt.decode_step`).
 A qpack is taken as it is, as in K3: the steps are then K5 launches.
+Int8 caches are taken as in K3.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from bark_tpu_torch.kernels import _build
 from bark_tpu_torch.kernels.decode import decode_step_fused, decode_step_plain
 from bark_tpu_torch.kernels.sample import sample_window
+from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 from bark_tpu_torch.ops import sampling
 
@@ -59,14 +61,14 @@ def coarse_window_fused(cfg: GPTConfig, params, logits0, k_cache, v_cache,
     Returns the (sws,) i32 offset-carrying tokens; the caches are updated
     in place at rows [ctx_len, ctx_len + sws)."""
     global launches
-    if k_cache.device.type == "cpu":
+    if gpt.kv_device(k_cache).type == "cpu":
         return coarse_window_plain(
             cfg, params, logits0, k_cache, v_cache, ctx_len, step_idx0,
             noise, sws=sws, temp=temp,
             semantic_vocab_size=semantic_vocab_size,
             codebook_size=codebook_size, lm_window=lm_window,
         )
-    dev, V = k_cache.device, cfg.n_out_vocab
+    dev, V = gpt.kv_device(k_cache), cfg.n_out_vocab
     svs, cbs = semantic_vocab_size, codebook_size
     if svs + 2 * cbs > V or ctx_len + sws > cfg.block_size:
         raise ValueError(

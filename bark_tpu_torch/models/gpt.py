@@ -19,6 +19,13 @@ JAX package's packed decode kernel computes (`_qdot`, `_embed_token` of
 `bark_tpu.kernels.decode`): see `qdot` and `embed_rows`. Prefill and the
 fine stage run on a dense copy (`io.loader.dense_from_qpack`).
 
+Every function that takes KV caches also takes the int8 cache of
+`init_kv_cache(quant=True)`, the JAX package's `{"q", "s"}` layout: fresh
+K/V rows are quantized per row (`quantize_kv_rows`), the scores are the
+exact integer dot of a per-(position, head) int8 query with the int8 keys,
+scaled by both scales, and V is dequantized to the params dtype
+(`_attention_int8`), as the JAX package's XLA path computes them.
+
 This module is the plain reference every hand-written kernel of
 `bark_tpu_torch.kernels` is compared with. KV caches are updated in place
 (the JAX version returns new arrays): callers hand the same cache tensors
@@ -50,18 +57,81 @@ from bark_tpu_torch.models.config import EPS_NORM, GPTConfig
 Params = Dict[str, object]
 
 
-def init_kv_cache(cfg: GPTConfig, dtype, device, batch=None):
+def init_kv_cache(cfg: GPTConfig, dtype, device, batch=None,
+                  quant: bool = False):
     """(k, v) caches shaped (L, block_size, n_embd), or (L, batch,
     block_size, n_embd) for `batch` lanes (the flat layout of the JAX
-    package's batched caches; lane b's (L, S, D) view is `cache[:, b]`),
-    zero-filled."""
+    package's batched caches; lane b's (L, S, D) view is
+    `kv_lane(cache, b)`), zero-filled.
+
+    quant=True: each of k and v is the int8 cache {"q": int8 of that
+    shape, "s": f32 row scales (L, [batch,] block_size)}, dequantized as
+    q * s[..., None] (`dtype` is then unused)."""
     shape = (cfg.n_layer, cfg.block_size, cfg.n_embd)
     if batch is not None:
         shape = (cfg.n_layer, batch, *shape[1:])
-    return (
-        torch.zeros(shape, dtype=dtype, device=device),
-        torch.zeros(shape, dtype=dtype, device=device),
-    )
+
+    def one():
+        if quant:
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "s": torch.zeros(shape[:-1], dtype=torch.float32,
+                                     device=device)}
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return one(), one()
+
+
+def kv_view(cache, idx):
+    """cache[idx] of a dense cache, or of both tensors of an int8 one (a
+    view: writes through it land in `cache`)."""
+    if isinstance(cache, dict):
+        return {k: v[idx] for k, v in cache.items()}
+    return cache[idx]
+
+
+def kv_lane(cache, b: int):
+    """Lane b's (L, S, D) view of (L, B, S, D) caches, dense or int8."""
+    return kv_view(cache, (slice(None), b))
+
+
+def kv_device(cache) -> torch.device:
+    return (cache["q"] if isinstance(cache, dict) else cache).device
+
+
+def quantize_kv_rows(x):
+    """Per-row symmetric int8 quantization of (..., D) rows -> (int8 of the
+    same shape, f32 scales (...)), with dequant = q * s[..., None]: s =
+    amax|x| / 127, q = clip(round_half_even(x / s), -127, 127), a zero row
+    has scale 0. The divisions are true divisions by tensors (PyTorch's
+    CUDA division by a Python scalar multiplies by its reciprocal)."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1)
+    s = amax / torch.full_like(amax, 127.0)
+    one = torch.ones_like(s)
+    inv = torch.where(s > 0, one / torch.where(s == 0, one, s),
+                      torch.zeros_like(s))
+    q = torch.clamp(torch.round(x32 * inv[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _kv_update(cache, rows, n_past: int):
+    """Write (T, D) rows at row n_past of a layer's (S, D) cache, quantized
+    when the cache is int8."""
+    T = rows.shape[0]
+    if isinstance(cache, dict):
+        q, s = quantize_kv_rows(rows)
+        cache["q"][n_past:n_past + T] = q
+        cache["s"][n_past:n_past + T] = s
+    else:
+        cache[n_past:n_past + T] = rows
+
+
+def _kv_read(cache, dtype):
+    """A layer's whole (S, D) cache in `dtype`, dequantized in f32 first
+    when it is int8."""
+    if isinstance(cache, dict):
+        return (cache["q"].float() * cache["s"][:, None]).to(dtype)
+    return cache
 
 
 def _dot(a, b):
@@ -141,24 +211,48 @@ def _attention(q, k_all, v_all, mask, cfg: GPTConfig):
     return out.to(q.dtype).reshape(out.shape[0], cfg.n_embd)
 
 
+def _attention_int8(cfg: GPTConfig, q, k_cache, v_cache, mask):
+    """Attention over an int8 layer cache ({"q": (S, D), "s": (S,)}), as
+    `bark_tpu.models.gpt._attention_int8`: q * (1/sqrt(hd)) is quantized
+    per (position, head) over hd; the score is the integer dot of the two
+    int8 vectors (exact in f32: |dot| <= 127^2 * hd < 2^24 for hd <= 1024),
+    then (score * s_q) * s_k; the -1e9 mask and the f32 softmax; weights
+    cast to the params dtype against V dequantized to it."""
+    H, hd = cfg.n_head, cfg.head_dim
+    T = q.shape[0]
+    qs = (q.float() * (1.0 / math.sqrt(hd))).reshape(T * H, hd)
+    q_i8, s_q = quantize_kv_rows(qs)
+    scores = torch.einsum("thd,shd->hts", q_i8.reshape(T, H, hd).float(),
+                          k_cache["q"].reshape(-1, H, hd).float())
+    scores = scores * s_q.reshape(T, H).T[:, :, None] * k_cache["s"][None,
+                                                                     None, :]
+    scores = scores.masked_fill(~mask[None, :, :], -1e9)
+    att = torch.softmax(scores, dim=-1)
+    vh = _kv_read(v_cache, q.dtype).reshape(-1, H, hd)
+    out = torch.einsum("hts,shd->thd", att.to(vh.dtype).float(), vh.float())
+    return out.to(q.dtype).reshape(T, cfg.n_embd)
+
+
 def _layer(params: Params, l: int):
     return {k: v[l] for k, v in params["blocks"].items()}
 
 
 def _block(cfg: GPTConfig, x, layer, k_cache, v_cache, n_past, mask):
-    """One pre-LN block. x: (T, D); k_cache/v_cache: (S, D) views written
-    in place at rows [n_past, n_past+T), or None for the cache-free fine
-    stage."""
+    """One pre-LN block. x: (T, D); k_cache/v_cache: (S, D) views (or
+    int8 layer caches) written in place at rows [n_past, n_past+T), or None
+    for the cache-free fine stage."""
     D = cfg.n_embd
     dt = x.dtype
     h = layer_norm(x, layer["ln1_g"], layer["ln1_b"])
     qkv = _proj(h, layer, "qkv").to(dt) + layer["qkv_b"]
     q, k, v = qkv[:, :D], qkv[:, D : 2 * D], qkv[:, 2 * D :]
     if k_cache is not None:
-        T = x.shape[0]
-        k_cache[n_past : n_past + T] = k
-        v_cache[n_past : n_past + T] = v
-        attn = _attention(q, k_cache, v_cache, mask, cfg)
+        _kv_update(k_cache, k, n_past)
+        _kv_update(v_cache, v, n_past)
+        if isinstance(k_cache, dict):
+            attn = _attention_int8(cfg, q, k_cache, v_cache, mask)
+        else:
+            attn = _attention(q, k_cache, v_cache, mask, cfg)
     else:
         attn = _attention(q, k, v, mask, cfg)
     x = x + (_proj(attn, layer, "proj").to(dt) + layer["proj_b"])
@@ -169,11 +263,11 @@ def _block(cfg: GPTConfig, x, layer, k_cache, v_cache, n_past, mask):
 
 def transformer(cfg: GPTConfig, params: Params, x, k_caches, v_caches,
                 n_past: int, mask):
-    """All layers, then ln_f. Caches (L, S, D) or None; returns hidden
-    (T, D)."""
+    """All layers, then ln_f. Caches (L, S, D), int8 caches, or None;
+    returns hidden (T, D)."""
     for l in range(cfg.n_layer):
-        kc = None if k_caches is None else k_caches[l]
-        vc = None if v_caches is None else v_caches[l]
+        kc = None if k_caches is None else kv_view(k_caches, l)
+        vc = None if v_caches is None else kv_view(v_caches, l)
         x = _block(cfg, x, _layer(params, l), kc, vc, n_past, mask)
     return layer_norm(x, params["ln_f_g"], params["ln_f_b"])
 

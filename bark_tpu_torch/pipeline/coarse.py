@@ -71,11 +71,11 @@ def max_coarse_steps(max_semantic: int, params: BarkContextParams) -> int:
 
 
 def make_coarse_stage_program(cfg: GPTConfig, bparams: BarkContextParams, *,
-                              ctx_size: int):
+                              ctx_size: int, kv_quant: bool = False):
     """fn(params, sem (n_sem,) int tensor, noise (n_windows, sws,
     codebook_size) f32 or None at temp 0) -> (codes (n_steps // n_cc, n_cc)
     int32 de-offset, n_steps int), with the empty voice history of the
-    reference (bark.cpp:640-651)."""
+    reference (bark.cpp:640-651). kv_quant: the int8 KV cache."""
     p = bparams
     num, den = stc_fraction(p)
     n_cc, sws = p.n_coarse_codebooks, p.sliding_window_size
@@ -102,7 +102,7 @@ def make_coarse_stage_program(cfg: GPTConfig, bparams: BarkContextParams, *,
                           device=device)
         dense = loader.densify(cfg, params)
         wte = dense["wte"][0]
-        kc, vc = gpt.init_kv_cache(cfg, wte.dtype, device)
+        kc, vc = gpt.init_kv_cache(cfg, wte.dtype, device, quant=kv_quant)
         for w in range(n_windows):
             g = w * sws  # tokens generated so far
             # roundf(g / stc_ratio) in integers (bark.cpp:1789)
@@ -133,7 +133,7 @@ def make_coarse_stage_program(cfg: GPTConfig, bparams: BarkContextParams, *,
 
 def make_coarse_stage_program_batched(cfg: GPTConfig,
                                       bparams: BarkContextParams, *,
-                                      ctx_size: int):
+                                      ctx_size: int, kv_quant: bool = False):
     """The counterpart of `bark_tpu.pipeline.coarse.
     make_coarse_stage_program_batched`, with the empty voice history: the
     lanes share the window counter, and each window is one K8 prefill of
@@ -147,7 +147,8 @@ def make_coarse_stage_program_batched(cfg: GPTConfig,
     n_steps and masks what it writes, this one leaves such a lane out of
     the later windows: the lanes are ordered by n_steps, longest first, so
     a window's running lanes are a leading slice of every per-lane tensor
-    (no gather, no host round trip). Dense params only."""
+    (no gather, no host round trip). Dense params only; kv_quant: the
+    int8 KV cache."""
     p = bparams
     num, den = stc_fraction(p)
     n_cc, sws = p.n_coarse_codebooks, p.sliding_window_size
@@ -186,7 +187,8 @@ def make_coarse_stage_program_batched(cfg: GPTConfig,
                 out[:Ba, hist_start:hist_start + hist_cap],
             ], dim=1)[:, :ctx_size]
             ctx_len = CTX_SEMANTIC + 1 + min(g, hist_cap)
-            kc, vc = gpt.init_kv_cache(cfg, wte.dtype, device, batch=Ba)
+            kc, vc = gpt.init_kv_cache(cfg, wte.dtype, device, batch=Ba,
+                                        quant=kv_quant)
             logits = kbpre.prefill_fused_batched(
                 cfg, params, wte[ctx.long()], kc, vc, [ctx_len] * Ba,
                 lm_window=lm_window)

@@ -33,16 +33,17 @@ CHUNK = 16  # steps per K3 call (bark_tpu.kernels.semantic.chunk_size)
 
 
 def make_semantic_program(cfg: GPTConfig, *, temp: float, max_steps: int,
-                          semantic_vocab_size: int):
+                          semantic_vocab_size: int, kv_quant: bool = False):
     """fn(params, tokens513 (513,) int tensor, noise (max_steps,
     n_out_vocab) f32 or None at temp 0, min_eos_p) -> (tokens (max_steps,)
-    int32 on the params' device, n_generated int)."""
+    int32 on the params' device, n_generated int). kv_quant: the int8 KV
+    cache (`gpt.init_kv_cache(quant=True)`)."""
 
     def run(params, tokens513, noise, min_eos_p: float):
         dtype, device = params["wpe"].dtype, params["wpe"].device
         dense = loader.densify(cfg, params)
         x_emb = gpt.embed_prompt_merged(cfg, dense, tokens513)
-        kc, vc = gpt.init_kv_cache(cfg, dtype, device)
+        kc, vc = gpt.init_kv_cache(cfg, dtype, device, quant=kv_quant)
         logits = kpre.prefill_fused(cfg, dense, x_emb, kc, vc, PROMPT_ROWS)
         out = torch.zeros((max_steps,), dtype=torch.int32, device=device)
         count = 0
@@ -65,7 +66,8 @@ def make_semantic_program(cfg: GPTConfig, *, temp: float, max_steps: int,
 
 
 def make_semantic_program_batched(cfg: GPTConfig, *, temp: float,
-                                  max_steps: int, semantic_vocab_size: int):
+                                  max_steps: int, semantic_vocab_size: int,
+                                  kv_quant: bool = False):
     """The counterpart of `bark_tpu.pipeline.semantic.
     make_semantic_program_batched`: B lanes through one K8 prefill of
     B x 257 rows, then K9 chunks of CHUNK steps in lockstep until every
@@ -85,7 +87,8 @@ def make_semantic_program_batched(cfg: GPTConfig, *, temp: float,
         dtype, device = params["wpe"].dtype, params["wpe"].device
         B = tokens513.shape[0]
         x_emb = gpt.embed_prompt_merged(cfg, params, tokens513)
-        kc, vc = gpt.init_kv_cache(cfg, dtype, device, batch=B)
+        kc, vc = gpt.init_kv_cache(cfg, dtype, device, batch=B,
+                                    quant=kv_quant)
         logits = kbpre.prefill_fused_batched(cfg, params, x_emb.contiguous(),
                                              kc, vc, [PROMPT_ROWS] * B)
         chunks, counts, done, g0 = [], [0] * B, [False] * B, 0

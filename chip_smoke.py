@@ -27,6 +27,11 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      launched, that the single-lane kernels were not, and that no plain
      version ran (the plain references `gpt.decode_step` and `gpt.prefill`
      are counted while the batches run);
+  4d. the int8 KV cache (kv_cache_dtype="int8") on bark-small: 2 dense
+     requests, `generate_audio_batch` of 8 and 32 prompts, and 1 request
+     on q4_0 qpacks; check that every host launch of K1/K5/K7/K2/K8 ran
+     K6 and that no plain version ran, and print the RTFs and batched
+     throughput beside phases 4-4c's bf16-cache numbers;
   5. print the RTFs, the batched throughput and stage times, the kernel
      table as one JSON line (every kernel that reaches `pl.pallas_call` in
      the JAX package: the ported ones under "kernels", the others under
@@ -38,13 +43,21 @@ versions at the lane counts phase 4c gives them (K7 at B 1/3/8/32 with
 n_past 0/300/1023; K8 over 3, 8 and 32 lanes with n_valid 257 to 887; K9
 over 16 steps of 4, 8 and 32 lanes; K10 over 60 steps of 4 and 8 lanes
 and 12 of 32), and phase 3 the small model's batched generation on the
-GPU against the CPU (tokens equal).
+GPU against the CPU (tokens equal). For K6, the int8 KV cache, phase 2
+holds each kernel that reads or writes it against its plain version on
+int8 caches filled by the plain quantizer (K1 at n_past 0/300/1023 and
+windowed, K5 q4_0, K7 at B 1/8/32, K2 at T 257 and 887, K8 over 8 and 32
+lanes, K3, K4, K9, K10), logits within TOL, the cache bytes with their
+count of one-step flips and the scales (`record_kv8_rows`), and times K1,
+K5, K7, K2 and K8 on int8 caches; phase 3 runs the small model with the
+int8 cache, single and batched, tokens equal on GPU and CPU.
 
-Each path of phases 4, 4b and 4c is driven with the launch counts set to 0
-just before it and read just after. A kernel's bound is the least time the
+Each path of phases 4, 4b, 4c and 4d is driven with the launch counts set
+to 0 just before it and read just after. A kernel's bound is the least time the
 card could take for the same work: the bytes it must move (each input read
 once, each output written once) at 3.35 TB/s, or its operations at the
-peak rate of its dtype, whichever is larger.
+peak rate of its dtype, whichever is larger; an int8 cache row counts
+its D bytes and its 4-byte scale.
 
 Long outputs (nvcc's -Xptxas -v report) go to chiprun_out/. The script
 exits non-zero without a GPU, and when run outside a checkout.
@@ -69,6 +82,16 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # a rounding by one bf16 ulp (2^-8 relative) and flips compound over 12
 # layers.
 TOL = {"float32": 2e-3, "bfloat16": 1e-1}
+# The int8 KV cache (K6) is held to TOL too. Kernel and plain version
+# compute each fresh K/V value in another summation order, so a value next
+# to a rounding boundary of its int8 grid lands one step (1/127 of its
+# row's amax) apart, and later rows computed from it differ by more than an
+# ulp; K6a alone, given the same fresh rows, writes bit-equal rows. One
+# case is held to TOL_KV8_FIRST instead: a lane that decodes at n_past 0
+# (which the stages never do: a prefill comes first), whose context is its
+# own fresh V row, so one boundary value moves its f32 logits by up to
+# ~2e-2 (measured at 32 lanes) where the dense path differs by an ulp.
+TOL_KV8_FIRST = {"float32": 5e-2, "bfloat16": 1e-1}
 
 # packed formats of K5: name -> (lowest value, highest value, scale dtype
 # name, has mins), the ranges repack_to_int8 gives each format's values
@@ -107,12 +130,34 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, launch-count module)
                                     "bark_tpu/kernels/window.py:1117",
                                     "bwindow"),
 }
+# K6, the int8 KV cache, by the kernel it runs inside (K3, K4, K9 and K10
+# run it through K1 and K7)
+K6_K1, K6_K5 = "decode_step_fused[kv8]", "qdecode_step_fused[q4_0,kv8]"
+K6_K7 = "decode_step_fused_batched[kv8]"
+K6_K2, K6_K8 = "prefill_fused[kv8]", "prefill_fused_batched[kv8]"
+K6_K3, K6_K4 = "semantic_chunk_fused[kv8]", "coarse_window_fused[kv8]"
+K6_K9 = "semantic_chunk_fused_batched[kv8]"
+K6_K10 = "coarse_window_fused_batched[kv8]"
+KV8_BATCHES = (8, 32)  # phase 4d's batch sizes, and K7's timed ones at kv8
+# one layer's decode attention on its own: K6a, and the dense kernel
+K6A, ATTN = "attn_decode_i8 (K6a alone)", "attn_decode (dense, alone)"
+KERNELS.update({  # K6a in K1, K5, K7; K6b + K6c in K2, K8
+    K6_K1: ("bark_tpu_torch/csrc/decode.cu",
+            "bark_tpu/kernels/decode.py:1603", "decode"),
+    K6_K5: ("bark_tpu_torch/csrc/decode.cu",
+            "bark_tpu/kernels/decode.py:1603", "qdecode"),
+    **{f"{K6_K7}[B={b}]": ("bark_tpu_torch/csrc/decode.cu",
+                           "bark_tpu/kernels/decode.py:1937", "bdecode")
+       for b in KV8_BATCHES},
+    K6_K2: ("bark_tpu_torch/csrc/prefill.cu",
+            "bark_tpu/kernels/decode.py:1045", "prefill"),
+    K6_K8: ("bark_tpu_torch/csrc/prefill.cu",
+            "bark_tpu/kernels/decode.py:1045", "bprefill"),
+})
 # the JAX package's kernels still to port, by what the table calls them
 TO_PORT = {
     "K5-batched (packed weights inside K7/K9/K10)":
         "bark_tpu/kernels/decode.py:2043",
-    "K6 (int8 KV inside K1/K3/K4/K7/K9/K10)":
-        "bark_tpu/kernels/decode.py:1033",
     "probes (DMA, cache and lowering probes)": "tools/tpu_dma_probe.py:55",
 }
 
@@ -164,13 +209,20 @@ def nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+def kv_row_bytes(D: int, item: int, kv8: bool) -> int:
+    """Bytes of one cache row of D values: in the params dtype, or int8
+    and its f32 scale."""
+    return D + 4 if kv8 else D * item
+
+
 def decode_cost(cfg, params, n_past: int, lm_window=None, steps: int = 1,
-                lanes: int = 1):
+                lanes: int = 1, kv8: bool = False):
     """(bytes, flops) of `steps` decode steps of `lanes` lanes, each from
     slot n_past: every weight read once for all of them (only the embedding
     rows and LM-head columns the steps use), each lane's live cache rows
-    read and new ones written, its f32 logits written; 2 flops a weight and
-    4 a cache value per step and lane."""
+    read and new ones written (int8 rows and their scales when kv8), its
+    f32 logits written; 2 flops a weight and 4 a cache value per step and
+    lane."""
     D, L, V = cfg.n_embd, cfg.n_layer, cfg.n_out_vocab
     lo, hi = lm_window or (0, V)
     blocks = params["blocks"]
@@ -184,17 +236,18 @@ def decode_cost(cfg, params, n_past: int, lm_window=None, steps: int = 1,
     else:
         row, col = D * item, D * item
     total += lanes * steps * (row + D * item) + (hi - lo) * col
-    total += lanes * (2 * L * (n_past + steps) * D * item + 4 * V)
+    total += lanes * (2 * L * (n_past + steps) * kv_row_bytes(D, item, kv8)
+                      + 4 * V)
     flops = lanes * sum(2 * L * 12 * D * D + 2 * (hi - lo) * D
                         + 4 * L * D * (n_past + j + 1) for j in range(steps))
     return total, flops
 
 
-def prefill_cost(cfg, params, T, lm_window=None):
+def prefill_cost(cfg, params, T, lm_window=None, kv8: bool = False):
     """(bytes, flops) of a T-row prefill, or of one lane per entry of a
     list T: the weights once, each lane's embedded rows and positions read,
-    its cache rows and logits written; the projections' and the causal
-    attention's flops."""
+    its cache rows (int8 rows and their scales when kv8) and logits
+    written; the projections' and the causal attention's flops."""
     D, L, V = cfg.n_embd, cfg.n_layer, cfg.n_out_vocab
     lo, hi = lm_window or (0, V)
     item = params["wpe"].element_size()
@@ -202,7 +255,8 @@ def prefill_cost(cfg, params, T, lm_window=None):
     total += (hi - lo) * D * item
     flops = 0
     for t in (T if isinstance(T, (list, tuple)) else [T]):
-        total += 2 * t * D * item + 2 * L * t * D * item + 4 * V
+        total += (2 * t * D * item + 2 * L * t * kv_row_bytes(D, item, kv8)
+                  + 4 * V)
         flops += (2 * t * L * 12 * D * D + 2 * L * D * t * (t + 1)
                   + 2 * (hi - lo) * D)
     return total, flops
@@ -219,9 +273,10 @@ class Checks:
     def __init__(self):
         self.errors = {}  # (kernel, dtype) -> max abs err
         self.times = {}   # kernel -> (ms, plain_ms, (bytes, flops))
+        self.kv8_flips = {}  # (kernel, dtype) -> (int8 flips, values)
 
-    def record(self, kernel, dtype_name, what, err):
-        tol = TOL[dtype_name]
+    def record(self, kernel, dtype_name, what, err, tol=None):
+        tol = (tol or TOL)[dtype_name]
         key = (kernel, dtype_name)
         self.errors[key] = max(self.errors.get(key, 0.0), err)
         ok = err <= tol
@@ -795,6 +850,404 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
         torch.cuda.empty_cache()
 
 
+def kv8_cache(cfg, rows: int, gen, batch=None):
+    """Int8 KV caches on the card (`gpt.init_kv_cache(quant=True)`) whose
+    rows [0, rows) of every lane hold random rows quantized by the plain
+    `gpt.quantize_kv_rows`."""
+    import torch
+
+    from bark_tpu_torch.models import gpt
+
+    kc, vc = gpt.init_kv_cache(cfg, None, gen.device, batch=batch,
+                               quant=True)
+    for c in (kc, vc):
+        live = c["q"][..., :rows, :]
+        q, s = gpt.quantize_kv_rows(torch.randn(live.shape, generator=gen,
+                                                device=gen.device))
+        c["q"][..., :rows, :] = q
+        c["s"][..., :rows] = s
+        del q, s
+    return kc, vc
+
+
+def kv8_clone(c):
+    return {k: v.clone() for k, v in c.items()}
+
+
+def record_kv8_rows(checks, kernel, name, what, pairs, chained=False):
+    """Phase 2's check of the int8 cache rows a kernel wrote against those
+    its plain version wrote, `pairs` of (kernel's, plain's) {"q", "s"}
+    views. Both quantize fresh rows computed in another summation order,
+    so a value next to a rounding boundary may land one step apart. f32
+    rows computed from the checked inputs alone (a decode step's rows at
+    n_past > 0): bytes at most one step apart at no more than 1% of the
+    values (a wrong scale moves values by more than a step, a wrong
+    rounding rule about half of them), scales (a row's amax / 127) within
+    TOL / 127. `chained` f32 rows, computed from other fresh int8 rows (a
+    prefill's later rows and layers, a window's later steps, a lane's later
+    layers at n_past 0), where one flip perturbs the rows after it, and
+    bf16 rows (a one-ulp flip of a bf16 value moves it by up to ~2 steps):
+    the dequantized rows within the bf16 TOL, a few steps at most. The
+    flips are counted in every case."""
+    flips = n = 0
+    dq = ds = deq = 0.0
+    for got, want in pairs:
+        d = (got["q"].int() - want["q"].int()).abs()
+        flips += int((d > 0).sum())
+        n += d.numel()
+        dq = max(dq, float(d.max()))
+        ds = max(ds, max_err(got["s"], want["s"]))
+        deq = max(deq, max_err(got["q"].float() * got["s"][..., None],
+                               want["q"].float() * want["s"][..., None]))
+    key = (kernel, name)
+    f0, n0 = checks.kv8_flips.get(key, (0, 0))
+    checks.kv8_flips[key] = (f0 + flips, n0 + n)
+    log(f"  {kernel:26s} {name:9s} {what:34s} int8 flips {flips}/{n}, max "
+        f"|dq| {dq:.0f}, scales {ds:.1e}, dequantized {deq:.3e}")
+    if name == "float32" and not chained:
+        if dq > 1 or flips > max(1, int(1e-2 * n)) or ds > TOL[name] / 127:
+            raise AssertionError(f"{kernel} {name} {what}: int8 rows differ")
+    elif name == "float32":
+        if deq > TOL["bfloat16"]:
+            raise AssertionError(f"{kernel} {name} {what}: dequantized rows "
+                                 f"{deq} > {TOL['bfloat16']}")
+    else:
+        checks.record(kernel, name, f"{what} (dequantized)", deq)
+
+
+def device_ms(fn, n: int) -> float:
+    """cuda_ms of fn() behind a ~0.1 s device sleep, so that the n calls'
+    launches queue up and the host's work between them is not timed."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    return cuda_ms(fn, n)
+
+
+def k6a_alone_checks(checks: Checks, dtype, timed: bool):
+    """K6a on its own (`kv8.attn_decode`: one layer's decode attention of
+    B lanes) against its plain version on the same qkv rows, at bark-small's
+    width: B 1, 8 and 32 at n_past cycling 0/300/1023. Both quantize the
+    same fresh rows and queries, so the written int8 rows and scales must be
+    bit-equal (the one-step flips of the whole-step checks come from fresh
+    values that kernel and plain version compute in another order), and the
+    context within TOL. Timed in bf16 at B 8 and 32, n_past 300, beside the
+    dense attention kernel (K1's and K7's) on bf16 caches."""
+    import dataclasses
+
+    import torch
+
+    from bark_tpu_torch.kernels import kv8
+    from bark_tpu_torch.models import gpt
+    from bark_tpu_torch.models.presets import BARK_SMALL
+
+    dev = torch.device("cuda")
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    cfg = dataclasses.replace(BARK_SMALL["semantic"], n_layer=1)
+    D, S = cfg.n_embd, cfg.block_size
+    gen = torch.Generator(device=dev).manual_seed(41)
+    for B in (1, 8, 32):
+        n_past = [(0, 300, 1023)[b % 3] for b in range(B)]
+        qkv = torch.randn((B, 3 * D), generator=gen, device=dev).to(dtype)
+        kc, vc = (gpt.kv_view(c, 0)
+                  for c in kv8_cache(cfg, S - 1, gen, batch=B))
+        kc2, vc2 = kv8_clone(kc), kv8_clone(vc)
+        ctx = kv8.attn_decode(cfg, qkv, kc, vc, n_past)
+        ref = kv8.attn_decode_plain(cfg, qkv, kc2, vc2, n_past)
+        checks.record(K6A, name, f"context B {B}", max_err(ctx, ref))
+        same = all(torch.equal(a[k], b[k]) for a, b in ((kc, kc2), (vc, vc2))
+                   for k in ("q", "s"))
+        log(f"  {K6A:26s} {name:9s} {f'K/V rows B {B}':34s} bit-equal "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"{K6A} {name} B={B}: cache rows differ")
+    if not timed:
+        return
+    for B in KV8_BATCHES:
+        qkv = torch.randn((B, 3 * D), generator=gen, device=dev).to(dtype)
+        slots = torch.full((B,), 300, dtype=torch.int32, device=dev)
+        kq, vq = (gpt.kv_view(c, 0) for c in kv8_cache(cfg, 300, gen,
+                                                        batch=B))
+        kd, vd = ((c["q"].float() * c["s"][..., None]).to(dtype)
+                  for c in (kq, vq))
+        for label, kc, vc in (("int8", kq, vq), ("bf16", kd, vd)):
+            ms = device_ms(lambda: kv8.attn_decode(cfg, qkv, kc, vc, slots),
+                           100)
+            plain = cuda_ms(lambda: kv8.attn_decode_plain(
+                cfg, qkv, kc, vc, [300] * B), 3)
+            rows = B * 301 * kv_row_bytes(D, 2, label == "int8")
+            cost = (2 * rows + nbytes(qkv) + B * D * 2,
+                    B * 4 * D * 301)
+            checks.times[f"{K6A if label == 'int8' else ATTN} [B={B}]"] = (
+                ms, plain, cost)
+            log(f"  attention alone, {label} cache, B={B}, n_past 300: "
+                f"{ms:.4f} ms (plain {plain:.3f} ms, bound "
+                f"{bound(cost, name)[0]:.4f} ms)")
+
+
+def kv8_kernel_checks(checks: Checks, dtype, timed: bool):
+    """Phase 2 for K6, one dtype: every kernel that reads or writes the
+    int8 cache (K6a inside K1, K5 and K7; K6b and K6c inside K2 and K8;
+    and K3, K4, K9, K10 over them) against its plain version on int8
+    caches filled by the plain `gpt.quantize_kv_rows`, at bark-small
+    shapes: K1 at n_past 0/300/1023 and 300 on the coarse window; K5 q4_0
+    at 300; K7 at B 1/8/32 with n_past cycling 0/300/1023; K2 at T 257
+    and 887 windowed; K8 over 8 and 32 lanes of 257-887 rows; K3 16 steps,
+    K4 60 steps, K9 16 steps of 8 and 32 lanes, K10 60 steps of 8 lanes
+    and 12 of 32 (tokens equal in f32; bf16 over one step only). First
+    K6a alone (`k6a_alone_checks`). The logits against TOL (TOL_KV8_FIRST
+    for lanes at n_past 0), the cache rows by `record_kv8_rows`. Timed in
+    bf16: K1, K5 and K7 at n_past 300, K2 at 887 rows, K8 over 8 x 887
+    rows."""
+    import torch
+
+    from bark_tpu_torch.kernels import _build
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import bprefill as kbpre
+    from bark_tpu_torch.kernels import bsemantic as kbsem
+    from bark_tpu_torch.kernels import bwindow as kbwin
+    from bark_tpu_torch.kernels import decode as kdec
+    from bark_tpu_torch.kernels import kv8
+    from bark_tpu_torch.kernels import prefill as kpre
+    from bark_tpu_torch.kernels import semantic as ksem
+    from bark_tpu_torch.kernels import window as kwin
+    from bark_tpu_torch.models import gpt
+    from bark_tpu_torch.models.presets import BARK_SMALL
+    from bark_tpu_torch.ops import sampling
+
+    dev = torch.device("cuda")
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    gen = torch.Generator(device=dev).manual_seed(37)
+    sem_cfg, coarse_cfg = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+    svs, cbs = 10000, 1024
+    lmw = (svs, svs + 2 * cbs)
+    k6a_alone_checks(checks, dtype, timed)
+    sem_p = random_stage_params(sem_cfg, gen, dtype)
+    coarse_p = random_stage_params(coarse_cfg, gen, dtype)
+    sem_q = random_qpack(sem_cfg, "q4_0", dtype, gen, dev)
+
+    # K1 and K5: one step, its row of every layer
+    for kname, cfg, p, n_past, win in (
+            (K6_K1, sem_cfg, sem_p, 0, None),
+            (K6_K1, sem_cfg, sem_p, 300, None),
+            (K6_K1, sem_cfg, sem_p, 1023, None),
+            (K6_K1, coarse_cfg, coarse_p, 300, lmw),
+            (K6_K5, sem_cfg, sem_q, 300, None)):
+        kc, vc = kv8_cache(cfg, n_past, gen)
+        kc2, vc2 = kv8_clone(kc), kv8_clone(vc)
+        before = kv8.launches
+        out = kdec.decode_step_fused(cfg, p, 1234, kc, vc, n_past,
+                                     lm_window=win)
+        if kv8.launches != before + 1:
+            raise AssertionError(f"{kname} did not count a K6 launch")
+        ref = kdec.decode_step_plain(cfg, p, 1234, kc2, vc2, n_past, win)
+        tag = f"n_past {n_past}" + (" lm_window" if win else "")
+        first = n_past == 0  # held as K7's lanes at n_past 0
+        checks.record(f"{kname} n_past 0" if first else kname, name,
+                      f"logits {tag}", max_err(out, ref),
+                      tol=TOL_KV8_FIRST if first else None)
+        rows = (slice(None), n_past)
+        record_kv8_rows(checks, kname, name, f"K/V row {tag}", [
+            (gpt.kv_view(kc, rows), gpt.kv_view(kc2, rows)),
+            (gpt.kv_view(vc, rows), gpt.kv_view(vc2, rows))], chained=first)
+        del kc, vc, kc2, vc2
+    if timed:
+        tok_t = torch.tensor([1234], dtype=torch.int32, device=dev)
+        for kname, p in ((K6_K1, sem_p), (K6_K5, sem_q)):
+            kc, vc = kv8_cache(sem_cfg, 300, gen)
+            ms = cuda_ms(lambda: kdec.decode_step_fused(
+                sem_cfg, p, tok_t, kc, vc, 300), 50)
+            plain = cuda_ms(lambda: kdec.decode_step_plain(
+                sem_cfg, p, tok_t, kc, vc, 300), 10)
+            checks.times[kname] = (ms, plain,
+                                   decode_cost(sem_cfg, p, 300, kv8=True))
+    del sem_q
+    torch.cuda.empty_cache()
+
+    # K7: B 1, 8, 32 lanes at n_past cycling 0/300/1023, and 8 windowed
+    for cfg, p, B, win in ((sem_cfg, sem_p, 1, None),
+                           (sem_cfg, sem_p, 8, None),
+                           (sem_cfg, sem_p, 32, None),
+                           (coarse_cfg, coarse_p, 8, lmw)):
+        n_past = [(0, 300, 1023)[b % 3] for b in range(B)]
+        toks = torch.randint(0, cfg.n_in_vocab, (B,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        kc, vc = kv8_cache(cfg, 1023, gen, batch=B)
+        kc2, vc2 = kv8_clone(kc), kv8_clone(vc)
+        out = kbdec.decode_step_fused_batched(cfg, p, toks, kc, vc, n_past,
+                                              lm_window=win)
+        ref = kbdec.decode_step_batched_plain(cfg, p, toks, kc2, vc2, n_past,
+                                              win)
+        tag = f"B {B}" + (" lm_window" if win else "")
+        # lanes at n_past 0 apart: TOL_KV8_FIRST, and their rows chained
+        for first in (False, True):
+            lanes = [b for b, n in enumerate(n_past) if (n == 0) == first]
+            if not lanes:
+                continue
+            what = f"{tag}, n_past {'0' if first else '> 0'} lanes"
+            checks.record(f"{K6_K7} n_past 0" if first else K6_K7, name,
+                          f"logits {what}", max_err(out[lanes], ref[lanes]),
+                          tol=TOL_KV8_FIRST if first else None)
+            pairs = [(gpt.kv_view(c, (slice(None), b, n_past[b])),
+                      gpt.kv_view(c2, (slice(None), b, n_past[b])))
+                     for b in lanes for c, c2 in ((kc, kc2), (vc, vc2))]
+            record_kv8_rows(checks, K6_K7, name, f"K/V rows {what}", pairs,
+                            chained=first)
+        del kc, vc, kc2, vc2
+    if timed:
+        for B in KV8_BATCHES:
+            kc, vc = kv8_cache(sem_cfg, 300, gen, batch=B)
+            toks = torch.randint(0, sem_cfg.n_in_vocab, (B,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            slots = _build.device_ints([300] * B, dev)
+            ms = cuda_ms(lambda: kbdec.decode_step_fused_batched(
+                sem_cfg, sem_p, toks, kc, vc, slots), 50)
+            plain = cuda_ms(lambda: kbdec.decode_step_batched_plain(
+                sem_cfg, sem_p, toks, kc, vc, [300] * B), 1 if B > 8 else 3)
+            checks.times[f"{K6_K7}[B={B}]"] = (
+                ms, plain, decode_cost(sem_cfg, sem_p, 300, lanes=B, kv8=True))
+            del kc, vc
+    torch.cuda.empty_cache()
+
+    # K2 (T 257; 887 windowed) and K8 (8 x 887, 32 lanes of 257-887)
+    mixed = (887, 257, 600, 431, 800, 350, 700, 500)
+    for cfg, p, n_valid, win in (
+            (sem_cfg, sem_p, None, None), (coarse_cfg, coarse_p, None, lmw),
+            (coarse_cfg, coarse_p, [887] * 8, lmw),
+            (coarse_cfg, coarse_p, [mixed[b % 8] for b in range(32)], lmw)):
+        single = n_valid is None
+        if single:
+            n_valid = [887 if win else 257]
+        B, T = len(n_valid), max(n_valid)
+        x_emb = p["wte"][0][torch.randint(
+            0, cfg.n_in_vocab, (B * T,), generator=gen, device=dev)].reshape(
+            B, T, cfg.n_embd)
+        kc, vc = gpt.init_kv_cache(cfg, None, dev, batch=B, quant=True)
+        kc2, vc2 = kv8_clone(kc), kv8_clone(vc)
+        if single:
+            kname = K6_K2
+            lane = lambda c: gpt.kv_view(c, (slice(None), 0))  # noqa: E731
+            run = lambda: kpre.prefill_fused(  # noqa: E731
+                cfg, p, x_emb[0], lane(kc), lane(vc), T, lm_window=win)
+            out = run()
+            ref = kpre.prefill_plain(cfg, p, x_emb[0], lane(kc2), lane(vc2),
+                                     T, win)
+        else:
+            kname = K6_K8
+            run = lambda: kbpre.prefill_fused_batched(  # noqa: E731
+                cfg, p, x_emb, kc, vc, n_valid, lm_window=win)
+            out = run()
+            ref = kbpre.prefill_batched_plain(cfg, p, x_emb, kc2, vc2,
+                                              n_valid, win)
+        tag = (f"{B} lanes, n_valid {min(n_valid)}-{max(n_valid)}"
+               + (" lm_window" if win else ""))
+        checks.record(kname, name, f"logits {tag}", max_err(out, ref))
+        pairs = []
+        for b, n in enumerate(n_valid):
+            for c, c2 in ((kc, kc2), (vc, vc2)):
+                idx = (slice(None), b, slice(0, n))
+                pairs.append((gpt.kv_view(c, idx), gpt.kv_view(c2, idx)))
+        record_kv8_rows(checks, kname, name, f"K/V rows {tag}", pairs,
+                        chained=True)
+        if timed and (single and win or n_valid == [887] * 8):
+            ms = cuda_ms(run, 10 if single else 5)
+            plain = cuda_ms(lambda: kbpre.prefill_batched_plain(
+                cfg, p, x_emb, kc2, vc2, n_valid, win), 1 if B > 1 else 3)
+            checks.times[kname] = (ms, plain, prefill_cost(
+                cfg, p, n_valid if B > 1 else T, win, kv8=True))
+        del x_emb, kc, vc, kc2, vc2
+    torch.cuda.empty_cache()
+
+    # K3 (16 steps) and K9 (16 steps of 8 and 32 lanes) from 257-row
+    # prompts; K4 (60 steps) and K10 (60 steps of 8 lanes, 12 of 32) from
+    # contexts of 887 rows (257-887 across lanes); temp 0.7, step parity odd
+    for B in (1, 8, 32):
+        noise = sampling.gumbel((B, 32, sem_cfg.n_out_vocab), gen, dev)
+        logits0 = torch.randn((B, sem_cfg.n_out_vocab), generator=gen,
+                              device=dev)
+        kc0, vc0 = kv8_cache(sem_cfg, 257, gen, batch=B)
+        for K in ((16,) if dtype == torch.float32 else (1,)):
+            kw = dict(K=K, temp=0.7, semantic_vocab_size=svs)
+            kc, vc, kc2, vc2 = (kv8_clone(c) for c in (kc0, vc0, kc0, vc0))
+            if B == 1:
+                lane = lambda c: gpt.kv_view(c, (slice(None), 0))  # noqa: E731
+                args = (257, 3, noise[0], 2.0)
+                got = ksem.semantic_chunk_fused(
+                    sem_cfg, sem_p, logits0[0], lane(kc), lane(vc), *args,
+                    **kw)
+                want = ksem.semantic_chunk_plain(
+                    sem_cfg, sem_p, logits0[0], lane(kc2), lane(vc2), *args,
+                    **kw)
+            else:
+                args = (257, 3, noise, 2.0)
+                got = kbsem.semantic_chunk_fused_batched(
+                    sem_cfg, sem_p, logits0, kc, vc, *args, **kw)
+                want = kbsem.semantic_chunk_batched_plain(
+                    sem_cfg, sem_p, logits0, kc2, vc2, *args, **kw)
+            kname = K6_K3 if B == 1 else K6_K9
+            same = bool((got[0].cpu() == want[0].cpu()).all()
+                        and (got[1].cpu() == want[1].cpu()).all())
+            log(f"  {kname:26s} {name:9s} B={B} K={K}: tokens and flags "
+                f"equal {same}")
+            if dtype == torch.float32 or K == 1:
+                if not same:
+                    raise AssertionError(f"{kname} {name} B={B} K={K}: "
+                                         f"tokens/flags differ")
+                checks.record(kname, name, f"logits, {B} lanes, {K} steps",
+                              max_err(got[2], want[2]))
+            del kc, vc, kc2, vc2
+        del noise, kc0, vc0
+    torch.cuda.empty_cache()
+    cycle = [887, 700, 500, 257]
+    for ctx_len, steps in (([887], 60), ([887] * 8, 60),
+                           ([cycle[b % 4] for b in range(32)], 12)):
+        B = len(ctx_len)
+        noise = sampling.gumbel((steps, B, cbs), gen, dev)
+        logits0 = torch.randn((B, coarse_cfg.n_out_vocab), generator=gen,
+                              device=dev)
+        kc0, vc0 = kv8_cache(coarse_cfg, 887, gen, batch=B)
+        for sws in ((steps,) if dtype == torch.float32 else (1,)):
+            kw = dict(sws=sws, temp=0.7, semantic_vocab_size=svs,
+                      codebook_size=cbs, lm_window=lmw)
+            kc, vc, kc2, vc2 = (kv8_clone(c) for c in (kc0, vc0, kc0, vc0))
+            if B == 1:
+                lane = lambda c: gpt.kv_view(c, (slice(None), 0))  # noqa: E731
+                toks = kwin.coarse_window_fused(
+                    coarse_cfg, coarse_p, logits0[0], lane(kc), lane(vc), 887,
+                    1, noise[:sws, 0], **kw)
+                rtoks = kwin.coarse_window_plain(
+                    coarse_cfg, coarse_p, logits0[0], lane(kc2), lane(vc2),
+                    887, 1, noise[:sws, 0], **kw)
+            else:
+                toks = kbwin.coarse_window_fused_batched(
+                    coarse_cfg, coarse_p, logits0, kc, vc, ctx_len, 1,
+                    noise[:sws], **kw)
+                rtoks = kbwin.coarse_window_batched_plain(
+                    coarse_cfg, coarse_p, logits0, kc2, vc2, ctx_len, 1,
+                    noise[:sws], **kw)
+            kname = K6_K4 if B == 1 else K6_K10
+            same = int((toks.cpu() == rtoks.cpu()).sum())
+            log(f"  {kname:26s} {name:9s} B={B} sws={sws}: tokens equal "
+                f"{same}/{B * sws}")
+            if dtype == torch.float32 or sws == 1:
+                if same != B * sws:
+                    raise AssertionError(f"{kname} {name} B={B} sws={sws}: "
+                                         f"tokens differ")
+                pairs = []
+                for b, c0 in enumerate(ctx_len):
+                    idx = (slice(None), b, slice(c0, c0 + sws))
+                    for c, c2 in ((kc, kc2), (vc, vc2)):
+                        pairs.append((gpt.kv_view(c, idx), gpt.kv_view(c2, idx)))
+                record_kv8_rows(checks, kname, name,
+                                f"K/V rows, {B} lanes, {sws} steps", pairs,
+                                chained=sws > 1)
+            del kc, vc, kc2, vc2
+        del noise, kc0, vc0
+    torch.cuda.empty_cache()
+
+
 def small_model_trees():
     """A small model (2 layers, width 128, head dim 64, a tiny token space
     and codec): {stage: (cfg, f32 numpy params)} and (codec cfg, f32 numpy
@@ -935,24 +1388,27 @@ SMALL_PARAMS = dict(
 )
 
 
-def small_model_reference(packed_path=None):
+def small_model_reference(packed_path=None, kv8: bool = False):
     """Phase 3: the small model generates on the GPU through the kernels
     and on the CPU through the plain versions, in f32 with the same noise:
     tokens must be equal, audio within 1e-3 (cuDNN's convolutions and LSTM
     sum in another order). With `packed_path` (a quantized model file) it
     is loaded with dequantize_on_load=False, so the GPU run decodes through
-    K5; otherwise the dense parts are given directly."""
+    K5; otherwise the dense parts are given directly. kv8: with the int8
+    KV cache, so the GPU run goes through K6 (which must launch)."""
     import numpy as np
     import torch
 
     import bark_tpu_torch as bt
+    from bark_tpu_torch.kernels import kv8 as kkv8
     from bark_tpu_torch.kernels import qdecode as kq
     from bark_tpu_torch.ops import sampling
 
     runs = {}
     for device in ("cpu", "cuda"):
-        params = bt.BarkContextParams(**SMALL_PARAMS,
-                                      dequantize_on_load=not packed_path)
+        params = bt.BarkContextParams(
+            **SMALL_PARAMS, dequantize_on_load=not packed_path,
+            kv_cache_dtype="int8" if kv8 else "params")
         if packed_path:
             ctx = bt.bark_load_model(packed_path, params, seed=0,
                                      device=device)
@@ -969,11 +1425,13 @@ def small_model_reference(packed_path=None):
             lambda stage, shape, g=gen, d=device:
             sampling.gumbel(shape, g, "cpu").to(d)
         )
-        before = kq.launches
+        before, k6 = kq.launches, kkv8.launches
         if not bt.bark_generate_audio(ctx, "hello world"):
             raise AssertionError(f"small model generate failed on {device}")
         if packed_path and device == "cuda" and kq.launches == before:
             raise AssertionError("the packed small model did not launch K5")
+        if kv8 and device == "cuda" and kkv8.launches == k6:
+            raise AssertionError("the kv8 small model did not launch K6")
         runs[device] = ctx
     cpu, gpu = runs["cpu"], runs["cuda"]
     for name in ("semantic_tokens", "coarse_tokens", "fine_tokens"):
@@ -981,18 +1439,20 @@ def small_model_reference(packed_path=None):
             raise AssertionError(f"small model: {name} differ CPU vs GPU")
     audio = bt.bark_get_audio_data(gpu)
     err = float(np.abs(bt.bark_get_audio_data(cpu) - audio).max())
-    log(f"  small model{' (q8_0, packed)' if packed_path else ''}: tokens "
+    log(f"  small model{' (q8_0, packed)' if packed_path else ''}"
+        f"{' (int8 KV)' if kv8 else ''}: tokens "
         f"equal in all stages, audio max|err| {err:.3e} (tol 1e-3), "
         f"{audio.size} samples")
     if err > 1e-3 or not np.isfinite(audio).all():
         raise AssertionError(f"small model audio differs: {err}")
 
 
-def small_model_batched_reference():
+def small_model_batched_reference(kv8: bool = False):
     """Phase 3, batched: `generate_audio_batch` of 3 prompts on the small
     model through K7-K10 on the GPU and through their plain versions on
     the CPU, f32, with the same per-lane noise: every lane's semantic,
-    coarse and fine tokens equal, audio within 1e-3."""
+    coarse and fine tokens equal, audio within 1e-3. kv8: with the int8
+    KV cache (K6 inside K7 and K8)."""
     import numpy as np
     import torch
 
@@ -1005,8 +1465,9 @@ def small_model_batched_reference():
     for device in ("cpu", "cuda"):
         ctx = bt.BarkContext.from_parts(
             **small_model_parts(device),
-            params=bt.BarkContextParams(**SMALL_PARAMS), seed=0,
-            device=device)
+            params=bt.BarkContextParams(
+                **SMALL_PARAMS, kv_cache_dtype="int8" if kv8 else "params"),
+            seed=0, device=device)
         ctx.lane_noise_source = (
             lambda stage, lane, shape, d=device: sampling.gumbel(
                 shape, torch.Generator().manual_seed(
@@ -1016,7 +1477,7 @@ def small_model_batched_reference():
         if device == "cuda":
             counts = kernels.launch_counts()
             if min(counts[m] for m in ("bdecode", "bprefill", "bsemantic",
-                                       "bwindow")) <= 0:
+                                       "bwindow") + ("kv8",) * kv8) <= 0:
                 raise AssertionError(f"small model batch: a batched kernel "
                                      f"was not launched: {counts}")
     err = 0.0
@@ -1028,7 +1489,8 @@ def small_model_batched_reference():
         if cpu["audio"].size == 0 or not np.isfinite(gpu["audio"]).all():
             raise AssertionError(f"small model batch lane {b}: no audio")
         err = max(err, float(np.abs(cpu["audio"] - gpu["audio"]).max()))
-    log(f"  small model, batch of {len(texts)}: tokens equal in all stages "
+    log(f"  small model, batch of {len(texts)}"
+        f"{' (int8 KV)' if kv8 else ''}: tokens equal in all stages "
         f"and lanes, audio max|err| {err:.3e} (tol 1e-3)")
     if err > 1e-3:
         raise AssertionError(f"small model batch audio differs: {err}")
@@ -1059,14 +1521,16 @@ def bark_small_stages(fmt=None):
     }
 
 
-def bark_small_requests(stages, n: int, label: str, need):
-    """Phases 4 and 4b: n requests on bark-small (`stages`), 138 semantic
-    steps with the EOS-probability stop off (bench.py's workload), at
-    PyTorch's default precision settings (cuDNN TF32 on for the f32 codec,
-    matmul TF32 off), driven with the launch counts set to 0 just before
-    and read just after. Every kernel module in `need` must have been
-    launched; returns (per-request results, counts)."""
-    import numpy as np
+def bark_small_requests(stages, n: int, label: str, need,
+                        kv8: bool = False):
+    """Phases 4, 4b and 4d: n requests on bark-small (`stages`), 138
+    semantic steps with the EOS-probability stop off (bench.py's workload),
+    at PyTorch's default precision settings (cuDNN TF32 on for the f32
+    codec, matmul TF32 off), driven with the launch counts set to 0 just
+    before and read just after. Every kernel module in `need` must have
+    been launched. kv8: with the int8 KV cache, every host launch must
+    have run K6 and no plain version may have run. Returns (per-request
+    results, counts)."""
     import torch
 
     import bark_tpu_torch as bt
@@ -1079,41 +1543,75 @@ def bark_small_requests(stages, n: int, label: str, need):
         loader.codec_init_params_numpy(ENCODEC_24KHZ, 3), torch.float32, dev)
     params = bt.BarkContextParams(compute_dtype="bfloat16",
                                   n_steps_text_encoder=138, min_eos_p=2.0,
-                                  stage_sync=True)
+                                  stage_sync=True,
+                                  kv_cache_dtype="int8" if kv8 else "params")
     kernels.reset_launches()
     results = []
-    for seed, text in enumerate(PROMPTS[:n], start=1):
-        ctx = bt.BarkContext.from_parts(
-            vocab_tokens=VOCAB, semantic=stages["semantic"],
-            coarse=stages["coarse"], fine=stages["fine"],
-            codec_cfg=ENCODEC_24KHZ, codec_params=codec, params=params,
-            seed=seed, device=dev,
-        )
-        if not bt.bark_generate_audio(ctx, text):
-            raise AssertionError(f"{label} request {seed} produced no audio")
-        audio = bt.bark_get_audio_data(ctx)
-        n_frames = ctx.fine_tokens.shape[0]
-        if audio.shape != (n_frames * 320,) or not np.isfinite(audio).all():
-            raise AssertionError(
-                f"{label} request {seed}: audio {audio.shape}, finite "
-                f"{np.isfinite(audio).all()}, want ({n_frames * 320},)")
-        s = ctx.stats
-        results.append(dict(
-            seed=seed, text=text, semantic_tokens=int(s.n_sample_semantic),
-            coarse_steps=int(s.n_sample_coarse), frames=n_frames,
-            audio_s=audio.size / 24000, eval_s=s.t_eval_us / 1e6,
-            semantic_s=s.t_semantic_us / 1e6, coarse_s=s.t_coarse_us / 1e6,
-            fine_s=s.t_fine_us / 1e6,
-            codec_s=(s.t_eval_us - s.t_semantic_us - s.t_coarse_us
-                     - s.t_fine_us) / 1e6,
-        ))
-        log(f"  {label} request {seed}: {json.dumps(results[-1])}")
+    with counted_plain_calls() as plain:
+        for seed, text in enumerate(PROMPTS[:n], start=1):
+            results.append(bark_small_request(stages, codec, params, seed,
+                                              text, label))
     counts = kernels.launch_counts()
-    log(f"  kernel launches in the {n} {label} requests: {counts}")
+    log(f"  kernel launches in the {n} {label} requests: {counts}, plain "
+        f"calls {plain}")
     if min(counts[m] for m in need) <= 0:
         raise AssertionError(f"a kernel of the {label} path was not "
                              f"launched: {counts}")
+    if kv8:
+        check_kv8_run(label, counts, plain)
     return results, counts
+
+
+def bark_small_request(stages, codec, params, seed: int, text: str,
+                       label: str):
+    """One request of `bark_small_requests`; returns its result."""
+    import numpy as np
+    import torch
+
+    import bark_tpu_torch as bt
+    from bark_tpu_torch.models.presets import ENCODEC_24KHZ
+
+    dev = torch.device("cuda")
+    ctx = bt.BarkContext.from_parts(
+        vocab_tokens=VOCAB, semantic=stages["semantic"],
+        coarse=stages["coarse"], fine=stages["fine"],
+        codec_cfg=ENCODEC_24KHZ, codec_params=codec, params=params,
+        seed=seed, device=dev,
+    )
+    if not bt.bark_generate_audio(ctx, text):
+        raise AssertionError(f"{label} request {seed} produced no audio")
+    audio = bt.bark_get_audio_data(ctx)
+    n_frames = ctx.fine_tokens.shape[0]
+    if audio.shape != (n_frames * 320,) or not np.isfinite(audio).all():
+        raise AssertionError(
+            f"{label} request {seed}: audio {audio.shape}, finite "
+            f"{np.isfinite(audio).all()}, want ({n_frames * 320},)")
+    s = ctx.stats
+    result = dict(
+        seed=seed, text=text, semantic_tokens=int(s.n_sample_semantic),
+        coarse_steps=int(s.n_sample_coarse), frames=n_frames,
+        audio_s=audio.size / 24000, eval_s=s.t_eval_us / 1e6,
+        semantic_s=s.t_semantic_us / 1e6, coarse_s=s.t_coarse_us / 1e6,
+        fine_s=s.t_fine_us / 1e6,
+        codec_s=(s.t_eval_us - s.t_semantic_us - s.t_coarse_us
+                 - s.t_fine_us) / 1e6,
+    )
+    log(f"  {label} request {seed}: {json.dumps(result)}")
+    return result
+
+
+# the wrappers whose C calls run K6 when given int8 caches
+K6_HOSTS = ("decode", "qdecode", "prefill", "bdecode", "bprefill")
+
+
+def check_kv8_run(label: str, counts, plain) -> None:
+    """A run at kv8 went through K6 alone: every host launch ran it (the
+    K6 count equals the hosts' sum, and is not 0) and no plain version
+    ran."""
+    hosts = sum(counts[m] for m in K6_HOSTS)
+    if counts["kv8"] <= 0 or counts["kv8"] != hosts or any(plain.values()):
+        raise AssertionError(f"{label}: K6 launches {counts['kv8']} against "
+                             f"{hosts} host launches, plain calls {plain}")
 
 
 @contextlib.contextmanager
@@ -1140,13 +1638,14 @@ def counted_plain_calls():
             setattr(gpt, k, f)
 
 
-def bark_small_batch(stages, B: int):
-    """Phase 4c: one `generate_audio_batch` of B prompts on bark-small
-    (`stages`, dense bf16), 138 semantic steps with the EOS-probability
-    stop off, at PyTorch's default precision settings, driven with the
-    launch counts set to 0 just before and read just after. K7-K10 and the
-    sampler must have launched, K1-K5 must not have, and no plain version
-    may have run. Returns the batch's result."""
+def bark_small_batch(stages, B: int, kv8: bool = False):
+    """Phases 4c and 4d: one `generate_audio_batch` of B prompts on
+    bark-small (`stages`, dense bf16), 138 semantic steps with the
+    EOS-probability stop off, at PyTorch's default precision settings,
+    driven with the launch counts set to 0 just before and read just
+    after. K7-K10 and the sampler must have launched, K1-K5 must not have,
+    and no plain version may have run; kv8: with the int8 KV cache, and
+    every K7/K8 launch must have run K6. Returns the batch's result."""
     import numpy as np
     import torch
 
@@ -1162,9 +1661,10 @@ def bark_small_batch(stages, B: int):
         vocab_tokens=VOCAB, semantic=stages["semantic"],
         coarse=stages["coarse"], fine=stages["fine"],
         codec_cfg=ENCODEC_24KHZ, codec_params=codec,
-        params=bt.BarkContextParams(compute_dtype="bfloat16",
-                                    n_steps_text_encoder=138, min_eos_p=2.0,
-                                    stage_sync=True),
+        params=bt.BarkContextParams(
+            compute_dtype="bfloat16", n_steps_text_encoder=138,
+            min_eos_p=2.0, stage_sync=True,
+            kv_cache_dtype="int8" if kv8 else "params"),
         seed=100 + B, device=dev,
     )
     texts = [PROMPTS[b % len(PROMPTS)] for b in range(B)]
@@ -1184,6 +1684,8 @@ def bark_small_batch(stages, B: int):
             or any(plain.values())):
         raise AssertionError(f"batch of {B} did not run on K7-K10 alone: "
                              f"{counts}, plain calls {plain}")
+    if kv8:
+        check_kv8_run(f"kv8 batch of {B}", counts, plain)
     s = ctx.stats
     audio_s = sum(a.size for a in outs) / 24000
     eval_s = s.t_eval_us / 1e6
@@ -1255,10 +1757,16 @@ def main() -> int:
             log(f"phase 2: K7-K10 (batched kernels) vs plain, {dtype}")
             batched_kernel_checks(checks, dtype,
                                   timed=dtype == torch.bfloat16)
+            log(f"phase 2: K6 (the int8 KV cache) vs plain, {dtype}")
+            kv8_kernel_checks(checks, dtype, timed=dtype == torch.bfloat16)
         log("phase 3: small model, GPU kernels vs CPU plain")
         small_model_reference()
         log("phase 3: small model, batched, GPU kernels vs CPU plain")
         small_model_batched_reference()
+        log("phase 3: small model with the int8 KV cache, single and "
+            "batched, GPU kernels vs CPU plain")
+        small_model_reference(kv8=True)
+        small_model_batched_reference(kv8=True)
         import bark_tpu_torch as bt
 
         dense_path = os.path.join(OUT_DIR, "small_f32.bin")
@@ -1296,7 +1804,18 @@ def main() -> int:
     stages = bark_small_stages()
     bark_small_batch(stages, 2)  # first use of the batched path: not kept
     batches = [bark_small_batch(stages, B) for B in BATCHES]
+    log("phase 4d: bark-small with the int8 KV cache (kv_cache_dtype="
+        "'int8'): 2 dense requests, 1 on q4_0 qpacks, batches of "
+        f"{KV8_BATCHES}")
+    kv8_results, kv8_counts = bark_small_requests(
+        stages, 2, "kv8 dense", dense_need + ("kv8",), kv8=True)
+    kv8_batches = [bark_small_batch(stages, B, kv8=True)
+                   for B in KV8_BATCHES]
     del stages
+    torch.cuda.empty_cache()
+    kv8_q_results, kv8_q_counts = bark_small_requests(
+        bark_small_stages("q4_0"), 1, "kv8 q4_0", packed_need + ("kv8",),
+        kv8=True)
     torch.cuda.empty_cache()
     foreign = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "bark_tpu"))
@@ -1309,18 +1828,40 @@ def main() -> int:
     log(f"RTF (q4_0 qpack, bf16 dense leaves, requests 1-2, batch 1): "
         f"{rtf(q_results):.4f} on {smi}")
     log_requests("q4_0", q_results)
-    for r in batches:
-        log(f"  batch of {r['B']:2d}: eval {r['eval_s']:.3f} s = semantic "
+    for r in batches + kv8_batches:
+        log(f"  {'kv8 ' if r in kv8_batches else ''}batch of {r['B']:2d}: "
+            f"eval {r['eval_s']:.3f} s = semantic "
             f"{r['semantic_s']:.3f} + coarse {r['coarse_s']:.3f} + fine "
             f"{r['fine_s']:.3f} + codec/rest {r['codec_s']:.3f} s; RTF per "
             f"request {r['rtf_per_request']:.4f}, "
             f"{r['audio_s_per_wall_s']:.3f} audio-s per wall-s on {smi}")
+    log(f"RTF with the int8 KV cache (phase 4d) beside the bf16 cache "
+        f"(phases 4, 4b): dense {rtf(kv8_results):.4f} (bf16 cache "
+        f"{rtf(timed):.4f}), q4_0 {rtf(kv8_q_results):.4f} (bf16 cache "
+        f"{rtf(q_results):.4f}) on {smi}")
+    log_requests("kv8 dense", kv8_results)
+    log_requests("kv8 q4_0", kv8_q_results)
+    dense_batch = {r["B"]: r for r in batches}
+    for r in kv8_batches:
+        log(f"  batch of {r['B']}: {r['audio_s_per_wall_s']:.3f} audio-s per "
+            f"wall-s with the int8 KV cache, "
+            f"{dense_batch[r['B']]['audio_s_per_wall_s']:.3f} with bf16")
     batch_launches = {r["B"]: r["launches"] for r in batches}
+    kv8_batch_launches = {r["B"]: r["launches"] for r in kv8_batches}
+    kv8_launches = {  # each K6 row's host launches in phase 4d
+        K6_K1: kv8_counts["decode"], K6_K5: kv8_q_counts["qdecode"],
+        K6_K2: kv8_counts["prefill"] + kv8_q_counts["prefill"],
+        K6_K8: sum(c["bprefill"] for c in kv8_batch_launches.values()),
+        **{f"{K6_K7}[B={b}]": c["bdecode"]
+           for b, c in kv8_batch_launches.items()},
+    }
     table = []
     for name, (src, replaces, module) in KERNELS.items():
         ms, plain, cost = checks.times[name]
         bound_ms, bound_by = bound(cost, "bfloat16")
-        if name.startswith(K5):
+        if name in kv8_launches:
+            launches = kv8_launches[name]
+        elif name.startswith(K5):
             launches = k5_launches[name[len(K5) + 1:-1]]
         elif name.startswith(K7):
             launches = batch_launches[int(name[len(K7) + 3:-1])][module]
@@ -1328,20 +1869,35 @@ def main() -> int:
             launches = sum(c[module] for c in batch_launches.values())
         else:
             launches = counts[module]
-        key = K7 if name.startswith(K7) else name
+        key = name.split("[B=")[0]
         log(f"  {name:30s} {ms:9.3f} ms  plain {plain:9.3f} ms  bound "
             f"{bound_ms:7.4f} ms ({bound_by})  launches {launches}  (bf16)")
-        table.append(dict(
+        row = dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches, state="ported",
             max_abs_err=checks.errors[(key, "bfloat16")],
             max_abs_err_f32=checks.errors[(key, "float32")],
             ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, bytes=cost[0], flops=cost[1],
-        ))
+        )
+        if (key, "float32") in checks.kv8_flips:
+            row["int8_flips"] = {d: checks.kv8_flips[(key, d)]
+                                 for d in ("float32", "bfloat16")}
+        table.append(row)
+    accuracy = {f"{k} {d}": e for (k, d), e in sorted(checks.errors.items())}
     print(json.dumps(dict(rtf=rtf(timed), requests=results,
                           rtf_q4_0=rtf(q_results), requests_q4_0=q_results,
-                          batches=batches, build_s=build_s)))
+                          batches=batches, rtf_kv8=rtf(kv8_results),
+                          requests_kv8=kv8_results,
+                          rtf_q4_0_kv8=rtf(kv8_q_results),
+                          requests_q4_0_kv8=kv8_q_results,
+                          batches_kv8=kv8_batches, build_s=build_s,
+                          attention_alone={k: v[:2] for k, v in
+                                           checks.times.items()
+                                           if "alone" in k},
+                          accuracy=accuracy,
+                          kv8_flips={f"{k} {d}": v for (k, d), v in
+                                     sorted(checks.kv8_flips.items())})))
     print(json.dumps({"kernels": table, "to_port": [
         dict(name=n, replaces=r, state="to port") for n, r in
         TO_PORT.items()]}))

@@ -2,7 +2,10 @@
 the card, at a small model (2 layers, width 128, head dim 64) in f32 with
 TF32 off: tokens and flags equal, logits and cache rows within 1e-4 (f32
 sums in another order). K5, the packed step, runs on qpacks loaded from
-sections quantized in q8_0, q4_0, q4_1, q5_1 and q4_k. Marked `cuda`;
+sections quantized in q8_0, q4_0, q4_1, q5_1 and q4_k. K6, the int8 KV
+cache inside K1/K5/K7 and K2/K8, is held to its plain version (the same
+functions on the int8 caches of `gpt.init_kv_cache(quant=True)`) within
+3e-3 on the logits and one int8 step on rare cache values. Marked `cuda`;
 without a GPU they skip. On the machine with the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -17,6 +20,7 @@ import torch
 
 from bark_tpu_torch import kernels
 from bark_tpu_torch.kernels import decode as kdec
+from bark_tpu_torch.kernels import kv8
 from bark_tpu_torch.kernels import prefill as kpre
 from bark_tpu_torch.kernels import semantic as ksem
 from bark_tpu_torch.kernels import window as kwin
@@ -394,3 +398,239 @@ def test_batched_wrappers_refuse_what_the_kernels_do_not_take(dev, params):
                                             dev)
     with pytest.raises(NotImplementedError):  # packed weights: not ported
         kbdec.decode_step_fused_batched(QCFG, qp, [1, 2], kc, vc, [0, 0])
+
+
+# --------------------------------------------------------- K6 (int8 KV)
+# Kernel and plain version quantize fresh K/V rows computed in another
+# summation order (values ATOL apart at most, as the dense tests hold
+# them), so a value next to a rounding boundary may land one int8 step
+# apart: the bytes may differ by 1 at no more than 0.1% of the values (at
+# least one), the scales (a row's amax / 127) within ATOL / 127, and the
+# logits within 3e-3, the JAX package's own kernel-vs-XLA bound for the
+# int8 cache (tests/test_kv_quant.py); tokens equal.
+
+KV8_ATOL = 3e-3
+
+
+def _kv8_caches(dev, rows, batch=None):
+    """Int8 caches whose rows [0, rows) (of every lane) hold random rows
+    quantized by the plain `gpt.quantize_kv_rows`."""
+    kc, vc = gpt.init_kv_cache(CFG, torch.float32, dev, batch=batch,
+                               quant=True)
+    g = torch.Generator(device=dev).manual_seed(rows + 7 * (batch or 0))
+    for c in (kc, vc):
+        live = c["q"][..., :rows, :]
+        q, s = gpt.quantize_kv_rows(torch.randn(live.shape, generator=g,
+                                                device=dev))
+        c["q"][..., :rows, :], c["s"][..., :rows] = q, s
+    return kc, vc
+
+
+def _kv8_clone(c):
+    return {k: v.clone() for k, v in c.items()}
+
+
+def _kv8_close(a, b):
+    """Int8 caches equal but for rare one-step flips; scales within
+    ATOL / 127."""
+    diff = (a["q"].int() - b["q"].int()).abs()
+    assert int(diff.max()) <= 1
+    assert int((diff > 0).sum()) <= max(1, int(1e-3 * diff.numel()))
+    torch.testing.assert_close(a["s"], b["s"], rtol=0, atol=ATOL / 127)
+
+
+@pytest.mark.parametrize("n_past,win", [(0, None), (40, None), (511, None),
+                                        (40, (32, 160))])
+def test_kv8_decode_kernel(dev, params, n_past, win):
+    kc, vc = _kv8_caches(dev, n_past)
+    kc2, vc2 = _kv8_clone(kc), _kv8_clone(vc)
+    before, k6 = kdec.launches, kv8.launches
+    out = kdec.decode_step_fused(CFG, params, 17, kc, vc, n_past,
+                                 lm_window=win)
+    assert kdec.launches == before + 1 and kv8.launches == k6 + 1
+    ref = kdec.decode_step_plain(CFG, params, 17, kc2, vc2, n_past, win)
+    torch.testing.assert_close(out, ref, rtol=0, atol=KV8_ATOL)
+    assert int(out.argmax()) == int(ref.argmax())
+    _kv8_close(kc, kc2)
+    _kv8_close(vc, vc2)
+
+
+def test_kv8_packed_decode_kernel(dev, qpack):
+    from bark_tpu_torch.kernels import qdecode
+
+    kc, vc = _kv8_caches(dev, 40)
+    kc2, vc2 = _kv8_clone(kc), _kv8_clone(vc)
+    before = qdecode.launches
+    out = kdec.decode_step_fused(QCFG, qpack, 17, kc, vc, 40)
+    assert qdecode.launches == before + 1
+    ref = kdec.decode_step_plain(QCFG, qpack, 17, kc2, vc2, 40)
+    torch.testing.assert_close(out, ref, rtol=0, atol=KV8_ATOL)
+    _kv8_close(kc, kc2)
+    _kv8_close(vc, vc2)
+
+
+@pytest.mark.parametrize("T,n_valid", [(257, 257), (384, 300), (512, 1)])
+def test_kv8_prefill_kernel(dev, params, T, n_valid):
+    x = params["wte"][0][:T].contiguous()
+    kc, vc = gpt.init_kv_cache(CFG, torch.float32, dev, quant=True)
+    kc2, vc2 = _kv8_clone(kc), _kv8_clone(vc)
+    before, k6 = kpre.launches, kv8.launches
+    out = kpre.prefill_fused(CFG, params, x, kc, vc, n_valid)
+    assert kpre.launches == before + 1 and kv8.launches == k6 + 1
+    ref = kpre.prefill_plain(CFG, params, x, kc2, vc2, n_valid)
+    torch.testing.assert_close(out, ref, rtol=0, atol=KV8_ATOL)
+    _kv8_close(kc, kc2)
+    _kv8_close(vc, vc2)
+    assert not kc["q"][:, n_valid:].any()  # dead rows are not written
+    assert not kc["s"][:, n_valid:].any()
+
+
+def test_kv8_chunk_and_window_kernels(dev, params):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    noise = sampling.gumbel((16, CFG.n_out_vocab), gen, dev)
+    logits0 = torch.randn(CFG.n_out_vocab, generator=gen, device=dev) * 2
+    kc, vc = _kv8_caches(dev, 40)
+    kc2, vc2 = _kv8_clone(kc), _kv8_clone(vc)
+    kw = dict(K=8, temp=0.7, semantic_vocab_size=150)
+    t, f, lg = ksem.semantic_chunk_fused(CFG, params, logits0, kc, vc, 40, 0,
+                                         noise, 2.0, **kw)
+    rt, rf, rlg = ksem.semantic_chunk_plain(CFG, params, logits0, kc2, vc2,
+                                            40, 0, noise, 2.0, **kw)
+    assert t.tolist() == rt.tolist() and f.tolist() == rf.tolist()
+    torch.testing.assert_close(lg, rlg, rtol=0, atol=KV8_ATOL)
+    kw = dict(sws=10, temp=0.7, semantic_vocab_size=32, codebook_size=64,
+              lm_window=(32, 160))
+    t = kwin.coarse_window_fused(CFG, params, logits0, kc, vc, 60, 1,
+                                 noise[:10, :64], **kw)
+    rt = kwin.coarse_window_plain(CFG, params, logits0, kc2, vc2, 60, 1,
+                                  noise[:10, :64], **kw)
+    assert t.tolist() == rt.tolist()
+    _kv8_close(kc, kc2)
+    _kv8_close(vc, vc2)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 32])
+@pytest.mark.parametrize("win", [None, (32, 160)], ids=["head", "window"])
+def test_kv8_batched_decode_kernel(dev, params, B, win):
+    from bark_tpu_torch.kernels import bdecode as kbdec
+
+    n_past = [(0, 40, 511)[b % 3] for b in range(B)]
+    toks = [(17 + 7 * b) % CFG.n_in_vocab for b in range(B)]
+    kc, vc = _kv8_caches(dev, 511, batch=B)
+    kc2, vc2 = _kv8_clone(kc), _kv8_clone(vc)
+    k6 = kv8.launches
+    out = kbdec.decode_step_fused_batched(CFG, params, toks, kc, vc, n_past,
+                                          lm_window=win)
+    assert kv8.launches == k6 + 1
+    ref = kbdec.decode_step_batched_plain(CFG, params, toks, kc2, vc2,
+                                          n_past, win)
+    torch.testing.assert_close(out, ref, rtol=0, atol=KV8_ATOL)
+    _kv8_close(kc, kc2)
+    _kv8_close(vc, vc2)
+
+
+@pytest.mark.parametrize("n_valid,win", [([257, 300, 1, 512], None),
+                                         ([(257, 300, 1, 512, 64)[b % 5]
+                                           for b in range(32)], (32, 160))])
+def test_kv8_batched_prefill_kernel(dev, params, n_valid, win):
+    from bark_tpu_torch.kernels import bprefill as kbpre
+
+    B, T = len(n_valid), max(n_valid)
+    idx = torch.arange(B * T, device=dev) % CFG.n_in_vocab
+    x = params["wte"][0][idx].reshape(B, T, CFG.n_embd)
+    kc, vc = gpt.init_kv_cache(CFG, torch.float32, dev, batch=B, quant=True)
+    kc2, vc2 = _kv8_clone(kc), _kv8_clone(vc)
+    out = kbpre.prefill_fused_batched(CFG, params, x, kc, vc, n_valid,
+                                      lm_window=win)
+    ref = kbpre.prefill_batched_plain(CFG, params, x, kc2, vc2, n_valid, win)
+    torch.testing.assert_close(out, ref, rtol=0, atol=KV8_ATOL)
+    _kv8_close(kc, kc2)
+    _kv8_close(vc, vc2)
+    for b, n in enumerate(n_valid):
+        assert not kc["q"][:, b, n:].any()  # dead rows are not written
+
+
+@pytest.mark.parametrize("B", [4, 32])
+def test_kv8_batched_chunk_and_window_kernels(dev, params, B):
+    from bark_tpu_torch.kernels import bsemantic as kbsem
+    from bark_tpu_torch.kernels import bwindow as kbwin
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    noise = sampling.gumbel((B, 16, CFG.n_out_vocab), gen, dev)
+    logits0 = torch.randn(B, CFG.n_out_vocab, generator=gen, device=dev) * 2
+    kc, vc = _kv8_caches(dev, 100, batch=B)
+    kc2, vc2 = _kv8_clone(kc), _kv8_clone(vc)
+    kw = dict(K=8, temp=0.7, semantic_vocab_size=150)
+    t, f, lg = kbsem.semantic_chunk_fused_batched(
+        CFG, params, logits0, kc, vc, 40, 3, noise, 2.0, **kw)
+    rt, rf, rlg = kbsem.semantic_chunk_batched_plain(
+        CFG, params, logits0, kc2, vc2, 40, 3, noise, 2.0, **kw)
+    assert t.tolist() == rt.tolist() and f.tolist() == rf.tolist()
+    torch.testing.assert_close(lg, rlg, rtol=0, atol=KV8_ATOL)
+    ctx_len = [(60, 61, 100, 7)[b % 4] for b in range(B)]
+    wnoise = noise[:, :10, :64].transpose(0, 1).contiguous()
+    kw = dict(sws=10, temp=0.7, semantic_vocab_size=32, codebook_size=64,
+              lm_window=(32, 160))
+    t = kbwin.coarse_window_fused_batched(CFG, params, logits0, kc, vc,
+                                          ctx_len, 1, wnoise, **kw)
+    rt = kbwin.coarse_window_batched_plain(CFG, params, logits0, kc2, vc2,
+                                           ctx_len, 1, wnoise, **kw)
+    assert t.tolist() == rt.tolist()
+    _kv8_close(kc, kc2)
+    _kv8_close(vc, vc2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "dense"])
+def test_attn_decode_kernel_alone(dev, dtype, quant):
+    """K6a (and the dense attention kernel) on the same qkv rows as the
+    plain version: the fresh rows bit-equal, the context within ATOL (f32)
+    or 2e-2 (bf16: the weights round to bf16 after another softmax sum)."""
+    B, D = 5, CFG.n_embd
+    n_past = [0, 40, 511, 7, 300]
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn((B, 3 * D), generator=g, device=dev).to(dtype)
+    if quant:
+        kc, vc = _kv8_caches(dev, 511, batch=B)
+        kc, vc = gpt.kv_view(kc, 0), gpt.kv_view(vc, 0)
+    else:
+        kc, vc = (torch.randn((B, CFG.block_size, D), generator=g,
+                              device=dev).to(dtype) for _ in range(2))
+    clone = _kv8_clone if quant else torch.clone
+    kc2, vc2 = clone(kc), clone(vc)
+    ctx = kv8.attn_decode(CFG, qkv, kc, vc, n_past)
+    ref = kv8.attn_decode_plain(CFG, qkv, kc2, vc2, n_past)
+    atol = ATOL if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(ctx.float(), ref.float(), rtol=0, atol=atol)
+    for a, b in ((kc, kc2), (vc, vc2)):
+        for x, y in zip(*((t.values() if quant else [t]) for t in (a, b))):
+            assert torch.equal(x, y)
+    with pytest.raises(ValueError):  # n_past past the cache
+        kv8.attn_decode(CFG, qkv, kc, vc, [0, 0, 0, 0, CFG.block_size])
+
+
+def test_kv8_wrappers_refuse_a_malformed_int8_cache(dev, params):
+    from bark_tpu_torch.kernels import bdecode as kbdec
+
+    kc, vc = gpt.init_kv_cache(CFG, torch.float32, dev, quant=True)
+    dense_k, _ = gpt.init_kv_cache(CFG, torch.float32, dev)
+    bad = [
+        ({**kc, "q": kc["q"].to(torch.uint8)}, vc),       # values not int8
+        ({**kc, "q": kc["q"].float()}, vc),                # values not int8
+        ({**kc, "q": kc["q"][:, :-1].contiguous()}, vc),   # rows short
+        ({**kc, "s": kc["s"].half()}, vc),                 # scales not f32
+        ({**kc, "s": kc["s"][:, :-1].contiguous()}, vc),   # scale shape
+        ({**kc, "s": kc["s"].t().contiguous().t()}, vc),   # not contiguous
+        ({"q": kc["q"]}, vc),                              # no scales
+        (dense_k, vc),                                     # dense k, int8 v
+    ]
+    for k, v in bad:
+        with pytest.raises(ValueError):
+            kdec.decode_step_fused(CFG, params, 1, k, v, 0)
+        with pytest.raises(ValueError):
+            kpre.prefill_fused(CFG, params, params["wte"][0][:8], k, v, 8)
+    kb, vb = gpt.init_kv_cache(CFG, torch.float32, dev, batch=2, quant=True)
+    with pytest.raises(ValueError):  # lanes' scales of another batch
+        kbdec.decode_step_fused_batched(
+            CFG, params, [1, 2], {**kb, "s": kb["s"][:, :1].contiguous()},
+            vb, [0, 0])
