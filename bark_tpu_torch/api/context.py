@@ -19,7 +19,9 @@ Batched serving: `BarkContext.generate_audio_batch(texts)` runs up to
 32 prompts through one batched pipeline (K8 prefills, K9 semantic chunks
 and K10 coarse windows over the batched decode step K7, which reads each
 weight once per step for every lane), then the fine stage and the codec
-per lane.
+per lane. Packed stages take the same path: K9 and K10 then decode
+through the packed batched step (K5-batched), and the prefills and the
+fine stage read a dense copy made once per batch and stage.
 
 Randomness: every stage takes its Gumbel noise as a tensor. The context
 draws it on the device from a `torch.Generator` seeded with `seed`, in the
@@ -34,8 +36,7 @@ int8 cache (`gpt.init_kv_cache(quant=True)`), read and written by the
 int8 kernels K6 (`kernels.kv8`) inside K1/K5/K7 and K2/K8.
 
 Not ported yet: the stepped path and progress callbacks, streaming,
-long-form, voice presets, packed weights on the batched path, the
-server's batch worker.
+long-form, voice presets, the server's batch worker.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import torch
 
 from bark_tpu_torch.io import ggml, loader, quantize
 from bark_tpu_torch.kernels import bdecode as kbdec
-from bark_tpu_torch.models import encodec, gpt
+from bark_tpu_torch.models import encodec
 from bark_tpu_torch.models.config import CodecConfig
 from bark_tpu_torch.ops import sampling
 from bark_tpu_torch.params import BarkContextParams, Verbosity
@@ -306,8 +307,8 @@ class BarkContext:
         pads the batch to a power of two, which bounds what it compiles;
         the port has nothing to compile and runs exactly B lanes.
 
-        At most `bdecode.MAX_LANES` prompts; packed-quantized stages and
-        voice presets are not ported to this path and raise."""
+        At most `bdecode.MAX_LANES` prompts, dense or packed-quantized
+        stages; voice presets are not ported to this path and raise."""
         return [lane["audio"] for lane in self._generate_batch(texts, voices)]
 
     def _generate_batch(self, texts, voices=None) -> list:
@@ -325,11 +326,6 @@ class BarkContext:
                              f"{kbdec.MAX_LANES} prompts, got {B}")
         if voices is not None:
             raise NotImplementedError("voice presets are not ported yet")
-        for stage in ("semantic", "coarse", "fine"):
-            if gpt.is_qpack(getattr(self, stage + "_params")):
-                raise NotImplementedError(
-                    f"packed-quantized weights ({stage} stage) on the "
-                    f"batched path are not ported yet")
         dev = self.device
         prompts = torch.as_tensor(np.stack([
             np.asarray(tokenizer.tokenize_input(
@@ -371,11 +367,12 @@ class BarkContext:
         self._sync()
         self.stats.t_coarse_us += int((time.perf_counter() - t0) * 1e6)
 
-        # --- fine and codec, per lane
+        # --- fine and codec, per lane, on one dense copy of a qpack
         t0 = time.perf_counter()
         n_frames = [s // p.n_coarse_codebooks for s in n_steps]
         noises = [self._fine_noise(n, lane=b) for b, n in zip(live, n_frames)]
-        fine = [self._program("fine")(self.fine_params, c, n, z)
+        fine_params = loader.densify(self.fine_cfg, self.fine_params)
+        fine = [self._program("fine")(fine_params, c, n, z)
                 for c, n, z in zip(codes, n_frames, noises)]
         self._sync()
         self.stats.t_fine_us += int((time.perf_counter() - t0) * 1e6)

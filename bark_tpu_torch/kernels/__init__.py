@@ -9,11 +9,12 @@ that run their plain PyTorch version on CPU tensors:
 - sample: the sampler launch that K3 and K4 share, and K9 and K10 over B
   lanes
 - bdecode: K7, one decode step of B lanes (each weight read once for all)
+- qbdecode: K5-batched, K7's step on packed-quantized weights
 - bprefill: K8, B lanes' prefills stacked into one row block
 - bsemantic: K9, a chunk of semantic steps of B lanes in lockstep
 - bwindow: K10, one coarse sliding window of B lanes
-- kv8: K6, the int8 KV cache's kernels inside K1, K5, K7 (decode
-  attention) and K2, K8 (row quantizer and prefill attention)
+- kv8: K6, the int8 KV cache's kernels inside K1, K5, K7, K5-batched
+  (decode attention) and K2, K8 (row quantizer and prefill attention)
 
 Each module keeps `launches`, the count of kernel launches through its
 wrapper (never of plain-version calls).
@@ -24,8 +25,8 @@ from __future__ import annotations
 import importlib
 
 KERNEL_MODULES = ("decode", "qdecode", "prefill", "semantic", "window",
-                  "sample", "bdecode", "bprefill", "bsemantic", "bwindow",
-                  "kv8")
+                  "sample", "bdecode", "qbdecode", "bprefill", "bsemantic",
+                  "bwindow", "kv8")
 
 
 def _modules():

@@ -110,6 +110,9 @@ _SIGNATURES = {
     #  tickets, logits, lo, hi, stream)
     "bark_decode_step_batched": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _I, _I, _P],
+    # (qweights*, then as bark_decode_step_batched)
+    "bark_qdecode_step_batched": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _P, _P, _P, _I, _I, _P],
     # (weights*, x_emb, B, M, max_n, n_tiles, tables, kc, vc, ks, vs, x, hb,
     #  q, ctx, ff, kv, logits, lo, hi, stream)
     "bark_prefill_batched": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
@@ -280,6 +283,10 @@ class StageWeights:
                 f"block_size <= 1024, got {cfg}"
             )
         self.packed = is_qpack(params)
+        if self.packed and cfg.n_lm_heads != 1:
+            raise ValueError(
+                f"packed kernels take a stage with one LM head (the "
+                f"(D, v_pad) tile), got n_lm_heads {cfg.n_lm_heads}")
         if self.packed and params["wte_s"].dtype not in SCALE_CODES:
             raise ValueError(f"packed scales: want float16 or float32, got "
                              f"{params['wte_s'].dtype}")

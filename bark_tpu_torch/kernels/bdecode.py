@@ -4,27 +4,31 @@ The counterpart of `bark_tpu.kernels.decode.decode_step_fused_batched`. On
 CUDA tensors the wrapper launches the hand-written kernels of
 `csrc/bdecode.cu` through one C call per step: each weight streams once
 for all B lanes, every lane decodes at its own slot `n_past[b]` and writes
-its K/V row at `[l, b, n_past[b]]` of the flat (L, B, S, D) caches. On CPU
-tensors the plain version runs: `gpt.decode_step` on each lane's (L, S, D)
-view at its own slot, which is what the JAX package's off-TPU `vmap`
-computes. A CUDA tensor the kernel does not take raises (head_dim != 64,
-n_embd % 64, more than MAX_LANES lanes, a packed-quantized stage); there
-is no other path. Int8 caches (`gpt.init_kv_cache(quant=True, batch=B)`)
-run K6a as each layer's attention (`kernels.kv8`).
+its K/V row at `[l, b, n_past[b]]` of the flat (L, B, S, D) caches.
+Packed-quantized params (a qpack) go to the packed batched kernel
+K5-batched (`kernels.qbdecode`) on CUDA tensors. On CPU tensors the plain
+version runs, for dense params and qpacks alike: `gpt.decode_step` on
+each lane's (L, S, D) view at its own slot, which is what the JAX
+package's off-TPU `vmap` computes. A CUDA tensor the kernel
+does not take raises a ValueError (head_dim != 64, n_embd % 64, more than
+MAX_LANES lanes; for a qpack also scales other than f16/f32, tensors not
+16-byte aligned, more than one LM head); there is no other path. Int8
+caches (`gpt.init_kv_cache(quant=True, batch=B)`) run K6a as each layer's
+attention (`kernels.kv8`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from bark_tpu_torch.kernels import _build, kv8
+from bark_tpu_torch.kernels import _build, kv8, qbdecode
 from bark_tpu_torch.kernels.decode import decode_step_plain
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 
 MAX_LANES = 32  # lanes one batched step takes (csrc/bdecode.cu MAX_LANES)
 
-launches = 0  # kernel launches through `decode_step_fused_batched`
+launches = 0  # dense kernel launches through `decode_step_fused_batched`
 
 
 def _host_ints(v):
@@ -33,8 +37,9 @@ def _host_ints(v):
 
 def decode_step_batched_plain(cfg: GPTConfig, params, tokens, k_cache,
                               v_cache, n_past, lm_window=None):
-    """The plain PyTorch version of K7: `decode_step_plain` (K1's) on each
-    lane's (L, S, D) cache view at its own slot; (B, n_out_vocab) f32."""
+    """The plain PyTorch version of K7, and of K5-batched for a qpack:
+    `decode_step_plain` (K1's and K5's) on each lane's (L, S, D) cache view
+    at its own slot; (B, n_out_vocab) f32."""
     return torch.stack([
         decode_step_plain(cfg, params, t, gpt.kv_lane(k_cache, b),
                           gpt.kv_lane(v_cache, b), n, lm_window)
@@ -70,11 +75,9 @@ def decode_step_fused_batched(cfg: GPTConfig, params, tokens, k_cache,
     if gpt.kv_device(k_cache).type == "cpu":
         return decode_step_batched_plain(cfg, params, tokens, k_cache,
                                          v_cache, n_past, lm_window)
-    if gpt.is_qpack(params):
-        raise NotImplementedError(
-            "packed-quantized weights on the batched decode step (K7 with "
-            "quant=True) are not ported yet")
-    w = _build.stage_weights(cfg, params)
+    packed = gpt.is_qpack(params)
+    w = (_build.stage_qweights if packed else _build.stage_weights)(
+        cfg, params)
     B = lane_count(k_cache)
     caches = w.check_cache(k_cache, v_cache, batch=B)
     V, D = cfg.n_out_vocab, cfg.n_embd
@@ -88,7 +91,7 @@ def decode_step_fused_batched(cfg: GPTConfig, params, tokens, k_cache,
     if tuple(out.shape) != (B, V):
         raise ValueError(f"out: want ({B}, {V}), got {tuple(out.shape)}")
     _build.f32_on(out, w.device, B * V, "logits")
-    rc = _build.lib().bark_decode_step_batched(
+    args = (
         w.ref, B, tok.data_ptr(), npt.data_ptr(), *caches,
         w.scratch("x", B, D).data_ptr(),
         w.scratch("qkv", B, 3 * D).data_ptr(),
@@ -98,8 +101,12 @@ def decode_step_fused_batched(cfg: GPTConfig, params, tokens, k_cache,
         w.scratch("tickets", 1024, dtype=torch.int32).data_ptr(),
         out.data_ptr(), lo, hi, _build.stream_ptr(w.device),
     )
-    _build.check("decode_step_fused_batched", rc)
-    launches += 1
+    if packed:
+        qbdecode.decode_step_packed_batched(args, out)
+    else:
+        _build.check("decode_step_fused_batched",
+                     _build.lib().bark_decode_step_batched(*args))
+        launches += 1
     kv8.count(caches)
     return out
 

@@ -147,8 +147,10 @@ def make_coarse_stage_program_batched(cfg: GPTConfig,
     n_steps and masks what it writes, this one leaves such a lane out of
     the later windows: the lanes are ordered by n_steps, longest first, so
     a window's running lanes are a leading slice of every per-lane tensor
-    (no gather, no host round trip). Dense params only; kv_quant: the
-    int8 KV cache."""
+    (no gather, no host round trip). A qpack is densified once per call,
+    not per window: the contexts' embedding and K8 read the dense copy,
+    K10 decodes from the qpack (K5-batched). kv_quant: the int8 KV
+    cache."""
     p = bparams
     num, den = stc_fraction(p)
     n_cc, sws = p.n_coarse_codebooks, p.sliding_window_size
@@ -175,7 +177,8 @@ def make_coarse_stage_program_batched(cfg: GPTConfig,
                            device=device)
         out = torch.zeros((B, hist_cap + steps[0] + sws), dtype=torch.int32,
                           device=device)
-        wte = params["wte"][0]
+        dense = loader.densify(cfg, params)
+        wte = dense["wte"][0]
         for w in range(-(-steps[0] // sws)):
             g = w * sws  # tokens generated so far, by every running lane
             Ba = sum(1 for s in steps if g < s)
@@ -190,7 +193,7 @@ def make_coarse_stage_program_batched(cfg: GPTConfig,
             kc, vc = gpt.init_kv_cache(cfg, wte.dtype, device, batch=Ba,
                                         quant=kv_quant)
             logits = kbpre.prefill_fused_batched(
-                cfg, params, wte[ctx.long()], kc, vc, [ctx_len] * Ba,
+                cfg, dense, wte[ctx.long()], kc, vc, [ctx_len] * Ba,
                 lm_window=lm_window)
             noise = (None if p.temp == 0.0 else torch.stack(
                 [noises[b][w] for b in order[:Ba]], dim=1))

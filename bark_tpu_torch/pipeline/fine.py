@@ -11,7 +11,8 @@ positions before the block's fill start kept).
 
 Plain PyTorch: the JAX package has no Pallas kernel in this stage. A qpack
 is densified once per stage call (bit-equal to dequantize-at-load), so the
-forwards are exactly the dense ones.
+forwards are exactly the dense ones; a batch densifies once and passes
+the dense copy to every lane's call (`BarkContext._generate_batch`).
 """
 
 from __future__ import annotations

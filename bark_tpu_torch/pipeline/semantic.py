@@ -80,16 +80,19 @@ def make_semantic_program_batched(cfg: GPTConfig, *, temp: float,
     a running lane's count is the chunk's global step, so the host reads
     each chunk's (B, CHUNK) stop flags once and freezes a lane at its first
     stop, appending nothing after it. A stopped lane keeps decoding in the
-    kernel; its later tokens land past its count and are zeroed. Dense
-    params only."""
+    kernel; its later tokens land past its count and are zeroed. A qpack
+    is densified once per call, as in `make_semantic_program`: the prompt
+    embedding and K8 read the dense copy, K9 decodes from the qpack (its
+    K7 steps are then K5-batched)."""
 
     def run(params, tokens513, noise, min_eos_p: float):
         dtype, device = params["wpe"].dtype, params["wpe"].device
         B = tokens513.shape[0]
-        x_emb = gpt.embed_prompt_merged(cfg, params, tokens513)
+        dense = loader.densify(cfg, params)
+        x_emb = gpt.embed_prompt_merged(cfg, dense, tokens513)
         kc, vc = gpt.init_kv_cache(cfg, dtype, device, batch=B,
                                     quant=kv_quant)
-        logits = kbpre.prefill_fused_batched(cfg, params, x_emb.contiguous(),
+        logits = kbpre.prefill_fused_batched(cfg, dense, x_emb.contiguous(),
                                              kc, vc, [PROMPT_ROWS] * B)
         chunks, counts, done, g0 = [], [0] * B, [False] * B, 0
         while not all(done) and g0 < max_steps:

@@ -32,6 +32,13 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      on q4_0 qpacks; check that every host launch of K1/K5/K7/K2/K8 ran
      K6 and that no plain version ran, and print the RTFs and batched
      throughput beside phases 4-4c's bf16-cache numbers;
+  4e. batched requests on bark-small q4_0 qpacks (`generate_audio_batch`
+     of 1, 8 and 32 prompts with the bf16 cache, 8 and 32 with the int8
+     cache), then one batch of 8 each in q8_0, q4_1 and q4_k; check that
+     every semantic and coarse step launched K5-batched, that dense K7 and
+     the single-lane K1/K5 did not launch and that no plain version ran,
+     and print the throughput and RTF per request beside phase 4c's dense
+     numbers;
   5. print the RTFs, the batched throughput and stage times, the kernel
      table as one JSON line (every kernel that reaches `pl.pallas_call` in
      the JAX package: the ported ones under "kernels", the others under
@@ -43,21 +50,28 @@ versions at the lane counts phase 4c gives them (K7 at B 1/3/8/32 with
 n_past 0/300/1023; K8 over 3, 8 and 32 lanes with n_valid 257 to 887; K9
 over 16 steps of 4, 8 and 32 lanes; K10 over 60 steps of 4 and 8 lanes
 and 12 of 32), and phase 3 the small model's batched generation on the
-GPU against the CPU (tokens equal). For K6, the int8 KV cache, phase 2
-holds each kernel that reads or writes it against its plain version on
-int8 caches filled by the plain quantizer (K1 at n_past 0/300/1023 and
-windowed, K5 q4_0, K7 at B 1/8/32, K2 at T 257 and 887, K8 over 8 and 32
-lanes, K3, K4, K9, K10), logits within TOL, the cache bytes with their
-count of one-step flips and the scales (`record_kv8_rows`), and times K1,
-K5, K7, K2 and K8 on int8 caches; phase 3 runs the small model with the
-int8 cache, single and batched, tokens equal on GPU and CPU.
+GPU against the CPU (tokens equal). For K5-batched (K7's step on packed
+weights) phase 2 holds the step against its plain version on random
+qpacks of the four formats at B 1/3/8/32 (n_past 0/300/1023; full head
+and coarse window), K9 (8 lanes x 16 steps) and K10 (8 lanes x 60 steps,
+32 x 12) over a q4_0 qpack in f32 (tokens and flags equal), and the q4_0 step on
+int8 caches at B 8 and 32; phase 3 runs the small model's q8_0 file
+packed through `generate_audio_batch`, with both caches. For K6, the
+int8 KV cache, phase 2 holds each kernel that reads or writes it against
+its plain version on int8 caches filled by the plain quantizer (K1 at
+n_past 0/300/1023 and windowed, K5 q4_0, K7 at B 1/8/32, K2 at T 257 and
+887, K8 over 8 and 32 lanes, K3, K4, K9, K10), logits within TOL, the
+cache bytes with their count of one-step flips and the scales
+(`record_kv8_rows`), and times K1, K5, K7, K2 and K8 on int8 caches;
+phase 3 runs the small model with the int8 cache, single and batched,
+tokens equal on GPU and CPU.
 
-Each path of phases 4, 4b, 4c and 4d is driven with the launch counts set
-to 0 just before it and read just after. A kernel's bound is the least time the
-card could take for the same work: the bytes it must move (each input read
-once, each output written once) at 3.35 TB/s, or its operations at the
-peak rate of its dtype, whichever is larger; an int8 cache row counts
-its D bytes and its 4-byte scale.
+Each path of phases 4, 4b, 4c, 4d and 4e is driven with the launch
+counts set to 0 just before it and read just after. A kernel's bound is
+the least time the card could take for the same work: the bytes it must
+move (each input read once, each output written once) at 3.35 TB/s, or
+its operations at the peak rate of its dtype, whichever is larger; an
+int8 cache row counts its D bytes and its 4-byte scale.
 
 Long outputs (nvcc's -Xptxas -v report) go to chiprun_out/. The script
 exits non-zero without a GPU, and when run outside a checkout.
@@ -154,10 +168,18 @@ KERNELS.update({  # K6a in K1, K5, K7; K6b + K6c in K2, K8
     K6_K8: ("bark_tpu_torch/csrc/prefill.cu",
             "bark_tpu/kernels/decode.py:1045", "bprefill"),
 })
+# K5-batched, K7's step on packed weights: every format at B = 8 (one
+# batch of 8 each in phase 4e), q4_0 also at B = 1 and 32
+K5B = "qdecode_step_fused_batched"
+K5B_ROWS = (("q8_0", 8), ("q4_0", 1), ("q4_0", 8), ("q4_0", 32),
+            ("q4_1", 8), ("q4_k", 8))
+KERNELS.update({
+    f"{K5B}[{fmt},B={b}]": ("bark_tpu_torch/csrc/qbdecode.cu",
+                            "bark_tpu/kernels/decode.py:2043", "qbdecode")
+    for fmt, b in K5B_ROWS})
+K6_K5B = "qdecode_step_fused_batched[q4_0,kv8]"  # held in phase 2 only
 # the JAX package's kernels still to port, by what the table calls them
 TO_PORT = {
-    "K5-batched (packed weights inside K7/K9/K10)":
-        "bark_tpu/kernels/decode.py:2043",
     "probes (DMA, cache and lowering probes)": "tools/tpu_dma_probe.py:55",
 }
 
@@ -464,16 +486,23 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
                                                (nb + 60 * cbs * 4, fl))
 
 
-def random_qpack(cfg, fmt: str, dtype, gen, dev):
+def random_qpack(cfg, fmt: str, dtype, gen, dev, full_range=False):
     """A qpack at cfg's widths (the layout of io.loader's
     gpt_qparams_from_section), built on the card from `gen`: values drawn
     in fmt's range, per-block scales around 0.02 / std(values), mins that
     centre each block, so every weight is ~N(0, 0.02) as in
     gpt.init_params; dense leaves in `dtype` with non-zero biases and LN
-    affines. v_pad columns of a single LM head are zero."""
+    affines. v_pad columns of a single LM head are zero. A format without
+    mins draws from the symmetric part of its range ([-7, 7] for q4_0, as
+    a centred weight quantizes) unless `full_range`: over q4_0's whole
+    range [-8, 7] (mean -0.5) the weights' common mode, through the
+    positive GELU outputs, drifts the residual stream layer by layer, and
+    its bf16 rounding steps grow with it (`bf16_witness`)."""
     import torch
 
     qlo, qhi, sname, has_min = QFORMATS[fmt]
+    if not has_min and not full_range:
+        qlo = -qhi
     sdt = getattr(torch, sname)
     L, D, V = cfg.n_layer, cfg.n_embd, cfg.n_out_vocab
     base = 0.02 / (((qhi - qlo + 1) ** 2 - 1) / 12) ** 0.5
@@ -847,6 +876,248 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
             checks.times["coarse_window_fused_batched"] = (
                 ms, plain, (nb + 60 * B * cbs * 4, fl))
         del noise, kc0, vc0
+        torch.cuda.empty_cache()
+
+
+def qbatched_kernel_checks(checks: Checks, dtype, timed: bool):
+    """Phase 2 for K5-batched (K7's step on packed weights), one dtype:
+    against its plain version (models.gpt on the same qpack, lane by lane)
+    for every format of QFORMATS at B 1/3/8/32 with n_past cycling
+    0/300/1023, on the full head and on the coarse window; on a q4_0 qpack
+    also K9 (16 steps of 8 lanes) and K10 (60 steps of 8 lanes, 12 of 32)
+    in f32, tokens and flags equal, and the step on int8 caches at B 8 and
+    32 (K6a inside; lanes at n_past 0 held to TOL_KV8_FIRST, the cache
+    rows by `record_kv8_rows`). Timed in bf16 at n_past 300, each case
+    checked first on the inputs it is timed on: every format at B 8, q4_0
+    also at B 1 and 32."""
+    import torch
+
+    from bark_tpu_torch.kernels import _build
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import bsemantic as kbsem
+    from bark_tpu_torch.kernels import bwindow as kbwin
+    from bark_tpu_torch.kernels import qbdecode as kqb
+    from bark_tpu_torch.models import gpt
+    from bark_tpu_torch.models.presets import BARK_SMALL
+    from bark_tpu_torch.ops import sampling
+
+    dev = torch.device("cuda")
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    gen = torch.Generator(device=dev).manual_seed(47)
+    sem_cfg, coarse_cfg = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+    svs, cbs = 10000, 1024
+    lmw = (svs, svs + 2 * cbs)
+
+    def lane_tokens(cfg, B):
+        return torch.randint(0, cfg.n_in_vocab, (B,), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def step(cfg, qp, toks, kc, vc, n_past, win=None):
+        """The kernel's logits; fails unless it launched K5-batched once
+        and dense K7 not at all."""
+        before, dense = kqb.launches, kbdec.launches
+        out = kbdec.decode_step_fused_batched(cfg, qp, toks, kc, vc, n_past,
+                                              lm_window=win)
+        if kqb.launches != before + 1 or kbdec.launches != dense:
+            raise AssertionError("the packed batched step did not launch "
+                                 "K5-batched alone")
+        return out
+
+    for fmt in QFORMATS:
+        kname = f"{K5B}[{fmt}]"
+        sem_q = random_qpack(sem_cfg, fmt, dtype, gen, dev)
+        coarse_q = random_qpack(coarse_cfg, fmt, dtype, gen, dev)
+        for cfg, qp, B, win in (
+                *((sem_cfg, sem_q, B, None) for B in (1, 3, 8, 32)),
+                *((coarse_cfg, coarse_q, B, lmw) for B in (1, 3, 8, 32))):
+            n_past = [(0, 300, 1023)[b % 3] for b in range(B)]
+            toks = lane_tokens(cfg, B)
+            kc, vc = filled_batched_cache(cfg, B, 1023, dtype, gen)
+            kc2, vc2 = kc.clone(), vc.clone()
+            out = step(cfg, qp, toks, kc, vc, n_past, win)
+            ref = kbdec.decode_step_batched_plain(cfg, qp, toks, kc2, vc2,
+                                                  n_past, win)
+            tag = f"B {B}" + (" lm_window" if win else "")
+            checks.record(kname, name, f"logits {tag}", max_err(out, ref))
+            checks.record(kname, name, f"K/V rows {tag}", max(
+                max(max_err(kc[:, b, n], kc2[:, b, n]),
+                    max_err(vc[:, b, n], vc2[:, b, n]))
+                for b, n in enumerate(n_past)))
+            if win is not None and (float(out[:, :win[0]].abs().max()) != 0
+                                    or float(out[:, win[1]:].abs().max())
+                                    != 0):
+                raise AssertionError(f"{kname}: logits outside lm_window "
+                                     f"are not zero")
+            del kc, vc, kc2, vc2
+        if timed:  # each case checked first on the inputs it is timed on
+            for B in (1, 8, 32) if fmt == "q4_0" else (8,):
+                kc, vc = filled_batched_cache(sem_cfg, B, 300, dtype, gen)
+                toks = lane_tokens(sem_cfg, B)
+                slots = _build.device_ints([300] * B, dev)
+                kc2, vc2 = kc.clone(), vc.clone()
+                out = step(sem_cfg, sem_q, toks, kc2, vc2, slots)
+                ref = kbdec.decode_step_batched_plain(sem_cfg, sem_q, toks,
+                                                      kc, vc, [300] * B)
+                checks.record(kname, name, f"logits B {B} timed, n_past 300",
+                              max_err(out, ref))
+                del kc2, vc2
+                ms = cuda_ms(lambda: kbdec.decode_step_fused_batched(
+                    sem_cfg, sem_q, toks, kc, vc, slots), 50)
+                plain = cuda_ms(lambda: kbdec.decode_step_batched_plain(
+                    sem_cfg, sem_q, toks, kc, vc, [300] * B),
+                    1 if B > 8 else 3)
+                checks.times[f"{K5B}[{fmt},B={B}]"] = (
+                    ms, plain, decode_cost(sem_cfg, sem_q, 300, lanes=B))
+                del kc, vc
+        if fmt == "q4_0" and dtype == torch.float32:
+            # K9: 16 steps of 8 lanes after 257 rows; K10: 60 steps of 8
+            # lanes after 887, 700, 500 and 257 rows
+            B = 8
+            noise = sampling.gumbel((B, 32, sem_cfg.n_out_vocab), gen, dev)
+            logits0 = torch.randn((B, sem_cfg.n_out_vocab), generator=gen,
+                                  device=dev)
+            kc, vc = filled_batched_cache(sem_cfg, B, 257, dtype, gen)
+            kc2, vc2 = kc.clone(), vc.clone()
+            kw = dict(K=16, temp=0.7, semantic_vocab_size=svs)
+            args = (257, 3, noise, 2.0)
+            got = kbsem.semantic_chunk_fused_batched(
+                sem_cfg, sem_q, logits0, kc, vc, *args, **kw)
+            want = kbsem.semantic_chunk_batched_plain(
+                sem_cfg, sem_q, logits0, kc2, vc2, *args, **kw)
+            if (got[0].tolist() != want[0].tolist()
+                    or got[1].tolist() != want[1].tolist()):
+                raise AssertionError("K9 over q4_0: tokens/flags differ")
+            checks.record(kname, name, "K9 logits, 8 lanes x 16 steps",
+                          max_err(got[2], want[2]))
+            del kc, vc, kc2, vc2
+            for B, sws in ((8, 60), (32, 12)):
+                ctx_len = [(887, 700, 500, 257)[b % 4] for b in range(B)]
+                noise = sampling.gumbel((sws, B, cbs), gen, dev)
+                logits0 = torch.randn((B, coarse_cfg.n_out_vocab),
+                                      generator=gen, device=dev)
+                kc, vc = filled_batched_cache(coarse_cfg, B, 887, dtype, gen)
+                kc2, vc2 = kc.clone(), vc.clone()
+                kw = dict(sws=sws, temp=0.7, semantic_vocab_size=svs,
+                          codebook_size=cbs, lm_window=lmw)
+                toks = kbwin.coarse_window_fused_batched(
+                    coarse_cfg, coarse_q, logits0, kc, vc, ctx_len, 1, noise,
+                    **kw)
+                rtoks = kbwin.coarse_window_batched_plain(
+                    coarse_cfg, coarse_q, logits0, kc2, vc2, ctx_len, 1,
+                    noise, **kw)
+                if toks.tolist() != rtoks.tolist():
+                    raise AssertionError(f"K10 over q4_0, {B} lanes: tokens "
+                                         f"differ")
+                checks.record(kname, name,
+                              f"K10 K/V rows, {B} lanes x {sws} steps",
+                              max(max(max_err(kc[:, b, c:c + sws],
+                                              kc2[:, b, c:c + sws]),
+                                      max_err(vc[:, b, c:c + sws],
+                                              vc2[:, b, c:c + sws]))
+                                  for b, c in enumerate(ctx_len)))
+                del kc, vc, kc2, vc2, noise
+            log(f"  K9 (8 lanes x 16 steps) and K10 (8 lanes x 60 steps, 32 "
+                f"x 12) over q4_0: tokens and flags equal, f32")
+        if fmt == "q4_0":
+            # the packed batched step on int8 caches (K6a inside)
+            for B in KV8_BATCHES:
+                n_past = [(0, 300, 1023)[b % 3] for b in range(B)]
+                toks = lane_tokens(sem_cfg, B)
+                kc, vc = kv8_cache(sem_cfg, 1023, gen, batch=B)
+                kc2, vc2 = kv8_clone(kc), kv8_clone(vc)
+                out = step(sem_cfg, sem_q, toks, kc, vc, n_past)
+                ref = kbdec.decode_step_batched_plain(sem_cfg, sem_q, toks,
+                                                      kc2, vc2, n_past)
+                for first in (False, True):
+                    lanes = [b for b, n in enumerate(n_past)
+                             if (n == 0) == first]
+                    what = f"B {B}, n_past {'0' if first else '> 0'} lanes"
+                    checks.record(f"{K6_K5B} n_past 0" if first else K6_K5B,
+                                  name, f"logits {what}",
+                                  max_err(out[lanes], ref[lanes]),
+                                  tol=TOL_KV8_FIRST if first else None)
+                    pairs = [(gpt.kv_view(c, (slice(None), b, n_past[b])),
+                              gpt.kv_view(c2, (slice(None), b, n_past[b])))
+                             for b in lanes
+                             for c, c2 in ((kc, kc2), (vc, vc2))]
+                    record_kv8_rows(checks, K6_K5B, name, f"K/V rows {what}",
+                                    pairs, chained=first)
+                del kc, vc, kc2, vc2
+        del sem_q, coarse_q
+        torch.cuda.empty_cache()
+
+
+def cast_dense(tree, dtype):
+    """A copy of qpack `tree` with its dense leaves in `dtype`; its int8
+    values, scales and mins are shared."""
+    return {k: cast_dense(v, dtype) if isinstance(v, dict)
+            else v if k.endswith(("_q", "_s", "_m")) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def bf16_witness():
+    """Phase 2's witness for the bf16 tolerance of the packed steps on
+    q4_0, over random_qpack's centred draw and over q4_0's whole range
+    [-8, 7]: the kernel in bf16 and the plain version in bf16, each
+    against the plain version in f32 on the same int8 values, scales,
+    tokens and cache rows (the bf16 qpack is the f32 one with its dense
+    leaves rounded; the f32 caches hold the bf16 rows). K5-batched at B 8
+    on the coarse window and at B 32 on both heads, K5 at n_past 300.
+    Logged, not checked: a kernel no farther from f32 than the plain bf16
+    version is is rounding as bf16 rounds, not at fault."""
+    import torch
+
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import decode as kdec
+    from bark_tpu_torch.models.presets import BARK_SMALL
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(57)
+    sem_cfg, coarse_cfg = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+    lmw = (10000, 10000 + 2 * 1024)
+    bf = torch.bfloat16
+
+    def report(what, kern, plain, truth):
+        errs = [(float((x.float() - truth).abs().max()),
+                 float((x.float() - truth).abs().mean()))
+                for x in (kern, plain)]
+        log(f"  bf16 witness {what:36s} max|kernel-f32| {errs[0][0]:.3e} "
+            f"max|plain-f32| {errs[1][0]:.3e} mean {errs[0][1]:.3e} / "
+            f"{errs[1][1]:.3e}  max|kernel-plain| "
+            f"{max_err(kern, plain):.3e}")
+
+    for full in (False, True):
+        draw = "[-8, 7]" if full else "[-7, 7]"
+        sem_q, coarse_q = (random_qpack(cfg, "q4_0", torch.float32, gen,
+                                        dev, full_range=full)
+                           for cfg in (sem_cfg, coarse_cfg))
+        for cfg, q32, B, win in ((coarse_cfg, coarse_q, 8, lmw),
+                                 (sem_cfg, sem_q, 32, None),
+                                 (coarse_cfg, coarse_q, 32, lmw)):
+            q16 = cast_dense(q32, bf)
+            n_past = [(0, 300, 1023)[b % 3] for b in range(B)]
+            toks = torch.randint(0, cfg.n_in_vocab, (B,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            kc, vc = filled_batched_cache(cfg, B, 1023, bf, gen)
+            truth = kbdec.decode_step_batched_plain(
+                cfg, q32, toks, kc.float(), vc.float(), n_past, win)
+            kern = kbdec.decode_step_fused_batched(
+                cfg, q16, toks, kc.clone(), vc.clone(), n_past, lm_window=win)
+            plain = kbdec.decode_step_batched_plain(
+                cfg, q16, toks, kc.clone(), vc.clone(), n_past, win)
+            report(f"{K5B} {draw} B {B}" + (" lm_window" if win else ""),
+                   kern, plain, truth)
+        q32 = sem_q
+        q16 = cast_dense(q32, bf)
+        kc, vc = filled_cache(sem_cfg, 300, bf, gen)
+        truth = kdec.decode_step_plain(sem_cfg, q32, 4321, kc.float(),
+                                       vc.float(), 300)
+        kern = kdec.decode_step_fused(sem_cfg, q16, 4321, kc.clone(),
+                                      vc.clone(), 300)
+        plain = kdec.decode_step_plain(sem_cfg, q16, 4321, kc.clone(),
+                                       vc.clone(), 300)
+        report(f"{K5} {draw} n_past 300", kern, plain, truth)
+        del sem_q, coarse_q, q32, q16
         torch.cuda.empty_cache()
 
 
@@ -1447,12 +1718,14 @@ def small_model_reference(packed_path=None, kv8: bool = False):
         raise AssertionError(f"small model audio differs: {err}")
 
 
-def small_model_batched_reference(kv8: bool = False):
+def small_model_batched_reference(kv8: bool = False, packed_path=None):
     """Phase 3, batched: `generate_audio_batch` of 3 prompts on the small
     model through K7-K10 on the GPU and through their plain versions on
     the CPU, f32, with the same per-lane noise: every lane's semantic,
     coarse and fine tokens equal, audio within 1e-3. kv8: with the int8
-    KV cache (K6 inside K7 and K8)."""
+    KV cache (K6 inside K7 and K8). `packed_path`: a quantized model file
+    loaded with dequantize_on_load=False, so the GPU run decodes through
+    K5-batched (which must launch, and dense K7 not)."""
     import numpy as np
     import torch
 
@@ -1463,11 +1736,19 @@ def small_model_batched_reference(kv8: bool = False):
     texts = ["hello world", "the a", "world hello the a"]
     runs = {}
     for device in ("cpu", "cuda"):
-        ctx = bt.BarkContext.from_parts(
-            **small_model_parts(device),
-            params=bt.BarkContextParams(
-                **SMALL_PARAMS, kv_cache_dtype="int8" if kv8 else "params"),
-            seed=0, device=device)
+        params = bt.BarkContextParams(
+            **SMALL_PARAMS, dequantize_on_load=not packed_path,
+            kv_cache_dtype="int8" if kv8 else "params")
+        if packed_path:
+            ctx = bt.bark_load_model(packed_path, params, seed=0,
+                                     device=device)
+            for stage in ("semantic", "coarse", "fine"):
+                if "wte_q" not in getattr(ctx, stage + "_params"):
+                    raise AssertionError(f"{stage} did not load packed")
+        else:
+            ctx = bt.BarkContext.from_parts(
+                **small_model_parts(device), params=params, seed=0,
+                device=device)
         ctx.lane_noise_source = (
             lambda stage, lane, shape, d=device: sampling.gumbel(
                 shape, torch.Generator().manual_seed(
@@ -1476,10 +1757,14 @@ def small_model_batched_reference(kv8: bool = False):
         runs[device] = ctx._generate_batch(texts)
         if device == "cuda":
             counts = kernels.launch_counts()
-            if min(counts[m] for m in ("bdecode", "bprefill", "bsemantic",
-                                       "bwindow") + ("kv8",) * kv8) <= 0:
+            step, other = (("qbdecode", "bdecode") if packed_path
+                           else ("bdecode", "qbdecode"))
+            if min(counts[m] for m in (step, "bprefill", "bsemantic",
+                                       "bwindow") + ("kv8",) * kv8) <= 0 \
+                    or counts[other]:
                 raise AssertionError(f"small model batch: a batched kernel "
-                                     f"was not launched: {counts}")
+                                     f"was not launched, or {other} was: "
+                                     f"{counts}")
     err = 0.0
     for b, (cpu, gpu) in enumerate(zip(runs["cpu"], runs["cuda"])):
         for key in ("semantic", "coarse", "fine"):
@@ -1490,6 +1775,7 @@ def small_model_batched_reference(kv8: bool = False):
             raise AssertionError(f"small model batch lane {b}: no audio")
         err = max(err, float(np.abs(cpu["audio"] - gpu["audio"]).max()))
     log(f"  small model, batch of {len(texts)}"
+        f"{' (q8_0, packed)' if packed_path else ''}"
         f"{' (int8 KV)' if kv8 else ''}: tokens equal in all stages "
         f"and lanes, audio max|err| {err:.3e} (tol 1e-3)")
     if err > 1e-3:
@@ -1601,7 +1887,8 @@ def bark_small_request(stages, codec, params, seed: int, text: str,
 
 
 # the wrappers whose C calls run K6 when given int8 caches
-K6_HOSTS = ("decode", "qdecode", "prefill", "bdecode", "bprefill")
+K6_HOSTS = ("decode", "qdecode", "prefill", "bdecode", "qbdecode",
+            "bprefill")
 
 
 def check_kv8_run(label: str, counts, plain) -> None:
@@ -1638,14 +1925,18 @@ def counted_plain_calls():
             setattr(gpt, k, f)
 
 
-def bark_small_batch(stages, B: int, kv8: bool = False):
-    """Phases 4c and 4d: one `generate_audio_batch` of B prompts on
-    bark-small (`stages`, dense bf16), 138 semantic steps with the
-    EOS-probability stop off, at PyTorch's default precision settings,
-    driven with the launch counts set to 0 just before and read just
-    after. K7-K10 and the sampler must have launched, K1-K5 must not have,
-    and no plain version may have run; kv8: with the int8 KV cache, and
-    every K7/K8 launch must have run K6. Returns the batch's result."""
+def bark_small_batch(stages, B: int, kv8: bool = False,
+                     packed: bool = False):
+    """Phases 4c, 4d and 4e: one `generate_audio_batch` of B prompts on
+    bark-small (`stages`, dense bf16, or qpacks when `packed`), 138
+    semantic steps with the EOS-probability stop off, at PyTorch's default
+    precision settings, driven with the launch counts set to 0 just before
+    and read just after. K7 (K5-batched when packed) must have launched
+    once for every semantic and coarse step, K8-K10 and the sampler must
+    have launched, K1-K5 and the other batched step must not have, and no
+    plain version may have run; kv8: with the int8 KV cache, and every
+    K7/K5-batched/K8 launch must have run K6. Returns the batch's
+    result."""
     import numpy as np
     import torch
 
@@ -1653,6 +1944,7 @@ def bark_small_batch(stages, B: int, kv8: bool = False):
     from bark_tpu_torch import kernels
     from bark_tpu_torch.io import loader
     from bark_tpu_torch.models.presets import ENCODEC_24KHZ
+    from bark_tpu_torch.pipeline import semantic as semantic_pipe
 
     dev = torch.device("cuda")
     codec = loader.params_from_numpy(
@@ -1672,20 +1964,27 @@ def bark_small_batch(stages, B: int, kv8: bool = False):
     with counted_plain_calls() as plain:
         outs = ctx.generate_audio_batch(texts)
     counts = kernels.launch_counts()
-    log(f"  batch of {B}: kernel launches {counts}, plain calls {plain}")
+    label = f"{'packed ' if packed else ''}batch of {B}"
+    log(f"  {label}: kernel launches {counts}, plain calls {plain}")
     for b, a in enumerate(outs):
         if a.size == 0 or a.size % 320 or not np.isfinite(a).all():
-            raise AssertionError(f"batch of {B}, lane {b}: audio {a.shape}, "
+            raise AssertionError(f"{label}, lane {b}: audio {a.shape}, "
                                  f"finite {np.isfinite(a).all()}")
-    if (min(counts[m] for m in ("bdecode", "bprefill", "bsemantic",
-                                "bwindow", "sample")) <= 0
+    step, other = ("qbdecode", "bdecode") if packed else ("bdecode",
+                                                          "qbdecode")
+    steps = (counts["bsemantic"] * semantic_pipe.CHUNK
+             + counts["bwindow"] * ctx.params.sliding_window_size)
+    if (min(counts[m] for m in (step, "bprefill", "bsemantic", "bwindow",
+                                "sample")) <= 0
+            or counts[step] != steps
             or any(counts[m] for m in ("decode", "qdecode", "prefill",
-                                       "semantic", "window"))
+                                       "semantic", "window", other))
             or any(plain.values())):
-        raise AssertionError(f"batch of {B} did not run on K7-K10 alone: "
-                             f"{counts}, plain calls {plain}")
+        raise AssertionError(f"{label} did not run on {step} and K8-K10 "
+                             f"alone, one step launch per step: {counts}, "
+                             f"plain calls {plain}")
     if kv8:
-        check_kv8_run(f"kv8 batch of {B}", counts, plain)
+        check_kv8_run(f"kv8 {label}", counts, plain)
     s = ctx.stats
     audio_s = sum(a.size for a in outs) / 24000
     eval_s = s.t_eval_us / 1e6
@@ -1759,6 +2058,12 @@ def main() -> int:
                                   timed=dtype == torch.bfloat16)
             log(f"phase 2: K6 (the int8 KV cache) vs plain, {dtype}")
             kv8_kernel_checks(checks, dtype, timed=dtype == torch.bfloat16)
+            log(f"phase 2: K5-batched (the packed batched step) vs plain, "
+                f"{dtype}")
+            qbatched_kernel_checks(checks, dtype,
+                                   timed=dtype == torch.bfloat16)
+        log("phase 2: bf16 witness, q4_0 packed steps in bf16 vs f32")
+        bf16_witness()
         log("phase 3: small model, GPU kernels vs CPU plain")
         small_model_reference()
         log("phase 3: small model, batched, GPU kernels vs CPU plain")
@@ -1775,6 +2080,10 @@ def main() -> int:
         bt.bark_model_quantize(dense_path, q8_path, 7)  # MOSTLY_Q8_0
         log("phase 3: small model from a q8_0 file, packed, GPU vs CPU")
         small_model_reference(q8_path)
+        log("phase 3: small model from the q8_0 file, packed and batched "
+            "(K5-batched), bf16-dtype and int8 caches, GPU vs CPU")
+        small_model_batched_reference(packed_path=q8_path)
+        small_model_batched_reference(kv8=True, packed_path=q8_path)
         for path in (dense_path, q8_path):
             os.unlink(path)
     log(f"phase 4: bark-small, 3 requests (PyTorch defaults: cuDNN TF32 "
@@ -1817,6 +2126,21 @@ def main() -> int:
         bark_small_stages("q4_0"), 1, "kv8 q4_0", packed_need + ("kv8",),
         kv8=True)
     torch.cuda.empty_cache()
+    log(f"phase 4e: bark-small batched on q4_0 qpacks, B in {BATCHES} "
+        f"(bf16 cache) and {KV8_BATCHES} (int8 cache); one batch of 8 in "
+        f"q8_0, q4_1 and q4_k")
+    stages = bark_small_stages("q4_0")
+    bark_small_batch(stages, 2, packed=True)  # first use: not kept
+    q_batches = [bark_small_batch(stages, B, packed=True) for B in BATCHES]
+    kv8_q_batches = [bark_small_batch(stages, B, kv8=True, packed=True)
+                     for B in KV8_BATCHES]
+    del stages
+    k5b_launches = {("q4_0", r["B"]): r["launches"]["qbdecode"]
+                    for r in q_batches}
+    for fmt in ("q8_0", "q4_1", "q4_k"):
+        r = bark_small_batch(bark_small_stages(fmt), 8, packed=True)
+        k5b_launches[(fmt, 8)] = r["launches"]["qbdecode"]
+        torch.cuda.empty_cache()
     foreign = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "bark_tpu"))
     if foreign:
@@ -1828,8 +2152,10 @@ def main() -> int:
     log(f"RTF (q4_0 qpack, bf16 dense leaves, requests 1-2, batch 1): "
         f"{rtf(q_results):.4f} on {smi}")
     log_requests("q4_0", q_results)
-    for r in batches + kv8_batches:
-        log(f"  {'kv8 ' if r in kv8_batches else ''}batch of {r['B']:2d}: "
+    for r in batches + kv8_batches + q_batches + kv8_q_batches:
+        tag = (("kv8 " if r in kv8_batches + kv8_q_batches else "")
+               + ("q4_0 " if r in q_batches + kv8_q_batches else ""))
+        log(f"  {tag}batch of {r['B']:2d}: "
             f"eval {r['eval_s']:.3f} s = semantic "
             f"{r['semantic_s']:.3f} + coarse {r['coarse_s']:.3f} + fine "
             f"{r['fine_s']:.3f} + codec/rest {r['codec_s']:.3f} s; RTF per "
@@ -1846,6 +2172,15 @@ def main() -> int:
         log(f"  batch of {r['B']}: {r['audio_s_per_wall_s']:.3f} audio-s per "
             f"wall-s with the int8 KV cache, "
             f"{dense_batch[r['B']]['audio_s_per_wall_s']:.3f} with bf16")
+    for r in q_batches + kv8_q_batches:
+        kv = "int8" if r in kv8_q_batches else "bf16"
+        base = (dense_batch if kv == "bf16" else
+                {d["B"]: d for d in kv8_batches})[r["B"]]
+        log(f"  q4_0 batch of {r['B']} ({kv} cache): "
+            f"{r['audio_s_per_wall_s']:.3f} audio-s per wall-s, RTF per "
+            f"request {r['rtf_per_request']:.4f}; dense bf16 weights "
+            f"{base['audio_s_per_wall_s']:.3f}, "
+            f"{base['rtf_per_request']:.4f} on {smi}")
     batch_launches = {r["B"]: r["launches"] for r in batches}
     kv8_batch_launches = {r["B"]: r["launches"] for r in kv8_batches}
     kv8_launches = {  # each K6 row's host launches in phase 4d
@@ -1859,8 +2194,13 @@ def main() -> int:
     for name, (src, replaces, module) in KERNELS.items():
         ms, plain, cost = checks.times[name]
         bound_ms, bound_by = bound(cost, "bfloat16")
+        key = name.split("[B=")[0]
         if name in kv8_launches:
             launches = kv8_launches[name]
+        elif name.startswith(K5B):
+            fmt, b = name[len(K5B) + 1:-1].split(",B=")
+            launches = k5b_launches[(fmt, int(b))]
+            key = f"{K5B}[{fmt}]"
         elif name.startswith(K5):
             launches = k5_launches[name[len(K5) + 1:-1]]
         elif name.startswith(K7):
@@ -1869,7 +2209,6 @@ def main() -> int:
             launches = sum(c[module] for c in batch_launches.values())
         else:
             launches = counts[module]
-        key = name.split("[B=")[0]
         log(f"  {name:30s} {ms:9.3f} ms  plain {plain:9.3f} ms  bound "
             f"{bound_ms:7.4f} ms ({bound_by})  launches {launches}  (bf16)")
         row = dict(
@@ -1891,7 +2230,9 @@ def main() -> int:
                           requests_kv8=kv8_results,
                           rtf_q4_0_kv8=rtf(kv8_q_results),
                           requests_q4_0_kv8=kv8_q_results,
-                          batches_kv8=kv8_batches, build_s=build_s,
+                          batches_kv8=kv8_batches,
+                          batches_q4_0=q_batches,
+                          batches_q4_0_kv8=kv8_q_batches, build_s=build_s,
                           attention_alone={k: v[:2] for k, v in
                                            checks.times.items()
                                            if "alone" in k},

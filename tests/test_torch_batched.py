@@ -37,7 +37,7 @@ from bark_tpu_torch.models import gpt as tgpt
 from bark_tpu_torch.pipeline import coarse as tcoarse
 from bark_tpu_torch.pipeline import semantic as tsem
 
-from test_torch_e2e import gumbel_from_key
+from test_torch_e2e import gumbel_from_key, one_torch_thread
 from test_torch_kernels_plain import CHUNK_CFG, DECODE_CFG, _params, _tcfg
 from tiny_model import tiny_params
 

@@ -9,7 +9,8 @@ their plain versions):
 - within the port: lane b of a batch is exactly a single
   `generate_audio` given the same noise, including lanes that forced noise
   stops at different semantic steps and a lane that stops at step 0;
-- what the path refuses.
+- what the path refuses (packed stages it takes: see
+  tests/test_torch_quant_batched_e2e.py).
 """
 
 import jax
@@ -21,7 +22,7 @@ import bark_tpu
 import bark_tpu_torch
 from bark_tpu.io import ggml
 
-from test_torch_e2e import gumbel_from_key
+from test_torch_e2e import gumbel_from_key, one_torch_thread
 from tiny_model import build_tiny_model, tiny_params
 
 AUDIO_ATOL = 1e-4
@@ -125,7 +126,7 @@ def test_lanes_equal_single_requests(weights):
     assert ctx.stats.n_sample_semantic == sum(counts)
 
 
-def test_batch_refuses_what_is_not_ported(weights, tmp_path):
+def test_batch_refuses_what_is_not_ported(weights):
     ctx = bark_tpu_torch.bark_load_model(weights, tiny_params(), seed=0,
                                          device="cpu")
     assert ctx.generate_audio_batch([]) == []
@@ -133,9 +134,3 @@ def test_batch_refuses_what_is_not_ported(weights, tmp_path):
         ctx.generate_audio_batch(["hello"] * 33)
     with pytest.raises(NotImplementedError):
         ctx.generate_audio_batch(["hello"], voices=["v.npz"])
-    q8 = str(tmp_path / "q8.bin")
-    bark_tpu_torch.bark_model_quantize(weights, q8, 7)  # MOSTLY_Q8_0
-    packed = bark_tpu_torch.bark_load_model(
-        q8, tiny_params(dequantize_on_load=False), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="packed"):
-        packed.generate_audio_batch(["hello"])

@@ -1,7 +1,8 @@
 """bark_tpu_torch's CUDA kernels against their plain PyTorch versions on
 the card, at a small model (2 layers, width 128, head dim 64) in f32 with
 TF32 off: tokens and flags equal, logits and cache rows within 1e-4 (f32
-sums in another order). K5, the packed step, runs on qpacks loaded from
+sums in another order). K5, the packed step, and K5-batched, the packed
+batched step (with K9 and K10 over it), run on qpacks loaded from
 sections quantized in q8_0, q4_0, q4_1, q5_1 and q4_k. K6, the int8 KV
 cache inside K1/K5/K7 and K2/K8, is held to its plain version (the same
 functions on the int8 caches of `gpt.init_kv_cache(quant=True)`) within
@@ -396,8 +397,16 @@ def test_batched_wrappers_refuse_what_the_kernels_do_not_take(dev, params):
                                         [0, CFG.block_size])
     _, qp = loader.gpt_qparams_from_section(_qsection("Q8_0"), torch.float32,
                                             dev)
-    with pytest.raises(NotImplementedError):  # packed weights: not ported
-        kbdec.decode_step_fused_batched(QCFG, qp, [1, 2], kc, vc, [0, 0])
+    # a qpack K5-batched does not take: the wrapper raises and nothing
+    # launches, dense K7 included
+    before = kernels.launch_counts()
+    bad = {**qp, "wte_s": qp["wte_s"].to(torch.bfloat16)}
+    with pytest.raises(ValueError, match="scales"):
+        kbdec.decode_step_fused_batched(QCFG, bad, [1, 2], kc, vc, [0, 0])
+    fine = dataclasses.replace(QCFG, n_lm_heads=7)
+    with pytest.raises(ValueError, match="n_lm_heads"):
+        kbdec.decode_step_fused_batched(fine, qp, [1, 2], kc, vc, [0, 0])
+    assert kernels.launch_counts() == before
 
 
 # --------------------------------------------------------- K6 (int8 KV)
@@ -634,3 +643,75 @@ def test_kv8_wrappers_refuse_a_malformed_int8_cache(dev, params):
         kbdec.decode_step_fused_batched(
             CFG, params, [1, 2], {**kb, "s": kb["s"][:, :1].contiguous()},
             vb, [0, 0])
+
+
+# ------------------------------------------------ K5-batched (packed K7)
+
+
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+@pytest.mark.parametrize("B", [1, 3, 8, 32])
+@pytest.mark.parametrize("win", [None, (32, 160)], ids=["head", "window"])
+def test_packed_batched_decode_kernel(dev, qpack, B, win, cache):
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import qbdecode
+
+    n_past = [(0, 40, 511)[b % 3] for b in range(B)]
+    toks = [(17 + 7 * b) % QCFG.n_in_vocab for b in range(B)]
+    if cache == "int8":
+        kc, vc = _kv8_caches(dev, 511, batch=B)
+        kc2, vc2 = _kv8_clone(kc), _kv8_clone(vc)
+    else:
+        kc, vc = _bcaches(dev, B, 511)
+        kc2, vc2 = kc.clone(), vc.clone()
+    before, dense_before = qbdecode.launches, kbdec.launches
+    k6 = kv8.launches
+    out = kbdec.decode_step_fused_batched(QCFG, qpack, toks, kc, vc, n_past,
+                                          lm_window=win)
+    assert qbdecode.launches == before + 1 and kbdec.launches == dense_before
+    assert kv8.launches == k6 + (cache == "int8")
+    ref = kbdec.decode_step_batched_plain(QCFG, qpack, toks, kc2, vc2,
+                                          n_past, win)
+    if cache == "int8":
+        torch.testing.assert_close(out, ref, rtol=0, atol=KV8_ATOL)
+        _kv8_close(kc, kc2)
+        _kv8_close(vc, vc2)
+    else:
+        torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
+        torch.testing.assert_close(kc, kc2, rtol=0, atol=ATOL)
+        torch.testing.assert_close(vc, vc2, rtol=0, atol=ATOL)
+    if win is not None:
+        assert not out[:, :win[0]].any() and not out[:, win[1]:].any()
+
+
+@pytest.mark.parametrize("B", [4, 32])
+def test_packed_batched_chunk_and_window_kernels(dev, qpack, B):
+    from bark_tpu_torch.kernels import bsemantic as kbsem
+    from bark_tpu_torch.kernels import bwindow as kbwin
+    from bark_tpu_torch.kernels import qbdecode
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    noise = sampling.gumbel((B, 16, QCFG.n_out_vocab), gen, dev)
+    logits0 = torch.randn(B, QCFG.n_out_vocab, generator=gen, device=dev) * 2
+    kc, vc = _bcaches(dev, B, 100)
+    kc2, vc2 = kc.clone(), vc.clone()
+    before = qbdecode.launches
+    kw = dict(K=8, temp=0.7, semantic_vocab_size=150)
+    t, f, lg = kbsem.semantic_chunk_fused_batched(
+        QCFG, qpack, logits0, kc, vc, 40, 3, noise, 2.0, **kw)
+    rt, rf, rlg = kbsem.semantic_chunk_batched_plain(
+        QCFG, qpack, logits0, kc2, vc2, 40, 3, noise, 2.0, **kw)
+    assert t.tolist() == rt.tolist() and f.tolist() == rf.tolist()
+    torch.testing.assert_close(lg, rlg, rtol=0, atol=ATOL)
+    ctx_len = [(60, 61, 100, 7)[b % 4] for b in range(B)]
+    wnoise = noise[:, :10, :64].transpose(0, 1).contiguous()
+    kw = dict(sws=10, temp=0.7, semantic_vocab_size=32, codebook_size=64,
+              lm_window=(32, 160))
+    t = kbwin.coarse_window_fused_batched(QCFG, qpack, logits0, kc, vc,
+                                          ctx_len, 1, wnoise, **kw)
+    rt = kbwin.coarse_window_batched_plain(QCFG, qpack, logits0, kc2, vc2,
+                                           ctx_len, 1, wnoise, **kw)
+    assert t.tolist() == rt.tolist()
+    assert qbdecode.launches == before + 18  # one a step
+    for b, c in enumerate(ctx_len):
+        torch.testing.assert_close(vc[:, b, c:c + 10], vc2[:, b, c:c + 10],
+                                   rtol=0, atol=ATOL)

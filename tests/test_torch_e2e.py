@@ -25,6 +25,20 @@ AUDIO_ATOL = 1e-4
 TEXT = "hello world"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread while a module's tests run (autouse here
+    and in every port test module that imports it): pytest-xdist runs
+    several worker processes at once, and a default pool of one thread
+    per core in each of them makes the port's tests several times slower.
+    The count is restored after the module, so other tests see torch's
+    default."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def gumbel_from_key(stage: str, k, shape):
     """The Gumbel rows bark_tpu's `stage` draws from its stage key `k`
     (jax.random.categorical(k, l) is argmax(l + gumbel(k, l.shape)))."""

@@ -12,6 +12,7 @@ from bark_tpu.models import encodec as jenc
 from bark_tpu_torch.io import loader as tloader
 from bark_tpu_torch.models import encodec as tenc
 
+from test_torch_e2e import one_torch_thread  # autouse
 from tiny_model import build_tiny_model
 
 ATOL = 1e-5

@@ -17,6 +17,7 @@ from bark_tpu_torch.io import loader as tloader
 from bark_tpu_torch.models import config as tconfig
 from bark_tpu_torch.models import gpt as tgpt
 
+from test_torch_e2e import one_torch_thread  # autouse
 from tiny_model import build_tiny_model
 
 ATOL = 1e-5

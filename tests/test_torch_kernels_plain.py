@@ -28,6 +28,8 @@ from bark_tpu_torch.kernels import semantic as tksem
 from bark_tpu_torch.kernels import window as tkwin
 from bark_tpu_torch.models import config as tconfig
 
+from test_torch_e2e import one_torch_thread  # autouse
+
 ATOL = 1e-5
 # tests/test_decode_kernel.py:16 (K1); the prefill, semantic and window
 # kernel tests use the same model with block_size 512
@@ -185,5 +187,5 @@ def test_cpu_calls_count_no_launches():
     tkdec.decode_step_fused(cfg, tp, 3, kc, vc, 12)
     assert tkernels.launch_counts() == {
         "decode": 0, "qdecode": 0, "prefill": 0, "semantic": 0, "window": 0,
-        "sample": 0, "bdecode": 0, "bprefill": 0, "bsemantic": 0,
-        "bwindow": 0, "kv8": 0}
+        "sample": 0, "bdecode": 0, "qbdecode": 0, "bprefill": 0,
+        "bsemantic": 0, "bwindow": 0, "kv8": 0}

@@ -40,7 +40,7 @@ from bark_tpu_torch.pipeline import semantic as tsem
 
 from test_torch_batched import (COARSE_CFG, SEM_CFG, SEM_MAX_STEPS, SEM_SVS,
                                 _coarse_params, _stage_noise)
-from test_torch_e2e import gumbel_from_key
+from test_torch_e2e import gumbel_from_key, one_torch_thread
 from test_torch_kernels_plain import CHUNK_CFG, DECODE_CFG, _params, _tcfg
 
 LOGITS_ATOL = 3e-3

@@ -9,7 +9,9 @@ tiny ggml_weights.bin, f32, the port fed bark_tpu's Gumbel noise:
 - a q8_0 file loaded packed (`dequantize_on_load=False`; bark_tpu loads it
   dequantized), as tests/test_torch_quant_e2e.py compares q8_0: tokens
   equal, audio within 1e-4;
-- a qpack on the batched path still raises NotImplementedError.
+- the same file packed on the batched path (bark_tpu loads it packed
+  too), 2 prompts at temp 0.7: each lane's tokens equal in all three
+  stages, audio within 1e-4.
 """
 
 import numpy as np
@@ -20,7 +22,9 @@ import bark_tpu_torch
 from bark_tpu.io import ggml
 
 from test_torch_batched_e2e import replay_bark_tpu_lane_noise
-from test_torch_e2e import AUDIO_ATOL, TEXT, replay_bark_tpu_noise
+from test_torch_e2e import (AUDIO_ATOL, TEXT, one_torch_thread,
+                            replay_bark_tpu_noise)
+from test_torch_quant_batched_e2e import bark_tpu_batch_lanes
 from tiny_model import build_tiny_model, tiny_params
 
 STAGES = ("semantic_tokens", "coarse_tokens", "fine_tokens")
@@ -107,10 +111,23 @@ def test_kv8_q8_0_packed_matches_bark_tpu(q8_path):
 
 
 def test_kv8_packed_batch_is_not_ported(q8_path):
-    ctx = bark_tpu_torch.bark_load_model(
-        q8_path, _kv8(dequantize_on_load=False), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="packed"):
-        ctx.generate_audio_batch(PROMPTS)
+    """Once the refusal of a packed batch, now its parity with bark_tpu:
+    packed stages and the int8 cache on the batched path."""
+    p = _kv8(temp=0.7, fine_temp=0.5, dequantize_on_load=False)
+    jaudio, jlanes = bark_tpu_batch_lanes(
+        bark_tpu.bark_load_model(q8_path, p, seed=5), PROMPTS)
+    tctx = bark_tpu_torch.bark_load_model(q8_path, p, seed=5, device="cpu")
+    assert "wte_q" in tctx.coarse_params and tctx.kv_quant
+    tctx.lane_noise_source = replay_bark_tpu_lane_noise(5, len(PROMPTS))
+    tlanes = tctx._generate_batch(PROMPTS)
+    for b, (t, j) in enumerate(zip(tlanes, jlanes)):
+        for key in ("semantic", "coarse", "fine"):
+            assert t[key].size > 0
+            np.testing.assert_array_equal(t[key], j[key],
+                                          err_msg=f"lane {b} {key}")
+    for j, t in zip(jaudio, tlanes):
+        assert t["audio"].shape == j.shape and np.isfinite(t["audio"]).all()
+        np.testing.assert_allclose(t["audio"], j, rtol=0, atol=AUDIO_ATOL)
 
 
 def test_unknown_kv_cache_dtype_fails_fast(weights):

@@ -27,6 +27,7 @@ from bark_tpu_torch.io import loader as tloader
 from bark_tpu_torch.kernels import decode as tkdec
 
 from test_quant_decode import _section
+from test_torch_e2e import one_torch_thread  # autouse
 
 TOL = 2e-4
 

@@ -26,7 +26,8 @@ from bark_tpu_torch.io import loader as tloader
 from bark_tpu_torch.models import gpt as tgpt
 from bark_tpu_torch.pipeline import semantic as tsem
 
-from test_torch_e2e import AUDIO_ATOL, TEXT, replay_bark_tpu_noise
+from test_torch_e2e import (AUDIO_ATOL, TEXT, one_torch_thread,
+                            replay_bark_tpu_noise)
 from tiny_model import build_tiny_model, tiny_params
 
 STAGES = ("semantic_tokens", "coarse_tokens", "fine_tokens")

@@ -11,6 +11,8 @@ import torch
 from bark_tpu.ops import sampling as jsamp
 from bark_tpu_torch.ops import sampling as tsamp
 
+from test_torch_e2e import one_torch_thread  # autouse
+
 
 @pytest.mark.parametrize("temp", [0.7, 0.5, 1.0])
 def test_sample_matches_categorical(temp):
