@@ -146,6 +146,19 @@ class BarkContext:
             raise NotImplementedError(
                 "top_k/top_p sampling is not ported to bark_tpu_torch yet"
             )
+        # the reference takes its stepped path for the first two and traces
+        # under the third; the port has only the fused path, which would
+        # ignore them
+        for name, unported in (
+                ("progress_callback", p.progress_callback is not None),
+                ("detailed_stats", p.detailed_stats),
+                ("profile_dir", p.profile_dir)):
+            if unported:
+                raise NotImplementedError(
+                    f"{name} is not ported to bark_tpu_torch yet: it needs "
+                    f"the stepped path (or its profiler trace), which is "
+                    f"not ported"
+                )
         if p.kv_cache_dtype not in ("params", "int8"):
             raise ValueError(f"kv_cache_dtype {p.kv_cache_dtype!r}: want "
                              f"'params' or 'int8'")

@@ -121,6 +121,10 @@ _SIGNATURES = {
     #  stop_token, min_eos_p, B, tok_out, flag_out, stream)
     "bark_sample_rows": [_P, _I, _I, _I, _P, _I, _F, _I, _I, _F, _I, _P, _P,
                          _P],
+    # (form, method, src, x, xbuf, N, R, G, ring, stage_rows, passes,
+    #  partial, cap, tickets, n_tickets, total, out, check, stream)
+    "bark_dma_probe": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                       ctypes.c_longlong, _P, _I, _P, _P, _P, _P],
 }
 
 

@@ -39,7 +39,16 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      the single-lane K1/K5 did not launch and that no plain version ran,
      and print the throughput and RTF per request beside phase 4c's dense
      numbers;
-  5. print the RTFs, the batched throughput and stage times, the kernel
+  5. the weight-stream probe (`bark_tpu_torch.probes.dma`, D1-D5, the
+     port of tools/tpu_dma_probe.py) at 256 MB a pass: D1, D2, D5 and D3
+     (G 2, 4) over load method x stage size (8/16/32 KB) x ring (2/3/4,
+     the ring methods), D4 for G 1, 2, 4, each timed (GB/s, share of
+     3.35 TB/s, D4's us per link) and held against the plain version
+     (D1-D3, D5 over one pass; D4 over the first 8 tiles, where x stays
+     in bf16's normal range; these checks' launches are not counted),
+     beside the yardsticks (src.sum, a cuBLAS GEMV, matmul + tanh per
+     link); printed as one `dma_probe` JSON line;
+  6. print the RTFs, the batched throughput and stage times, the kernel
      table as one JSON line (every kernel that reaches `pl.pallas_call` in
      the JAX package: the ported ones under "kernels", the others under
      "to_port"), the card's name and power limit, and last the contract
@@ -66,7 +75,11 @@ cache bytes with their count of one-step flips and the scales
 phase 3 runs the small model with the int8 cache, single and batched,
 tokens equal on GPU and CPU.
 
-Each path of phases 4, 4b, 4c, 4d and 4e is driven with the launch
+Phase 2 also holds D1-D5 against their plain versions for every load
+method and stage size (8/16/32 KB) at small sizes, the reference's
+prefetch-hazard cases (D3, D4 with G > 1 at N > ring) among them.
+
+Each path of phases 4, 4b, 4c, 4d, 4e and 5 is driven with the launch
 counts set to 0 just before it and read just after. A kernel's bound is
 the least time the card could take for the same work: the bytes it must
 move (each input read once, each output written once) at 3.35 TB/s, or
@@ -180,7 +193,8 @@ KERNELS.update({
 K6_K5B = "qdecode_step_fused_batched[q4_0,kv8]"  # held in phase 2 only
 # the JAX package's kernels still to port, by what the table calls them
 TO_PORT = {
-    "probes (DMA, cache and lowering probes)": "tools/tpu_dma_probe.py:55",
+    "cache probes (C1-C3)": "tools/tpu_cache_probe.py:64",
+    "lowering probes (P1-P9)": "tools/tpu_mosaic_probe.py:71",
 }
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -2014,6 +2028,237 @@ def log_requests(label, results):
             f"{r['audio_s']:.3f} s of audio")
 
 
+# ------------------------------------------------------------ D1-D5
+
+
+DMA_REPLACES = {  # form -> (row name, the reference's pallas_call line)
+    "stream": ("dma_stream (D1)", "tools/tpu_dma_probe.py:55"),
+    "dot": ("dma_stream_dot (D2)", "tools/tpu_dma_probe.py:106"),
+    "dotgroup": ("dma_stream_dotgroup (D3)", "tools/tpu_dma_probe.py:163"),
+    "chain": ("dma_stream_chain (D4)", "tools/tpu_dma_probe.py:235"),
+    "dual": ("dma_stream2 (D5)", "tools/tpu_dma_probe.py:287"),
+}
+DMA_SOURCE = "bark_tpu_torch/csrc/dma_probe.cu"
+DMA_MB = 256  # a pass: five times the 50 MB L2, so it reads device memory
+DMA_STAGE_KB = (8, 16, 32)
+DMA_RINGS = (2, 3, 4)
+# D4 is held against plain on the first tiles of the 256 MB array: a chain
+# of 8 links keeps x in bf16's normal range (each link scales it by
+# ~0.03-0.06), where a whole pass of 32-128 links ends in zeros
+DMA_CHAIN_CHECK_TILES = 8
+
+
+@contextlib.contextmanager
+def dma_uncounted():
+    """Launches made to hold a probe against its plain version: they do
+    not count toward the main path's launches."""
+    from bark_tpu_torch.probes import dma
+
+    before = dict(dma.launches)
+    try:
+        yield
+    finally:
+        dma.launches.update(before)
+
+
+def dma_inputs(form: str, N: int, R: int, G: int, seed: int, dev):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.randn((N, R, 1024), generator=gen, device=dev).to(
+        torch.bfloat16)
+    xlen = 1024 if form == "chain" else G * R
+    x = (None if form in ("stream", "dual") else
+         torch.randn((1, xlen), generator=gen, device=dev).to(torch.bfloat16))
+    return src, x
+
+
+def dma_check(errors, form, method, what, run, src, x, passes, G):
+    """Hold a probe's (out, checksum) on (src, x) against its plain
+    version's; the largest |out - plain| per form goes to `errors`."""
+    import torch
+
+    from bark_tpu_torch.probes import dma
+
+    with dma_uncounted():
+        got = run(src, x)
+        torch.cuda.synchronize()
+    want = dma.plain(form, src, x, passes, G)
+    ratio = dma.excess(form, got, want, src, x, passes, G)
+    err = max_err(got[0], want[0])
+    errors[form] = max(errors.get(form, 0.0), err)
+    ok = ratio <= 1.0  # False for NaN
+    log(f"  {DMA_REPLACES[form][0]:26s} {method:8s} {what:34s} max|err| "
+        f"{err:.3e}  {ratio:.3f} of tol  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{form} {method} {what}: {ratio:.3f} of tol")
+
+
+def dma_kernel_checks(errors):
+    """Phase 2 for D1-D5: every form and load method against its plain
+    version on the card at small sizes, at every stage size: D1, D2, D5 at
+    N 8, R 16 (rings 2 and 4 for the ring methods); D3 at G 2 and 4 with N
+    8 > ring 4 (the reference's hazard case); D4 at R 1024, N 4, G 1/2/4,
+    and G 2 at N 8 > ring 4. out and the checksum within 1e-5 of (|plain|
+    + the sum of the terms' magnitudes); D4's x within 1.6e-2 of each
+    value's magnitude plus the vector's rms, and its checksum within 1.6e-2
+    of the last link's terms' magnitudes (`probes.dma.excess`)."""
+    import torch
+
+    from bark_tpu_torch.probes import dma
+
+    dev = torch.device("cuda")
+    cases = [(f, 8, 16, 1) for f in ("stream", "dot", "dual")]
+    cases += [("dotgroup", 8, 16, G) for G in (2, 4)]
+    cases += [("chain", 4, 1024, G) for G in (1, 2, 4)]
+    cases += [("chain", 8, 1024, 2)]
+    passes = 2
+    for form, N, R, G in cases:
+        src, x = dma_inputs(form, N, R, G, seed=N + G, dev=dev)
+        for method, ring, kb, ok in dma.sweep(form, G, rings=(2, 4),
+                                              stage_kbs=DMA_STAGE_KB):
+            if not ok:
+                log(f"  skip {form} {method} ring {ring} {kb} KB: rings "
+                    f"exceed shared memory")
+                continue
+            dma_check(errors, form, method,
+                      f"N {N} R {R} G {G} ring {ring} {kb} KB",
+                      dma.make(form, N, R, ring, passes, G, method, kb),
+                      src, x, passes, G)
+
+
+def dma_sweep(errors):
+    """Phase 5: D1-D5 at 256 MB a pass (N 128 tiles of R 1024 rows) over
+    method x stage size x ring, each timed by `probes.dma.bandwidth` and
+    its result held against the plain version (one pass; D4, at G 1, 2
+    and 4, on a chain over the array's first DMA_CHAIN_CHECK_TILES tiles).
+    Beside them the yardsticks, which are not the port: src.sum in f32 for
+    the stream, a cuBLAS GEMV of (1, N R) by (N R, 1024) for the dots
+    (each the library call of its form's row), and matmul + tanh per link
+    for the chain. Returns (the dma_probe record, the kernel table's
+    timing per form)."""
+    import torch
+
+    from bark_tpu_torch.probes import dma
+
+    dev = torch.device("cuda")
+    R = 1024
+    N = DMA_MB * (1 << 20) // (R * dma.ROW_BYTES)
+    pass_bytes = N * R * dma.ROW_BYTES
+    configs, best, timing = [], {}, {}
+    jobs = [("stream", 1), ("dot", 1), ("dual", 1), ("dotgroup", 2),
+            ("dotgroup", 4), ("chain", 1), ("chain", 2), ("chain", 4)]
+    src = chain_ms = None
+    for form, G in jobs:
+        del src
+        src, x = dma_inputs(form, N, R, G, seed=G, dev=dev)
+        key = f"{form}{G}" if form in ("dotgroup", "chain") else form
+        # D4's check: a short chain, whose x stays normal
+        held = (src[:DMA_CHAIN_CHECK_TILES] if form == "chain" else src)
+        for method, ring, kb, ok in dma.sweep(form, G, rings=DMA_RINGS,
+                                              stage_kbs=DMA_STAGE_KB):
+            tag = f"{key} {method} ring {ring} {kb} KB"
+            if not ok:
+                log(f"  {tag}: skipped, rings exceed shared memory")
+                configs.append(dict(form=key, method=method, ring=ring,
+                                    stage_kb=kb, skipped="shared memory"))
+                continue
+            r = dma.bandwidth(form, src, x, ring=ring, group=G,
+                              method=method, stage_kb=kb, p_lo=4, p_hi=24)
+            dma_check(errors, form, method,
+                      f"{held.numel() >> 19} MB, {tag}",
+                      dma.make(form, held.shape[0], R, ring, 1, G, method,
+                               kb), held, x, 1, G)
+            c = dict(form=key, method=method, ring=ring, stage_kb=kb, **r)
+            configs.append(c)
+            log(f"  {tag}: {r['gbs']:7.1f} GB/s ({100 * r['share']:.1f}% "
+                f"of 3.35 TB/s)" + (f", {r['us_per_link']:.2f} us/link"
+                                    if form == "chain" else ""))
+            if key not in best or r["gbs"] > best[key]["gbs"]:
+                best[key] = c
+        if form == "chain":
+            best[key]["device_us_per_link"] = dma_link_device_us(
+                src, x, best[key], N, R, G)
+            if G == 1:  # the yardstick: matmul + tanh a link
+                chain_ms = device_ms(lambda: dma_chain_library(src, x), 3)
+        # the kernel table's row of this form: its best configuration at
+        # the first group the sweep runs it at
+        if form not in timing:
+            b = best[key]
+            run = dma.make(form, N, R, b["ring"], 1, G, b["method"],
+                           b["stage_kb"])
+            ms = device_ms(lambda: run(src, x), 10)
+            plain_ms = device_ms(lambda: dma.plain(form, src, x, 1, G), 3)
+            timing[form] = dict(config=key, method=b["method"],
+                                ring=b["ring"], stage_kb=b["stage_kb"],
+                                ms=ms, plain_ms=plain_ms,
+                                library_ms=dma_library_ms(form, src, x, G),
+                                bytes=pass_bytes + (0 if x is None
+                                                    else nbytes(x)) + 516)
+    del src
+    torch.cuda.empty_cache()
+    sum_ms, gemv_ms = (timing[f]["library_ms"] for f in ("stream", "dot"))
+    yard = dict(sum_gbs=pass_bytes / sum_ms / 1e6, sum_ms=sum_ms,
+                gemv_gbs=pass_bytes / gemv_ms / 1e6, gemv_ms=gemv_ms,
+                chain_us_per_link=chain_ms * 1e3 / N,
+                chain_gbs=pass_bytes / chain_ms / 1e6)
+    return dict(mb_per_pass=DMA_MB, bytes_per_pass=pass_bytes, N=N, R=R,
+                p_lo=4, p_hi=24, chain_check_tiles=DMA_CHAIN_CHECK_TILES,
+                configs=configs, best=best, yardsticks=yard), timing
+
+
+def dma_chain_library(src, x):
+    """The chain's yardstick: (1, 1024) x (1024, 1024) matmul + tanh a
+    link, over every tile of src."""
+    import torch
+
+    y = x
+    for i in range(src.shape[0]):
+        y = torch.tanh(torch.matmul(y, src[i]) * 1e-3)
+    return y
+
+
+def dma_link_device_us(src, x, b, N, R, G):
+    """The device time of one D4 link kernel (torch.profiler over one pass
+    of N / G links, the sum of the probe kernel's device time over its
+    count), so that a link's time splits into the kernel and the gaps
+    between launches; None when the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bark_tpu_torch.probes import dma
+
+    run = dma.make("chain", N, R, b["ring"], 1, G, b["method"], b["stage_kb"])
+    run(src, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(src, x)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if "probe_" in e.key and e.count:
+            total = getattr(e, "device_time_total", None)
+            if total is None:
+                total = getattr(e, "cuda_time_total", 0)
+            return total / e.count if total else None
+    return None
+
+
+def dma_library_ms(form, src, x, G):
+    """One PyTorch call computing the same function, where there is one:
+    src.sum in f32 (D1, D5), a (1, N R) x (N R, 1024) matmul with x tiled
+    to N R (D2, D3); none for the chain."""
+    import torch
+
+    N, R, _ = src.shape
+    flat = src.view(N * R, 1024)
+    if form in ("stream", "dual"):
+        return device_ms(lambda: src.sum(dtype=torch.float32), 10)
+    if form in ("dot", "dotgroup"):
+        xt = x.repeat(1, N // G).contiguous()
+        return device_ms(lambda: torch.matmul(xt, flat), 10)
+    return None
+
+
 def main() -> int:
     try:
         import torch
@@ -2064,6 +2309,10 @@ def main() -> int:
                                    timed=dtype == torch.bfloat16)
         log("phase 2: bf16 witness, q4_0 packed steps in bf16 vs f32")
         bf16_witness()
+        log("phase 2: D1-D5 (the weight-stream probe) vs plain, every "
+            "load method")
+        dma_errors = {}
+        dma_kernel_checks(dma_errors)
         log("phase 3: small model, GPU kernels vs CPU plain")
         small_model_reference()
         log("phase 3: small model, batched, GPU kernels vs CPU plain")
@@ -2141,6 +2390,21 @@ def main() -> int:
         r = bark_small_batch(bark_small_stages(fmt), 8, packed=True)
         k5b_launches[(fmt, 8)] = r["launches"]["qbdecode"]
         torch.cuda.empty_cache()
+    log(f"phase 5: the weight-stream probe D1-D5 at {DMA_MB} MB a pass, "
+        f"every load method, stage size and ring, and its yardsticks")
+    from bark_tpu_torch.probes import dma
+
+    for form in dma.launches:
+        dma.launches[form] = 0
+    t0 = time.perf_counter()
+    with full_f32():
+        dma_record, dma_timing = dma_sweep(dma_errors)
+    dma_launches = dict(dma.launches)
+    dma_record["seconds"] = time.perf_counter() - t0
+    log(f"  phase 5 took {dma_record['seconds']:.1f} s")
+    if not all(dma_launches.values()):
+        raise AssertionError(f"phase 5 did not launch every probe form: "
+                             f"{dma_launches}")
     foreign = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "bark_tpu"))
     if foreign:
@@ -2223,6 +2487,21 @@ def main() -> int:
             row["int8_flips"] = {d: checks.kv8_flips[(key, d)]
                                  for d in ("float32", "bfloat16")}
         table.append(row)
+    for form, (name, replaces) in DMA_REPLACES.items():
+        t = dma_timing[form]
+        bound_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"  {name:30s} {t['ms']:9.3f} ms  plain {t['plain_ms']:9.3f} ms"
+            f"  bound {bound_ms:7.4f} ms (bytes)  launches "
+            f"{dma_launches[form]}  ({t['config']} {t['method']} ring "
+            f"{t['ring']} {t['stage_kb']} KB, one 256 MB pass)")
+        table.append(dict(
+            name=name, route="cuda", source=DMA_SOURCE, replaces=replaces,
+            launches=dma_launches[form], state="ported",
+            max_abs_err=dma_errors[form], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=bound_ms, bound_by="bytes",
+            library_ms=t["library_ms"], bytes=t["bytes"],
+            config=dict(method=t["method"], ring=t["ring"],
+                        stage_kb=t["stage_kb"], form=t["config"])))
     accuracy = {f"{k} {d}": e for (k, d), e in sorted(checks.errors.items())}
     print(json.dumps(dict(rtf=rtf(timed), requests=results,
                           rtf_q4_0=rtf(q_results), requests_q4_0=q_results,
@@ -2239,6 +2518,7 @@ def main() -> int:
                           accuracy=accuracy,
                           kv8_flips={f"{k} {d}": v for (k, d), v in
                                      sorted(checks.kv8_flips.items())})))
+    print(json.dumps({"dma_probe": dict(card=smi, **dma_record)}))
     print(json.dumps({"kernels": table, "to_port": [
         dict(name=n, replaces=r, state="to port") for n, r in
         TO_PORT.items()]}))

@@ -6,7 +6,10 @@ batched step (with K9 and K10 over it), run on qpacks loaded from
 sections quantized in q8_0, q4_0, q4_1, q5_1 and q4_k. K6, the int8 KV
 cache inside K1/K5/K7 and K2/K8, is held to its plain version (the same
 functions on the int8 caches of `gpt.init_kv_cache(quant=True)`) within
-3e-3 on the logits and one int8 step on rare cache values. Marked `cuda`;
+3e-3 on the logits and one int8 step on rare cache values. D1-D5, the
+weight-stream probe, run every form and load method at small sizes
+(the grouped forms also at N > ring) within `probes.dma.excess`'s
+tolerances of their plain versions. Marked `cuda`;
 without a GPU they skip. On the machine with the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -715,3 +718,61 @@ def test_packed_batched_chunk_and_window_kernels(dev, qpack, B):
     for b, c in enumerate(ctx_len):
         torch.testing.assert_close(vc[:, b, c:c + 10], vc2[:, b, c:c + 10],
                                    rtol=0, atol=ATOL)
+
+
+# ------------------------------------------------------------ D1-D5
+
+
+def _dma_inputs(dev, form, N, R, G):
+    from bark_tpu_torch.probes import dma
+
+    g = torch.Generator(device=dev).manual_seed(N * 10 + G)
+    src = torch.randn((N, R, dma.COLS), generator=g, device=dev).to(
+        torch.bfloat16)
+    xlen = dma.COLS if form == "chain" else G * R
+    x = (None if form in ("stream", "dual") else
+         torch.randn((1, xlen), generator=g, device=dev).to(torch.bfloat16))
+    return src, x
+
+
+DMA_CASES = [("stream", 8, 16, 1), ("dot", 8, 16, 1), ("dual", 8, 16, 1),
+             ("dotgroup", 8, 16, 2), ("dotgroup", 8, 16, 4),
+             ("chain", 4, 1024, 1), ("chain", 4, 1024, 4),
+             ("chain", 8, 1024, 2)]  # N > ring 4 at G > 1: the hazard case
+
+
+@pytest.mark.parametrize("method", ["ld4", "ld16", "cp_async", "bulk"])
+@pytest.mark.parametrize("form,N,R,G", DMA_CASES)
+def test_dma_probe_kernel(dev, form, N, R, G, method):
+    from bark_tpu_torch.probes import dma
+
+    src, x = _dma_inputs(dev, form, N, R, G)
+    small = 2 if G <= 2 else 4
+    for ring, kb in ((4, 16), (small, 8), (small, 32)):
+        run = dma.make(form, N, R, ring, 2, G, method, kb)
+        before = dma.launches[form]
+        got = run(src, x)
+        torch.cuda.synchronize()
+        assert dma.launches[form] == before + (2 * N // G if form == "chain"
+                                               else 1)
+        want = dma.plain(form, src, x, 2, G)
+        assert dma.excess(form, got, want, src, x, 2, G) <= 1.0
+
+
+def test_dma_probe_refuses_what_the_kernel_does_not_take(dev):
+    from bark_tpu_torch.probes import dma
+
+    src, x = _dma_inputs(dev, "dot", 8, 16, 1)
+    before = dict(dma.launches)
+    odd = torch.zeros((5, 6, dma.COLS), dtype=torch.bfloat16, device=dev)
+    bad = [
+        (dma.make_stream(8, 16, 2, 2), (src.float(),)),       # dtype
+        (dma.make_stream(5, 6, 2, 2, stage_kb=32), (odd,)),   # 30 rows / 16
+        (dma.make_stream_dot(8, 16, 2, 2), (src, x[:, :8])),  # x shape
+        (dma.make_stream(8, 16, 2, 2),                         # strides
+         (src.transpose(0, 1).contiguous().transpose(0, 1),)),
+    ]
+    for run, args in bad:
+        with pytest.raises(ValueError):
+            run(*args)
+    assert dma.launches == before
