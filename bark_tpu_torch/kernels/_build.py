@@ -153,6 +153,27 @@ _SIGNATURES = {
                        ctypes.c_longlong, _P, _I, _P, _P, _P, _P],
     # (x, out, n, stream)
     "bark_cache_probe_double": [_P, _P, ctypes.c_longlong, _P],
+    # the lowering probe P1-P9 (csrc/lowering_probe.cu, probes/lowering.py)
+    # (method, x, out, scratch, blocks, n_launch, stream)
+    "bark_lp_while": [_I, _P, _P, _P, _I, _I, _P],
+    # (v, n, tok, out, stream)
+    "bark_lp_argmax": [_P, _I, _P, _P, _P],
+    # (method, v, n, tbl, rows, row_bytes, group, out, tok, stream)
+    "bark_lp_row": [_I, _P, _I, _P, _I, _I, _I, _P, _P, _P],
+    # (g, n_rows, width, prefetch, out, stream)
+    "bark_lp_rows_sum": [_P, _I, _I, _I, _P, _P],
+    # (write, unroll, in, L, W, out, stream)
+    "bark_lp_layers": [_I, _I, _P, _I, _I, _P, _P],
+    # (dtype, w, L, T, R, W, ring, prefetch, blocks, scratch, partial, out,
+    #  stream)
+    "bark_lp_ring": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # (method, src, src_ls, src_bs, dst, dst_ls, dst_bs, offs, L, B, rows,
+    #  row_bytes, S, align, stream)
+    "bark_lp_row_write": [_I, _P, ctypes.c_longlong, ctypes.c_longlong, _P,
+                          ctypes.c_longlong, ctypes.c_longlong, _P, _I, _I,
+                          _I, _I, _I, _I, _P],
+    # (method, dtype, x, w, M, NG, K, out, stream)
+    "bark_lp_group_dot": [_I, _I, _P, _P, _I, _I, _I, _P, _P],
 }
 
 

@@ -54,12 +54,12 @@ shape the kernel does not take raises a ValueError; nothing falls back.
 from __future__ import annotations
 
 import argparse
-import math
 import sys
 
 import torch
 
 from bark_tpu_torch.kernels import _build
+from bark_tpu_torch.probes._timing import least_ms
 
 FORMS = ("stream", "dot", "dotgroup", "chain", "dual")
 METHODS = ("ld4", "ld16", "cp_async", "bulk")
@@ -362,22 +362,6 @@ def make(form: str, N, R, ring, passes, group=1, method="bulk",
 # ------------------------------------------------------------ timing
 
 
-def device_ms(fn, reps: int = 3) -> float:
-    """The least device time of fn() over `reps` calls, each between CUDA
-    events, after one warm-up call."""
-    fn()
-    best = math.inf
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end))
-    return best
-
-
 def bandwidth(form: str, src, x=None, *, ring=2, group=1, method="bulk",
               stage_kb=16, p_lo=4, p_hi=24, reps=3) -> dict:
     """Time `form` on the card: the per-pass time is the difference between
@@ -392,7 +376,7 @@ def bandwidth(form: str, src, x=None, *, ring=2, group=1, method="bulk",
         raise ValueError(f"p_hi {p_hi} must exceed p_lo {p_lo}")
     N, R, _ = src.shape
     args = (x,) if form != "stream" and form != "dual" else ()
-    ms = [device_ms(lambda f=make(form, N, R, ring, p, group, method,
+    ms = [least_ms(lambda f=make(form, N, R, ring, p, group, method,
                                   stage_kb): f(src, *args), reps)
           for p in (p_lo, p_hi)]
     per_pass = (ms[1] - ms[0]) / (p_hi - p_lo)

@@ -66,11 +66,22 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      not, their tokens equal; the precompile CLI on the small model's
      files (dense, q8_0 packed, --batch 8); printed as one `cache_probe`
      JSON line;
+  5c. the lowering probe (`bark_tpu_torch.probes.lowering`, P1-P9, the
+     port of tools/tpu_mosaic_probe.py): its CLI in this process, whose
+     ten probes at the reference's shapes must all pass (10/10), then its
+     sweep at bark-small sizes with the launch counts set to 0 just before
+     and read just after (P1's three ways of a dependent iteration, P2/P2b
+     over the semantic logits and wte, P3's noise rows, P4/P5's layer loop
+     unrolled or not with registers, spills and SASS lines, P6's weight
+     ring on every SM, P7/P8's K/V row stores, P9's qkv dot by simt, wgmma
+     and torch.matmul), every call on a copy of its inputs that is not in
+     the L2 (`probes/_timing.py` `mean_ms`), so that a bound in bytes at
+     3.35 TB/s is a floor; printed as one `lowering_probe` JSON line;
   6. print the RTFs, the batched throughput and stage times, the kernel
      table as one JSON line (every kernel that reaches `pl.pallas_call` in
-     the JAX package: the ported ones under "kernels", the others under
-     "to_port"), the card's name and power limit, and last the contract
-     line {"ok": true, "device": {...}}.
+     the JAX package under "kernels"; "to_port" is empty), the card's
+     name and power limit, and last the contract line {"ok": true,
+     "device": {...}}.
 
 Phase 2 also checks the batched kernels K7-K10 against their plain
 versions at the lane counts phase 4c gives them (K7 at B 1/3/8/32 with
@@ -95,9 +106,12 @@ tokens equal on GPU and CPU.
 
 Phase 2 also holds D1-D5 against their plain versions for every load
 method and stage size (8/16/32 KB) at small sizes, the reference's
-prefetch-hazard cases (D3, D4 with G > 1 at N > ring) among them.
+prefetch-hazard cases (D3, D4 with G > 1 at N > ring) among them, and
+P1-P9 at the reference's shapes, seeded inputs and bark-small sizes
+(`lowering_kernel_checks`; data movement bit-equal, P8's rows outside
+its window untouched).
 
-Each path of phases 4, 4b, 4c, 4d, 4e, 5 and 5b is driven with the launch
+Each path of phases 4, 4b, 4c, 4d, 4e, 5, 5b and 5c is driven with the launch
 counts set to 0 just before it and read just after. A kernel's bound is
 the least time the card could take for the same work: the bytes it must
 move (each input read once, each output written once) at 3.35 TB/s, or
@@ -209,10 +223,6 @@ KERNELS.update({
                             "bark_tpu/kernels/decode.py:2043", "qbdecode")
     for fmt, b in K5B_ROWS})
 K6_K5B = "qdecode_step_fused_batched[q4_0,kv8]"  # held in phase 2 only
-# the JAX package's kernels still to port, by what the table calls them
-TO_PORT = {
-    "lowering probes (P1-P9)": "tools/tpu_mosaic_probe.py:71",
-}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no TF32
@@ -2237,27 +2247,13 @@ def dma_chain_library(src, x):
 
 def dma_link_device_us(src, x, b, N, R, G):
     """The device time of one D4 link kernel (torch.profiler over one pass
-    of N / G links, the sum of the probe kernel's device time over its
-    count), so that a link's time splits into the kernel and the gaps
-    between launches; None when the profiler shows no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    of N / G links), so that a link's time splits into the kernel and the
+    gaps between launches; None when the profiler shows no device time."""
     from bark_tpu_torch.probes import dma
+    from bark_tpu_torch.probes._timing import profiled_us
 
     run = dma.make("chain", N, R, b["ring"], 1, G, b["method"], b["stage_kb"])
-    run(src, x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run(src, x)
-        torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if "probe_" in e.key and e.count:
-            total = getattr(e, "device_time_total", None)
-            if total is None:
-                total = getattr(e, "cuda_time_total", 0)
-            return total / e.count if total else None
-    return None
+    return profiled_us(lambda: run(src, x), "probe_")
 
 
 def dma_library_ms(form, src, x, G):
@@ -2369,6 +2365,292 @@ def cache_kernel_checks() -> dict:
         f"plain {c2['plain_ms'] * 1e3:.2f} us; C3 (7 lines shifted, its "
         f"own library) {c3['ms'] * 1e3:.2f} us")
     return dict(zip(CACHE_ROWS, (c1, c2, c3))), shifted
+
+
+# P1-P9, the lowering probe (`bark_tpu_torch.probes.lowering`): name ->
+# (the table's row, the JAX package's pallas_call it replaces)
+LOWERING_SOURCE = "bark_tpu_torch/csrc/lowering_probe.cu"
+LOWERING_ROWS = {
+    "probe_while_loop": ("while_loop (P1)", "tools/tpu_mosaic_probe.py:71"),
+    "probe_vector_to_smem_scalar": ("vector_to_smem_scalar (P2)",
+                                    "tools/tpu_mosaic_probe.py:95"),
+    "probe_scalar_dma_row": ("scalar_dma_row (P2b)",
+                             "tools/tpu_mosaic_probe.py:127"),
+    "probe_dynamic_leading_dma": ("dynamic_leading_dma (P3)",
+                                  "tools/tpu_mosaic_probe.py:162"),
+    "probe_dynamic_vmem_read": ("dynamic_vmem_read (P4)",
+                                "tools/tpu_mosaic_probe.py:196"),
+    "probe_dynamic_vmem_write": ("dynamic_vmem_write (P5)",
+                                 "tools/tpu_mosaic_probe.py:227"),
+    "probe_dyn_ring_stream": ("dyn_ring_stream (P6)",
+                              "tools/tpu_mosaic_probe.py:283"),
+    "probe_dynamic_hbm_write": ("dynamic_hbm_write (P7)",
+                                "tools/tpu_mosaic_probe.py:315"),
+    "probe_dynamic_hbm_write_rowoff": ("dynamic_hbm_write_rowoff (P8)",
+                                       "tools/tpu_mosaic_probe.py:350"),
+    "probe_transposed_group_dot": ("transposed_group_dot (P9)",
+                                   "tools/tpu_mosaic_probe.py:391"),
+}
+# tolerances of a lowering probe against its plain version, by kind:
+# data movement and integer results bit-equal; f32 sums the kernel takes in
+# the plain version's order within 1e-6 of each value; P9 at the
+# reference's f32 atol 1e-4; P9 on bf16 within 1e-5 of the sum of the
+# products' magnitudes, by either method: the products of bf16 values are
+# exact in f32, and f32 sums of up to 768 of them in another order (f32
+# FMAs, or the tensor cores' order) differ by less (a wrong operand layout
+# errs by the order of the sum itself)
+LP_TOL = {"exact": 0.0, "sum": 1e-6, "dot_f32": 1e-4, "simt_bf16": 1e-5,
+          "wgmma_bf16": 1e-5}
+
+
+def lp_check(errors, name, what, got, want, kind, mag=None):
+    """Hold a lowering probe's output against its plain version's: `kind`
+    picks the tolerance (LP_TOL); `mag`, for P9 on bf16, the sum of the
+    products' magnitudes. The largest |got - want| per probe goes to
+    `errors`."""
+    import torch
+
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name} {what}: shape {tuple(got.shape)}, "
+                             f"want {tuple(want.shape)}")
+    diff = (got - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    tol = LP_TOL[kind]
+    if kind == "exact":
+        ratio = 0.0 if torch.equal(got, want) else float("inf")
+    elif kind == "sum":
+        ratio = float((diff / (tol * want.abs())).nan_to_num(
+            nan=0.0, posinf=float("inf")).max())
+    elif kind == "dot_f32":
+        ratio = err / tol
+    else:
+        ratio = float((diff / (tol * mag)).max())
+    errors[name] = max(errors.get(name, 0.0), err)
+    ok = ratio <= 1.0
+    log(f"  {LOWERING_ROWS[name][0]:30s} {what:44s} max|err| {err:.3e}  "
+        f"{kind} tol {tol:.0e}: {ratio:.3f}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {what}: {ratio:.3f} of its tolerance")
+
+
+def lowering_kernel_checks(errors):
+    """Phase 2 for P1-P9: each probe's kernel against its plain version on
+    the card, at the reference's shapes and inputs, at seeded inputs (P2
+    with tied maxima and a NaN, P2b at tokens 0/93/255, P8 at offsets on
+    and off its 8-row grid and outside its buffer) and at the sweep's
+    bark-small sizes (P9 by both methods, P6 on 132 blocks); P8 also
+    leaves every row outside its window as it was."""
+    import numpy as np
+    import torch
+
+    from bark_tpu_torch.probes import lowering as lp
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    def randn(*shape, dtype=torch.float32):
+        return t(rng.standard_normal(shape).astype(np.float32), dtype)
+
+    ref = lp.reference_inputs(dev)
+    # P1: every method at the reference's 7 and at 0, 1, 60, 1024, -3
+    for n in (7, 0, 1, 60, 1024, -3):
+        x = torch.full((1, 1), n, dtype=torch.int32, device=dev)
+        for method in lp.WHILE_METHODS:
+            lp_check(errors, "probe_while_loop", f"{method}, x = {n}",
+                     lp.probe_while_loop(x, method),
+                     lp.probe_while_loop_plain(x), "exact")
+    # P2: the reference's row, seeded rows, ties (first lane), a NaN
+    sem = lp.SEM_LOGITS
+    tied = randn(1, sem)
+    tied[0, [17, 4000, 9999]] = 50.0
+    nan = randn(1, 256)
+    nan[0, 30] = float("nan")
+    for what, v in (("reference (1, 256)", ref["probe_scalar_dma_row"][0]),
+                    ("seeded (1, 256)", randn(1, 256)),
+                    (f"seeded (1, {sem})", randn(1, sem)),
+                    (f"tied at 17/4000/9999 (1, {sem})", tied),
+                    ("NaN at 30 (1, 256)", nan)):
+        lp_check(errors, "probe_vector_to_smem_scalar", what,
+                 lp.probe_vector_to_smem_scalar(v),
+                 lp.probe_vector_to_smem_scalar_plain(v), "exact")
+    # P2b: the reference's table at tokens 93, 0 and 255 and at a tie;
+    # the semantic wte at the seeded and the tied row, groups 1 and 8
+    v_ref, tbl = ref["probe_scalar_dma_row"]
+    wte = randn(lp.SEM_WTE, lp.D, dtype=torch.bfloat16)
+    cases = [("reference, tok 93", v_ref, tbl, 8)]
+    for tok in (0, 255):
+        v = torch.zeros((1, 256), device=dev)
+        v[0, tok] = 5.0
+        cases.append((f"tok {tok}", v, tbl, 8))
+    v = torch.zeros((1, 256), device=dev)
+    v[0, [3, 200]] = 5.0
+    cases.append(("tie at 3/200", v, tbl, 8))
+    cases.append(("NaN (no token: zeros)", nan, tbl, 8))
+    for group in (1, 8):
+        cases.append((f"wte bf16, seeded, group {group}",
+                      randn(1, sem), wte, group))
+        cases.append((f"wte bf16, tied, group {group}", tied, wte, group))
+    for what, v, tb, group in cases:
+        for method in lp.ROW_METHODS:
+            lp_check(errors, "probe_scalar_dma_row", f"{what}, {method}",
+                     lp.probe_scalar_dma_row(v, tb, group, method),
+                     lp.probe_scalar_dma_row_plain(v, tb, group), "exact")
+    del wte
+    # P3: the reference's g, seeded, the semantic noise rows
+    for what, g in (("reference (4, 128)",
+                     ref["probe_dynamic_leading_dma"][0]),
+                    ("seeded (4, 128)", randn(4, 128)),
+                    (f"seeded (60, {sem})", randn(60, sem))):
+        for pf in (False, True):
+            lp_check(errors, "probe_dynamic_leading_dma",
+                     f"{what}, prefetch {pf}",
+                     lp.probe_dynamic_leading_dma(g, pf),
+                     lp.probe_dynamic_leading_dma_plain(g), "sum")
+    # P4, P5: the reference's 6 layers of 128, 12 of 768, 16 of 256
+    p_cases = (("reference (6, 16, 128)",
+                ref["probe_dynamic_vmem_read"][0]),
+               ("seeded (12, 16, 768)", randn(12, 16, lp.D)),
+               ("seeded (16, 16, 256)", randn(16, 16, 256)))
+    x_cases = (("reference (8, 128), 6 layers",
+                ref["probe_dynamic_vmem_write"][0], 6),
+               ("seeded (8, 768), 12 layers", randn(8, lp.D), 12),
+               ("seeded (8, 256), 16 layers", randn(8, 256), 16))
+    for unroll in (False, True):
+        for what, p in p_cases:
+            lp_check(errors, "probe_dynamic_vmem_read",
+                     f"{what}, unroll {unroll}",
+                     lp.probe_dynamic_vmem_read(p, unroll),
+                     lp.probe_dynamic_vmem_read_plain(p), "sum")
+        for what, x, L in x_cases:
+            lp_check(errors, "probe_dynamic_vmem_write",
+                     f"{what}, unroll {unroll}",
+                     lp.probe_dynamic_vmem_write(x, L, unroll),
+                     lp.probe_dynamic_vmem_write_plain(x, L), "exact")
+    # P6: the reference (1 block, ring 2), seeded f32 on 1-5 blocks,
+    # bark-small's decode weights on every SM, rings 2-4, both modes
+    w_small = randn(6, 7, 8, 128)
+    cases = [("reference (6, 2, 8, 128), 1 block, ring 2",
+              ref["probe_dyn_ring_stream"][0], 2, 1, True)]
+    for blocks in (1, 3, 5):
+        for ring in (1, 3):
+            cases.append((f"seeded (6, 7, 8, 128), {blocks} blocks, "
+                          f"ring {ring}", w_small, ring, blocks,
+                          ring != 1))
+    w = randn(lp.LAYERS, lp.LAYER_WEIGHTS // (16 * 1024), 16, 1024,
+              dtype=torch.bfloat16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for ring in (2, 3, 4):
+        for pf in (False, True):
+            cases.append((f"bark-small bf16, {sms} blocks, ring {ring}, "
+                          f"{'prefetch' if pf else 'drain'}", w, ring,
+                          sms, pf))
+    for what, ww, ring, blocks, pf in cases:
+        lp_check(errors, "probe_dyn_ring_stream", what,
+                 lp.probe_dyn_ring_stream(ww, ring, blocks, pf),
+                 lp.probe_dyn_ring_stream_plain(ww, blocks), "sum")
+    del w
+    # P7: the reference's x into 6 layers; a prefill's K/V slabs
+    slab = randn(2 * lp.LAYERS, lp.PREFILL_ROWS, lp.D,
+                 dtype=torch.bfloat16)
+    for method in lp.WRITE_METHODS:
+        for what, x in (("reference (8, 128), 6 layers",
+                         ref["probe_dynamic_hbm_write"][0]),
+                        (f"slabs {tuple(slab.shape)} bf16", slab)):
+            lp_check(errors, "probe_dynamic_hbm_write",
+                     f"{what}, {method}",
+                     lp.probe_dynamic_hbm_write(x, method=method),
+                     lp.probe_dynamic_hbm_write_plain(x), "exact")
+    del slab
+    # P8: offsets on, off and outside the reference's (4, 32) grid, the
+    # rest of a sentinel buffer untouched; per-lane K/V rows at n_past
+    x8 = ref["probe_dynamic_hbm_write_rowoff"][0]
+    for off_v in (19, 0, 7, 24, 31, 33, -1):
+        off = torch.full((1, 1), off_v, dtype=torch.int32, device=dev)
+        for method in lp.WRITE_METHODS:
+            sentinel = randn(4, 32, 128)
+            got = lp.probe_dynamic_hbm_write_rowoff(
+                x8, off, sentinel.clone(), method=method)
+            want = lp.probe_dynamic_hbm_write_rowoff_plain(
+                x8, off, sentinel.clone())
+            lp_check(errors, "probe_dynamic_hbm_write_rowoff",
+                     f"reference x, off {off_v}, {method}, whole buffer",
+                     got, want, "exact")
+    got = lp.probe_dynamic_hbm_write_rowoff(*ref[
+        "probe_dynamic_hbm_write_rowoff"])
+    torch.cuda.synchronize()
+    outside = torch.cat([got[:, :16], got[:, 24:]], dim=1)
+    if not bool(outside.isnan().all()):
+        raise AssertionError("P8 wrote outside its window")
+    lp_check(errors, "probe_dynamic_hbm_write_rowoff",
+             "reference, window [16, 24) of a NaN buffer",
+             got[:, 16:24], x8[None].expand(4, 8, 128), "exact")
+    for B in lp.KV_BATCHES:
+        rows, off, cache = lp.kv_inputs(B, dev, seed=B)
+        cache.copy_(randn(*cache.shape, dtype=torch.bfloat16))
+        for align in (1, 8):
+            for method in lp.WRITE_METHODS:
+                got = lp.probe_dynamic_hbm_write_rowoff(
+                    rows, off, cache.clone(), align=align, method=method)
+                want = lp.probe_dynamic_hbm_write_rowoff_plain(
+                    rows, off, cache.clone(), align=align)
+                lp_check(errors, "probe_dynamic_hbm_write_rowoff",
+                         f"K/V rows of {B} lanes, align {align}, "
+                         f"{method}", got, want, "exact")
+        del cache, got, want
+    torch.cuda.empty_cache()
+    # P9: the reference's f32 (simt), seeded f32, bf16 qkv at M 1-64
+    # by both methods, and a block whose 32 rows cross a slot boundary
+    dot = lp.probe_transposed_group_dot
+    dot_plain = lp.probe_transposed_group_dot_plain
+    for what, x, wt in (("reference (1, 128) x (3, 128, 128)",
+                         *ref["probe_transposed_group_dot"]),
+                        ("seeded (5, 128) x (3, 128, 128)",
+                         randn(5, 128), randn(3, 128, 128))):
+        lp_check(errors, "probe_transposed_group_dot", f"{what}, simt",
+                 dot(x, wt), dot_plain(x, wt), "dot_f32")
+    bf = torch.bfloat16
+    cases = [(f"x ({M}, {lp.D}) x (3, {lp.D}, {lp.D}) bf16",
+              randn(M, lp.D, dtype=bf), None) for M in lp.DOT_MS]
+    cases.append(("x (5, 64) x (3, 48, 64) bf16: blocks across slots",
+                  randn(5, 64, dtype=bf), randn(3, 48, 64, dtype=bf)))
+    qkv = randn(3, lp.D, lp.D, dtype=bf)
+    for what, x, wt in cases:
+        wt = qkv if wt is None else wt
+        mag = dot_plain(x.abs(), wt.abs())
+        for method in lp.DOT_METHODS:
+            lp_check(errors, "probe_transposed_group_dot",
+                     f"{what}, {method}", dot(x, wt, method),
+                     dot_plain(x, wt), f"{method}_bf16", mag)
+
+
+def lowering_phase(smi: str):
+    """Phase 5c: the lowering probe's CLI in this process (its ten probes at
+    the reference's shapes, which must all pass), then its sweep at
+    bark-small sizes with the launch counts set to 0 just before and read
+    just after. Returns (the `lowering_probe` record, the launches)."""
+    from bark_tpu_torch.probes import lowering
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = lowering.main([])
+    if rc != 0:
+        raise AssertionError(f"probes.lowering exited {rc}: not 10/10")
+    for name in lowering.launches:
+        lowering.launches[name] = 0
+    with full_f32():
+        record = lowering.sweep("cuda")
+    launches = dict(lowering.launches)
+    record.update(smi=smi, seconds=time.perf_counter() - t0)
+    log(f"  lowering probe launches in the sweep: {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"the sweep did not launch every probe: "
+                             f"{launches}")
+    return record, launches
 
 
 def run_child(label: str, cmd, cwd=ROOT) -> str:
@@ -2641,6 +2923,10 @@ def main() -> int:
             "load method")
         dma_errors = {}
         dma_kernel_checks(dma_errors)
+        log("phase 2: P1-P9 (the lowering probe) vs plain, at the "
+            "reference's shapes, seeded inputs and bark-small sizes")
+        lowering_errors = {}
+        lowering_kernel_checks(lowering_errors)
         log("phase 3: small model, GPU kernels vs CPU plain")
         small_model_reference()
         log("phase 3: small model, batched, GPU kernels vs CPU plain")
@@ -2738,6 +3024,10 @@ def main() -> int:
         "in fresh processes, the precompile CLI")
     cache_record, cache_timing, cache_launches = cold_start(smi)
     log(f"  phase 5b took {cache_record['seconds']:.1f} s")
+    log("phase 5c: the lowering probe P1-P9: its CLI in this process "
+        "(10/10), then its sweep at bark-small sizes")
+    lowering_record, lowering_launches = lowering_phase(smi)
+    log(f"  phase 5c took {lowering_record['seconds']:.1f} s")
     foreign = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "bark_tpu"))
     if foreign:
@@ -2849,6 +3139,20 @@ def main() -> int:
             bound_by="bytes", library_ms=t["library_ms"], bytes=t["bytes"],
             **{k: t[k] for k in ("compile_s", "sass_lines", "key",
                                  "same_key_as") if k in t}))
+    for name, (row_name, replaces) in LOWERING_ROWS.items():
+        t = lowering_record["rows"][name]
+        bound_ms, bound_by = bound((t["bytes"], t["flops"]),
+                                   t["dtype"] if t["flops"] else "bfloat16")
+        log(f"  {row_name:30s} {t['ms']:9.5f} ms  plain {t['plain_ms']:9.5f} "
+            f"ms  bound {bound_ms:.2e} ms ({bound_by})  launches "
+            f"{lowering_launches[name]}  ({t['config']})")
+        table.append(dict(
+            name=row_name, route="cuda", source=LOWERING_SOURCE,
+            replaces=replaces, launches=lowering_launches[name],
+            state="ported", max_abs_err=lowering_errors[name], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=t["library_ms"], bytes=t["bytes"], flops=t["flops"],
+            config=t["config"]))
     accuracy = {f"{k} {d}": e for (k, d), e in sorted(checks.errors.items())}
     print(json.dumps(dict(rtf=rtf(timed), requests=results,
                           rtf_q4_0=rtf(q_results), requests_q4_0=q_results,
@@ -2868,9 +3172,8 @@ def main() -> int:
                                      sorted(checks.kv8_flips.items())})))
     print(json.dumps({"dma_probe": dict(card=smi, **dma_record)}))
     print(json.dumps({"cache_probe": cache_record}))
-    print(json.dumps({"kernels": table, "to_port": [
-        dict(name=n, replaces=r, state="to port") for n, r in
-        TO_PORT.items()]}))
+    print(json.dumps({"lowering_probe": lowering_record}))
+    print(json.dumps({"kernels": table, "to_port": []}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -13,7 +13,11 @@ tolerances of their plain versions. C1-C3, the cache probe: its kernel
 bit-equal to x * 2, the scan of it equal to 1024 on ones, its source
 shifted by 7 lines giving the same SASS and object key; and
 `BarkContext.warmup` launching the kernels without moving the generator.
-Marked `cuda`;
+P1-P9, the lowering probe: each kernel against its plain version at the
+reference's shapes and at bark-small's (P1 all three ways, P2b fused and
+in two launches, P6 on 132 blocks, P8 leaving the rows outside its
+windows as they were, P9 by simt and wgmma), bit-equal where they move
+data, and the refusals launching nothing. Marked `cuda`;
 without a GPU they skip. On the machine with the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -878,3 +882,209 @@ def test_warmup_launches_the_kernels_and_leaves_the_generator(dev):
     assert fresh.generate_audio("hello world")
     for attr in ("semantic_tokens", "coarse_tokens", "fine_tokens"):
         assert (getattr(ctx, attr) == getattr(fresh, attr)).all()
+
+
+# ------------------------------------------------------------ P1-P9
+
+
+def _lp_randn(dev, *shape, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def _lp_run(lp, name, fn, plain, count=1):
+    """fn(), which must count `count` launches under `name`, and plain()'s
+    result."""
+    before = lp.launches[name]
+    got = fn()
+    torch.cuda.synchronize()
+    assert lp.launches[name] == before + count
+    return got, plain()
+
+
+@pytest.mark.parametrize("method", ["block", "grid", "host"])
+@pytest.mark.parametrize("n", [7, 0, 60, 1024])
+def test_lowering_while_loop_kernel(dev, n, method):
+    from bark_tpu_torch.probes import lowering as lp
+
+    x = torch.full((1, 1), n, dtype=torch.int32, device=dev)
+    got, want = _lp_run(lp, "probe_while_loop",
+                        lambda: lp.probe_while_loop(x, method),
+                        lambda: lp.probe_while_loop_plain(x),
+                        n if method == "host" else 1)  # a launch an iteration
+    assert torch.equal(got, want) and int(got[0, 0]) == n
+
+
+@pytest.mark.parametrize("width", [256, 10048])
+@pytest.mark.parametrize("method", ["fused", "two_launch"])
+def test_lowering_argmax_and_row_kernels(dev, width, method):
+    """P2 and P2b at the reference's width and the semantic logits', with
+    the max tied at three lanes (the first wins); P2b at groups 1 and 8 on
+    an f32 table and a bf16 one."""
+    from bark_tpu_torch.probes import lowering as lp
+
+    v = _lp_randn(dev, 1, width, seed=width)
+    v[0, [width // 3, width // 2, width - 1]] = 50.0
+    got, want = _lp_run(lp, "probe_vector_to_smem_scalar",
+                        lambda: lp.probe_vector_to_smem_scalar(v),
+                        lambda: lp.probe_vector_to_smem_scalar_plain(v))
+    assert torch.equal(got, want) and int(got[0, 0]) == 2 * (width // 3) + 1
+    for tbl in (_lp_randn(dev, width, 128, seed=1),
+                _lp_randn(dev, width, 768, dtype=torch.bfloat16, seed=2)):
+        for group in (1, 8):
+            got, want = _lp_run(
+                lp, "probe_scalar_dma_row",
+                lambda: lp.probe_scalar_dma_row(v, tbl, group, method),
+                lambda: lp.probe_scalar_dma_row_plain(v, tbl, group),
+                1 if method == "fused" else 2)
+            assert torch.equal(got, want)
+            assert torch.equal(got[0], tbl[width // 3])
+
+
+@pytest.mark.parametrize("shape", [(4, 128), (60, 10048)])
+@pytest.mark.parametrize("prefetch", [False, True])
+def test_lowering_leading_dma_kernel(dev, shape, prefetch):
+    from bark_tpu_torch.probes import lowering as lp
+
+    g = _lp_randn(dev, *shape, seed=3)
+    got, want = _lp_run(lp, "probe_dynamic_leading_dma",
+                        lambda: lp.probe_dynamic_leading_dma(g, prefetch),
+                        lambda: lp.probe_dynamic_leading_dma_plain(g))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("L,W", [(6, 128), (12, 768), (16, 256)])
+@pytest.mark.parametrize("unroll", [False, True])
+def test_lowering_layer_loop_kernels(dev, L, W, unroll):
+    """P4 (f32 sums in the loop's order) and P5 (bit-equal)."""
+    from bark_tpu_torch.probes import lowering as lp
+
+    p = _lp_randn(dev, L, 16, W, seed=4)
+    got, want = _lp_run(lp, "probe_dynamic_vmem_read",
+                        lambda: lp.probe_dynamic_vmem_read(p, unroll),
+                        lambda: lp.probe_dynamic_vmem_read_plain(p))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    x = _lp_randn(dev, 8, W, seed=5)
+    got, want = _lp_run(lp, "probe_dynamic_vmem_write",
+                        lambda: lp.probe_dynamic_vmem_write(x, L, unroll),
+                        lambda: lp.probe_dynamic_vmem_write_plain(x, L))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,dtype,blocks", [
+    ((6, 2, 8, 128), torch.float32, 1),      # the reference's
+    ((6, 7, 8, 128), torch.float32, 3),
+    ((12, 432, 16, 1024), torch.bfloat16, 132),  # bark-small's weights
+])
+@pytest.mark.parametrize("ring,prefetch", [(2, True), (3, False), (4, True)])
+def test_lowering_ring_stream_kernel(dev, shape, dtype, blocks, ring,
+                                     prefetch):
+    from bark_tpu_torch.probes import lowering as lp
+
+    blocks = min(blocks, torch.cuda.get_device_properties(dev)
+                 .multi_processor_count)
+    w = _lp_randn(dev, *shape, dtype=dtype, seed=6)
+    got, want = _lp_run(
+        lp, "probe_dyn_ring_stream",
+        lambda: lp.probe_dyn_ring_stream(w, ring, blocks, prefetch),
+        lambda: lp.probe_dyn_ring_stream_plain(w, blocks))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("method", ["bulk", "st16"])
+def test_lowering_hbm_write_kernels(dev, method):
+    """P7 (every layer x; one slab a layer) and P8 (the reference's
+    offsets, and K/V rows of 8 lanes at n_past), bit-equal, the rows
+    outside each window untouched."""
+    from bark_tpu_torch.probes import lowering as lp
+
+    x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128)
+    slab = _lp_randn(dev, 24, 257, 768, dtype=torch.bfloat16, seed=7)
+    for xx in (x, slab):
+        got, want = _lp_run(
+            lp, "probe_dynamic_hbm_write",
+            lambda: lp.probe_dynamic_hbm_write(xx, method=method),
+            lambda: lp.probe_dynamic_hbm_write_plain(xx))
+        assert torch.equal(got, want)
+    sentinel = _lp_randn(dev, 4, 32, 128, seed=8)
+    for o in (19, 0, 7, 24, 33, -1):
+        off = torch.full((1, 1), o, dtype=torch.int32, device=dev)
+        got, want = _lp_run(
+            lp, "probe_dynamic_hbm_write_rowoff",
+            lambda: lp.probe_dynamic_hbm_write_rowoff(
+                x, off, sentinel.clone(), method=method),
+            lambda: lp.probe_dynamic_hbm_write_rowoff_plain(
+                x, off, sentinel.clone()))
+        assert torch.equal(got, want)
+    rows, off, cache = lp.kv_inputs(8, dev)
+    cache.copy_(_lp_randn(dev, *cache.shape, dtype=torch.bfloat16, seed=9))
+    for align in (1, 8):
+        got, want = _lp_run(
+            lp, "probe_dynamic_hbm_write_rowoff",
+            lambda: lp.probe_dynamic_hbm_write_rowoff(
+                rows, off, cache.clone(), align=align, method=method),
+            lambda: lp.probe_dynamic_hbm_write_rowoff_plain(
+                rows, off, cache.clone(), align=align))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M", [1, 8, 32, 64])
+@pytest.mark.parametrize("method", ["simt", "wgmma"])
+def test_lowering_group_dot_kernel(dev, M, method):
+    """P9 on bf16 qkv slots, both methods within 1e-5 of the products'
+    magnitudes (exact bf16 products, f32 sums in another order); at 5 x 64
+    against 3 slots of 48 rows, the wgmma blocks' 32 rows cross slot
+    boundaries."""
+    from bark_tpu_torch.probes import lowering as lp
+
+    tol = 1e-5
+    for x, wt in ((_lp_randn(dev, M, 768, dtype=torch.bfloat16, seed=M),
+                   _lp_randn(dev, 3, 768, 768, dtype=torch.bfloat16, seed=1)),
+                  (_lp_randn(dev, 5, 64, dtype=torch.bfloat16, seed=2),
+                   _lp_randn(dev, 3, 48, 64, dtype=torch.bfloat16, seed=3))):
+        got, want = _lp_run(
+            lp, "probe_transposed_group_dot",
+            lambda: lp.probe_transposed_group_dot(x, wt, method),
+            lambda: lp.probe_transposed_group_dot_plain(x, wt))
+        mag = lp.probe_transposed_group_dot_plain(x.abs(), wt.abs())
+        assert ((got - want).abs() <= tol * mag).all()
+
+
+def test_lowering_group_dot_kernel_at_the_reference_f32(dev):
+    from bark_tpu_torch.probes import lowering as lp
+
+    x, wt = lp.reference_inputs(dev)["probe_transposed_group_dot"]
+    got, want = _lp_run(lp, "probe_transposed_group_dot",
+                        lambda: lp.probe_transposed_group_dot(x, wt),
+                        lambda: lp.probe_transposed_group_dot_plain(x, wt))
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_lowering_probes_refuse_what_the_kernels_do_not_take(dev):
+    from bark_tpu_torch.probes import lowering as lp
+
+    before = dict(lp.launches)
+    f32 = dict(device=dev)
+    bad = [
+        lambda: lp.probe_while_loop(torch.zeros((1, 1), **f32)),
+        lambda: lp.probe_while_loop(
+            torch.zeros((1, 1), dtype=torch.int32, device=dev), "grid2"),
+        lambda: lp.probe_vector_to_smem_scalar(torch.zeros((1, 16), **f32)[:, ::2]),
+        lambda: lp.probe_scalar_dma_row(torch.zeros((1, 8), **f32),
+                                        torch.zeros((8, 6), **f32)),  # 24 B rows
+        lambda: lp.probe_dynamic_leading_dma(torch.zeros((4, 6), **f32)),
+        lambda: lp.probe_dynamic_vmem_read(torch.zeros((6, 16, 100), **f32)),
+        lambda: lp.probe_dyn_ring_stream(torch.zeros((2, 2, 8, 128), **f32),
+                                         blocks=10 ** 4),
+        lambda: lp.probe_dynamic_hbm_write(torch.zeros((8, 6), **f32)),
+        lambda: lp.probe_dynamic_hbm_write_rowoff(
+            torch.zeros((8, 128), **f32), torch.zeros((1, 1), dtype=torch.int32),
+        ),  # off on the CPU
+        lambda: lp.probe_transposed_group_dot(
+            torch.zeros((1, 128), **f32), torch.zeros((3, 128, 128), **f32),
+            "wgmma"),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert lp.launches == before
