@@ -294,9 +294,6 @@ extern "C" int bark_launch_attn_decode_batched(int dtype, const void* qkv,
                                                int B, int S, int D,
                                                int n_head, void* ctx,
                                                cudaStream_t stream);
-extern "C" int bark_launch_embed_token(const BarkGPTWeights* w,
-                                       const int* tok, int n_past, void* x,
-                                       cudaStream_t stream);
 // K7's LM head for B rows of x (row rows[b] of x for lane b when rows is
 // not null, else row b) into logits (B, n_out_vocab) over [lo, hi); the
 // columns outside are left as they were.

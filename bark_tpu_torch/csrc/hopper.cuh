@@ -1,5 +1,6 @@
 // Hopper's asynchronous copies and barriers, as inline PTX, shared by the
-// probes (dma_probe.cu, lowering_probe.cu):
+// persistent decode step (decode.cu) and the probes (dma_probe.cu,
+// lowering_probe.cu):
 //
 // - cp.async: 16-byte copies from device memory into shared memory, in
 //   commit groups;
@@ -7,7 +8,9 @@
 //   copy reports to them;
 // - bulk copies (the TMA engine, no tensor map): device memory to shared
 //   memory, completing on an mbarrier, and shared memory to device memory,
-//   completing in bulk groups.
+//   completing in bulk groups;
+// - a grid-wide barrier for the blocks of a cooperative launch, and the
+//   device's nanosecond clock.
 //
 // A bulk copy needs both addresses 16-byte aligned and a size that is a
 // multiple of 16 bytes.
@@ -126,4 +129,60 @@ __device__ __forceinline__ void bulk_wait_read() {
 // wait until the thread's bulk groups are complete (their writes done)
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// a hint that the line holding p is read soon: fetch it into the L2
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// the device's global clock, in ns
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// All blocks of a cooperative launch wait here for each other: *count
+// counts every block's arrivals at every barrier of the launch, so the
+// k-th barrier (from 1) is passed when it reaches k gridDim.x. One
+// release-add an arrival (after the block's __syncthreads, so it releases
+// every thread's writes), acquire loads while waiting. The count starts at
+// 0 and its launch leaves it 0 (each kernel says how). A block may work
+// between its arrival and its wait (grid_arrive, then grid_wait) on what
+// no other block reads. A block that waits more than 10 s traps, so a
+// barrier some block never reaches fails the launch instead of holding
+// the card.
+__device__ __forceinline__ void grid_arrive(unsigned* count) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void grid_wait(unsigned* count, unsigned target) {
+  if (threadIdx.x == 0) {
+    unsigned seen = 0, polls = 0;
+    unsigned long long t0 = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(count)
+                   : "memory");
+      if ((++polls & 0xffffu) == 0) {
+        const unsigned long long now = global_ns();
+        if (t0 == 0)
+          t0 = now;
+        else if (now - t0 > 10000000000ull)
+          __trap();
+      }
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void grid_barrier(unsigned* count,
+                                             unsigned target) {
+  grid_arrive(count);
+  grid_wait(count, target);
 }

@@ -62,31 +62,6 @@ namespace {
 
 constexpr int MAX_DYN_SMEM = 227 * 1024 - 1024;  // less the static barriers
 
-// ------------------------------------------------------------ grid barrier
-
-// All blocks of a cooperative launch wait here for each other: *count
-// counts every block's arrivals at every barrier of the launch, so the
-// k-th barrier (from 1) is passed when it reaches k gridDim.x. One
-// release-add an arrival, acquire loads while waiting. The counter starts
-// at 0: P1's entry zeroes it, P6's last block leaves it zeroed.
-__device__ __forceinline__ void grid_barrier(unsigned* count,
-                                             unsigned target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count)
-                 : "memory");
-    unsigned seen = 0;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(seen)
-                   : "l"(count)
-                   : "memory");
-    } while (seen < target);
-  }
-  __syncthreads();
-}
-
 // ------------------------------------------------------------ P1
 
 // (a) the reference: the loop's condition reads a counter in shared memory
@@ -107,7 +82,8 @@ __global__ void while_block_kernel(const int* x, int* out) {
 // (b) every block runs the loop; block 0 tests the condition and writes
 // the iteration at which all stop (stop[0], -1 until then), which every
 // block reads after that iteration's barrier. A block that reads it early
-// sees another iteration's number and goes on, so none leaves early.
+// sees another iteration's number and goes on, so none leaves early. The
+// entry zeroes the barrier's count before each launch.
 __global__ void while_grid_kernel(const int* x, int* out, unsigned* count,
                                   int* stop) {
   const int n = x[0];

@@ -6,7 +6,7 @@
 // plus the exact min term blocksums(x) @ mins of the offset formats) and
 // `_embed_token` (one wte row dequantized, + wpe). The same kernels serve
 // K3 and K4 (`semantic_chunk_fused`, `coarse_window_fused` with
-// quant=True), whose steps are K1 launches. Weights: int8 values (L, K, N)
+// quant=True), whose steps are then K5 launches. Weights: int8 values (L, K, N)
 // with scales and mins (L, K/32, N) in f16 (q4_0/q4_1/q5_0/q5_1/q8_0) or
 // f32 (q4_k/q5_k); the LM head is the transposed, zero-padded (D, v_pad)
 // tile; wte rows are blocked along D.
@@ -18,17 +18,19 @@
 // Like K1 it is far below the card's FLOP/byte ridge, so it is bound by
 // bytes, and at this size by per-kernel latency as much (PERF.md).
 //
-// What the design does about it: the same launch chain as K1 (embed, 5 per
-// layer, LM head; attention is K1's own kernel), one C call per step, with
-// packed GEMVs in place of the dense ones. Each lane owns 4 neighbouring
+// What the design does about it: a launch chain (embed, 5 per layer, LM
+// head; attention is the standalone kernel of csrc/decode.cu), one C call
+// per step, with packed GEMVs (K1 was this chain until it became one
+// persistent kernel a step; K5 is the next to follow it). Each lane owns 4 neighbouring
 // output columns and reads them as one 4-byte char4 per weight row (a
 // warp: 128 contiguous bytes), and one 8- or 16-byte load of their 4
 // scales per 32-row block. The dequantized value q*s is rounded to the
 // params dtype exactly where the reference rounds the tile, then FMA'd in
 // f32. Splits over K start on 32-row boundaries, so a split's block sums
 // of x (computed once in shared memory, beside x) pair with whole rows of
-// mins: warp b%8 adds blocksum_b * m[b, col] to its partial. The fixed-
-// order partial sum, the atomic ticket and the epilogues are K1's. The
+// mins: warp b%8 adds blocksum_b * m[b, col] to its partial. The last
+// block of a column tile (an atomic ticket) sums the partials in a fixed
+// order and applies the epilogue. The
 // LM head launches only the column tiles that cover [lo, hi) and writes
 // only those logits, so the zero v_pad columns are never logits. Not yet
 // done: dequantizing to bf16 pairs with packed math, tensor cores, a
@@ -78,10 +80,11 @@ __device__ __forceinline__ float deq(signed char q, float s) {
 // q: (K, N) int8, s/m: (K/32, N). EPI_LOGITS writes the f32 sums as they
 // are to out[n] for n in [lo, hi) only.
 //
-// Split over K as K1's gemv_kernel: block (tile, split) sums rows
-// [split*R, split*R + R) (R a multiple of 32) and stores its f32 partials
-// at partial[split * ncols + n - n0]; the last block of a tile (an atomic
-// ticket) sums them in split order and applies the epilogue.
+// Split over K: block (tile, split) sums rows [split*R, split*R + R) (R a
+// multiple of 32) and stores its f32 partials at
+// partial[split * ncols + n - n0]; each block then takes an atomic ticket
+// of its tile, and the last to arrive sums the tile's partials in split
+// order, applies the epilogue and resets the ticket.
 template <typename T, typename S, bool HAS_MIN, int EPI, bool LN>
 __global__ void __launch_bounds__(QG_THREADS)
     qgemv_kernel(const T* __restrict__ x, const T* __restrict__ ln_g,
@@ -331,8 +334,11 @@ int qdecode_step_dt(const BarkGPTQWeights* w, const int* tok, int n_past,
 
 }  // namespace
 
-// The packed decode step; arguments and scratch as bark_decode_step
-// (csrc/decode.cu), int8 caches (K6a) included. Returns cudaGetLastError()
+// The packed decode step: the token in device memory, n_past, the stage's
+// (L, S, D) caches (int8 with row scales for K6a, as bark_decode_step's),
+// scratch x (D), qkv (3D), ctx (D), h (4D) in the params dtype, partial
+// (65536 f32), tickets (1024 zeroed uint32, left zeroed), and the logits
+// over [lo, hi), zero outside. Returns cudaGetLastError()
 // after the launches (0 on success), or -1 for a shape or format the
 // kernels do not take.
 extern "C" int bark_qdecode_step(const BarkGPTQWeights* w, const int* tok,

@@ -1,8 +1,8 @@
-// K3/K4 sampling and embedding: the in-kernel sampler and token embed of
-// bark_tpu/kernels/semantic.py `semantic_chunk_fused` (`_semantic_kernel`)
-// and bark_tpu/kernels/window.py `coarse_window_fused` (`_window_kernel`);
-// the sampler also serves B lanes in one launch for K9 and K10, the
-// batched kernels (`_semantic_kernel_batched`, `_window_kernel_batched`).
+// K3/K4 sampling: the in-kernel sampler of bark_tpu/kernels/semantic.py
+// `semantic_chunk_fused` (`_semantic_kernel`) and bark_tpu/kernels/
+// window.py `coarse_window_fused` (`_window_kernel`); it also serves B
+// lanes in one launch for K9 and K10, the batched kernels
+// (`_semantic_kernel_batched`, `_window_kernel_batched`).
 //
 // sample_rows: block b reduces lane b's logits[base : base+n] / temp +
 // noise to the argmax, lowest index winning ties as jnp.argmax does, and
@@ -10,16 +10,13 @@
 // temp, or 0.7 at temp 0: the reference's hardcoded divide). It writes
 // the token (base + index, offset-carrying for the coarse window) and the
 // stop flag to device memory, so a chunk or window never waits on the
-// host.
+// host; the decode step that follows embeds the token from there.
 //
-// embed_token: x = wte[tok] + wpe[n_past], reading tok from device memory.
-//
-// What bounds them: neither moves more than 40 KB per lane (a 10048-wide
-// logit row and its noise row, or one embedding row), so both are bound by
-// launch latency, not by bandwidth or arithmetic. The design keeps each to
-// one block per lane and a single launch, with no host round trip;
-// removing the launches altogether (folding them into the decode step, or a CUDA graph
-// over the whole chunk) is later work.
+// What bounds it: it moves at most 80 KB per lane (a 10048-wide logit row
+// and its noise row), so it is bound by launch latency, not by bandwidth
+// or arithmetic. The design keeps it to one block per lane and a single
+// launch, with no host round trip; folding it into the decode step (one
+// launch a chunk) is later work.
 #include <limits.h>
 
 #include "common.cuh"
@@ -27,24 +24,6 @@
 namespace {
 
 constexpr int SAMPLE_THREADS = 1024;
-constexpr int EMBED_THREADS = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(EMBED_THREADS)
-    embed_token_kernel(const int* __restrict__ tok, const T* __restrict__ wte,
-                       const T* __restrict__ wpe, int n_past, int D, int V,
-                       T* __restrict__ x) {
-  const int t = *tok;
-  const bool ok = t >= 0 && t < V;  // an out-of-range token gives NaN, not a
-                                    // read outside the table
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    const float v =
-        ok ? round_t<T>(to_f32(wte[(size_t)t * D + d]) +
-                        to_f32(wpe[(size_t)n_past * D + d]))
-           : NAN;
-    x[d] = from_f32<T>(v);
-  }
-}
 
 // (value, index) argmax step: the larger value wins, the lower index on a
 // tie; index INT_MAX marks "nothing seen yet".
@@ -130,20 +109,6 @@ __global__ void __launch_bounds__(SAMPLE_THREADS)
 }
 
 }  // namespace
-
-extern "C" int bark_launch_embed_token(const BarkGPTWeights* w,
-                                       const int* tok, int n_past, void* x,
-                                       cudaStream_t stream) {
-  if (w->dtype == BARK_BF16)
-    embed_token_kernel<bf16><<<1, EMBED_THREADS, 0, stream>>>(
-        tok, (const bf16*)w->wte, (const bf16*)w->wpe, n_past, w->n_embd,
-        w->n_in_vocab, (bf16*)x);
-  else
-    embed_token_kernel<float><<<1, EMBED_THREADS, 0, stream>>>(
-        tok, (const float*)w->wte, (const float*)w->wpe, n_past, w->n_embd,
-        w->n_in_vocab, (float*)x);
-  return (int)cudaGetLastError();
-}
 
 // For each lane b < B, with its logits row at logits + b * ld_logits and
 // its noise row at noise + b * ld_noise: tok_out[b] = base +

@@ -121,11 +121,14 @@ _SIGNATURES = {
     #  S, D, n_head, ctx, stream)
     "bark_launch_attn_decode_batched": [_I, _P, BarkKV, _P, _I, _I, _I, _I,
                                         _P, _P],
-    # (weights*, tok*, n_past, kc, vc, ks, vs, x, qkv, ctx, h, partial,
+    # (dtype, D, S) -> the persistent step's grid (blocks), or < 0
+    "bark_decode_step_blocks": [_I, _I, _I],
+    # (weights*, tiles*[4], plan*, plan_ints, blocks, tok*, n_past, kc, vc,
+    #  ks, vs, partial, cap, count*, stamps*, logits, stream)
+    "bark_decode_step": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I,
+                         _P, _P, _P, _P],
+    # (qweights*, tok*, n_past, kc, vc, ks, vs, x, qkv, ctx, h, partial,
     #  tickets, logits, lo, hi, stream)
-    "bark_decode_step": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _I, _I, _P],
-    # (qweights*, then as bark_decode_step)
     "bark_qdecode_step": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _I, _I, _P],
     # (weights*, x_emb, n_valid, kc, vc, ks, vs, x, hb, q, ctx, ff, kv,
@@ -494,6 +497,7 @@ class StageWeights:
             self.struct = GPTWeights(**self._ptrs, **dims)
         self.ref = ctypes.addressof(self.struct)
         self._scratch = {}
+        self._memo = {}
 
     def matches(self, cfg, params) -> bool:
         if self.cfg != cfg or self.packed != is_qpack(params):
@@ -524,40 +528,50 @@ class StageWeights:
             self._scratch[name] = t
         return t[:numel].view(shape)
 
+    def memo(self, key, make):
+        """make(), computed once per key and kept with these weights (the
+        decode step's grid and plans)."""
+        if key not in self._memo:
+            self._memo[key] = make()
+        return self._memo[key]
+
     def check_cache(self, k_cache, v_cache, batch=None):
-        """Raise unless the caches are contiguous (L, S, D), or
-        (L, batch, S, D) when `batch` is given, in the params dtype on the
-        params' device; or both int8 caches of `gpt.init_kv_cache(quant=
-        True)`: int8 values of that shape and contiguous f32 row scales of
-        its leading dims. Returns the (k, v, k scales, v scales) pointers
-        the C entry points take, the scales None for a dense cache."""
-        cfg = self.cfg
-        shape = (cfg.n_layer, cfg.block_size, cfg.n_embd)
-        if batch is not None:
-            shape = (cfg.n_layer, batch, *shape[1:])
-        quant = isinstance(k_cache, dict)
-        if isinstance(v_cache, dict) != quant:
-            raise ValueError("KV cache: k and v must both be int8 or dense")
-        want = [(shape, torch.int8, "q"), (shape[:-1], torch.float32, "s")] \
-            if quant else [(shape, self.dtype, None)]
-        for want_shape, want_dtype, key in want:
-            for c in (k_cache, v_cache):
-                t = c if key is None else c.get(key)
-                if t is None or not torch.is_tensor(t):
-                    raise ValueError(f"int8 KV cache: {key!r} is missing")
-                if (tuple(t.shape) != want_shape or t.dtype != want_dtype
-                        or t.device != self.device
-                        or not t.is_contiguous()):
-                    raise ValueError(
-                        f"KV cache{'' if key is None else ' ' + key}: "
-                        f"{tuple(t.shape)} {t.dtype} on {t.device}, want "
-                        f"contiguous {want_shape} {want_dtype} on "
-                        f"{self.device}"
-                    )
-        if quant:
-            return (k_cache["q"].data_ptr(), v_cache["q"].data_ptr(),
-                    k_cache["s"].data_ptr(), v_cache["s"].data_ptr())
-        return k_cache.data_ptr(), v_cache.data_ptr(), None, None
+        """`check_kv` on these weights' stage, dtype and device."""
+        return check_kv(self.cfg, self.dtype, self.device, k_cache, v_cache,
+                        batch)
+
+
+def check_kv(cfg, dtype, device, k_cache, v_cache, batch=None):
+    """Raise unless the caches are contiguous (L, S, D), or (L, batch, S,
+    D) when `batch` is given, in `dtype` on `device`; or both int8 caches
+    of `gpt.init_kv_cache(quant=True)`: int8 values of that shape and
+    contiguous f32 row scales of its leading dims. Returns the (k, v,
+    k scales, v scales) pointers the C entry points take, the scales None
+    for a dense cache."""
+    shape = (cfg.n_layer, cfg.block_size, cfg.n_embd)
+    if batch is not None:
+        shape = (cfg.n_layer, batch, *shape[1:])
+    quant = isinstance(k_cache, dict)
+    if isinstance(v_cache, dict) != quant:
+        raise ValueError("KV cache: k and v must both be int8 or dense")
+    want = [(shape, torch.int8, "q"), (shape[:-1], torch.float32, "s")] \
+        if quant else [(shape, dtype, None)]
+    for want_shape, want_dtype, key in want:
+        for c in (k_cache, v_cache):
+            t = c if key is None else c.get(key)
+            if t is None or not torch.is_tensor(t):
+                raise ValueError(f"int8 KV cache: {key!r} is missing")
+            if (tuple(t.shape) != want_shape or t.dtype != want_dtype
+                    or t.device != device or not t.is_contiguous()):
+                raise ValueError(
+                    f"KV cache{'' if key is None else ' ' + key}: "
+                    f"{tuple(t.shape)} {t.dtype} on {t.device}, want "
+                    f"contiguous {want_shape} {want_dtype} on {device}"
+                )
+    if quant:
+        return (k_cache["q"].data_ptr(), v_cache["q"].data_ptr(),
+                k_cache["s"].data_ptr(), v_cache["s"].data_ptr())
+    return k_cache.data_ptr(), v_cache.data_ptr(), None, None
 
 
 _stages = {}  # id(params dict) -> its StageWeights

@@ -21,10 +21,11 @@ launches = 0  # kernel launches through `decode_step_packed`
 
 
 def decode_step_packed(args, out):
-    """Launch the packed step. `args` are those of `bark_decode_step`
-    (csrc/decode.cu) with the `GPTQWeights` struct in place of the dense
-    one, as `decode.decode_step_fused` builds and validates them for a
-    qpack on CUDA tensors; returns `out`, the f32 logits they point to."""
+    """Launch the packed step. `args` are those of `bark_qdecode_step`
+    (csrc/qdecode.cu: the `GPTQWeights` struct, the token, n_past, the
+    caches, its scratch and the logits' window), as
+    `decode.decode_step_fused` builds and validates them for a qpack on
+    CUDA tensors; returns `out`, the f32 logits they point to."""
     global launches
     _build.check("qdecode_step", _build.lib().bark_qdecode_step(*args))
     launches += 1

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (bark_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --k1       # phase 1, then K1's record alone
 
 Phases, each fatal on failure (exit code 1, and no result lines):
   1. build the CUDA kernels from bark_tpu_torch/csrc (nvcc, sm_90a, one
@@ -13,7 +14,12 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      tolerance; then K5 (the packed decode step) the same way on random
      qpacks of four formats (q8_0, q4_0: f16 scales; q4_1: f16 scales and
      mins; q4_k: f32 scales and mins), and K3/K4 over a q8_0 qpack; time
-     each against its plain version;
+     each against its plain version. K1, one cooperative launch a step,
+     must give the same bits twice, run one device kernel a call
+     (torch.profiler, bf16 and int8 caches), and is timed at n_past
+     0/300/1023 (and the coarse window at 887) beside its bound and the
+     62-launch chain's 0.526 ms, with its grid, barriers and the per-phase
+     µs of stamped steps (the `k1_step` JSON line);
   3. check a small model end to end against the port's plain CPU run with
      the same noise (tokens exact, audio within tolerance), TF32 still off:
      dense weights given as parts, then the same model written to a
@@ -337,6 +343,7 @@ class Checks:
         self.errors = {}  # (kernel, dtype) -> max abs err
         self.times = {}   # kernel -> (ms, plain_ms, (bytes, flops))
         self.kv8_flips = {}  # (kernel, dtype) -> (int8 flips, values)
+        self.k1_step = {}  # K1's persistent step: grid, timings, phases
 
     def record(self, kernel, dtype_name, what, err, tol=None):
         tol = (tol or TOL)[dtype_name]
@@ -420,8 +427,15 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
                           max_err(vc[:, n_past], vc2[:, n_past])))
         if win is not None and float(out[: win[0]].abs().max()) != 0.0:
             raise AssertionError("logits outside lm_window are not zero")
+    # the plan's fixed fold order: the same step twice gives the same bits
+    kc, vc = filled_cache(sem_cfg, 300, dtype, gen)
+    runs = [kdec.decode_step_fused(sem_cfg, sem_p, 1234, kc.clone(),
+                                   vc.clone(), 300) for _ in range(2)]
+    if not torch.equal(*runs):
+        raise AssertionError(f"K1 {name}: two runs of a step differ")
+    log(f"  decode_step_fused      {name:9s} two runs of a step at n_past "
+        f"300: logits bit-equal")
     if timed:
-        kc, vc = filled_cache(sem_cfg, 300, dtype, gen)
         tok_t = torch.tensor([1234], dtype=torch.int32, device=dev)
         ms = cuda_ms(lambda: kdec.decode_step_fused(
             sem_cfg, sem_p, tok_t, kc, vc, 300), 50)
@@ -429,6 +443,8 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
             sem_cfg, sem_p, tok_t, kc, vc, 300), 10)
         checks.times["decode_step_fused"] = (
             ms, plain, decode_cost(sem_cfg, sem_p, 300))
+        checks.k1_step = k1_step_record(sem_cfg, sem_p, coarse_cfg,
+                                        coarse_p, lmw, kc, vc, gen)
 
     # K2 at T = 257 (semantic prompt) and 887 (coarse re-prime, windowed)
     for cfg, p, T, win in ((sem_cfg, sem_p, 257, None),
@@ -525,6 +541,129 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
         nb, fl = decode_cost(coarse_cfg, coarse_p, 887, lmw, steps=60)
         checks.times["coarse_window_fused"] = (ms, plain,
                                                (nb + 60 * cbs * 4, fl))
+
+
+K1_EARLIER_MS = 0.526  # the 62-launch chain's step at n_past 300 (PERF.md, H100)
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels one call of fn runs (memcpy and memset
+    aside), from torch.profiler, after a warm-up call; fails when the
+    profiler shows no device activity at all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise AssertionError("torch.profiler saw no device activity")
+    return [e.name for e in device
+            if not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def k1_step_record(sem_cfg, sem_p, coarse_cfg, coarse_p, lmw, kc, vc, gen):
+    """K1's persistent step in bf16 at bark-small: its grid and barriers,
+    the device kernels one decode_step_fused call runs (asserted 1, on the
+    bf16 and the int8 cache), its ms at n_past 0/300/1023 beside the
+    bound and the chain's earlier 0.526 ms, the coarse step over the
+    window, and where a step's time goes (block 0's clock, the mean of 10
+    stamped steps at n_past 300)."""
+    import torch
+
+    from bark_tpu_torch.kernels import _build
+    from bark_tpu_torch.kernels import decode as kdec
+
+    dev = kc.device
+    tok = torch.tensor([1234], dtype=torch.int32, device=dev)
+    out = torch.empty(sem_cfg.n_out_vocab, dtype=torch.float32, device=dev)
+    plan, _ = kdec.device_plan(_build.stage_weights(sem_cfg, sem_p), None)
+    k8, v8 = kv8_cache(sem_cfg, 300, gen)
+    kernels = {
+        "bf16 cache": device_kernels(lambda: kdec.decode_step_fused(
+            sem_cfg, sem_p, tok, kc, vc, 300, out=out)),
+        "int8 cache": device_kernels(lambda: kdec.decode_step_fused(
+            sem_cfg, sem_p, tok, k8, v8, 300, out=out)),
+    }
+    for what, names in kernels.items():
+        log(f"  decode_step_fused      bf16 device kernels per call "
+            f"({what}): {len(names)} {sorted(set(names))}")
+        if len(names) != 1:
+            raise AssertionError(f"K1 ran {len(names)} device kernels a "
+                                 f"step ({what}), want 1: {names}")
+    rec = dict(blocks=plan.n_blocks, barriers=plan.n_barriers,
+               device_kernels_per_call=len(kernels["bf16 cache"]),
+               kernel_name=kernels["bf16 cache"][0], steps={})
+    log(f"  decode_step_fused      grid {plan.n_blocks} blocks (one "
+        f"cooperative launch), {plan.n_barriers} grid barriers a step")
+    del k8, v8
+    for n_past in (0, 300, 1023):
+        ms = cuda_ms(lambda: kdec.decode_step_fused(
+            sem_cfg, sem_p, tok, kc, vc, n_past, out=out), 50)
+        b_ms, _ = bound(decode_cost(sem_cfg, sem_p, n_past), "bfloat16")
+        rec["steps"][f"semantic n_past {n_past}"] = dict(ms=ms, bound_ms=b_ms)
+        log(f"  decode_step_fused      bf16 step at n_past {n_past:4d}: "
+            f"{ms:.4f} ms, bound {b_ms:.4f} ms ({100 * b_ms / ms:.1f}%); "
+            f"the 62-launch chain {K1_EARLIER_MS} ms at n_past 300")
+    ck, cv = filled_cache(coarse_cfg, 887, torch.bfloat16, gen)
+    cout = torch.empty(coarse_cfg.n_out_vocab, dtype=torch.float32,
+                       device=dev)
+    ms = cuda_ms(lambda: kdec.decode_step_fused(
+        coarse_cfg, coarse_p, tok, ck, cv, 887, lm_window=lmw, out=cout), 50)
+    b_ms, _ = bound(decode_cost(coarse_cfg, coarse_p, 887, lmw), "bfloat16")
+    rec["steps"]["coarse n_past 887 lm_window"] = dict(ms=ms, bound_ms=b_ms)
+    log(f"  decode_step_fused      bf16 coarse step at n_past 887, window: "
+        f"{ms:.4f} ms, bound {b_ms:.4f} ms")
+    del ck, cv
+    stamps = torch.zeros(2 * plan.n_barriers + 3, dtype=torch.int64,
+                         device=dev)
+    splits = []
+    for _ in range(10):
+        kdec.decode_step_fused(sem_cfg, sem_p, tok, kc, vc, 300, out=out,
+                               stamps=stamps)
+        torch.cuda.synchronize()
+        splits.append(kdec.step_phases_us(plan, stamps))
+    phases = {k: sum(s[k] for s in splits) / len(splits) for k in splits[0]}
+    rec["phases_us"] = phases
+    log("  decode_step_fused      bf16 stamped step at n_past 300 (block 0, "
+        "mean of 10; per layer): " + ", ".join(
+            f"{k} {v:.2f} us" for k, v in phases.items()))
+    return rec
+
+
+def k1_only(smi) -> None:
+    """`chip_smoke.py --k1`: K1 alone at bark-small in bf16, held against
+    its plain version at n_past 300 (TOL), then `k1_step_record`, as one
+    `k1_step` JSON line: to time two trees' K1 side by side in one call."""
+    import torch
+
+    from bark_tpu_torch.kernels import decode as kdec
+    from bark_tpu_torch.models.presets import BARK_SMALL
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sem_cfg, coarse_cfg = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+    lmw = (10000, 10000 + 2 * 1024)
+    sem_p = random_stage_params(sem_cfg, gen, torch.bfloat16)
+    coarse_p = random_stage_params(coarse_cfg, gen, torch.bfloat16)
+    kc, vc = filled_cache(sem_cfg, 300, torch.bfloat16, gen)
+    out = kdec.decode_step_fused(sem_cfg, sem_p, 1234, kc.clone(),
+                                 vc.clone(), 300)
+    ref = kdec.decode_step_plain(sem_cfg, sem_p,
+                                 torch.tensor(1234, device=dev), kc.clone(),
+                                 vc.clone(), 300)
+    err = max_err(out, ref)
+    log(f"  decode_step_fused      bfloat16  logits n_past 300: max err "
+        f"{err:.3e} (tol {TOL['bfloat16']})")
+    if not err <= TOL["bfloat16"]:
+        raise AssertionError(f"K1 bf16 disagrees with plain: {err}")
+    rec = k1_step_record(sem_cfg, sem_p, coarse_cfg, coarse_p, lmw, kc, vc,
+                         gen)
+    print(json.dumps({"k1_step": dict(card=smi, max_abs_err=err, **rec)}))
 
 
 def random_qpack(cfg, fmt: str, dtype, gen, dev, full_range=False):
@@ -2898,6 +3037,9 @@ def main() -> int:
         f"{build_record['load_s']:.3f} s")
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
         f.write(_build.report_path().read_text())
+    if sys.argv[1:] == ["--k1"]:
+        k1_only(smi)
+        return 0
 
     checks = Checks()
     with full_f32():
@@ -3106,6 +3248,8 @@ def main() -> int:
             ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, bytes=cost[0], flops=cost[1],
         )
+        if name == "decode_step_fused":
+            row.update(checks.k1_step)
         if (key, "float32") in checks.kv8_flips:
             row["int8_flips"] = {d: checks.kv8_flips[(key, d)]
                                  for d in ("float32", "bfloat16")}
@@ -3170,6 +3314,9 @@ def main() -> int:
                           accuracy=accuracy,
                           kv8_flips={f"{k} {d}": v for (k, d), v in
                                      sorted(checks.kv8_flips.items())})))
+    print(json.dumps({"k1_step": dict(
+        card=smi, chain_ms_at_300_quoted_from_perf_md=K1_EARLIER_MS,
+        **checks.k1_step)}))
     print(json.dumps({"dma_probe": dict(card=smi, **dma_record)}))
     print(json.dumps({"cache_probe": cache_record}))
     print(json.dumps({"lowering_probe": lowering_record}))

@@ -1,7 +1,11 @@
 """bark_tpu_torch's CUDA kernels against their plain PyTorch versions on
 the card, at a small model (2 layers, width 128, head dim 64) in f32 with
 TF32 off: tokens and flags equal, logits and cache rows within 1e-4 (f32
-sums in another order). K5, the packed step, and K5-batched, the packed
+sums in another order). K1, one cooperative launch a step, also at
+bark-small's width (12 heads of 64) with 1024 slots: n_past 0/300/1023,
+full head and coarse window, f32 and bf16, dense and int8 caches,
+bit-equal from run to run, 60 queued steps equal to 60 synced ones, and
+K3/K4 over it token-equal to their plain versions. K5, the packed step, and K5-batched, the packed
 batched step (with K9 and K10 over it), run on qpacks loaded from
 sections quantized in q8_0, q4_0, q4_1, q5_1 and q4_k. K6, the int8 KV
 cache inside K1/K5/K7 and K2/K8, is held to its plain version (the same
@@ -31,9 +35,11 @@ import pytest
 import torch
 
 from bark_tpu_torch import kernels
+from bark_tpu_torch.kernels import _build
 from bark_tpu_torch.kernels import decode as kdec
 from bark_tpu_torch.kernels import kv8
 from bark_tpu_torch.kernels import prefill as kpre
+from bark_tpu_torch.kernels.sample import sample_window
 from bark_tpu_torch.kernels import semantic as ksem
 from bark_tpu_torch.kernels import window as kwin
 from bark_tpu_torch.models import gpt
@@ -165,6 +171,184 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, params):
         kdec.decode_step_fused(odd, dict(params), 1, kc, vc, 0)
     kernels.reset_launches()
     assert set(kernels.launch_counts().values()) == {0}
+
+
+# ----------------------------------------- K1, one cooperative launch a step
+# At bark-small's width (12 heads, 768) with 2 layers and 1024 slots: the
+# persistent step against its plain version (f32 logits and K/V rows
+# within 1e-4; bf16 within chip_smoke.py's 1e-1, one-ulp flips of another
+# summation order compounding; int8 caches within KV8_ATOL, and 5e-2 at
+# n_past 0, where a lane's context is its own fresh V row and one int8
+# boundary value moves it, as chip_smoke.py's TOL_KV8_FIRST; in bf16 the
+# int8 rows dequantized within 1e-1, since a one-ulp flip of a fresh value
+# moves its int8 value a step), bit-equal
+# from run to run (the plan's fixed fold order), steps queued with no host
+# sync equal to synced ones (the barrier count re-armed), and K3/K4 over it
+# token-equal to their plain versions in f32.
+
+K1_CFG = GPTConfig(n_layer=2, n_head=12, n_embd=768, block_size=1024,
+                   n_in_vocab=12096, n_out_vocab=12096, bias=True)
+K1_WIN = (10000, 12048)
+
+
+@pytest.fixture(scope="module")
+def k1_params(dev):
+    gen = torch.Generator(device=dev).manual_seed(10)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        p = gpt.init_params(K1_CFG, gen, dtype, dev)
+        for k, v in p["blocks"].items():
+            if k.endswith("_b") or k.endswith("_g"):
+                v.add_(0.02 * torch.randn(v.shape, generator=gen,
+                                          device=dev).to(dtype))
+        out[dtype] = p
+    return out
+
+
+def _k1_caches(dev, dtype, rows, quant):
+    g = torch.Generator(device=dev).manual_seed(rows + 1)
+    kc, vc = gpt.init_kv_cache(K1_CFG, dtype, dev, quant=quant)
+    for c in (kc, vc):
+        live = torch.randn((K1_CFG.n_layer, rows, K1_CFG.n_embd),
+                           generator=g, device=dev)
+        if quant:
+            c["q"][:, :rows], c["s"][:, :rows] = gpt.quantize_kv_rows(live)
+        else:
+            c[:, :rows] = live.to(dtype)
+    return kc, vc
+
+
+def _clone(c):
+    return {k: v.clone() for k, v in c.items()} if isinstance(c, dict) \
+        else c.clone()
+
+
+@pytest.mark.parametrize("win", [None, K1_WIN], ids=["head", "window"])
+@pytest.mark.parametrize("n_past", [0, 300, 1023])
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_persistent_decode_step(dev, k1_params, dtype, cache, n_past, win):
+    p, quant = k1_params[dtype], cache == "int8"
+    kc, vc = _k1_caches(dev, dtype, n_past, quant)
+    kc2, vc2 = _clone(kc), _clone(vc)
+    before = kdec.launches
+    out = kdec.decode_step_fused(K1_CFG, p, 17, kc, vc, n_past,
+                                 lm_window=win)
+    torch.cuda.synchronize()
+    assert kdec.launches == before + 1
+    ref = kdec.decode_step_plain(K1_CFG, p, 17, kc2, vc2, n_past, win)
+    if dtype == torch.bfloat16:
+        tol = 1e-1
+    else:
+        tol = (5e-2 if n_past == 0 else KV8_ATOL) if quant else ATOL
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    if win is not None:
+        assert not out[:win[0]].any() and not out[win[1]:].any()
+    row = slice(n_past, n_past + 1)
+    if quant and dtype == torch.float32:
+        for a, b in ((kc, kc2), (vc, vc2)):
+            _kv8_close({k: t[:, row] for k, t in a.items()},
+                       {k: t[:, row] for k, t in b.items()})
+    elif quant:  # one-ulp bf16 flips move int8 values a step: dequantized
+        for a, b in ((kc, kc2), (vc, vc2)):
+            torch.testing.assert_close(
+                a["q"][:, row].float() * a["s"][:, row, None],
+                b["q"][:, row].float() * b["s"][:, row, None],
+                rtol=0, atol=tol)
+    else:
+        torch.testing.assert_close(kc[:, row].float(), kc2[:, row].float(),
+                                   rtol=0, atol=tol)
+        torch.testing.assert_close(vc[:, row].float(), vc2[:, row].float(),
+                                   rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+def test_persistent_step_is_bit_equal_run_to_run(dev, k1_params, cache):
+    p, quant = k1_params[torch.bfloat16], cache == "int8"
+    kc, vc = _k1_caches(dev, torch.bfloat16, 300, quant)
+    runs = []
+    for _ in range(2):
+        k, v = _clone(kc), _clone(vc)
+        runs.append((kdec.decode_step_fused(K1_CFG, p, 17, k, v, 300), k, v))
+    (a, ka, va), (b, kb, vb) = runs
+    assert torch.equal(a, b)
+    for x, y in ((ka, kb), (va, vb)):
+        for s, t in (zip(x.values(), y.values()) if quant else [(x, y)]):
+            assert torch.equal(s, t)
+
+
+def test_queued_steps_rearm_the_barrier(dev, k1_params):
+    """60 steps, each sampling its token on the card from the last
+    logits, queued with no host sync, against the same 60 with a sync
+    after each: the same tokens and logits (a count left armed would
+    hang or run a step early)."""
+    p = k1_params[torch.float32]
+    runs = []
+    for sync in (False, True):
+        kc, vc = _k1_caches(dev, torch.float32, 300, False)
+        buf = torch.zeros(K1_CFG.n_out_vocab, device=dev)
+        buf[5] = 1.0
+        toks = torch.empty(60, dtype=torch.int32, device=dev)
+        for j in range(60):
+            sample_window(buf, 0, 1000, None, 0.0, toks[j:j + 1])
+            kdec.decode_step_fused(K1_CFG, p, toks[j:j + 1], kc, vc, 300 + j,
+                                   out=buf)
+            if sync:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        runs.append((toks.tolist(), buf.clone()))
+    assert runs[0][0] == runs[1][0]
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_persistent_step_stamps(dev, k1_params):
+    """A stamped step gives the unstamped step's logits; block 0's clock
+    readings run forward and split into the phases."""
+    p = k1_params[torch.bfloat16]
+    kc, vc = _k1_caches(dev, torch.bfloat16, 300, False)
+    plan, _ = kdec.device_plan(_build.stage_weights(K1_CFG, p), None)
+    stamps = torch.zeros(2 * plan.n_barriers + 3, dtype=torch.int64,
+                         device=dev)
+    a = kdec.decode_step_fused(K1_CFG, p, 17, _clone(kc), _clone(vc), 300)
+    b = kdec.decode_step_fused(K1_CFG, p, 17, _clone(kc), _clone(vc), 300,
+                               stamps=stamps)
+    assert torch.equal(a, b)
+    t = stamps.tolist()
+    assert all(x <= y for x, y in zip(t, t[1:])) and t[-1] > t[0]
+    us = kdec.step_phases_us(plan, stamps)
+    assert us["step"] > 0 and plan.n_barriers == 4 * K1_CFG.n_layer
+
+
+def test_persistent_chunk_and_window_tokens(dev, k1_params):
+    """K3's 16-step chunk and K4's 60-step window over the persistent step
+    give the plain versions' tokens and flags in f32."""
+    p = k1_params[torch.float32]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    V = K1_CFG.n_out_vocab
+    logits0 = torch.randn(V, generator=gen, device=dev) * 2
+    noise = sampling.gumbel((32, V), gen, dev)
+    kc, vc = _k1_caches(dev, torch.float32, 257, False)
+    kc2, vc2 = kc.clone(), vc.clone()
+    kw = dict(K=16, temp=0.7, semantic_vocab_size=10000)
+    t, f, lg = ksem.semantic_chunk_fused(K1_CFG, p, logits0, kc, vc, 257, 3,
+                                         noise, 2.0, **kw)
+    rt, rf, rlg = ksem.semantic_chunk_plain(K1_CFG, p, logits0, kc2, vc2,
+                                            257, 3, noise, 2.0, **kw)
+    assert t.tolist() == rt.tolist() and f.tolist() == rf.tolist()
+    torch.testing.assert_close(lg, rlg, rtol=0, atol=ATOL)
+    noise = sampling.gumbel((60, 1024), gen, dev)
+    kc, vc = _k1_caches(dev, torch.float32, 887, False)
+    kc2, vc2 = kc.clone(), vc.clone()
+    kw = dict(sws=60, temp=0.7, semantic_vocab_size=10000,
+              codebook_size=1024, lm_window=K1_WIN)
+    t = kwin.coarse_window_fused(K1_CFG, p, logits0, kc, vc, 887, 1, noise,
+                                 **kw)
+    rt = kwin.coarse_window_plain(K1_CFG, p, logits0, kc2, vc2, 887, 1,
+                                  noise, **kw)
+    assert t.tolist() == rt.tolist()
+    torch.testing.assert_close(vc[:, 887:947], vc2[:, 887:947], rtol=0,
+                               atol=ATOL)
 
 
 # ------------------------------------------------------------ K5 (packed)
