@@ -102,6 +102,20 @@ class BarkContext:
         self.device = torch.device(device)
         dtype = _DTYPES[self.params.compute_dtype]
         self.vocab = tokenizer.Vocab.from_tokens(model.vocab)
+        if self.params.verbosity >= Verbosity.MEDIUM:
+            # per-model hparams report, like bark_model_load
+            # (bark.cpp:713-725), from the file's own hparams
+            for name in ("semantic", "coarse", "fine"):
+                hp = getattr(model, name).hparams
+                print(
+                    f"bark_model_load ({name}): n_in_vocab={hp.n_in_vocab}, "
+                    f"n_out_vocab={hp.n_out_vocab}, "
+                    f"block_size={hp.block_size}, n_embd={hp.n_embd}, "
+                    f"n_head={hp.n_head}, n_layer={hp.n_layer}, "
+                    f"n_lm_heads={hp.n_lm_heads}, n_wtes={hp.n_wtes}, "
+                    f"ftype={hp.base_ftype}, qntvr={hp.qntvr}",
+                    file=sys.stderr,
+                )
         self.semantic_cfg, self.semantic_params = self._load_stage(
             model.semantic, dtype)
         self.coarse_cfg, self.coarse_params = self._load_stage(
@@ -255,6 +269,12 @@ class BarkContext:
         self.tokens = np.asarray(prompt, np.int32)
         if p.verbosity >= Verbosity.LOW:
             print(f"bark_tokenize_input: prompt: '{text}'", file=sys.stderr)
+            head = " ".join(str(t) for t in self.tokens[:8])
+            print(
+                f"bark_tokenize_input: number of tokens in prompt = "
+                f"{len(self.tokens)}, first 8 tokens: {head}",
+                file=sys.stderr,
+            )
         ok = self._generate(p)
         if ok:
             self.stats.t_eval_us += int((time.perf_counter() - t_start) * 1e6)

@@ -10,6 +10,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -104,6 +105,10 @@ struct BarkGPTQWeights {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// a packed weight's scale or min (f16 or f32) as f32
+__device__ __forceinline__ float s_to_f32(float v) { return v; }
+__device__ __forceinline__ float s_to_f32(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -282,10 +287,6 @@ __device__ __forceinline__ signed char quant_i8(float x, float inv) {
 extern "C" int bark_launch_lm_head(const BarkGPTWeights* w, const void* x_row,
                                    float* logits, int lo, int hi,
                                    cudaStream_t stream);
-// One layer's decode attention (K1's, or K6a's for an int8 `kv`).
-extern "C" int bark_launch_attn_decode(int dtype, const void* qkv, BarkKV kv,
-                                       int n_past, int D, int n_head,
-                                       void* ctx, cudaStream_t stream);
 // K7's attention: K1's (or K6a's) for B lanes, lane b's (S, D) cache slab
 // at S * b rows into `kv`, its qkv row b of (B, 3D), its context row b of
 // (B, D), at its own slot n_past[b] (B ints in device memory).

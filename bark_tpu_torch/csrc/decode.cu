@@ -1,27 +1,35 @@
 // K1: one token through all layers of a GPT stage, for batch 1, as ONE
-// persistent kernel a step (and K6, the int8 KV cache, inside it).
+// persistent kernel a step; K5, the same step on packed-quantized weights,
+// as a weight-read policy of the same kernel; and K6, the int8 KV cache,
+// inside both.
 //
 // Replaces bark_tpu/kernels/decode.py `decode_step_fused` (:2392, its one
 // pallas_call at :2536; body `_decode_kernel` :1428, layer loop
 // `_dense_layer_stack` :1339, attention `_attend_lane` :1109): embed ->
 // L x [LN1 -> fused QKV -> K/V row written at n_past -> attention over rows
 // <= n_past -> proj + residual -> LN2 -> fc -> tanh-GELU -> out + residual]
-// -> ln_f -> LM head over [lo, hi).
+// -> ln_f -> LM head over [lo, hi); with quant=True (K5) the weights are
+// int8 values with per-32-row scales [and mins], dequantized as they are
+// read (`_tile_stream` :512), the product plus the exact min term
+// blocksums(x) @ m (`_qdot` :1016), and the packed wte row (`_embed_token`
+// :2371).
 //
 // What bounds it on an H100: bytes, and barriers. A step streams every
-// weight once (bark-small: ~85 M values a stage, 170 MB in bf16) plus the
-// live cache rows, 197 MB at n_past 300 (0.0587 ms at 3.35 TB/s), with 2
-// FLOPs a weight, far below the card's ridge. Each dependent phase then
-// costs a grid-wide barrier (1.53 us, probes/lowering.py P1), and a step
-// has 4 a layer: 48 for bark-small, ~73 us, more than the stream itself.
+// weight once (bark-small: ~85 M values a stage, 170 MB in bf16, ~90 MB in
+// int8 with f16 scales) plus the live cache rows, 197 MB at n_past 300
+// (0.0587 ms at 3.35 TB/s; packed q4_0 110 MB, 0.0328 ms), with 2 FLOPs a
+// weight, far below the card's ridge. Each dependent phase then costs a
+// grid-wide barrier (1.53 us, probes/lowering.py P1), and a step has 4 a
+// layer: 48 for bark-small, ~73 us, more than the stream itself.
 //
 // What the design does about it (one cooperative launch a step, the grid
 // the card's co-resident block count, the layer loop inside):
 // - The work is laid out by the host (kernels/decode.py `step_plan`, an
 //   int32 table each block copies into shared memory): for each phase,
-//   which block takes which (64-column tile, 8-row-aligned K range) of the
-//   weight, balanced in bytes, and the fixed order in which each column's
-//   split-K partials are folded. The kernel takes the table as it is.
+//   which block takes which (64-column tile, K range) of the weight (8-row
+//   aligned ranges dense, whole 32-row quant blocks packed), balanced in
+//   bytes, and the fixed order in which each column's split-K partials are
+//   folded. The kernel takes the table as it is.
 // - Four barriers a layer: after LN1+QKV; after attention+proj (each head's
 //   blocks own ctx_h, each recomputing the head's attention, and write
 //   proj's split-K partial over the head's 64 rows); after LN2+fc; after
@@ -34,15 +42,30 @@
 //   one block a head writes. Partials alternate between two buffers.
 // - Weights do not depend on activations: every block walks its own chunk
 //   sequence for the whole step (its items of each phase of each layer,
-//   then its LM rows) through a 128 KB ring of shared-memory slots, one
+//   then its LM work) through a 128 KB ring of shared-memory slots, one
 //   bulk copy a chunk issued by one thread and completing on the slot's
 //   mbarrier, so the next phases' tiles are in flight across barriers and
 //   across the attention. A chunk is contiguous because the wrapper keeps
-//   the four projection weights tile-major (`step_tiles`). (Measured
+//   a tile-major copy of the weights (`step_tiles`, `step_qtiles`). (Measured
 //   against it on an H100 at 700 W, chip_smoke.py's K1 record, the step
 //   at n_past 300: 16-byte cp.async issued by all 512 threads 0.506 ms
 //   against 0.408 with bulk copies; 2-D TMA boxes of tensor maps over the
 //   row-major weights, no copy, 0.515-0.520 against 0.359-0.361.)
+// - The weight read is the kernel's template policy, and nothing else
+//   differs between K1 and K5: `DenseRead` streams chunks of 128 rows of a
+//   tile in T and the LM head's vocab rows; `PackedRead` streams chunks of
+//   up to 8 quant-block records of a tile (a record: 32 x 64 int8 values,
+//   their 64 scales, their 64 mins when the format has them; ~16 KB a
+//   chunk) and the LM head as whole-K 64-column tiles of its transposed
+//   (D, v_pad) copy, which write their logits with no fold. A packed
+//   weight is rounded to T from q * s in f32 and FMA'd in f32, as the
+//   plain version (models/gpt.py `qdot`) and the 62-launch chain it
+//   replaces computed it; the min term adds each half-block's sum of x
+//   times the block's min. q becomes a float by integer shifts and one
+//   FADD, and a pair rounds to bf16 in one packed conversion, not through
+//   the conversion unit a value at a time: chip_smoke.py --k1 on an H100
+//   at 700 W, the q4_0 step at n_past 300 0.3570-0.3579 ms against
+//   0.3802-0.3807 with (float)q and round_t (PERF.md).
 // - The barrier is split: a block arrives, then refills its ring and hints
 //   the next phase's biases, LN affines and (after QKV) its heads' cache
 //   rows into the L2 (prefetch.global.L2) while it waits.
@@ -52,12 +75,13 @@
 //   ld.global.nc.
 // - The barrier count lives in the step's scratch; the last block out
 //   resets it, so steps queue with no host work between them.
-// - `stamps` (null when serving) takes block 0's %globaltimer at the start,
-//   after the embed, at each barrier's arrival and release, and at the end.
+// - `stamps` (null when serving) takes every block's %globaltimer at the
+//   start, after the embed, at each barrier's arrival and release, and at
+//   the end, a row of 2 x barriers + 3 a block.
 //
 // The attention arithmetic (`attend_dense`, `attend_int8`) is shared with
-// the standalone kernels that K5 and K7 launch a layer at a time
-// (bark_launch_attn_decode, bark_launch_attn_decode_batched).
+// the standalone kernel that K7 and K5-batched launch a layer at a time
+// (bark_launch_attn_decode_batched).
 #include <algorithm>
 
 #include "common.cuh"
@@ -74,7 +98,7 @@ constexpr int PS_THREADS = 512;
 constexpr int PS_WARPS = PS_THREADS / 32;     // also the GEMV's row groups
 constexpr int PS_KG = PS_THREADS / (HD / 8);  // key groups of its attention
 constexpr int TILE = 64;       // output columns of a work item (step_plan's)
-constexpr int CH_ROWS = 128;   // weight rows of a ring slot
+constexpr int QB = 32;         // rows of a packed weight's quant block
 constexpr int RING_BYTES = 128 * 1024;
 constexpr int PLAN_MAX = 8192;  // ints of the plan a block holds
 constexpr int FOLD_BATCH = 24;  // partials of a column loaded at once
@@ -87,11 +111,13 @@ constexpr float ATT_SCALE = 0.125f;  // 1 / sqrt(HD)
 // `PL_*` names these slots too: keep the two alike): offsets of each
 // phase's items (4 ints each: tile, k0, k1, flags), block
 // starts (n_blocks + 1), fold offsets (tiles + 1) and fold lists (item
-// indices, each tile's in K order), then the LM rows (2 ints a block)
+// indices, each tile's in K order), then the LM section (2 ints a block:
+// its vocab rows [v0, v1), or with PL_LM_TILES set, its 64-column tiles
+// [t0, t1) of the packed LM head, each over all D rows)
 enum {
   PL_BLOCKS = 0, PL_BARRIERS = 1, PL_ITEMS = 2, PL_STARTS = 6,
   PL_FOLD_OFF = 10, PL_FOLD = 14, PL_LM = 18, PL_LO = 19, PL_HI = 20,
-  PL_LAYERS = 21
+  PL_LAYERS = 21, PL_LM_TILES = 22
 };
 enum { PH_QKV = 0, PH_PROJ = 1, PH_FC = 2, PH_OUT = 3, PH_N = 4 };
 enum { ITEM_WRITES_KV = 1, ITEM_WRITES_SCALES = 2 };  // proj items' flags
@@ -287,14 +313,13 @@ __device__ float attend_int8(const int* qw, float sq, const int* knew,
   return sum_groups<KG>(part);
 }
 
-// One block per (head, lane): write the fresh k/v row of this head into
-// the cache at n_past, then attend_dense. K5 launches one lane at the slot
-// `n_past`; K7 launches lane b = blockIdx.y on its (S, D) slab at slot
-// n_past_dev[b] (a slot outside the cache writes a NaN context and no
-// cache row).
+// One block per (head, lane): lane b = blockIdx.y writes the fresh k/v row
+// of this head into its (S, D) cache slab at slot n_past[b], then
+// attend_dense (K7's and K5-batched's attention, a layer at a time; a slot
+// outside the cache writes a NaN context and no cache row).
 template <typename T>
 __global__ void __launch_bounds__(ATT_THREADS)
-    attn_decode_kernel(const T* __restrict__ qkv, T* kc, T* vc, int n_past,
+    attn_decode_kernel(const T* __restrict__ qkv, T* kc, T* vc,
                        const int* __restrict__ n_past_dev, int S, int D,
                        float scale, T* __restrict__ ctx) {
   constexpr int KG = ATT_THREADS / (HD / 8);
@@ -303,18 +328,16 @@ __global__ void __launch_bounds__(ATT_THREADS)
   __shared__ float red[32];
   __shared__ float part[KG][HD + 1];
   const int off = blockIdx.x * HD;
-  if (n_past_dev != nullptr) {
-    const int b = blockIdx.y;
-    n_past = n_past_dev[b];
-    qkv += (size_t)b * 3 * D;
-    kc += (size_t)b * S * D;
-    vc += (size_t)b * S * D;
-    ctx += (size_t)b * D;
-    if (n_past < 0 || n_past >= S) {
-      for (int d = threadIdx.x; d < HD; d += blockDim.x)
-        ctx[off + d] = from_f32<T>(NAN);
-      return;
-    }
+  const int b = blockIdx.y;
+  const int n_past = n_past_dev[b];
+  qkv += (size_t)b * 3 * D;
+  kc += (size_t)b * S * D;
+  vc += (size_t)b * S * D;
+  ctx += (size_t)b * D;
+  if (n_past < 0 || n_past >= S) {
+    for (int d = threadIdx.x; d < HD; d += blockDim.x)
+      ctx[off + d] = from_f32<T>(NAN);
+    return;
   }
   for (int d = threadIdx.x; d < HD; d += blockDim.x) {
     kc[(size_t)n_past * D + off + d] = qkv[D + off + d];
@@ -340,7 +363,7 @@ __global__ void __launch_bounds__(ATT_THREADS)
 template <typename T>
 __global__ void __launch_bounds__(ATT_THREADS)
     attn_decode_i8_kernel(const T* __restrict__ qkv, signed char* kc,
-                          signed char* vc, float* ks, float* vs, int n_past,
+                          signed char* vc, float* ks, float* vs,
                           const int* __restrict__ n_past_dev, int S, int D,
                           float scale, T* __restrict__ ctx) {
   constexpr int KG = ATT_THREADS / (HD / 8);
@@ -349,20 +372,18 @@ __global__ void __launch_bounds__(ATT_THREADS)
   __shared__ float red[32];
   __shared__ float part[KG][HD + 1];
   const int off = blockIdx.x * HD;
-  if (n_past_dev != nullptr) {
-    const int b = blockIdx.y;
-    n_past = n_past_dev[b];
-    qkv += (size_t)b * 3 * D;
-    kc += (size_t)b * S * D;
-    vc += (size_t)b * S * D;
-    ks += (size_t)b * S;
-    vs += (size_t)b * S;
-    ctx += (size_t)b * D;
-    if (n_past < 0 || n_past >= S) {
-      for (int d = threadIdx.x; d < HD; d += blockDim.x)
-        ctx[off + d] = from_f32<T>(NAN);
-      return;
-    }
+  const int b = blockIdx.y;
+  const int n_past = n_past_dev[b];
+  qkv += (size_t)b * 3 * D;
+  kc += (size_t)b * S * D;
+  vc += (size_t)b * S * D;
+  ks += (size_t)b * S;
+  vs += (size_t)b * S;
+  ctx += (size_t)b * D;
+  if (n_past < 0 || n_past >= S) {
+    for (int d = threadIdx.x; d < HD; d += blockDim.x)
+      ctx[off + d] = from_f32<T>(NAN);
+    return;
   }
   const T* knew = qkv + D;
   const T* vnew = qkv + 2 * D;
@@ -398,19 +419,18 @@ __global__ void __launch_bounds__(ATT_THREADS)
 // Attention of one decode step for one layer: one block per head and lane,
 // K6a for an int8 cache.
 template <typename T>
-int attn_decode_t(const T* qkv, BarkKV kv, int n_past, const int* n_past_dev,
-                  int B, int S, int D, int n_head, T* ctx, cudaStream_t st) {
+int attn_decode_t(const T* qkv, BarkKV kv, const int* n_past_dev, int B,
+                  int S, int D, int n_head, T* ctx, cudaStream_t st) {
   const float scale = (float)(1.0 / sqrt((double)(D / n_head)));
-  const int rows = n_past_dev != nullptr ? S : n_past + 1;
   const dim3 grid(n_head, B);
-  const size_t smem = rows * sizeof(float);
+  const size_t smem = S * sizeof(float);
   if (kv.ks != nullptr)
     attn_decode_i8_kernel<T><<<grid, ATT_THREADS, smem, st>>>(
-        qkv, (signed char*)kv.k, (signed char*)kv.v, kv.ks, kv.vs, n_past,
+        qkv, (signed char*)kv.k, (signed char*)kv.v, kv.ks, kv.vs,
         n_past_dev, S, D, scale, ctx);
   else
     attn_decode_kernel<T><<<grid, ATT_THREADS, smem, st>>>(
-        qkv, (T*)kv.k, (T*)kv.v, n_past, n_past_dev, S, D, scale, ctx);
+        qkv, (T*)kv.k, (T*)kv.v, n_past_dev, S, D, scale, ctx);
   return (int)cudaGetLastError();
 }
 
@@ -456,24 +476,201 @@ int lm_head_t(const BarkGPTWeights* w, const void* x_row, float* logits,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ weight reads
+
+// How the persistent step reads its weights: the policy Step and
+// decode_step_kernel are templated on. Each gives the params dtype T, the
+// weight struct, the rows of a K-range unit of the plan (UNIT) and of a
+// ring chunk (CH), a slot's bytes, where rows of a tile lie in the tiled
+// copy, a thread's share of a chunk's product, and a wte value.
+
+// Dense: the four projection weights tile-major in T, (L, N/64, K, 64)
+// (`step_tiles`); the LM head (V, D) as the params hold it.
+template <typename T_>
+struct DenseRead {
+  using T = T_;
+  using Weights = BarkGPTWeights;
+  static constexpr bool PACKED = false;
+  static constexpr int UNIT = 8;
+  static constexpr int CH = 128;
+  static constexpr int SLOT = CH * TILE * (int)sizeof(T);
+
+  // bytes from a tile's start to its row k, and of a tile of K rows
+  __device__ static size_t row_at(int k) {
+    return (size_t)k * TILE * sizeof(T);
+  }
+  __device__ static size_t tile_bytes(int K) { return row_at(K); }
+
+  // thread (warp, lane) adds rows warp, warp + 16, ... of the chunk's
+  // columns 2 lane, 2 lane + 1 against xin (the chunk's rows of vin)
+  __device__ static void dot_chunk(const unsigned char* slot,
+                                   const float* xin, int rows, float& a0,
+                                   float& a1) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const T* w = reinterpret_cast<const T*>(slot);
+    if (rows == CH) {  // a whole chunk: every load first
+      constexpr int R = CH / PS_WARPS;
+      float w0[R], w1[R], xv[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        load2(w + (warp + k * PS_WARPS) * TILE + 2 * lane, w0[k], w1[k]);
+        xv[k] = xin[warp + k * PS_WARPS];
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        a0 = fmaf(xv[k], w0[k], a0);
+        a1 = fmaf(xv[k], w1[k], a1);
+      }
+    } else {
+      for (int r = warp; r < rows; r += PS_WARPS) {
+        float w0, w1;
+        load2(w + r * TILE + 2 * lane, w0, w1);
+        a0 = fmaf(xin[r], w0, a0);
+        a1 = fmaf(xin[r], w1, a1);
+      }
+    }
+  }
+
+  // wte[tok][d] as f32
+  __device__ static float embed(const Weights& w, int tok, int d, int D) {
+    return to_f32(reinterpret_cast<const T*>(w.wte)[(size_t)tok * D + d]);
+  }
+};
+
+// Packed (K5): each (L, K, N) weight of a qpack as records, (L, N/64,
+// K/32, REC) bytes (`step_qtiles`): a record is one 32-row quant block of
+// a 64-column tile, its 32 x 64 int8 values, then its 64 scales S, then,
+// with HAS_MIN, its 64 mins; the LM head's transposed (D, v_pad) tile the
+// same way, (v_pad/64, D/32, REC). So any run of whole quant blocks of a
+// tile is one contiguous, 16-byte-aligned run, and a chunk is up to 8 of
+// them (~16 KB of values).
+template <typename T_, typename S, bool HAS_MIN>
+struct PackedRead {
+  using T = T_;
+  using Weights = BarkGPTQWeights;
+  static constexpr bool PACKED = true;
+  static constexpr int UNIT = QB;
+  static constexpr int CH = 8 * QB;
+  static constexpr int REC =
+      QB * TILE + TILE * (int)sizeof(S) * (HAS_MIN ? 2 : 1);
+  static constexpr int SLOT = CH / QB * REC;
+  static_assert(REC % 16 == 0, "a record must keep bulk copies aligned");
+
+  __device__ static size_t row_at(int k) { return (size_t)(k / QB) * REC; }
+  __device__ static size_t tile_bytes(int K) { return row_at(K); }
+
+  __device__ static void load_s2(const unsigned char* p, float& a,
+                                 float& b) {
+    if constexpr (sizeof(S) == 2) {
+      const float2 v =
+          __half22float2(*reinterpret_cast<const __half2*>(p));
+      a = v.x;
+      b = v.y;
+    } else {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      a = v.x;
+      b = v.y;
+    }
+  }
+
+  // the two int8 values of a 16-bit word as exact floats, without the
+  // conversion unit (a quarter of the FMA rate): each byte sign-extended
+  // by shifts, added to the bits of 1.5 x 2^23 (whose ulp is 1), less
+  // 1.5 x 2^23
+  __device__ static void i8x2(unsigned short u, float& a, float& b) {
+    a = __int_as_float(0x4B400000 + ((int)((unsigned)u << 24) >> 24)) -
+        12582912.0f;
+    b = __int_as_float(0x4B400000 + ((int)((unsigned)u << 16) >> 24)) -
+        12582912.0f;
+  }
+
+  // round_t<T> of a pair (bf16: one packed conversion for both)
+  __device__ static void round2(float& a, float& b) {
+    if constexpr (sizeof(T) == 2) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      a = __low2float(h);
+      b = __high2float(h);
+    }
+  }
+
+  // warp w takes rows [16 (w % 2), 16 (w % 2) + 16) of the chunk's record
+  // w / 2 (rows / 32 of them), lane its columns 2 lane, 2 lane + 1: each
+  // weight round_t<T>(q * s) in f32, FMA'd in f32 against x; with mins,
+  // the half-block's sum of x times the block's min of each column (the
+  // min term blocksums(x) @ m, summed by halves)
+  __device__ static void dot_chunk(const unsigned char* slot,
+                                   const float* xin, int rows, float& a0,
+                                   float& a1) {
+    constexpr int HALF = QB / 2;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (warp >= 2 * (rows / QB)) return;
+    const unsigned char* rec = slot + (size_t)(warp >> 1) * REC;
+    const int r0 = (warp & 1) * HALF;
+    const unsigned char* q = rec + r0 * TILE + 2 * lane;
+    const unsigned char* sp = rec + QB * TILE + 2 * lane * sizeof(S);
+    float s0, s1;
+    load_s2(sp, s0, s1);
+    xin += (warp >> 1) * QB + r0;
+    unsigned short v[HALF];
+#pragma unroll
+    for (int k = 0; k < HALF; ++k)
+      v[k] = *reinterpret_cast<const unsigned short*>(q + k * TILE);
+    float xs = 0.0f;
+#pragma unroll
+    for (int k = 0; k < HALF; ++k) {
+      const float x = xin[k];
+      float w0, w1;
+      i8x2(v[k], w0, w1);
+      w0 = __fmul_rn(w0, s0);
+      w1 = __fmul_rn(w1, s1);
+      round2(w0, w1);
+      a0 = fmaf(x, w0, a0);
+      a1 = fmaf(x, w1, a1);
+      if (HAS_MIN) xs += x;
+    }
+    if (HAS_MIN) {
+      float m0, m1;
+      load_s2(sp + TILE * sizeof(S), m0, m1);
+      a0 = fmaf(xs, m0, a0);
+      a1 = fmaf(xs, m1, a1);
+    }
+  }
+
+  // the packed wte row's value d: round_t<T>(q * s [+ m]), in f32, as the
+  // densified table holds it
+  __device__ static float embed(const Weights& w, int tok, int d, int D) {
+    const size_t sb = (size_t)tok * (D / QB) + d / QB;
+    float v = __fmul_rn(
+        (float)reinterpret_cast<const signed char*>(w.wte_q)[(size_t)tok * D +
+                                                             d],
+        s_to_f32(reinterpret_cast<const S*>(w.wte_s)[sb]));
+    if (HAS_MIN)
+      v = __fadd_rn(v, s_to_f32(reinterpret_cast<const S*>(w.wte_m)[sb]));
+    return round_t<T>(v);
+  }
+};
+
 // ------------------------------------------------------------ the step
 
+template <typename Weights>
 struct StepArgs {
-  BarkGPTWeights w;
-  // each phase's (L, K, N) weight tile-major, (L, N / 64, K, 64): a chunk of
-  // a tile's rows is one contiguous run of bytes
-  const void* tiles[PH_N];
+  Weights w;
+  // the tiled copies: each phase's (L, K, N) weight (qkv, proj, fc, out),
+  // then (packed only) the LM head's; a chunk of a tile's rows is one
+  // contiguous run of bytes
+  const void* tiles[PH_N + 1];
   const int* plan;     // the step_plan table
   const int* tok;      // the token, in device memory
   BarkKV kv;           // the stage's (L, S, D) caches (int8 with scales)
   float* partial;      // two buffers of `cap` floats
   unsigned* count;     // the grid barrier's count: 0, left 0
-  unsigned long long* stamps;  // 2 * barriers + 3 of them, or null
+  unsigned long long* stamps;  // blocks x (2 * barriers + 3), or null
   float* logits;       // (n_out_vocab,)
   int n_past, cap, plan_ints;
 };
 
-constexpr int MAX_SLOTS = RING_BYTES / (CH_ROWS * TILE * 2);
+// the most ring slots of any read (dense bf16: 16 KB slots)
+constexpr int MAX_SLOTS = RING_BYTES / DenseRead<bf16>::SLOT;
 
 // Shared memory (dynamic): the ring and its mbarriers, the plan, K6a's int8
 // rows, f32 rows.
@@ -485,12 +682,14 @@ inline size_t step_smem(int D, int S) {
 
 // One block's view of the step: its shared memory, its chunk ring and the
 // plan. Every member function is called by all threads of the block alike.
-template <typename T>
+template <typename R>
 struct Step {
-  static constexpr int SLOT = CH_ROWS * TILE * (int)sizeof(T);
+  using T = typename R::T;
+  static constexpr int SLOT = R::SLOT;
   static constexpr int NS = RING_BYTES / SLOT;      // ring slots
+  static_assert(NS <= MAX_SLOTS, "the ring has mbarriers for MAX_SLOTS");
 
-  const StepArgs& a;
+  const StepArgs<typename R::Weights>& a;
   int* plan;  // the plan, in shared memory
   int G, L, D, S, b, lm_rows;
   unsigned char* ring;
@@ -501,10 +700,12 @@ struct Step {
   float (*part)[HD + 1];
   // the ring: chunks issued, chunks every thread is done with, chunks taken
   int issued, freed, taken;
-  // the producer's cursor: layer (L: the LM rows), phase, item, row
+  // the producer's cursor: layer (L: the LM section), phase, item (the LM
+  // tile when packed), row
   int c_layer, c_phase, c_item, c_row;
 
-  __device__ Step(const StepArgs& args, unsigned char* smem)
+  __device__ Step(const StepArgs<typename R::Weights>& args,
+                  unsigned char* smem)
       : a(args), G(gridDim.x), L(args.w.n_layer),
         D(args.w.n_embd), S(args.w.block_size), b(blockIdx.x),
         issued(0), freed(0), taken(0), c_layer(0), c_phase(0), c_item(0),
@@ -558,25 +759,41 @@ struct Step {
     return a.partial + (size_t)(p & 1) * a.cap;
   }
 
-  // phase p's tile-major weight of layer l, and its K
-  __device__ const T* tiles(int p, int l, int& K) const {
+  // phase p's tiled weight of layer l, and its K
+  __device__ const unsigned char* tiles(int p, int l, int& K) const {
     const int N = p == PH_QKV ? 3 * D : p == PH_FC ? 4 * D : D;
     K = p == PH_OUT ? 4 * D : D;
-    return (const T*)a.tiles[p] + (size_t)l * K * N;
+    return (const unsigned char*)a.tiles[p] +
+           (size_t)l * (N / TILE) * R::tile_bytes(K);
   }
 
   // The chunk at the producer's cursor (`bytes` from src), advancing the
   // cursor; false past the block's last.
-  __device__ bool next_chunk(const T*& src, unsigned& bytes) {
+  __device__ bool next_chunk(const void*& src, unsigned& bytes) {
     while (true) {
       if (c_layer == L) {
         const int v0 = pl(pl(PL_LM) + 2 * b), v1 = pl(pl(PL_LM) + 2 * b + 1);
-        if (v0 + c_row >= v1) return false;
-        const int rows = min(lm_rows, v1 - v0 - c_row);
-        src = (const T*)a.w.lm_head + (size_t)(v0 + c_row) * D;
-        bytes = rows * D * sizeof(T);
-        c_row += rows;
-        return true;
+        if constexpr (R::PACKED) {  // tiles [v0, v1), each over all D rows
+          if (v0 + c_item >= v1) return false;
+          if (c_row >= D) {
+            ++c_item;
+            c_row = 0;
+            continue;
+          }
+          const int rows = min(R::CH, D - c_row);
+          src = (const unsigned char*)a.tiles[PH_N] +
+                (size_t)(v0 + c_item) * R::tile_bytes(D) + R::row_at(c_row);
+          bytes = R::row_at(rows);
+          c_row += rows;
+          return true;
+        } else {  // vocab rows [v0, v1) of the (V, D) head
+          if (v0 + c_row >= v1) return false;
+          const int rows = min(lm_rows, v1 - v0 - c_row);
+          src = (const T*)a.w.lm_head + (size_t)(v0 + c_row) * D;
+          bytes = rows * D * sizeof(T);
+          c_row += rows;
+          return true;
+        }
       }
       const int i = start(c_phase, b) + c_item;
       if (i >= start(c_phase, b + 1)) {
@@ -596,10 +813,10 @@ struct Step {
         continue;
       }
       int K;
-      const T* W = tiles(c_phase, c_layer, K);
-      const int rows = min(CH_ROWS, k1 - k0 - c_row);
-      src = W + ((size_t)tile * K + k0 + c_row) * TILE;
-      bytes = rows * TILE * sizeof(T);
+      const unsigned char* W = tiles(c_phase, c_layer, K);
+      const int rows = min(R::CH, k1 - k0 - c_row);
+      src = W + (size_t)tile * R::tile_bytes(K) + R::row_at(k0 + c_row);
+      bytes = R::row_at(rows);
       c_row += rows;
       return true;
     }
@@ -610,7 +827,7 @@ struct Step {
   // alike; none waits on the copy's issue but thread 0).
   __device__ void top_up() {
     while (issued < freed + NS) {
-      const T* src;
+      const void* src;
       unsigned bytes;
       if (!next_chunk(src, bytes)) return;
       if (threadIdx.x == 0) {
@@ -624,13 +841,13 @@ struct Step {
 
   // The next chunk of the sequence, landed; the slots of the chunks before
   // it are refilled.
-  __device__ const T* take() {
+  __device__ const unsigned char* take() {
     const int i = taken++;
     mbar_wait(&full[i % NS], (i / NS) & 1);
     __syncthreads();
     freed = i;
     top_up();
-    return reinterpret_cast<const T*>(ring + (size_t)(i % NS) * SLOT);
+    return ring + (size_t)(i % NS) * SLOT;
   }
 
   // after a __syncthreads that follows the last use of the chunks taken
@@ -717,21 +934,21 @@ struct Step {
       prefetch_l2((const char*)v + i);
   }
 
-  // x = wte[tok] + wpe[n_past] (NaN for a token outside the table); the
+  // x = wte[tok] + wpe[n_past] (NaN for a token outside the table; a
+  // packed row dequantized as the densified table holds it); the
   // rows' loads go out ahead of the first weight chunks (`top_up`), which
   // the embed then waits behind no longer than its own loads take
   __device__ void embed_and_start_ring() {
     constexpr int MAX_PER = VPT;
     const int t = *a.tok;
     const bool ok = t >= 0 && t < a.w.n_in_vocab;
-    const T* wte = (const T*)a.w.wte + (size_t)(ok ? t : 0) * D;
     const T* wpe = (const T*)a.w.wpe + (size_t)a.n_past * D;
     float e[MAX_PER], q[MAX_PER];
 #pragma unroll
     for (int u = 0; u < MAX_PER; ++u) {
       const int d = threadIdx.x + u * PS_THREADS;
       if (d < D) {
-        e[u] = to_f32(wte[d]);
+        e[u] = R::embed(a.w, ok ? t : 0, d, D);
         q[u] = to_f32(wpe[d]);
       }
     }
@@ -811,50 +1028,31 @@ struct Step {
     __syncthreads();
   }
 
-  // Item i of phase p: its tile's rows [k0, k1) against vin[k0:k1], in
-  // ring chunks; thread (warp, lane) sums rows warp, warp + 16, ... of
-  // columns 2 lane, 2 lane + 1; the 16 row groups are added in order into
-  // the item's partial (row i of the phase's buffer).
-  __device__ void gemv_item(int p, int i) {
+  // Rows [k0, k1) of a tile against vin[k0:k1], in ring chunks (the read
+  // policy's share of each chunk a thread), the 16 warps' sums added in
+  // order: column threadIdx.x's sum for threads < TILE.
+  __device__ float gemv_rows(int k0, int k1) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    int tile, k0, k1, flags;
-    item(p, i, tile, k0, k1, flags);
     float a0 = 0.0f, a1 = 0.0f;
-    for (int r0 = k0; r0 < k1; r0 += CH_ROWS) {
-      const T* w = take();
-      const int rows = min(CH_ROWS, k1 - r0);
-      const float* xin = vin + r0;
-      if (rows == CH_ROWS) {  // a whole chunk: every load first
-        constexpr int R = CH_ROWS / PS_WARPS;
-        float w0[R], w1[R], xv[R];
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          load2(w + (warp + k * PS_WARPS) * TILE + 2 * lane, w0[k], w1[k]);
-          xv[k] = xin[warp + k * PS_WARPS];
-        }
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          a0 = fmaf(xv[k], w0[k], a0);
-          a1 = fmaf(xv[k], w1[k], a1);
-        }
-      } else {
-        for (int r = warp; r < rows; r += PS_WARPS) {
-          float w0, w1;
-          load2(w + r * TILE + 2 * lane, w0, w1);
-          a0 = fmaf(xin[r], w0, a0);
-          a1 = fmaf(xin[r], w1, a1);
-        }
-      }
-    }
+    for (int r0 = k0; r0 < k1; r0 += R::CH)
+      R::dot_chunk(take(), vin + r0, min(R::CH, k1 - r0), a0, a1);
     red2[warp * TILE + 2 * lane] = a0;
     red2[warp * TILE + 2 * lane + 1] = a1;
     __syncthreads();
-    if (threadIdx.x < TILE) {
-      float s = 0.0f;
+    float s = 0.0f;
+    if (threadIdx.x < TILE)
       for (int g = 0; g < PS_WARPS; ++g) s += red2[g * TILE + threadIdx.x];
-      __stcg(buf(p) + (size_t)i * TILE + threadIdx.x, s);
-    }
     __syncthreads();
+    return s;
+  }
+
+  // Item i of phase p: its tile's rows [k0, k1), into the item's partial
+  // (row i of the phase's buffer).
+  __device__ void gemv_item(int p, int i) {
+    int tile, k0, k1, flags;
+    item(p, i, tile, k0, k1, flags);
+    const float s = gemv_rows(k0, k1);
+    if (threadIdx.x < TILE) __stcg(buf(p) + (size_t)i * TILE + threadIdx.x, s);
   }
 
   __device__ void gemv_phase(int p) {
@@ -968,36 +1166,44 @@ struct Step {
   __device__ void lm_phase() {
     residual_ln(PH_OUT, (const T*)a.w.out_b + (size_t)(L - 1) * D,
                 (const T*)a.w.ln_f_g, (const T*)a.w.ln_f_b);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int v0 = pl(pl(PL_LM) + 2 * b), v1 = pl(pl(PL_LM) + 2 * b + 1);
-    for (int r0 = v0; r0 < v1; r0 += lm_rows) {
-      const T* w = take();
-      const int rows = min(lm_rows, v1 - r0);
-      for (int r = warp; r < rows; r += PS_WARPS) {
-        const T* row = w + (size_t)r * D;
-        float s = 0.0f;
-        int i = 2 * lane;
-        for (; i + 192 < D; i += 256) {  // 4 pairs in flight
-          float p[4], q[4];
+    const int lo = pl(PL_LO), hi = pl(PL_HI);
+    if constexpr (R::PACKED) {  // whole-K 64-column tiles [v0, v1)
+      for (int t = v0; t < v1; ++t) {
+        const float s = gemv_rows(0, D);
+        const int col = t * TILE + threadIdx.x;
+        if (threadIdx.x < TILE && col >= lo && col < hi) a.logits[col] = s;
+      }
+    } else {  // a warp a vocab row
+      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+      for (int r0 = v0; r0 < v1; r0 += lm_rows) {
+        const T* w = reinterpret_cast<const T*>(take());
+        const int rows = min(lm_rows, v1 - r0);
+        for (int r = warp; r < rows; r += PS_WARPS) {
+          const T* row = w + (size_t)r * D;
+          float s = 0.0f;
+          int i = 2 * lane;
+          for (; i + 192 < D; i += 256) {  // 4 pairs in flight
+            float p[4], q[4];
 #pragma unroll
-          for (int u = 0; u < 4; ++u) load2(row + i + 64 * u, p[u], q[u]);
+            for (int u = 0; u < 4; ++u) load2(row + i + 64 * u, p[u], q[u]);
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            s = fmaf(vin[i + 64 * u], p[u], s);
-            s = fmaf(vin[i + 64 * u + 1], q[u], s);
+            for (int u = 0; u < 4; ++u) {
+              s = fmaf(vin[i + 64 * u], p[u], s);
+              s = fmaf(vin[i + 64 * u + 1], q[u], s);
+            }
           }
+          for (; i < D; i += 64) {
+            float p, q;
+            load2(row + i, p, q);
+            s = fmaf(vin[i], p, s);
+            s = fmaf(vin[i + 1], q, s);
+          }
+          s = warp_sum(s);
+          if (lane == 0) a.logits[r0 + r] = s;
         }
-        for (; i < D; i += 64) {
-          float p, q;
-          load2(row + i, p, q);
-          s = fmaf(vin[i], p, s);
-          s = fmaf(vin[i + 1], q, s);
-        }
-        s = warp_sum(s);
-        if (lane == 0) a.logits[r0 + r] = s;
       }
     }
-    const int lo = pl(PL_LO), hi = pl(PL_HI);
     for (int v = b * PS_THREADS + threadIdx.x; v < a.w.n_out_vocab;
          v += G * PS_THREADS)
       if (v < lo || v >= hi) a.logits[v] = 0.0f;
@@ -1046,10 +1252,12 @@ struct Step {
     }
   }
 
+  // the k-th stamp of this block (its own row of 2 x barriers + 3)
   __device__ void stamp(int k) const {
-    if (a.stamps != nullptr && b == 0) {
+    if (a.stamps != nullptr) {
       __syncthreads();
-      if (threadIdx.x == 0) a.stamps[k] = global_ns();
+      if (threadIdx.x == 0)
+        a.stamps[(size_t)b * (2 * PH_N * L + 3) + k] = global_ns();
     }
   }
 
@@ -1077,17 +1285,18 @@ struct Step {
   }
 };
 
-template <typename T>
+template <typename R>
 __global__ void __launch_bounds__(PS_THREADS, 1)
-    decode_step_kernel(const __grid_constant__ StepArgs a) {
+    decode_step_kernel(const __grid_constant__ StepArgs<typename R::Weights> a) {
+  using T = typename R::T;
   extern __shared__ __align__(128) unsigned char smem[];
-  Step<T> s(a, smem);
+  Step<R> s(a, smem);
   s.stamp(0);
   s.setup();
   const int n_barriers = s.pl(PL_BARRIERS);
   if (s.pl(PL_BLOCKS) != (int)gridDim.x || n_barriers != PH_N * s.L ||
-      s.pl(PL_LAYERS) != s.L)
-    __trap();  // a plan for another grid or stage: fail the launch
+      s.pl(PL_LAYERS) != s.L || s.pl(PL_LM_TILES) != (int)R::PACKED)
+    __trap();  // a plan for another grid, stage or read: fail the launch
   s.embed_and_start_ring();
   s.stamp(1);
   int k = 0;
@@ -1111,14 +1320,14 @@ __global__ void __launch_bounds__(PS_THREADS, 1)
   s.leave(n_barriers);
 }
 
-// The co-resident block count of the step's kernel for rows of D values and
-// S cache slots (its grid), or a negative cudaError / -1 for a shape it
-// does not take.
-template <typename T>
+// The co-resident block count of the step's kernel on read R for rows of D
+// values and S cache slots (its grid), or a negative cudaError / -1 for a
+// shape it does not take.
+template <typename R>
 int step_blocks_t(int D, int S) {
   const size_t smem = step_smem(D, S);
-  if (smem > MAX_SMEM || D * (int)sizeof(T) > Step<T>::SLOT ||
-      D > VPT * PS_THREADS)
+  if (smem > MAX_SMEM || D > VPT * PS_THREADS ||
+      (!R::PACKED && D * (int)sizeof(typename R::T) > R::SLOT))
     return -1;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   int err = (int)cudaGetDevice(&dev);
@@ -1130,35 +1339,68 @@ int step_blocks_t(int D, int S) {
                                       dev);
   if (!err)
     err = (int)cudaFuncSetAttribute(
-        decode_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_step_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         MAX_SMEM);
   if (!err)
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, decode_step_kernel<T>, PS_THREADS, smem);
+        &per_sm, decode_step_kernel<R>, PS_THREADS, smem);
   if (err) return -err;
   return coop ? per_sm * sms : -1;
 }
 
-template <typename T>
-int decode_step_t(const StepArgs& a, int blocks, cudaStream_t st) {
+template <typename R>
+int decode_step_t(const StepArgs<typename R::Weights>& a, int blocks,
+                  cudaStream_t st) {
   const size_t smem = step_smem(a.w.n_embd, a.w.block_size);
   void* args[] = {(void*)&a};
-  return (int)cudaLaunchCooperativeKernel((const void*)decode_step_kernel<T>,
+  return (int)cudaLaunchCooperativeKernel((const void*)decode_step_kernel<R>,
                                           dim3(blocks), dim3(PS_THREADS),
                                           args, smem, st);
 }
 
-}  // namespace
-
-extern "C" int bark_launch_attn_decode(int dtype, const void* qkv, BarkKV kv,
-                                       int n_past, int D, int n_head,
-                                       void* ctx, cudaStream_t stream) {
-  if (dtype == BARK_BF16)
-    return attn_decode_t<bf16>((const bf16*)qkv, kv, n_past, nullptr, 1, 0,
-                               D, n_head, (bf16*)ctx, stream);
-  return attn_decode_t<float>((const float*)qkv, kv, n_past, nullptr, 1, 0,
-                              D, n_head, (float*)ctx, stream);
+// f(PackedRead<T, S, HAS_MIN>{}) for a qpack's scale dtype (BARK_F16 or
+// BARK_F32) and mins; -1 for another scale dtype
+template <typename T, typename F>
+int with_packed_read(int scale_dtype, int has_min, F&& f) {
+  if (scale_dtype == BARK_F16)
+    return has_min ? f(PackedRead<T, __half, true>{})
+                   : f(PackedRead<T, __half, false>{});
+  if (scale_dtype == BARK_F32)
+    return has_min ? f(PackedRead<T, float, true>{})
+                   : f(PackedRead<T, float, false>{});
+  return -1;
 }
+
+// the step's arguments, or false for arguments it does not take
+template <typename Weights>
+bool step_args(const Weights* w, const void* const* tiles, int n_tiles,
+               const int* plan, int plan_ints, int blocks, const int* tok,
+               int n_past, void* k_cache, void* v_cache, float* k_scale,
+               float* v_scale, float* partial, int cap, unsigned* count,
+               unsigned long long* stamps, float* logits,
+               StepArgs<Weights>& a) {
+  if (w->n_embd / w->n_head != HD || w->n_embd % TILE || blocks < 1 ||
+      plan_ints < 1 || plan_ints > PLAN_MAX || n_past < 0 ||
+      n_past >= w->block_size ||
+      (k_scale == nullptr) != (v_scale == nullptr))
+    return false;
+  a = StepArgs<Weights>{*w,
+                        {},
+                        plan,
+                        tok,
+                        BarkKV{k_cache, v_cache, k_scale, v_scale},
+                        partial,
+                        count,
+                        stamps,
+                        logits,
+                        n_past,
+                        cap,
+                        plan_ints};
+  for (int i = 0; i < n_tiles; ++i) a.tiles[i] = tiles[i];
+  return true;
+}
+
+}  // namespace
 
 extern "C" int bark_launch_attn_decode_batched(int dtype, const void* qkv,
                                                BarkKV kv, const int* n_past,
@@ -1166,10 +1408,10 @@ extern "C" int bark_launch_attn_decode_batched(int dtype, const void* qkv,
                                                int n_head, void* ctx,
                                                cudaStream_t stream) {
   if (dtype == BARK_BF16)
-    return attn_decode_t<bf16>((const bf16*)qkv, kv, 0, n_past, B, S, D,
-                               n_head, (bf16*)ctx, stream);
-  return attn_decode_t<float>((const float*)qkv, kv, 0, n_past, B, S, D,
-                              n_head, (float*)ctx, stream);
+    return attn_decode_t<bf16>((const bf16*)qkv, kv, n_past, B, S, D, n_head,
+                               (bf16*)ctx, stream);
+  return attn_decode_t<float>((const float*)qkv, kv, n_past, B, S, D, n_head,
+                              (float*)ctx, stream);
 }
 
 extern "C" int bark_launch_lm_head(const BarkGPTWeights* w, const void* x_row,
@@ -1180,14 +1422,22 @@ extern "C" int bark_launch_lm_head(const BarkGPTWeights* w, const void* x_row,
   return lm_head_t<float>(w, x_row, logits, lo, hi, stream);
 }
 
-// The grid of bark_decode_step for a stage of params dtype `dtype`, width
-// D and S cache slots: the blocks of its kernel the card holds at once
-// (sets the kernel's shared-memory limit). Negative: a cudaError negated,
-// or -1 for a shape it does not take or a card without cooperative
-// launches.
-extern "C" int bark_decode_step_blocks(int dtype, int D, int S) {
-  if (dtype == BARK_BF16) return step_blocks_t<bf16>(D, S);
-  return step_blocks_t<float>(D, S);
+// The grid of bark_decode_step (scale_dtype < 0) or bark_decode_step_packed
+// (a qpack's scale dtype, BARK_F16 or BARK_F32, and has_min) for a stage
+// of params dtype `dtype`, width D and S cache slots: the blocks of its
+// kernel the card holds at once (sets the kernel's shared-memory limit).
+// Negative: a cudaError negated, or -1 for a shape or format it does not
+// take or a card without cooperative launches.
+extern "C" int bark_decode_step_blocks(int dtype, int scale_dtype,
+                                       int has_min, int D, int S) {
+  auto blocks = [&](auto r) { return step_blocks_t<decltype(r)>(D, S); };
+  if (dtype == BARK_BF16)
+    return scale_dtype < 0
+               ? blocks(DenseRead<bf16>{})
+               : with_packed_read<bf16>(scale_dtype, has_min, blocks);
+  return scale_dtype < 0
+             ? blocks(DenseRead<float>{})
+             : with_packed_read<float>(scale_dtype, has_min, blocks);
 }
 
 // One decode step as one cooperative launch of `blocks` blocks (the grid of
@@ -1198,9 +1448,9 @@ extern "C" int bark_decode_step_blocks(int dtype, int D, int S) {
 // v_scale are null, else int8 with those (L, S) f32 row scales (K6a);
 // partial is two buffers of `cap` f32 (cap >= 64 x the plan's most items
 // in a phase), count one zeroed uint32 (left zeroed); stamps null, or
-// 2 x barriers + 3 uint64; logits is (n_out_vocab,) f32, zero outside the
-// plan's [lo, hi). Returns the launch's cudaError (0 on success), -1 for
-// arguments it does not take; nothing falls back.
+// blocks x (2 x barriers + 3) uint64; logits is (n_out_vocab,) f32, zero
+// outside the plan's [lo, hi). Returns the launch's cudaError (0 on
+// success), -1 for arguments it does not take; nothing falls back.
 extern "C" int bark_decode_step(const BarkGPTWeights* w,
                                 const void* const* tiles, const int* plan,
                                 int plan_ints, int blocks, const int* tok,
@@ -1210,23 +1460,39 @@ extern "C" int bark_decode_step(const BarkGPTWeights* w,
                                 unsigned* count,
                                 unsigned long long* stamps, float* logits,
                                 cudaStream_t stream) {
-  if (w->n_embd / w->n_head != HD || w->n_embd % TILE || blocks < 1 ||
-      plan_ints < 1 || plan_ints > PLAN_MAX || n_past < 0 ||
-      n_past >= w->block_size ||
-      (k_scale == nullptr) != (v_scale == nullptr))
+  StepArgs<BarkGPTWeights> a;
+  if (!step_args(w, tiles, PH_N, plan, plan_ints, blocks, tok, n_past,
+                 k_cache, v_cache, k_scale, v_scale, partial, cap, count,
+                 stamps, logits, a))
     return -1;
-  const StepArgs a{*w,
-                   {tiles[0], tiles[1], tiles[2], tiles[3]},
-                   plan,
-                   tok,
-                   BarkKV{k_cache, v_cache, k_scale, v_scale},
-                   partial,
-                   count,
-                   stamps,
-                   logits,
-                   n_past,
-                   cap,
-                   plan_ints};
-  if (w->dtype == BARK_BF16) return decode_step_t<bf16>(a, blocks, stream);
-  return decode_step_t<float>(a, blocks, stream);
+  if (w->dtype == BARK_BF16)
+    return decode_step_t<DenseRead<bf16>>(a, blocks, stream);
+  return decode_step_t<DenseRead<float>>(a, blocks, stream);
+}
+
+// K5: bark_decode_step on a qpack's weights (csrc/common.cuh
+// BarkGPTQWeights), its plan made for packed reads (PL_LM_TILES set).
+// tiles: the qpack's four projection weights (qkv, proj, fc, out) and its
+// LM head as quant-block records, (L, N / 64, K / 32, rec) and (v_pad /
+// 64, D / 32, rec) bytes, rec = 2048 + 64 x the scale's bytes (x 2 with
+// mins), 16-byte aligned (kernels/decode.py `step_qtiles`). The rest as
+// bark_decode_step's; -1 also for a scale dtype other than f16 or f32.
+extern "C" int bark_decode_step_packed(
+    const BarkGPTQWeights* w, const void* const* tiles, const int* plan,
+    int plan_ints, int blocks, const int* tok, int n_past, void* k_cache,
+    void* v_cache, float* k_scale, float* v_scale, float* partial, int cap,
+    unsigned* count, unsigned long long* stamps, float* logits,
+    cudaStream_t stream) {
+  StepArgs<BarkGPTQWeights> a;
+  if (w->v_pad % TILE ||
+      !step_args(w, tiles, PH_N + 1, plan, plan_ints, blocks, tok, n_past,
+                 k_cache, v_cache, k_scale, v_scale, partial, cap, count,
+                 stamps, logits, a))
+    return -1;
+  auto launch = [&](auto r) {
+    return decode_step_t<decltype(r)>(a, blocks, stream);
+  };
+  if (w->dtype == BARK_BF16)
+    return with_packed_read<bf16>(w->scale_dtype, w->has_min, launch);
+  return with_packed_read<float>(w->scale_dtype, w->has_min, launch);
 }

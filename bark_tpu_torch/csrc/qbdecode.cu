@@ -66,9 +66,6 @@ __host__ __device__ constexpr int qb_cols() {
   return NB <= 8 ? 4 : 2;
 }
 
-__device__ __forceinline__ float s_to_f32(float v) { return v; }
-__device__ __forceinline__ float s_to_f32(__half v) { return __half2float(v); }
-
 // CPT int8 values of one row at p (CPT-byte aligned), as floats
 template <int CPT>
 __device__ __forceinline__ void load_q(const signed char* p, float* v) {

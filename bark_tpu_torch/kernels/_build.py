@@ -121,16 +121,16 @@ _SIGNATURES = {
     #  S, D, n_head, ctx, stream)
     "bark_launch_attn_decode_batched": [_I, _P, BarkKV, _P, _I, _I, _I, _I,
                                         _P, _P],
-    # (dtype, D, S) -> the persistent step's grid (blocks), or < 0
-    "bark_decode_step_blocks": [_I, _I, _I],
+    # (dtype, scale dtype or -1 for dense weights, has_min, D, S) -> the
+    #  persistent step's grid (blocks), or < 0
+    "bark_decode_step_blocks": [_I, _I, _I, _I, _I],
     # (weights*, tiles*[4], plan*, plan_ints, blocks, tok*, n_past, kc, vc,
     #  ks, vs, partial, cap, count*, stamps*, logits, stream)
     "bark_decode_step": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I,
                          _P, _P, _P, _P],
-    # (qweights*, tok*, n_past, kc, vc, ks, vs, x, qkv, ctx, h, partial,
-    #  tickets, logits, lo, hi, stream)
-    "bark_qdecode_step": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _I, _I, _P],
+    # (qweights*, tiles*[5], then as bark_decode_step)
+    "bark_decode_step_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P,
+                                _P, _I, _P, _P, _P, _P],
     # (weights*, x_emb, n_valid, kc, vc, ks, vs, x, hb, q, ctx, ff, kv,
     #  logits, lo, hi, stream)
     "bark_prefill": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -448,27 +448,20 @@ class StageWeights:
     struct points into."""
 
     def __init__(self, cfg, params):
-        layout = _layout(cfg, params)
         L, D, S = cfg.n_layer, cfg.n_embd, cfg.block_size
         dtype, device = params["wpe"].dtype, params["wpe"].device
-        if device.type != "cuda" or dtype not in DTYPE_CODES:
-            raise ValueError(
-                f"kernels take float32/bfloat16 params on a CUDA device, "
-                f"got {dtype} on {device}"
-            )
+        if dtype not in DTYPE_CODES:
+            raise ValueError(f"kernels take float32/bfloat16 params, got "
+                             f"{dtype}")
         if D % 64 or D // cfg.n_head != 64 or S > 1024:
             raise ValueError(
                 f"kernels take n_embd % 64 == 0, head_dim 64 and "
                 f"block_size <= 1024, got {cfg}"
             )
         self.packed = is_qpack(params)
-        if self.packed and cfg.n_lm_heads != 1:
-            raise ValueError(
-                f"packed kernels take a stage with one LM head (the "
-                f"(D, v_pad) tile), got n_lm_heads {cfg.n_lm_heads}")
-        if self.packed and params["wte_s"].dtype not in SCALE_CODES:
-            raise ValueError(f"packed scales: want float16 or float32, got "
-                             f"{params['wte_s'].dtype}")
+        if self.packed:
+            check_qpack_form(cfg, params)
+        layout = _layout(cfg, params)
         for name, (x, shape, want) in layout.items():
             if x is None:
                 raise ValueError(f"param {name} is missing")
@@ -481,6 +474,9 @@ class StageWeights:
                     f"{x.device}, want contiguous {shape} {want} on "
                     f"{device}" + (", 16-byte aligned" if self.packed else "")
                 )
+        if device.type != "cuda":
+            raise ValueError(f"kernels take params on a CUDA device, got "
+                             f"{device}")
         self.cfg, self.dtype, self.device = cfg, dtype, device
         self._refs = {k: weakref.ref(x) for k, (x, _, _) in layout.items()}
         self._ptrs = {k: x.data_ptr() for k, (x, _, _) in layout.items()}
@@ -539,6 +535,19 @@ class StageWeights:
         """`check_kv` on these weights' stage, dtype and device."""
         return check_kv(self.cfg, self.dtype, self.device, k_cache, v_cache,
                         batch)
+
+
+def check_qpack_form(cfg, qpack):
+    """Raise ValueError for a qpack the packed kernels do not take: a
+    stage with more than one LM head (no transposed (D, v_pad) tile), or
+    scales neither float16 nor float32."""
+    if cfg.n_lm_heads != 1 or "lm_q" not in qpack:
+        raise ValueError(
+            f"packed kernels take a stage with one LM head (the (D, v_pad) "
+            f"tile), got n_lm_heads {cfg.n_lm_heads}")
+    if qpack["wte_s"].dtype not in SCALE_CODES:
+        raise ValueError(f"packed scales: want float16 or float32, got "
+                         f"{qpack['wte_s'].dtype}")
 
 
 def check_kv(cfg, dtype, device, k_cache, v_cache, batch=None):

@@ -1,30 +1,34 @@
-"""K1: one token through every layer of a GPT stage, batch 1.
+"""K1: one token through every layer of a GPT stage, batch 1; and K5,
+the same step on packed-quantized params (a qpack).
 
-The counterpart of `bark_tpu.kernels.decode.decode_step_fused`. On a CUDA
-tensor the wrapper launches the hand-written kernel of `csrc/decode.cu`:
-ONE cooperative launch a step, a persistent kernel whose blocks (the
-card's co-resident count) run embed, L x [LN1+QKV | attention+proj |
-LN2+fc | out], ln_f and the LM head, with a grid-wide barrier between the
-phases. Which block takes which weight tile, and the order in which each
-output's split-K partials are folded, is `step_plan`'s table, computed
-here once per stage and window and kept with the stage's weights, beside
-a tile-major copy of the four projection weights (`step_tiles`) from
-which each block's weight chunks stream as single bulk copies. On a
-CPU tensor the wrapper runs the plain version, the reference
-`models.gpt.decode_step`. There is no other path: a CUDA tensor the
-kernel does not take raises (`check_step`, before any launch), and a
-launch the card refuses (its blocks must all be resident at once, so
-another process holding SMs can refuse it) raises with the CUDA error.
-Packed-quantized params (a qpack) go to the packed kernel K5
-(`kernels.qdecode`) on CUDA tensors, and to the same reference on CPU
-tensors, which then computes what K5 computes.
+The counterpart of `bark_tpu.kernels.decode.decode_step_fused` (and of it
+with quant=True). On a CUDA tensor the wrapper launches the hand-written
+kernel of `csrc/decode.cu`: ONE cooperative launch a step, a persistent
+kernel whose blocks (the card's co-resident count) run embed, L x
+[LN1+QKV | attention+proj | LN2+fc | out], ln_f and the LM head, with a
+grid-wide barrier between the phases. Which block takes which weight
+tile, and the order in which each output's split-K partials are folded,
+is `step_plan`'s table, computed here once per stage and window and kept
+with the stage's weights, beside a tile-major copy of the weights from
+which each block's weight chunks stream as single bulk copies: the four
+projection weights in the params dtype (`step_tiles`), or, for a qpack,
+the four projection weights and the LM head as records of one 32-row
+quant block each, int8 values then scales then mins (`step_qtiles`). A
+qpack's step is the same kernel on its packed weight read, launched
+through `kernels.qdecode` (K5's launch count). On a CPU tensor the
+wrapper runs the plain version, the reference `models.gpt.decode_step`
+(which on a qpack computes what K5 computes). There is no other path: a
+CUDA tensor the kernel does not take raises (`check_step`, before any
+launch), and a launch the card refuses (its blocks must all be resident
+at once, so another process holding SMs can refuse it) raises with the
+CUDA error.
 
 `lm_window=(lo, hi)`: only those logit columns are computed, the rest are
 0 (the coarse sampler reads only its two codebook windows).
 
 The caches may be the int8 caches of `gpt.init_kv_cache(quant=True)`: the
 same launch then runs K6a's arithmetic (csrc/decode.cu `attend_int8`) as
-each layer's attention, and K5 its standalone K6a kernel.
+each layer's attention, dense and packed alike.
 """
 
 from __future__ import annotations
@@ -44,15 +48,19 @@ launches = 0  # kernel launches through `decode_step_fused`
 HEAD_DIM = 64     # the kernel's head dim
 PLAN_TILE = 64    # output columns of a work item
 PLAN_ROWS = 8     # K ranges start on, and span, multiples of these rows
+QBLOCK = 32       # ... of these rows in a packed plan: whole quant blocks
 PLAN_HDR = 24     # ints of the table's header
 PLAN_MAX = 8192   # ints of a table the kernel holds in shared memory
 PHASES = ("qkv", "proj", "fc", "out")
+PHASE_NAMES = ("ln1_qkv", "attention_proj", "ln2_fc", "out")  # their work
 # The header's slots, as csrc/decode.cu's `PL_*` enum names them (keep the
 # two alike): the grid, the barriers, then per phase (4 slots each, in
 # PHASES order) the offsets of its items, block starts, fold offsets and
-# fold lists, then of the LM rows; the window's lo and hi; the layers.
+# fold lists, then of the LM section; the window's lo and hi; the layers;
+# whether the LM section holds tiles of a packed head (1) or rows (0).
 PL_BLOCKS, PL_BARRIERS, PL_ITEMS, PL_STARTS = 0, 1, 2, 6
 PL_FOLD_OFF, PL_FOLD, PL_LM, PL_LO, PL_HI, PL_LAYERS = 10, 14, 18, 19, 20, 21
+PL_LM_TILES = 22
 WRITES_KV, WRITES_SCALES = 1, 2  # proj items' flags
 
 
@@ -69,7 +77,11 @@ class StepPlan:
       (WRITES_SCALES).
     folds[p][t]: the items of tile t in K order, the order in which the
       next phase sums their partials.
-    lm[b]: the LM head rows [v0, v1) of block b, within lm_window.
+    lm[b]: block b's LM work: the head rows [v0, v1) within lm_window, or
+      when `packed`, the 64-column tiles [t0, t1) of the transposed
+      packed head, each over all its rows, that cover lm_window.
+    packed: a plan for packed weights: K ranges are whole 32-row quant
+      blocks (QBLOCK), and the LM section holds tiles.
     """
 
     n_blocks: int
@@ -80,6 +92,7 @@ class StepPlan:
     starts: tuple
     folds: tuple
     lm: tuple
+    packed: bool = False
 
     @property
     def partial_floats(self) -> int:
@@ -90,12 +103,13 @@ class StepPlan:
     def table(self) -> np.ndarray:
         """The int32 table csrc/decode.cu reads: the header (blocks,
         barriers, per phase the offsets of its items, block starts, fold
-        offsets and fold lists, then of the LM rows, lo, hi, layers), then
-        the sections."""
+        offsets and fold lists, then of the LM section, lo, hi, layers,
+        the LM section's kind), then the sections."""
         hdr = [0] * PLAN_HDR
         hdr[PL_BLOCKS], hdr[PL_BARRIERS] = self.n_blocks, self.n_barriers
         hdr[PL_LO], hdr[PL_HI] = self.lm_window
         hdr[PL_LAYERS] = self.n_layer
+        hdr[PL_LM_TILES] = int(self.packed)
         body = []
 
         def put(slot, values):
@@ -119,43 +133,44 @@ def _split(n: int, parts: int) -> list:
     return [i * n // parts for i in range(parts + 1)]
 
 
-def _runs(u0: int, u1: int, per_tile: int, row0: int = 0):
+def _runs(u0: int, u1: int, per_tile: int, rows: int, row0: int = 0):
     """Items (tile, k0, k1, 0) of the units [u0, u1) of a sequence that
-    walks tile by tile, PLAN_ROWS rows a unit, per_tile units a tile, its
+    walks tile by tile, `rows` rows a unit, per_tile units a tile, its
     rows counted from row0."""
     out = []
     u = u0
     while u < u1:
         t, r = divmod(u, per_tile)
         end = min(u1, (t + 1) * per_tile)
-        out.append((t, row0 + PLAN_ROWS * r,
-                    row0 + PLAN_ROWS * (end - t * per_tile), 0))
+        out.append((t, row0 + rows * r, row0 + rows * (end - t * per_tile),
+                    0))
         u = end
     return out
 
 
-def _generic_phase(K: int, N: int, G: int):
-    """Blocks take near-equal runs of the (tile, 8-row unit) sequence."""
-    per = K // PLAN_ROWS
+def _generic_phase(K: int, N: int, G: int, rows: int):
+    """Blocks take near-equal runs of the (tile, `rows`-row unit)
+    sequence."""
+    per = K // rows
     bounds = _split((N // PLAN_TILE) * per, G)
     items, starts = [], [0]
     for b in range(G):
-        items += _runs(bounds[b], bounds[b + 1], per)
+        items += _runs(bounds[b], bounds[b + 1], per, rows)
         starts.append(len(items))
     return items, starts
 
 
-def _proj_phase(D: int, H: int, G: int):
+def _proj_phase(D: int, H: int, G: int, rows: int):
     """Proj items lie within one head's 64 rows, so that a block attends
     only the heads its items need: with G >= H blocks, head h gets its own
     near-equal share of the blocks; with fewer, blocks take near-equal
-    runs of the (head, tile, 8-row unit) sequence."""
-    T, per = D // PLAN_TILE, HEAD_DIM // PLAN_ROWS
+    runs of the (head, tile, `rows`-row unit) sequence."""
+    T, per = D // PLAN_TILE, HEAD_DIM // rows
     units = T * per  # a head's
     items, starts = [], [0]
 
     def head_runs(h, u0, u1):
-        return _runs(u0, u1, per, row0=HEAD_DIM * h)
+        return _runs(u0, u1, per, rows, row0=HEAD_DIM * h)
 
     if G >= H:
         groups = _split(G, H)
@@ -191,13 +206,21 @@ def _folds(items, n_tiles: int):
     return tuple(tuple(i for _, i in sorted(f)) for f in per_tile)
 
 
-def step_plan(cfg: GPTConfig, n_blocks: int, lm_window=None) -> StepPlan:
+def step_plan(cfg: GPTConfig, n_blocks: int, lm_window=None,
+              packed: bool = False) -> StepPlan:
     """The persistent step's plan for `n_blocks` blocks: for each phase of
     a layer (LN1+QKV, attention+proj, LN2+fc, out; the same every layer)
     and for the LM head over lm_window (default: all n_out_vocab rows),
     which block takes which (column tile, K range) work item, each tile's
     fold order, and the barriers a step takes (4 a layer). Blocks take
-    near-equal runs of 8-row units, so each phase's bytes are balanced."""
+    near-equal runs of 8-row units, so each phase's bytes are balanced.
+
+    packed: the plan of K5's packed read. Its units are whole 32-row
+    quant blocks, so that an item's min term pairs whole blocks of its
+    rows with whole rows of the mins; its LM work is the 64-column tiles
+    of the transposed packed head that cover lm_window, whole, in
+    near-equal runs of tiles (an item writes its logits, so nothing is
+    folded)."""
     D, H = cfg.n_embd, cfg.n_head
     if D % PLAN_TILE or D != H * HEAD_DIM or n_blocks < 1:
         raise ValueError(f"step_plan takes width % {PLAN_TILE} == 0, head "
@@ -207,34 +230,42 @@ def step_plan(cfg: GPTConfig, n_blocks: int, lm_window=None) -> StepPlan:
     if not 0 <= lo <= hi <= cfg.n_out_vocab:
         raise ValueError(f"lm_window {lm_window} outside "
                          f"[0, {cfg.n_out_vocab}]")
+    rows = QBLOCK if packed else PLAN_ROWS
     shapes = {"qkv": (D, 3 * D), "fc": (D, 4 * D), "out": (4 * D, D)}
     items, starts, folds = [], [], []
     for name in PHASES:
         if name == "proj":
-            it, st = _proj_phase(D, H, n_blocks)
+            it, st = _proj_phase(D, H, n_blocks, rows)
             n_tiles = D // PLAN_TILE
         else:
             K, N = shapes[name]
-            it, st = _generic_phase(K, N, n_blocks)
+            it, st = _generic_phase(K, N, n_blocks, rows)
             n_tiles = N // PLAN_TILE
         items.append(tuple(it))
         starts.append(tuple(st))
         folds.append(_folds(it, n_tiles))
-    bounds = _split(hi - lo, n_blocks)
-    lm = tuple((lo + bounds[b], lo + bounds[b + 1]) for b in range(n_blocks))
+    # the LM section: vocab rows, or the packed head's column tiles
+    first = lo // PLAN_TILE if packed else lo
+    bounds = _split((-(-hi // PLAN_TILE) if packed else hi) - first,
+                    n_blocks)
+    lm = tuple((first + bounds[b], first + bounds[b + 1])
+               for b in range(n_blocks))
     return StepPlan(n_blocks=n_blocks, n_layer=cfg.n_layer,
                     n_barriers=len(PHASES) * cfg.n_layer,
                     lm_window=(lo, hi), items=tuple(items),
-                    starts=tuple(starts), folds=tuple(folds), lm=lm)
+                    starts=tuple(starts), folds=tuple(folds), lm=lm,
+                    packed=packed)
 
 
 def check_step(cfg: GPTConfig, params, k_cache, v_cache, n_past: int,
                lm_window=None):
     """Raise ValueError for what the step's kernels do not take: head
     dim != 64, width not a multiple of 64, more than 1024 cache slots,
-    n_past outside the cache, lm_window outside the vocab, or caches that
+    n_past outside the cache, lm_window outside the vocab, caches that
     are not the stage's (dense in the params dtype, or both int8 with
-    their row scales). Returns their pointers (`_build.check_kv`)."""
+    their row scales), or a qpack in a form the packed read does not take
+    (scales neither f16 nor f32, no single transposed LM head). Returns
+    the caches' pointers (`_build.check_kv`)."""
     D = cfg.n_embd
     if D % PLAN_TILE or D != cfg.n_head * HEAD_DIM:
         raise ValueError(f"the decode kernels take width % {PLAN_TILE} == 0 "
@@ -249,18 +280,23 @@ def check_step(cfg: GPTConfig, params, k_cache, v_cache, n_past: int,
     lo, hi = lm_window if lm_window is not None else (0, V)
     if not 0 <= lo <= hi <= V:
         raise ValueError(f"lm_window {lm_window} outside [0, {V}]")
+    if gpt.is_qpack(params):
+        _build.check_qpack_form(cfg, params)
     return _build.check_kv(cfg, params["wpe"].dtype, params["wpe"].device,
                            k_cache, v_cache)
 
 
 def step_blocks(w) -> int:
-    """The persistent step's grid for the stage weights `w`: its blocks
-    the card holds at once (asked once per stage)."""
+    """The persistent step's grid for the stage weights `w` (dense, or the
+    packed read of its qpack's format): its blocks the card holds at once
+    (asked once per stage)."""
     cfg = w.cfg
 
     def ask():
         n = _build.lib().bark_decode_step_blocks(
-            _build.DTYPE_CODES[w.dtype], cfg.n_embd, cfg.block_size)
+            _build.DTYPE_CODES[w.dtype],
+            w.struct.scale_dtype if w.packed else -1,
+            w.struct.has_min if w.packed else 0, cfg.n_embd, cfg.block_size)
         if n <= 0:
             raise RuntimeError(
                 f"decode_step_fused: the card takes no cooperative grid of "
@@ -293,13 +329,56 @@ def step_tiles(w, params):
     return held["ptrs"]
 
 
+QTILED = PHASES + ("lm",)  # the qpack weights `step_qtiles` lays out
+
+
+def qtile_records(q, s, m=None):
+    """A packed (..., K, N) weight (int8 values q, (..., K/32, N) scales s
+    and mins m or None) as K5's records, (..., N/64, K/32, rec) uint8: a
+    record is one 32-row quant block of a 64-column tile, its 32 x 64
+    values row by row, then its 64 scales, then its 64 mins, rec = 2048 +
+    64 x the scale's bytes (x 2 with mins), a multiple of 16. So any run
+    of whole quant blocks of a tile is one contiguous, 16-byte-aligned run
+    of bytes."""
+    *lead, K, N = q.shape
+    nb, nt = K // QBLOCK, N // PLAN_TILE
+    parts = [q.reshape(*lead, nb, QBLOCK, nt, PLAN_TILE).movedim(-2, -4)
+             .reshape(*lead, nt, nb, QBLOCK * PLAN_TILE).view(torch.uint8)]
+    for t in (s,) if m is None else (s, m):
+        parts.append(t.reshape(*lead, nb, nt, PLAN_TILE).movedim(-2, -3)
+                     .contiguous().view(torch.uint8))
+    return torch.cat(parts, dim=-1)
+
+
+def step_qtiles(w, params):
+    """`step_tiles` for a qpack: its four projection weights and its
+    transposed (D, v_pad) LM head as K5's records (`qtile_records`),
+    (L, N/64, K/32, rec) and (v_pad/64, D/32, rec) bytes, so that a chunk
+    of up to 8 quant blocks of a work item is one bulk copy: a second
+    copy of the packed weights on the card, kept with the stage weights
+    `w` and made again when one of them was changed in place. Returns the
+    ctypes array of the five pointers (qkv, proj, fc, out, lm)."""
+    blocks = params["blocks"]
+    src = [tuple((blocks if key in PHASES else params).get(f"{key}_{part}")
+                 for part in "qsm") for key in QTILED]
+    versions = tuple(t._version for trio in src for t in trio
+                     if t is not None)
+    held = w.memo("step_qtiles", dict)
+    if held.get("versions") != versions:
+        tiled = [qtile_records(*trio) for trio in src]
+        held.update(versions=versions, tiled=tiled, ptrs=(
+            ctypes.c_void_p * len(tiled))(*(t.data_ptr() for t in tiled)))
+    return held["ptrs"]
+
+
 def device_plan(w, lm_window):
     """(StepPlan, its int32 table on the card) for the stage weights `w`
-    and lm_window, made once and kept with the weights."""
+    (the packed plan for a qpack's) and lm_window, made once and kept with
+    the weights."""
     lo, hi = lm_window if lm_window is not None else (0, w.cfg.n_out_vocab)
 
     def make():
-        plan = step_plan(w.cfg, step_blocks(w), (lo, hi))
+        plan = step_plan(w.cfg, step_blocks(w), (lo, hi), packed=w.packed)
         table = plan.table()
         if len(table) > PLAN_MAX:
             raise ValueError(f"step plan of {len(table)} ints for {w.cfg}: "
@@ -349,9 +428,9 @@ def decode_step_fused(cfg: GPTConfig, params, token, k_cache, v_cache,
     (L, S, D) caches (dense or int8) in place and returns the
     (n_out_vocab,) f32 logits (into `out` when given). `token` is an int
     or a one-element int tensor; `n_past` a Python int in
-    [0, block_size). `stamps`: an int64 CUDA tensor of 2 x barriers + 3
-    (`step_stamps`) that the dense kernel fills with block 0's ns clock,
-    or None."""
+    [0, block_size). `stamps`: an int64 CUDA tensor (`step_stamps`) that
+    the kernel (dense or packed) fills with every block's ns clock
+    (`step_phases_us` and `step_critical_us` split them), or None."""
     global launches
     if gpt.kv_device(k_cache).type == "cpu":
         return decode_step_plain(cfg, params, token, k_cache, v_cache,
@@ -360,71 +439,96 @@ def decode_step_fused(cfg: GPTConfig, params, token, k_cache, v_cache,
     packed = gpt.is_qpack(params)
     w = (_build.stage_qweights if packed else _build.stage_weights)(
         cfg, params)
-    V, D = cfg.n_out_vocab, cfg.n_embd
+    V = cfg.n_out_vocab
     lo, hi = lm_window if lm_window is not None else (0, V)
     tok = _token_on(token, w.device)
     if out is None:
         out = torch.empty((V,), dtype=torch.float32, device=w.device)
     _build.f32_on(out, w.device, V, "logits")
-    if packed:
-        if stamps is not None:
-            raise ValueError("stamps: the packed step (K5) takes none")
-        qdecode.decode_step_packed((
-            w.ref, tok.data_ptr(), n_past, *caches,
-            w.scratch("x", D).data_ptr(), w.scratch("qkv", 3 * D).data_ptr(),
-            w.scratch("ctx", D).data_ptr(), w.scratch("h", 4 * D).data_ptr(),
-            w.scratch("partial", 1 << 16, dtype=torch.float32).data_ptr(),
-            w.scratch("tickets", 1024, dtype=torch.int32).data_ptr(),
-            out.data_ptr(), lo, hi, _build.stream_ptr(w.device),
-        ), out)
-    else:
-        if params["lm_head"].data_ptr() % 16:
-            raise ValueError("lm_head: the step's bulk copies want it "
-                             "16-byte aligned")
-        plan, table = device_plan(w, (lo, hi))
-        if stamps is not None and (
-                stamps.dtype != torch.int64 or stamps.device != w.device
-                or not stamps.is_contiguous()
-                or stamps.numel() < 2 * plan.n_barriers + 3):
-            raise ValueError(
-                f"stamps: want a contiguous int64 tensor of >= "
-                f"{2 * plan.n_barriers + 3} on {w.device}")
-        cap = plan.partial_floats
-        rc = _build.lib().bark_decode_step(
-            w.ref, ctypes.addressof(step_tiles(w, params)), table.data_ptr(),
-            table.numel(), plan.n_blocks,
-            tok.data_ptr(), n_past,
-            *caches,
+    if not packed and params["lm_head"].data_ptr() % 16:
+        raise ValueError("lm_head: the step's bulk copies want it 16-byte "
+                         "aligned")
+    plan, table = device_plan(w, (lo, hi))
+    want = plan.n_blocks * (2 * plan.n_barriers + 3)
+    if stamps is not None and (
+            stamps.dtype != torch.int64 or stamps.device != w.device
+            or not stamps.is_contiguous() or stamps.numel() < want):
+        raise ValueError(f"stamps: want a contiguous int64 tensor of >= "
+                         f"{want} on {w.device} (`step_stamps`)")
+    cap = plan.partial_floats
+    tiles = (step_qtiles if packed else step_tiles)(w, params)
+    args = (w.ref, ctypes.addressof(tiles), table.data_ptr(), table.numel(),
+            plan.n_blocks, tok.data_ptr(), n_past, *caches,
             w.scratch("step_partial", 2 * cap,
                       dtype=torch.float32).data_ptr(), cap,
             w.scratch("step_count", 1, dtype=torch.int32).data_ptr(),
             None if stamps is None else stamps.data_ptr(), out.data_ptr(),
             _build.stream_ptr(w.device))
-        _build.check("decode_step_fused", rc)
+    if packed:
+        qdecode.decode_step_packed(args)
+    else:
+        _build.check("decode_step_fused", _build.lib().bark_decode_step(*args))
         launches += 1
     kv8.count(caches)
     return out
 
 
+def step_stamps(plan: StepPlan, device) -> torch.Tensor:
+    """Zeroed stamps for a step of `plan`: a row a block, its ns clock at
+    the start, after the embed, at each barrier's arrival and release, and
+    at the end (2 x barriers + 3)."""
+    return torch.zeros((plan.n_blocks, 2 * plan.n_barriers + 3),
+                       dtype=torch.int64, device=device)
+
+
+def _stamp_rows(plan: StepPlan, stamps, blocks: int):
+    """(start, embed, arrivals (blocks, barriers), releases, end) of the
+    first `blocks` rows of the stamps, as int64 CPU tensors."""
+    per = 2 * plan.n_barriers + 3
+    t = torch.as_tensor(stamps).reshape(-1)[:blocks * per]
+    t = t.reshape(blocks, per).to("cpu", torch.int64)
+    return t[:, 0], t[:, 1], t[:, 2:-1:2], t[:, 3::2], t[:, -1]
+
+
 def step_phases_us(plan: StepPlan, stamps) -> dict:
     """Where one stamped step's time went, in µs, from block 0's clock
-    (`stamps` as `decode_step_fused` filled them): the embed; each phase's
-    own work (from its barrier's release, or the embed, to its arrival),
-    as the mean over layers; the barrier waits (arrival to release), the
-    mean over all; the LM head (the last release to the end); and the
-    whole step."""
-    t = [int(v) for v in stamps[:2 * plan.n_barriers + 3].tolist()]
-    arrive = t[2:2 * plan.n_barriers + 2:2]
-    release = t[3:2 * plan.n_barriers + 3:2]
-    begin = [t[1]] + release[:-1]
+    (its row of `stamps` as `decode_step_fused` filled them): the embed;
+    each phase's own work (from its barrier's release, or the embed, to its
+    arrival), as the mean over layers; the barrier waits (arrival to
+    release), the mean over all; the LM head (the last release to the
+    end); and the whole step."""
+    start, embed, arrive, release, end = (
+        x[0] for x in _stamp_rows(plan, stamps, 1))
+    begin = torch.cat([embed[None], release[:-1]])
+    work = (arrive - begin).double().reshape(plan.n_layer, len(PHASES))
+    out = {"embed": float(embed - start) / 1e3}
+    for name, us in zip(PHASE_NAMES, work.mean(0) / 1e3):
+        out[name] = float(us)
+    out["barrier_wait"] = float((release - arrive).double().mean()) / 1e3
+    out["lm_head"] = float(end - release[-1]) / 1e3
+    out["step"] = float(end - start) / 1e3
+    return out
+
+
+def step_critical_us(plan: StepPlan, stamps) -> dict:
+    """Where one stamped step's time went on its slowest blocks, in µs,
+    from every block's row of `stamps`: for each phase, as the mean over
+    layers, the slowest block's work (its release, or embed, to its
+    arrival), the blocks' mean work, and the spread of their arrivals (the
+    last's less the first's); the slowest embed and LM head; and the step
+    (the last end less the first start)."""
+    start, embed, arrive, release, end = _stamp_rows(plan, stamps,
+                                                     plan.n_blocks)
+    begin = torch.cat([embed[:, None], release[:, :-1]], dim=1)
     L, P = plan.n_layer, len(PHASES)
-    out = {"embed": (t[1] - t[0]) / 1e3}
-    names = ("ln1_qkv", "attention_proj", "ln2_fc", "out")
-    for p, name in enumerate(names):
-        out[name] = sum(arrive[l * P + p] - begin[l * P + p]
-                        for l in range(L)) / L / 1e3
-    out["barrier_wait"] = sum(r - a for a, r in zip(arrive, release)) / len(
-        arrive) / 1e3
-    out["lm_head"] = (t[-1] - release[-1]) / 1e3
-    out["step"] = (t[-1] - t[0]) / 1e3
+    work = (arrive - begin).double().reshape(-1, L, P) / 1e3
+    spread = (arrive.amax(0) - arrive.amin(0)).double().reshape(L, P) / 1e3
+    out = {}
+    for p, name in enumerate(PHASE_NAMES):
+        out[name] = dict(slowest=float(work[:, :, p].amax(0).mean()),
+                         mean=float(work[:, :, p].mean()),
+                         arrival_spread=float(spread[:, p].mean()))
+    out["embed_slowest"] = float((embed - start).amax()) / 1e3
+    out["lm_head_slowest"] = float((end - release[:, -1]).amax()) / 1e3
+    out["step"] = float(end.amax() - start.amin()) / 1e3
     return out

@@ -6,11 +6,13 @@ kernels (`bark_tpu.kernels.decode`: `_quant_qseg`, `_quant_row`,
 Three hand-written kernels, launched inside the C calls of their hosts
 when those are given int8 caches:
 
-- K6a, `attn_decode_i8_kernel` (csrc/decode.cu): each layer's attention
-  of K1, K5 and K7. It quantizes the fresh K/V rows (scale over all D,
-  computed alike by every head's block), writes them at slot n_past,
-  quantizes the query per head, scores with integer `__dp4a` dots scaled
-  by both scales, and accumulates V dequantized to the params dtype.
+- K6a (csrc/decode.cu `attend_int8`): each layer's attention of K1 and
+  K5 inside their persistent step, and of K7 and K5-batched as
+  `attn_decode_i8_kernel`, one launch a layer. It quantizes the fresh K/V
+  rows (scale over all D, computed alike by every head's block), writes
+  them at slot n_past, quantizes the query per head, scores with integer
+  `__dp4a` dots scaled by both scales, and accumulates V dequantized to
+  the params dtype.
 - K6b, `quant_rows_kernel` (csrc/prefill.cu): in K2 and K8 the QKV
   GEMM's epilogue writes the K/V rows in the params dtype to scratch, and
   K6b quantizes each row into its cache slot, one launch a layer.

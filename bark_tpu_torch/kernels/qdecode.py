@@ -3,14 +3,15 @@
 The counterpart of `bark_tpu.kernels.decode.decode_step_fused(quant=True)`
 (`_tile_stream` dequant, `_qdot`, `_embed_token`). `decode.decode_step_fused`
 comes here when its params are a qpack (`io.loader.gpt_qparams_from_section`)
-on CUDA tensors: the hand-written kernels of `csrc/qdecode.cu` (packed
-embed, L x [packed LN-GEMV QKV, K1's attention, packed GEMV proj +
-residual, packed LN-GEMV fc + GELU, packed GEMV out + residual], packed
-LM head over `lm_window`), through one C call. K3 and K4 reach it through
-their K1 steps. On CPU tensors `decode.decode_step_plain` runs the plain
-version, `models.gpt.decode_step` on the qpack (`gpt.qdot`,
-`gpt.embed_rows`). A qpack the kernels do not take raises; nothing falls
-back to dense.
+on CUDA tensors: ONE cooperative launch a step of K1's persistent kernel
+(csrc/decode.cu `decode_step_kernel`) on its packed weight read, which
+streams the quant-block records of `decode.step_qtiles` and dequantizes
+them in shared memory (packed embed, L x [LN1+QKV | attention+proj |
+LN2+fc | out], the packed LM head over `lm_window`). K3 and K4 reach it
+through their steps. On CPU tensors `decode.decode_step_plain` runs the
+plain version, `models.gpt.decode_step` on the qpack (`gpt.qdot`,
+`gpt.embed_rows`). A qpack the kernel does not take raises before any
+launch; nothing falls back to dense.
 """
 
 from __future__ import annotations
@@ -20,13 +21,14 @@ from bark_tpu_torch.kernels import _build
 launches = 0  # kernel launches through `decode_step_packed`
 
 
-def decode_step_packed(args, out):
-    """Launch the packed step. `args` are those of `bark_qdecode_step`
-    (csrc/qdecode.cu: the `GPTQWeights` struct, the token, n_past, the
-    caches, its scratch and the logits' window), as
+def decode_step_packed(args) -> None:
+    """Launch the packed step. `args` are those of
+    `bark_decode_step_packed` (csrc/decode.cu: the `GPTQWeights` struct,
+    the records' pointers, the packed plan's table and grid, the token,
+    n_past, the caches, the step's scratch, stamps and the logits), as
     `decode.decode_step_fused` builds and validates them for a qpack on
-    CUDA tensors; returns `out`, the f32 logits they point to."""
+    CUDA tensors."""
     global launches
-    _build.check("qdecode_step", _build.lib().bark_qdecode_step(*args))
+    _build.check("decode_step_packed",
+                 _build.lib().bark_decode_step_packed(*args))
     launches += 1
-    return out

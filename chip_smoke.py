@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (bark_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --k1       # phase 1, then K1's record alone
+    python3 chip_smoke.py --k1       # phase 1, then K1's and K5's records
 
 Phases, each fatal on failure (exit code 1, and no result lines):
   1. build the CUDA kernels from bark_tpu_torch/csrc (nvcc, sm_90a, one
@@ -11,15 +11,17 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      the link, the load);
   2. compare each kernel K1-K4 with its plain PyTorch version at bark-small
      shapes, in bf16 and in f32 (TF32 off), each error beside its
-     tolerance; then K5 (the packed decode step) the same way on random
-     qpacks of four formats (q8_0, q4_0: f16 scales; q4_1: f16 scales and
-     mins; q4_k: f32 scales and mins), and K3/K4 over a q8_0 qpack; time
-     each against its plain version. K1, one cooperative launch a step,
-     must give the same bits twice, run one device kernel a call
-     (torch.profiler, bf16 and int8 caches), and is timed at n_past
-     0/300/1023 (and the coarse window at 887) beside its bound and the
-     62-launch chain's 0.526 ms, with its grid, barriers and the per-phase
-     µs of stamped steps (the `k1_step` JSON line);
+     tolerance; then K5 (the packed decode step: the same persistent
+     kernel on its packed weight read) the same way on random qpacks of
+     five formats (q8_0, q4_0, q5_0: f16 scales; q4_1: f16 scales and
+     mins; q4_k: f32 scales and mins), also on the int8 cache, and K3/K4
+     over a q8_0 qpack; time each against its plain version. K1 and K5,
+     each one cooperative launch a step, must give the same bits twice,
+     run one device kernel a call (torch.profiler, bf16 and int8 caches),
+     and are timed at n_past 0/300/1023 (and the coarse window at 887)
+     beside their bounds and the 62-launch chains' 0.526 / 0.474 ms, with
+     their grid, barriers and the per-phase µs of stamped steps (the
+     `k1_step` JSON line; K5 on q4_0 under its `k5_q4_0`);
   3. check a small model end to end against the port's plain CPU run with
      the same noise (tokens exact, audio within tolerance), TF32 still off:
      dense weights given as parts, then the same model written to a
@@ -28,8 +30,9 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      weights, different prompts and seeds, at PyTorch's default precision
      settings; check the audio and that every kernel was launched by them;
   4b. answer packed requests on bark-small qpacks built from a seed on the
-     card (bf16 dense leaves): 2 in q4_0, then 1 each in q8_0, q4_1 and
-     q4_k; check the audio and that K5 was launched by each;
+     card (bf16 dense leaves): 2 in q4_0, then 1 each in q8_0, q4_1, q4_k
+     and q5_0; check the audio, that K5 was launched by each and K1 by
+     none;
   4c. answer batched requests on bark-small (`generate_audio_batch` of 1, 8
      and 32 prompts); check the audio, that K7-K10 and the sampler were
      launched, that the single-lane kernels were not, and that no plain
@@ -165,8 +168,10 @@ QFORMATS = {
     "q4_0": (-8, 7, "float16", False),
     "q4_1": (0, 15, "float16", True),
     "q4_k": (0, 15, "float32", True),
+    "q5_0": (-16, 15, "float16", False),
 }
 K5 = "qdecode_step_fused"
+K5B_FORMATS = ("q8_0", "q4_0", "q4_1", "q4_k")  # the formats K5-batched is held in
 
 K7 = "decode_step_fused_batched"
 BATCHES = (1, 8, 32)  # phase 4c's batch sizes, and K7's timed ones
@@ -180,7 +185,7 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, launch-count module)
                              "bark_tpu/kernels/semantic.py:555", "semantic"),
     "coarse_window_fused": ("bark_tpu_torch/csrc/sample.cu",
                             "bark_tpu/kernels/window.py:419", "window"),
-    **{f"{K5}[{fmt}]": ("bark_tpu_torch/csrc/qdecode.cu",
+    **{f"{K5}[{fmt}]": ("bark_tpu_torch/csrc/decode.cu",
                         "bark_tpu/kernels/decode.py:1016", "qdecode")
        for fmt in QFORMATS},
     **{f"{K7}[B={b}]": ("bark_tpu_torch/csrc/bdecode.cu",
@@ -344,6 +349,7 @@ class Checks:
         self.times = {}   # kernel -> (ms, plain_ms, (bytes, flops))
         self.kv8_flips = {}  # (kernel, dtype) -> (int8 flips, values)
         self.k1_step = {}  # K1's persistent step: grid, timings, phases
+        self.k5_step = {}  # K5's (q4_0), the same
 
     def record(self, kernel, dtype_name, what, err, tol=None):
         tol = (tol or TOL)[dtype_name]
@@ -544,6 +550,7 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
 
 
 K1_EARLIER_MS = 0.526  # the 62-launch chain's step at n_past 300 (PERF.md, H100)
+K5_EARLIER_MS = 0.474  # K5 q4_0's 62-launch chain, the same (PERF.md, H100)
 
 
 def device_kernels(fn) -> list:
@@ -571,8 +578,9 @@ def k1_step_record(sem_cfg, sem_p, coarse_cfg, coarse_p, lmw, kc, vc, gen):
     the device kernels one decode_step_fused call runs (asserted 1, on the
     bf16 and the int8 cache), its ms at n_past 0/300/1023 beside the
     bound and the chain's earlier 0.526 ms, the coarse step over the
-    window, and where a step's time goes (block 0's clock, the mean of 10
-    stamped steps at n_past 300)."""
+    window, and where a step's time goes (`stamped_phases`: block 0's
+    clock and every block's, the mean of 10 stamped steps at n_past
+    300)."""
     import torch
 
     from bark_tpu_torch.kernels import _build
@@ -619,26 +627,57 @@ def k1_step_record(sem_cfg, sem_p, coarse_cfg, coarse_p, lmw, kc, vc, gen):
     log(f"  decode_step_fused      bf16 coarse step at n_past 887, window: "
         f"{ms:.4f} ms, bound {b_ms:.4f} ms")
     del ck, cv
-    stamps = torch.zeros(2 * plan.n_barriers + 3, dtype=torch.int64,
-                         device=dev)
-    splits = []
-    for _ in range(10):
-        kdec.decode_step_fused(sem_cfg, sem_p, tok, kc, vc, 300, out=out,
-                               stamps=stamps)
-        torch.cuda.synchronize()
-        splits.append(kdec.step_phases_us(plan, stamps))
-    phases = {k: sum(s[k] for s in splits) / len(splits) for k in splits[0]}
-    rec["phases_us"] = phases
-    log("  decode_step_fused      bf16 stamped step at n_past 300 (block 0, "
-        "mean of 10; per layer): " + ", ".join(
-            f"{k} {v:.2f} us" for k, v in phases.items()))
+    rec["phases_us"] = stamped_phases(
+        plan, lambda stamps: kdec.decode_step_fused(
+            sem_cfg, sem_p, tok, kc, vc, 300, out=out, stamps=stamps))
+    log_phases("decode_step_fused      bf16", rec["phases_us"])
     return rec
+
+
+def stamped_phases(plan, run) -> dict:
+    """Where a persistent step's time goes: `run(stamps)` 10 times, each
+    split by `decode.step_phases_us` (block 0's clock) and
+    `decode.step_critical_us` (every block's: each phase's slowest block,
+    the blocks' mean and their arrival spread), the mean of each over the
+    10, in µs."""
+    import torch
+
+    from bark_tpu_torch.kernels import decode as kdec
+
+    stamps = kdec.step_stamps(plan, "cuda")
+    block0, blocks = [], []
+    for _ in range(10):
+        run(stamps)
+        torch.cuda.synchronize()
+        block0.append(kdec.step_phases_us(plan, stamps))
+        blocks.append(kdec.step_critical_us(plan, stamps))
+
+    def mean(recs):
+        if isinstance(recs[0], dict):
+            return {k: mean([r[k] for r in recs]) for k in recs[0]}
+        return sum(recs) / len(recs)
+
+    return dict(block0=mean(block0), blocks=mean(blocks))
+
+
+def log_phases(name: str, phases: dict) -> None:
+    """`stamped_phases`' record, as two log lines."""
+    log(f"  {name} stamped step at n_past 300 (block 0, mean of 10; per "
+        f"layer): " + ", ".join(f"{k} {v:.2f} us"
+                                for k, v in phases["block0"].items()))
+    log(f"  {name} every block (mean of 10; per layer, slowest / mean / "
+        f"arrival spread): " + ", ".join(
+            f"{k} {v['slowest']:.2f}/{v['mean']:.2f}/"
+            f"{v['arrival_spread']:.2f} us" if isinstance(v, dict)
+            else f"{k} {v:.2f} us" for k, v in phases["blocks"].items()))
 
 
 def k1_only(smi) -> None:
     """`chip_smoke.py --k1`: K1 alone at bark-small in bf16, held against
-    its plain version at n_past 300 (TOL), then `k1_step_record`, as one
-    `k1_step` JSON line: to time two trees' K1 side by side in one call."""
+    its plain version at n_past 300 (TOL), then `k1_step_record`; K5 on a
+    q4_0 qpack the same way, then `k5_step_record`; both as one `k1_step`
+    JSON line: to time two trees' persistent step side by side in one
+    call."""
     import torch
 
     from bark_tpu_torch.kernels import decode as kdec
@@ -651,19 +690,33 @@ def k1_only(smi) -> None:
     sem_p = random_stage_params(sem_cfg, gen, torch.bfloat16)
     coarse_p = random_stage_params(coarse_cfg, gen, torch.bfloat16)
     kc, vc = filled_cache(sem_cfg, 300, torch.bfloat16, gen)
-    out = kdec.decode_step_fused(sem_cfg, sem_p, 1234, kc.clone(),
-                                 vc.clone(), 300)
-    ref = kdec.decode_step_plain(sem_cfg, sem_p,
-                                 torch.tensor(1234, device=dev), kc.clone(),
-                                 vc.clone(), 300)
-    err = max_err(out, ref)
-    log(f"  decode_step_fused      bfloat16  logits n_past 300: max err "
-        f"{err:.3e} (tol {TOL['bfloat16']})")
-    if not err <= TOL["bfloat16"]:
-        raise AssertionError(f"K1 bf16 disagrees with plain: {err}")
+    errs = {}
+    for what, p in (("decode_step_fused", sem_p), (f"{K5}[q4_0]", None)):
+        if p is None:
+            sem_q = random_qpack(sem_cfg, "q4_0", torch.bfloat16, gen, dev)
+            coarse_q = random_qpack(coarse_cfg, "q4_0", torch.bfloat16, gen,
+                                    dev)
+            p = sem_q
+        out = kdec.decode_step_fused(sem_cfg, p, 1234, kc.clone(),
+                                     vc.clone(), 300)
+        ref = kdec.decode_step_plain(sem_cfg, p,
+                                     torch.tensor(1234, device=dev),
+                                     kc.clone(), vc.clone(), 300)
+        errs[what] = max_err(out, ref)
+        log(f"  {what:22s} bfloat16  logits n_past 300: max err "
+            f"{errs[what]:.3e} (tol {TOL['bfloat16']})")
+        if not errs[what] <= TOL["bfloat16"]:
+            raise AssertionError(f"{what} bf16 disagrees with plain: "
+                                 f"{errs[what]}")
     rec = k1_step_record(sem_cfg, sem_p, coarse_cfg, coarse_p, lmw, kc, vc,
                          gen)
-    print(json.dumps({"k1_step": dict(card=smi, max_abs_err=err, **rec)}))
+    del sem_p, coarse_p
+    torch.cuda.empty_cache()
+    k5 = k5_step_record(sem_cfg, sem_q, coarse_cfg, coarse_q, lmw, kc, vc,
+                        gen)
+    print(json.dumps({"k1_step": dict(
+        card=smi, max_abs_err=errs["decode_step_fused"], **rec,
+        k5_q4_0=dict(max_abs_err=errs[f"{K5}[q4_0]"], **k5))}))
 
 
 def random_qpack(cfg, fmt: str, dtype, gen, dev, full_range=False):
@@ -729,16 +782,21 @@ def random_qpack(cfg, fmt: str, dtype, gen, dev, full_range=False):
 
 
 def qkernel_checks(checks: Checks, dtype, timed: bool):
-    """Phase 2 for K5, one dtype: the packed decode step against its plain
-    version (models.gpt on the same qpack) for every format of QFORMATS at
-    n_past 0/300/1023 on the full head and 300 on the coarse window; K3
-    and K4 over a q8_0 qpack in f32, tokens equal."""
+    """Phase 2 for K5 (the persistent step on its packed weight read), one
+    dtype: the packed decode step against its plain version (models.gpt on
+    the same qpack) for every format of QFORMATS at n_past 0/300/1023 on
+    the full head and 300 on the coarse window, and at 300 on an int8
+    cache (the rows by `record_kv8_rows`); each call must launch K5 once
+    and not K1; two runs of a step give the same bits; K3 and K4 over a
+    q8_0 qpack in f32, tokens and flags equal. Timed in bf16 at n_past
+    300, and q4_0's step record (`k5_step_record`)."""
     import torch
 
     from bark_tpu_torch.kernels import decode as kdec
     from bark_tpu_torch.kernels import qdecode as kq
     from bark_tpu_torch.kernels import semantic as ksem
     from bark_tpu_torch.kernels import window as kwin
+    from bark_tpu_torch.models import gpt
     from bark_tpu_torch.models.presets import BARK_SMALL
     from bark_tpu_torch.ops import sampling
 
@@ -749,34 +807,59 @@ def qkernel_checks(checks: Checks, dtype, timed: bool):
     svs, cbs = 10000, 1024
     lmw = (svs, svs + 2 * cbs)
 
+    def step(cfg, qp, kc, vc, n_past, win=None, tok=4321):
+        before, dense = kq.launches, kdec.launches
+        out = kdec.decode_step_fused(cfg, qp, tok, kc, vc, n_past,
+                                     lm_window=win)
+        if kq.launches != before + 1 or kdec.launches != dense:
+            raise AssertionError(f"{fmt}: the packed step did not launch "
+                                 f"K5 alone")
+        return out
+
     for fmt in QFORMATS:
         kname = f"{K5}[{fmt}]"
         sem_q = random_qpack(sem_cfg, fmt, dtype, gen, dev)
         coarse_q = random_qpack(coarse_cfg, fmt, dtype, gen, dev)
-        for cfg, qp, n_past, win in ((sem_cfg, sem_q, 0, None),
-                                     (sem_cfg, sem_q, 300, None),
-                                     (sem_cfg, sem_q, 1023, None),
-                                     (coarse_cfg, coarse_q, 300, lmw)):
-            kc, vc = filled_cache(cfg, n_past, dtype, gen)
-            kc2, vc2 = kc.clone(), vc.clone()
-            before = kq.launches
-            out = kdec.decode_step_fused(cfg, qp, 4321, kc, vc, n_past,
-                                         lm_window=win)
-            if kq.launches != before + 1:
-                raise AssertionError(f"{kname} did not launch K5")
+        for cfg, qp, n_past, win, kv8 in ((sem_cfg, sem_q, 0, None, False),
+                                          (sem_cfg, sem_q, 300, None, False),
+                                          (sem_cfg, sem_q, 1023, None, False),
+                                          (coarse_cfg, coarse_q, 300, lmw,
+                                           False),
+                                          (sem_cfg, sem_q, 300, None, True)):
+            if kv8:
+                kc, vc = kv8_cache(cfg, n_past, gen)
+                kc2, vc2 = kv8_clone(kc), kv8_clone(vc)
+            else:
+                kc, vc = filled_cache(cfg, n_past, dtype, gen)
+                kc2, vc2 = kc.clone(), vc.clone()
+            out = step(cfg, qp, kc, vc, n_past, win)
             ref = kdec.decode_step_plain(cfg, qp, 4321, kc2, vc2, n_past,
                                          win)
-            tag = f"n_past {n_past}" + (" lm_window" if win else "")
+            tag = (f"n_past {n_past}" + (" lm_window" if win else "")
+                   + (" int8 cache" if kv8 else ""))
             checks.record(kname, name, f"logits {tag}", max_err(out, ref))
-            checks.record(kname, name, f"K/V row {tag}",
-                          max(max_err(kc[:, n_past], kc2[:, n_past]),
-                              max_err(vc[:, n_past], vc2[:, n_past])))
+            rows = (slice(None), n_past)
+            if kv8:
+                record_kv8_rows(checks, kname, name, f"K/V row {tag}", [
+                    (gpt.kv_view(kc, rows), gpt.kv_view(kc2, rows)),
+                    (gpt.kv_view(vc, rows), gpt.kv_view(vc2, rows))])
+            else:
+                checks.record(kname, name, f"K/V row {tag}",
+                              max(max_err(kc[rows], kc2[rows]),
+                                  max_err(vc[rows], vc2[rows])))
             if win is not None and (float(out[:win[0]].abs().max()) != 0.0
                                     or float(out[win[1]:].abs().max())
                                     != 0.0):
                 raise AssertionError("logits outside lm_window are not zero")
+        # the packed plan's fixed fold order: the same step twice, same bits
+        kc, vc = filled_cache(sem_cfg, 300, dtype, gen)
+        runs = [step(sem_cfg, sem_q, kc.clone(), vc.clone(), 300)
+                for _ in range(2)]
+        if not torch.equal(*runs):
+            raise AssertionError(f"{kname} {name}: two runs of a step differ")
+        log(f"  {kname:26s} {name:9s} two runs of a step at n_past 300: "
+            f"logits bit-equal")
         if timed:
-            kc, vc = filled_cache(sem_cfg, 300, dtype, gen)
             tok_t = torch.tensor([4321], dtype=torch.int32, device=dev)
             ms = cuda_ms(lambda: kdec.decode_step_fused(
                 sem_cfg, sem_q, tok_t, kc, vc, 300), 50)
@@ -784,6 +867,9 @@ def qkernel_checks(checks: Checks, dtype, timed: bool):
                 sem_cfg, sem_q, tok_t, kc, vc, 300), 10)
             checks.times[kname] = (ms, plain,
                                    decode_cost(sem_cfg, sem_q, 300))
+            if fmt == "q4_0":
+                checks.k5_step = k5_step_record(sem_cfg, sem_q, coarse_cfg,
+                                                coarse_q, lmw, kc, vc, gen)
         if fmt == "q8_0" and dtype == torch.float32:
             # K3: 16 steps after a 257-row context; K4: 60 steps after 887
             noise = sampling.gumbel((32, sem_cfg.n_out_vocab), gen, dev)
@@ -793,6 +879,7 @@ def qkernel_checks(checks: Checks, dtype, timed: bool):
             kc2, vc2 = kc.clone(), vc.clone()
             kw = dict(K=16, temp=0.7, semantic_vocab_size=svs)
             args = (257, 3, noise, 2.0)
+            before = kq.launches
             toks, flags, lg = ksem.semantic_chunk_fused(
                 sem_cfg, sem_q, logits0, kc, vc, *args, **kw)
             rtoks, rflags, rlg = ksem.semantic_chunk_plain(
@@ -815,14 +902,84 @@ def qkernel_checks(checks: Checks, dtype, timed: bool):
                                              kc2, vc2, 887, 1, noise, **kw)
             if toks.tolist() != rtoks.tolist():
                 raise AssertionError("K4 over q8_0: tokens differ")
+            if kq.launches - before != 16 + 60:
+                raise AssertionError(f"K3/K4 over q8_0 launched K5 "
+                                     f"{kq.launches - before} times, want "
+                                     f"one a step")
             rows = slice(887, 947)
             checks.record(kname, name, "K4 K/V rows of 60 steps",
                           max(max_err(kc[:, rows], kc2[:, rows]),
                               max_err(vc[:, rows], vc2[:, rows])))
             log(f"  K3 (16 steps) and K4 (60 steps) over q8_0: tokens "
-                f"equal, f32")
+                f"and flags equal, one K5 launch a step, f32")
         del sem_q, coarse_q
         torch.cuda.empty_cache()
+
+
+def k5_step_record(sem_cfg, sem_q, coarse_cfg, coarse_q, lmw, kc, vc, gen):
+    """K5's persistent step on a bf16 q4_0 qpack at bark-small, as
+    `k1_step_record` holds K1's: the device kernels one call runs
+    (asserted 1, bf16 and int8 cache), its ms at n_past 0/300/1023 beside
+    the bound and the 62-launch chain's earlier 0.474 ms, the coarse step
+    over the window, where a stamped step's time goes (`stamped_phases`),
+    and the bytes of its records."""
+    import torch
+
+    from bark_tpu_torch.kernels import _build
+    from bark_tpu_torch.kernels import decode as kdec
+
+    dev = kc.device
+    tok = torch.tensor([4321], dtype=torch.int32, device=dev)
+    out = torch.empty(sem_cfg.n_out_vocab, dtype=torch.float32, device=dev)
+    w = _build.stage_qweights(sem_cfg, sem_q)
+    plan, _ = kdec.device_plan(w, None)
+    kdec.step_qtiles(w, sem_q)
+    tiled = w.memo("step_qtiles", dict)["tiled"]
+    k8, v8 = kv8_cache(sem_cfg, 300, gen)
+    kernels = {
+        "bf16 cache": device_kernels(lambda: kdec.decode_step_fused(
+            sem_cfg, sem_q, tok, kc, vc, 300, out=out)),
+        "int8 cache": device_kernels(lambda: kdec.decode_step_fused(
+            sem_cfg, sem_q, tok, k8, v8, 300, out=out)),
+    }
+    for what, names in kernels.items():
+        log(f"  {K5}[q4_0] bf16 device kernels per call ({what}): "
+            f"{len(names)} {sorted(set(names))}")
+        if len(names) != 1:
+            raise AssertionError(f"K5 ran {len(names)} device kernels a "
+                                 f"step ({what}), want 1: {names}")
+    rec = dict(blocks=plan.n_blocks, barriers=plan.n_barriers,
+               device_kernels_per_call=len(kernels["bf16 cache"]),
+               kernel_name=kernels["bf16 cache"][0],
+               records_bytes=sum(t.numel() for t in tiled),
+               records_bytes_lm=tiled[-1].numel(), steps={})
+    log(f"  {K5}[q4_0] grid {plan.n_blocks} blocks, {plan.n_barriers} "
+        f"barriers; records {rec['records_bytes']} bytes (LM head "
+        f"{rec['records_bytes_lm']})")
+    del k8, v8
+    for n_past in (0, 300, 1023):
+        ms = cuda_ms(lambda: kdec.decode_step_fused(
+            sem_cfg, sem_q, tok, kc, vc, n_past, out=out), 50)
+        b_ms, _ = bound(decode_cost(sem_cfg, sem_q, n_past), "bfloat16")
+        rec["steps"][f"semantic n_past {n_past}"] = dict(ms=ms, bound_ms=b_ms)
+        log(f"  {K5}[q4_0] bf16 step at n_past {n_past:4d}: {ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({100 * b_ms / ms:.1f}%); the 62-launch "
+            f"chain {K5_EARLIER_MS} ms at n_past 300")
+    ck, cv = filled_cache(coarse_cfg, 887, torch.bfloat16, gen)
+    cout = torch.empty(coarse_cfg.n_out_vocab, dtype=torch.float32,
+                       device=dev)
+    ms = cuda_ms(lambda: kdec.decode_step_fused(
+        coarse_cfg, coarse_q, tok, ck, cv, 887, lm_window=lmw, out=cout), 50)
+    b_ms, _ = bound(decode_cost(coarse_cfg, coarse_q, 887, lmw), "bfloat16")
+    rec["steps"]["coarse n_past 887 lm_window"] = dict(ms=ms, bound_ms=b_ms)
+    log(f"  {K5}[q4_0] bf16 coarse step at n_past 887, window: {ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms")
+    del ck, cv
+    rec["phases_us"] = stamped_phases(
+        plan, lambda stamps: kdec.decode_step_fused(
+            sem_cfg, sem_q, tok, kc, vc, 300, out=out, stamps=stamps))
+    log_phases(f"{K5}[q4_0] bf16", rec["phases_us"])
+    return rec
 
 
 def filled_batched_cache(cfg, B: int, rows: int, dtype, gen):
@@ -1062,7 +1219,7 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
 def qbatched_kernel_checks(checks: Checks, dtype, timed: bool):
     """Phase 2 for K5-batched (K7's step on packed weights), one dtype:
     against its plain version (models.gpt on the same qpack, lane by lane)
-    for every format of QFORMATS at B 1/3/8/32 with n_past cycling
+    for every format of K5B_FORMATS at B 1/3/8/32 with n_past cycling
     0/300/1023, on the full head and on the coarse window; on a q4_0 qpack
     also K9 (16 steps of 8 lanes) and K10 (60 steps of 8 lanes, 12 of 32)
     in f32, tokens and flags equal, and the step on int8 caches at B 8 and
@@ -1103,7 +1260,7 @@ def qbatched_kernel_checks(checks: Checks, dtype, timed: bool):
                                  "K5-batched alone")
         return out
 
-    for fmt in QFORMATS:
+    for fmt in K5B_FORMATS:
         kname = f"{K5B}[{fmt}]"
         sem_q = random_qpack(sem_cfg, fmt, dtype, gen, dev)
         coarse_q = random_qpack(coarse_cfg, fmt, dtype, gen, dev)
@@ -3109,9 +3266,11 @@ def main() -> int:
         raise AssertionError("the packed path launched the dense K1")
     k5_launches = {"q4_0": q_counts["qdecode"]}
     del stages
-    for fmt in ("q8_0", "q4_1", "q4_k"):
+    for fmt in ("q8_0", "q4_1", "q4_k", "q5_0"):
         _, c = bark_small_requests(bark_small_stages(fmt), 1, fmt,
                                    packed_need)
+        if c["decode"] != 0:
+            raise AssertionError(f"the {fmt} path launched the dense K1")
         k5_launches[fmt] = c["qdecode"]
     torch.cuda.empty_cache()
     log(f"phase 4c: bark-small batched requests, B in {BATCHES}")
@@ -3250,6 +3409,8 @@ def main() -> int:
         )
         if name == "decode_step_fused":
             row.update(checks.k1_step)
+        if name == f"{K5}[q4_0]":
+            row.update(checks.k5_step)
         if (key, "float32") in checks.kv8_flips:
             row["int8_flips"] = {d: checks.kv8_flips[(key, d)]
                                  for d in ("float32", "bfloat16")}
@@ -3316,7 +3477,9 @@ def main() -> int:
                                      sorted(checks.kv8_flips.items())})))
     print(json.dumps({"k1_step": dict(
         card=smi, chain_ms_at_300_quoted_from_perf_md=K1_EARLIER_MS,
-        **checks.k1_step)}))
+        **checks.k1_step, k5_q4_0=dict(
+            chain_ms_at_300_quoted_from_perf_md=K5_EARLIER_MS,
+            **checks.k5_step))}))
     print(json.dumps({"dma_probe": dict(card=smi, **dma_record)}))
     print(json.dumps({"cache_probe": cache_record}))
     print(json.dumps({"lowering_probe": lowering_record}))

@@ -5,9 +5,13 @@ sums in another order). K1, one cooperative launch a step, also at
 bark-small's width (12 heads of 64) with 1024 slots: n_past 0/300/1023,
 full head and coarse window, f32 and bf16, dense and int8 caches,
 bit-equal from run to run, 60 queued steps equal to 60 synced ones, and
-K3/K4 over it token-equal to their plain versions. K5, the packed step, and K5-batched, the packed
-batched step (with K9 and K10 over it), run on qpacks loaded from
-sections quantized in q8_0, q4_0, q4_1, q5_1 and q4_k. K6, the int8 KV
+K3/K4 over it token-equal to their plain versions. K5, the packed step
+(the same persistent kernel on its packed weight read), and K5-batched,
+the packed batched step (with K9 and K10 over it), run on qpacks loaded
+from sections quantized in q8_0, q4_0, q4_1, q5_1 and q4_k; K5 also at
+bark-small's width on random qpacks of the four scale forms (f16, f16 +
+mins, f32, f32 + mins), f32 and bf16, bf16 and int8 caches, bit-equal
+from run to run and stamped. K6, the int8 KV
 cache inside K1/K5/K7 and K2/K8, is held to its plain version (the same
 functions on the int8 caches of `gpt.init_kv_cache(quant=True)`) within
 3e-3 on the logits and one int8 step on rare cache values. D1-D5, the
@@ -303,21 +307,21 @@ def test_queued_steps_rearm_the_barrier(dev, k1_params):
 
 
 def test_persistent_step_stamps(dev, k1_params):
-    """A stamped step gives the unstamped step's logits; block 0's clock
-    readings run forward and split into the phases."""
+    """A stamped step gives the unstamped step's logits; every block's
+    clock readings run forward and split into the phases."""
     p = k1_params[torch.bfloat16]
     kc, vc = _k1_caches(dev, torch.bfloat16, 300, False)
     plan, _ = kdec.device_plan(_build.stage_weights(K1_CFG, p), None)
-    stamps = torch.zeros(2 * plan.n_barriers + 3, dtype=torch.int64,
-                         device=dev)
+    stamps = kdec.step_stamps(plan, dev)
     a = kdec.decode_step_fused(K1_CFG, p, 17, _clone(kc), _clone(vc), 300)
     b = kdec.decode_step_fused(K1_CFG, p, 17, _clone(kc), _clone(vc), 300,
                                stamps=stamps)
     assert torch.equal(a, b)
-    t = stamps.tolist()
-    assert all(x <= y for x, y in zip(t, t[1:])) and t[-1] > t[0]
+    for t in stamps.tolist():  # every block's row
+        assert all(x <= y for x, y in zip(t, t[1:])) and t[-1] > t[0]
     us = kdec.step_phases_us(plan, stamps)
     assert us["step"] > 0 and plan.n_barriers == 4 * K1_CFG.n_layer
+    assert kdec.step_critical_us(plan, stamps)["step"] >= us["step"]
 
 
 def test_persistent_chunk_and_window_tokens(dev, k1_params):
@@ -456,6 +460,124 @@ def test_packed_kernel_follows_a_replaced_tensor(dev, qpack):
     out = kdec.decode_step_fused(QCFG, p, 17, kc, vc, 0)
     ref = kdec.decode_step_plain(QCFG, p, 17, kc2, vc2, 0)
     torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
+
+
+# K5 at bark-small's width (K1_CFG): random qpacks of each scale form
+QFORMS = {"f16": (torch.float16, False), "f16-mins": (torch.float16, True),
+          "f32": (torch.float32, False), "f32-mins": (torch.float32, True)}
+
+
+def _random_qpack(cfg, dtype, form, gen):
+    """A qpack at cfg's widths drawn on the card, in the layout of
+    io.loader's gpt_qparams_from_section: values in [-7, 7] ([0, 15] with
+    mins centring each block), per-block scales near 0.02 / std(values),
+    so weights are ~N(0, 0.02); dense leaves in `dtype`, biases and LN
+    affines off their defaults; the v_pad columns of the LM head zero."""
+    sdt, has_min = QFORMS[form]
+    dev = gen.device
+    L, D, V = cfg.n_layer, cfg.n_embd, cfg.n_out_vocab
+    qlo, qhi = (0, 15) if has_min else (-7, 7)
+    base = 0.02 / (((qhi - qlo + 1) ** 2 - 1) / 12) ** 0.5
+
+    def randn(*shape, scale=0.02):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    def packed(tree, key, shape, sshape):
+        tree[key + "_q"] = torch.randint(qlo, qhi + 1, shape, generator=gen,
+                                         device=dev, dtype=torch.int32).to(
+            torch.int8)
+        s = base * (0.5 + torch.rand(sshape, generator=gen, device=dev))
+        tree[key + "_s"] = s.to(sdt)
+        if has_min:
+            tree[key + "_m"] = (-0.5 * (qlo + qhi) * s).to(sdt)
+
+    blocks = {}
+    for k in ("ln1", "ln2"):
+        blocks[k + "_g"] = 1.0 + randn(L, D)
+        blocks[k + "_b"] = randn(L, D)
+    for key, (k, n) in {"qkv": (D, 3 * D), "proj": (D, D),
+                        "fc": (D, 4 * D), "out": (4 * D, D)}.items():
+        packed(blocks, key, (L, k, n), (L, k // 32, n))
+        blocks[key + "_b"] = randn(L, n)
+    qp = {"wpe": randn(cfg.block_size, D), "ln_f_g": 1.0 + randn(D),
+          "ln_f_b": randn(D), "blocks": blocks}
+    packed(qp, "wte", (1, cfg.n_in_vocab, D), (1, cfg.n_in_vocab, D // 32))
+    v_pad = -(-V // D) * D
+    packed(qp, "lm", (D, v_pad), (D // 32, v_pad))
+    for k in ("lm_q", "lm_s", "lm_m"):
+        if k in qp:
+            qp[k][:, V:] = 0
+    return qp
+
+
+@pytest.fixture(scope="module")
+def k5_qpacks(dev):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    return {(form, dtype): _random_qpack(K1_CFG, dtype, form, gen)
+            for form in QFORMS for dtype in (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("win", [None, K1_WIN], ids=["head", "window"])
+@pytest.mark.parametrize("n_past", [0, 300, 1023])
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("form", list(QFORMS))
+def test_packed_persistent_decode_step(dev, k5_qpacks, form, dtype, cache,
+                                       n_past, win):
+    """One launch of the persistent kernel on the packed read, against
+    the plain version, with test_persistent_decode_step's tolerances."""
+    from bark_tpu_torch.kernels import qdecode
+
+    p, quant = k5_qpacks[(form, dtype)], cache == "int8"
+    kc, vc = _k1_caches(dev, dtype, n_past, quant)
+    kc2, vc2 = _clone(kc), _clone(vc)
+    before, dense_before = qdecode.launches, kdec.launches
+    out = kdec.decode_step_fused(K1_CFG, p, 17, kc, vc, n_past,
+                                 lm_window=win)
+    torch.cuda.synchronize()
+    assert qdecode.launches == before + 1 and kdec.launches == dense_before
+    ref = kdec.decode_step_plain(K1_CFG, p, 17, kc2, vc2, n_past, win)
+    if dtype == torch.bfloat16:
+        tol = 1e-1
+    else:
+        tol = (5e-2 if n_past == 0 else KV8_ATOL) if quant else ATOL
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    if win is not None:
+        assert not out[:win[0]].any() and not out[win[1]:].any()
+    row = slice(n_past, n_past + 1)
+    for a, b in ((kc, kc2), (vc, vc2)):
+        if quant and dtype == torch.float32:
+            _kv8_close({k: t[:, row] for k, t in a.items()},
+                       {k: t[:, row] for k, t in b.items()})
+        elif quant:  # dequantized, as test_persistent_decode_step
+            torch.testing.assert_close(
+                a["q"][:, row].float() * a["s"][:, row, None],
+                b["q"][:, row].float() * b["s"][:, row, None],
+                rtol=0, atol=tol)
+        else:
+            torch.testing.assert_close(a[:, row].float(), b[:, row].float(),
+                                       rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("form", list(QFORMS))
+def test_packed_step_is_bit_equal_run_to_run_and_stamped(dev, k5_qpacks,
+                                                         form):
+    """The packed plan's fixed fold order gives the same bits twice; a
+    stamped step gives the same logits, its clock running forward."""
+    p = k5_qpacks[(form, torch.bfloat16)]
+    kc, vc = _k1_caches(dev, torch.bfloat16, 300, False)
+    plan, _ = kdec.device_plan(_build.stage_qweights(K1_CFG, p), None)
+    assert plan.packed and plan.n_barriers == 4 * K1_CFG.n_layer
+    stamps = kdec.step_stamps(plan, dev)
+    runs = [kdec.decode_step_fused(K1_CFG, p, 17, _clone(kc), _clone(vc),
+                                   300, stamps=st)
+            for st in (None, None, stamps)]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    for t in stamps.tolist():
+        assert all(x <= y for x, y in zip(t, t[1:])) and t[-1] > t[0]
+    assert kdec.step_critical_us(plan, stamps)["step"] > 0
 
 
 def test_packed_wrapper_refuses_what_the_kernel_does_not_take(dev, qpack):

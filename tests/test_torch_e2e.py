@@ -7,7 +7,12 @@ temp 0.7 the port is fed the Gumbel noise bark_tpu draws from its keys,
 following its key schedule (context._next_key: semantic, coarse, fine;
 the semantic loop's split(key, max_steps); the coarse stage's per-window
 split then split(sub, sws); the fine stage's per-block and per-codebook
-splits), and the tokens must again be equal. Audio within 1e-4."""
+splits), and the tokens must again be equal. Audio within 1e-4. What the
+two print to stderr is equal too: at Verbosity.LOW (every run here) the
+prompt and its token count, at MEDIUM the three hparams lines at load."""
+
+import contextlib
+import io
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +23,7 @@ import torch
 import bark_tpu
 import bark_tpu_torch
 from bark_tpu.io import ggml
+from bark_tpu.params import Verbosity
 
 from tiny_model import build_tiny_model, tiny_params
 
@@ -86,29 +92,42 @@ def weights(tmp_path_factory):
     return path
 
 
+def stderr_of(fn):
+    """(fn()'s result, what it printed to stderr)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
 @pytest.fixture(scope="module", params=[0.0, 0.7], ids=["temp0", "temp0.7"])
 def both(request, weights):
+    """(bark_tpu's context, the port's, {package: its generate's stderr})
+    after one generate each."""
     temp = request.param
     p = tiny_params(temp=temp, fine_temp=0.5 if temp else 0.0)
     jctx = bark_tpu.bark_load_model(weights, p, seed=0)
-    assert bark_tpu.bark_generate_audio(jctx, TEXT)
+    ok, jerr = stderr_of(lambda: bark_tpu.bark_generate_audio(jctx, TEXT))
+    assert ok
     tctx = bark_tpu_torch.bark_load_model(weights, p, seed=0, device="cpu")
     tctx.noise_source = replay_bark_tpu_noise(0)
-    assert bark_tpu_torch.bark_generate_audio(tctx, TEXT)
-    return jctx, tctx
+    ok, terr = stderr_of(lambda: bark_tpu_torch.bark_generate_audio(tctx,
+                                                                     TEXT))
+    assert ok
+    return jctx, tctx, {"bark_tpu": jerr, "port": terr}
 
 
 @pytest.mark.parametrize("stage", ["semantic_tokens", "coarse_tokens",
                                    "fine_tokens"])
 def test_tokens_equal(both, stage):
-    jctx, tctx = both
+    jctx, tctx, _ = both
     j, t = getattr(jctx, stage), getattr(tctx, stage)
     assert j.shape == t.shape and j.size > 0
     np.testing.assert_array_equal(t, j)
 
 
 def test_audio_matches(both):
-    jctx, tctx = both
+    jctx, tctx, _ = both
     j = bark_tpu.bark_get_audio_data(jctx)
     t = bark_tpu_torch.bark_get_audio_data(tctx)
     assert bark_tpu_torch.bark_get_audio_data_size(tctx) == j.size
@@ -118,7 +137,7 @@ def test_audio_matches(both):
 
 
 def test_statistics_and_getters(both):
-    _, tctx = both
+    _, tctx, _ = both
     s = tctx.stats
     assert s.n_sample_semantic == tctx.semantic_tokens.size
     assert s.n_sample_coarse == tctx.coarse_tokens.size
@@ -128,6 +147,34 @@ def test_statistics_and_getters(both):
     bark_tpu_torch.bark_reset_statistics(tctx)
     assert bark_tpu_torch.bark_get_eval_time(tctx) == 0
     assert bark_tpu_torch.bark_get_load_time(tctx) > 0
+
+
+def test_stderr_equals_bark_tpus_at_low(both):
+    """Verbosity.LOW, the default: the prompt, then its token count and
+    first 8 tokens (bark_tpu/api/context.py generate_audio)."""
+    jctx, tctx, err = both
+    assert err["port"] == err["bark_tpu"]
+    head = " ".join(str(t) for t in tctx.tokens[:8])
+    assert err["port"].splitlines() == [
+        f"bark_tokenize_input: prompt: '{TEXT}'",
+        f"bark_tokenize_input: number of tokens in prompt = "
+        f"{len(tctx.tokens)}, first 8 tokens: {head}",
+    ]
+    assert np.array_equal(tctx.tokens, jctx.tokens)
+
+
+def test_stderr_equals_bark_tpus_at_medium(weights):
+    """Verbosity.MEDIUM adds one hparams line per GPT stage at load."""
+    p = tiny_params(verbosity=Verbosity.MEDIUM)
+    _, jerr = stderr_of(lambda: bark_tpu.bark_load_model(weights, p, seed=0))
+    _, terr = stderr_of(lambda: bark_tpu_torch.bark_load_model(
+        weights, p, seed=0, device="cpu"))
+    assert terr == jerr
+    lines = terr.splitlines()
+    assert [line.split(":")[0] for line in lines] == [
+        f"bark_model_load ({name})" for name in ("semantic", "coarse",
+                                                 "fine")]
+    assert all("n_embd=32" in line for line in lines)
 
 
 def test_own_noise_is_seeded(weights):
