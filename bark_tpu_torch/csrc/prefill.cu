@@ -8,27 +8,63 @@
 // attention -> proj + residual -> LN2 -> fc -> tanh-GELU -> out + residual],
 // then ln_f and the LM head of row n_valid-1 over [lo, hi) (K1's kernel).
 //
-// What bounds it: at T = 257 (the semantic prompt) or up to 887 (a coarse
-// re-prime) the four projections are GEMMs of about 2*T*D*12D FLOPs a
-// layer against 12*D*D weights: at T ~ 900 that is ~450 FLOPs per weight
-// byte in bf16, above the ridge, so the projections are bound by
-// arithmetic; attention (T^2/2 * D * 4 FLOPs a layer) is small beside
-// them.
+// What bounds it at the rows a request prefills: the semantic prompt is
+// 257 rows and the coarse windows re-prime 257 to 617 (887 only from a
+// longer request's twelfth window). A layer's four projections are
+// 24 M D^2 flops against 12 D^2 weights: at M 257 that is 257 flops a
+// weight byte in bf16, at the card's ridge (~295), so streaming the 170 MB
+// of weights and the tensor cores' rate bound them alike; and at such M a
+// projection is one wave of small tiles, so a tile's latency (its pipeline
+// fill, its epilogue) counts as much as the rate. Causal attention
+// (2 M^2 D flops a layer) is a tenth of the projections at M 887, but on
+// CUDA-core f32 FMAs it took a quarter of K2 at M 617.
 //
-// What the design does about it: one tiled GEMM (64x64 output tiles, 32
-// deep), templated on the params dtype with f32 accumulate: bf16 goes
-// through the tensor cores with WMMA (16x16x16 fragments, 4 warps of 32x32
-// each), f32 through a SIMT outer-product loop (each thread 4x8 outputs,
-// exact f32 products as the reference computes them). The epilogue rounds,
-// adds the bias, and then applies GELU, a residual add in place, or (for
-// QKV) writes q to scratch and k, v straight into the cache rows. Only the
-// n_valid live rows are computed at all: rows past n_valid are dead to
-// every later reader. Attention is one block per (head, 16 query rows):
-// K tiles through shared memory for the scores, an f32 softmax per row
-// whose weights are rounded to T before the V product (as the reference
-// does), V tiles through shared memory for the context. Not yet done:
-// wgmma/TMA pipelines, fusing LN into the GEMM prologue, a flash-style
-// single pass.
+// The design, bf16 (every bf16 prefill on a CUDA tensor; nothing falls
+// back):
+// - GEMM, `gemm_tma_kernel`: C = A (M, K) row-major activations @ B (K, N)
+//   row-major weights, read in place (no second copy). One producer warp
+//   issues TMA boxes with 128-byte swizzling, A as 64 rows x 64 K and B as
+//   64 K x 64 N of layer l (3-D maps over the (L, K, N) stacks), into a
+//   ring of WG_STAGES stages, each with a full and an empty mbarrier; one
+//   consumer warpgroup runs wgmma m64n64k16 on them (B MN-major, through
+//   the transpose bit) into f32 registers, one group in flight while the
+//   next stage's is issued. Tiles are 64 rows x 64 or 128 columns; proj and
+//   out (N = D) may split K 2 or 4 ways so that a request's M fills the
+//   card (`kernels/prefill.py` `gemm_plan` decides). The grid is the
+//   blocks the card holds at once, each walking the (tile, split) work
+//   items in turn, so that a block's producer loads the next item while
+//   its consumers run the last one's epilogue. Split partials go to f32
+//   scratch and the tile's last block to finish (a ticket counter) folds
+//   them in split order 0, 1, ... before the epilogue: the same bits every
+//   run. TMA fills zeros past row M; rows >= M are never written.
+//   The weights' tensor maps are encoded once per stage
+//   (`bark_prefill_weight_maps`, kept by the wrapper), the activations'
+//   once per call (they depend on M), by the driver's
+//   cuTensorMapEncodeTiled reached through the runtime, so the library
+//   links no libcuda.
+// - attention, `attn_prefill_tc_kernel`: one block of 8 warps per (head,
+//   64 query rows), on the tensor cores (mma.sync m16n8k16, ldmatrix): 16
+//   rows a warp, over the even or the odd key tiles. The query tile and
+//   every key row it can see are staged in shared memory once, a pair of
+//   key tiles a cp.async group, the first pass starting on the first pair
+//   while the rest arrive; two passes over the keys (the causal mask
+//   applied only on tiles that reach past a warp's first row): the first
+//   gives each row's max and sum of exp(s - max) (the sum rescaled as the
+//   max grows), the second the weights exp(s - max) / sum, rounded to
+//   bf16, times V (V tiles double-buffered by cp.async), the halves
+//   meeting in shared memory in a fixed order. So
+//   the weights are normalised before the V product, as the reference's:
+//   no unnormalised weights are rescaled. A warp skips key tiles past its
+//   last row; the longest query tiles are launched first.
+// The epilogue, both dtypes (the reference's prefill.py:484-487,
+// :521-523, :533-537, :541-548): the f32 sum rounded to T, + bias rounded,
+// then q to scratch and k, v to their cache rows (or to kv_rows for K6b),
+// tanh-GELU rounded, or the residual added in place and rounded.
+//
+// f32 keeps exact f32 products, which the tensor cores do not give (TF32
+// would break the f32 contract): a SIMT GEMM (64 x 64 tiles, 4 x 8 outputs
+// a thread) and the scalar attention (a block per head and 16 query rows).
+// The dtype alone picks the path.
 //
 // K8 stacks the B lanes' live rows into one M = sum(n_valid) row block, so
 // each projection is ONE GEMM whose weights stream once for every lane
@@ -36,9 +72,9 @@
 // read it from small host-built tables (`RowMap`): the embedding (which
 // x_emb row and position a stacked row has), the QKV epilogue (which cache
 // row of which lane's slab its k, v go to), and attention, whose query
-// tiles never straddle two lanes and each read their own lane's cache slab
-// and n_valid. The LM head is K7's batched head on each lane's last live
-// row.
+// tiles never straddle two lanes (64 rows for the tensor-core kernel, 16
+// for the others) and each read their own lane's cache slab and n_valid.
+// The LM head is K7's batched head on each lane's last live row.
 //
 // With int8 caches (K6) the QKV epilogue writes k, v in T to scratch, K6b
 // (`quant_rows_kernel`) quantizes each row into its cache row, one launch
@@ -46,32 +82,20 @@
 // package runs such a prefill in XLA; both compute models/gpt.py's int8
 // path. What bounds them: K6b moves ~3 bytes a K/V value, K6c reads int8
 // tiles; both are small beside the projections' GEMMs.
-#include <mma.h>
+#include <string.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int HD = 64;
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int GEMM_THREADS = 128;
 constexpr int LN_THREADS = 256;
-constexpr int QT = 16;  // query rows per attention block
+constexpr int QT = 16;  // query rows per scalar attention block
 constexpr int KT = 64;  // keys per shared tile
 constexpr int PA_THREADS = 256;
 
 enum { GE_QKV = 0, GE_GELU = 1, GE_RESID = 2 };
-
-// the row-major operand tiles of one k-step and the f32 output tile
-constexpr int A_LD16 = BK + 8;   // bf16 A tile row stride (elements)
-constexpr int B_LD16 = BN + 8;   // bf16 B tile row stride
-constexpr int A_LD32 = BM + 4;   // f32 A tile, stored k-major
-constexpr int B_LD32 = BN + 4;   // f32 B tile
-constexpr int C_LD = BN + 4;     // f32 output tile
-constexpr int GEMM_SMEM =
-    BK * A_LD32 * 4 + BK * B_LD32 * 4 + BM * C_LD * 4;  // f32 path, largest
 
 // Where each stacked row of a batched prefill (K8) comes from and goes to,
 // as device int32 tables; every pointer is null for K2's one lane (stacked
@@ -84,6 +108,7 @@ struct RowMap {
   const int* tiles;   // (n_tiles, 3): lane, first query row, lane's row 0
   const int* lane_n;  // (B,) live rows of each lane
   const int* last;    // (B,) stacked row of each lane's last live row
+  const int* tiles64; // (n_tiles64, 3): `tiles` for 64-row query tiles
 };
 
 template <typename T>
@@ -119,120 +144,776 @@ struct GemmOut {
   const int* slot;  // QKV: cache row of each stacked row (null: row m)
 };
 
-// C = A (M, K) @ B (K, N), both row-major in T, f32 accumulate; rows >= M
-// are neither read nor written. Requires K % BK == 0 and N % BN == 0.
+// The epilogue of output (m, n) from its f32 sum: rounded to T, + bias
+// rounded, then the q / k / v split, tanh-GELU, or the residual add.
 template <typename T, int EPI>
+__device__ __forceinline__ void epilogue(int m, int n, float acc,
+                                         const T* __restrict__ bias, int N,
+                                         const GemmOut& o) {
+  float v = round_t<T>(acc);
+  v = round_t<T>(v + to_f32(bias[n]));
+  if (EPI == GE_QKV) {
+    const int D = o.D, which = n / D, col = n % D;
+    const size_t row = which == 0 || o.slot == nullptr ? m : o.slot[m];
+    T* dst = which == 0 ? (T*)o.out : (which == 1 ? (T*)o.kc : (T*)o.vc);
+    dst[row * D + col] = from_f32<T>(v);
+  } else if (EPI == GE_GELU) {
+    ((T*)o.out)[(size_t)m * N + n] = from_f32<T>(round_t<T>(gelu_tanh(v)));
+  } else {
+    T* x = (T*)o.out;
+    x[(size_t)m * N + n] =
+        from_f32<T>(round_t<T>(to_f32(x[(size_t)m * N + n]) + v));
+  }
+}
+
+// ------------------------------------------------------------ f32 GEMM
+
+constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int GEMM_THREADS = 128;
+constexpr int A_LD32 = BM + 4;  // A tile, stored k-major
+constexpr int B_LD32 = BN + 4;
+
+// C = A (M, K) @ B (K, N), both row-major f32, exact f32 products, then
+// the epilogue; rows >= M are neither read nor written. Requires K % BK ==
+// 0 and N % BN == 0.
+template <int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS)
-    gemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                const T* __restrict__ bias, int M, int N, int K, GemmOut o) {
-  __shared__ __align__(128) unsigned char smem[GEMM_SMEM];
-  float* Cs = reinterpret_cast<float*>(smem + BK * A_LD32 * 4 +
-                                       BK * B_LD32 * 4);
+    gemm_simt_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                     const float* __restrict__ bias, int M, int N, int K,
+                     GemmOut o) {
+  __shared__ float As[BK * A_LD32];
+  __shared__ float Bs[BK * B_LD32];
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  if constexpr (sizeof(T) == 2) {
-    bf16* As = reinterpret_cast<bf16*>(smem);
-    bf16* Bs = reinterpret_cast<bf16*>(smem + BM * A_LD16 * 2 + 128);
-    const int warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-    for (int i = 0; i < 2; ++i)
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      // A tile 64x32 and B tile 32x64: 256 16-byte vectors each
-      for (int v = tid; v < BM * BK / 8; v += GEMM_THREADS) {
-        const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (m0 + r < M)
-          val = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * K + k0 + c);
-        *reinterpret_cast<uint4*>(As + r * A_LD16 + c) = val;
-      }
-      for (int v = tid; v < BK * BN / 8; v += GEMM_THREADS) {
-        const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-        *reinterpret_cast<uint4*>(Bs + r * B_LD16 + c) =
-            *reinterpret_cast<const uint4*>(B + (size_t)(k0 + r) * N + n0 + c);
-      }
-      __syncthreads();
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(af[i], As + (wm * 32 + i * 16) * A_LD16 + kk,
-                                 A_LD16);
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(bfr[j], Bs + kk * B_LD16 + wn * 32 + j * 16,
-                                 B_LD16);
-        for (int i = 0; i < 2; ++i)
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-      }
-      __syncthreads();
+  const int tx = tid % 8, ty = tid / 8;  // 8 x 8 columns, 16 x 4 rows
+  float acc[4][8];
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int v = tid; v < BM * BK / 4; v += GEMM_THREADS) {
+      const int r = v / (BK / 4), c = (v % (BK / 4)) * 4;
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m0 + r < M)
+        val = *reinterpret_cast<const float4*>(A + (size_t)(m0 + r) * K +
+                                               k0 + c);
+      As[(c + 0) * A_LD32 + r] = val.x;
+      As[(c + 1) * A_LD32 + r] = val.y;
+      As[(c + 2) * A_LD32 + r] = val.z;
+      As[(c + 3) * A_LD32 + r] = val.w;
     }
-    for (int i = 0; i < 2; ++i)
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16,
-                                acc[i][j], C_LD, wmma::mem_row_major);
-  } else {
-    float* As = reinterpret_cast<float*>(smem);              // [BK][A_LD32]
-    float* Bs = reinterpret_cast<float*>(smem + BK * A_LD32 * 4);  // [BK][B_LD32]
-    const int tx = tid % 8, ty = tid / 8;  // 8 x 8 columns, 16 x 4 rows
-    float acc[4][8];
-    for (int i = 0; i < 4; ++i)
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      for (int v = tid; v < BM * BK / 4; v += GEMM_THREADS) {
-        const int r = v / (BK / 4), c = (v % (BK / 4)) * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (m0 + r < M)
-          val = *reinterpret_cast<const float4*>(
-              reinterpret_cast<const float*>(A) + (size_t)(m0 + r) * K + k0 + c);
-        As[(c + 0) * A_LD32 + r] = val.x;
-        As[(c + 1) * A_LD32 + r] = val.y;
-        As[(c + 2) * A_LD32 + r] = val.z;
-        As[(c + 3) * A_LD32 + r] = val.w;
-      }
-      for (int v = tid; v < BK * BN / 4; v += GEMM_THREADS) {
-        const int r = v / (BN / 4), c = (v % (BN / 4)) * 4;
-        *reinterpret_cast<float4*>(Bs + r * B_LD32 + c) =
-            *reinterpret_cast<const float4*>(
-                reinterpret_cast<const float*>(B) + (size_t)(k0 + r) * N + n0 + c);
-      }
-      __syncthreads();
+    for (int v = tid; v < BK * BN / 4; v += GEMM_THREADS) {
+      const int r = v / (BN / 4), c = (v % (BN / 4)) * 4;
+      *reinterpret_cast<float4*>(Bs + r * B_LD32 + c) =
+          *reinterpret_cast<const float4*>(B + (size_t)(k0 + r) * N + n0 + c);
+    }
+    __syncthreads();
 #pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[4], b[8];
-        for (int i = 0; i < 4; ++i) a[i] = As[kk * A_LD32 + ty * 4 + i];
-        for (int j = 0; j < 8; ++j) b[j] = Bs[kk * B_LD32 + tx * 8 + j];
-        for (int i = 0; i < 4; ++i)
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], b[8];
+      for (int i = 0; i < 4; ++i) a[i] = As[kk * A_LD32 + ty * 4 + i];
+      for (int j = 0; j < 8; ++j) b[j] = Bs[kk * B_LD32 + tx * 8 + j];
+      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    for (int i = 0; i < 4; ++i)
+    __syncthreads();
+  }
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m < M)
       for (int j = 0; j < 8; ++j)
-        Cs[(ty * 4 + i) * C_LD + tx * 8 + j] = acc[i][j];
+        epilogue<float, EPI>(m, n0 + tx * 8 + j, acc[i][j], bias, N, o);
+  }
+}
+
+// ------------------------------------------------------------ bf16 GEMM
+
+constexpr int WG_BK = 64;         // K a stage: one 128-byte row of A's box
+constexpr int WG_STAGES = 4;
+constexpr int WG_BOX = WG_BK * 64 * 2;  // a 64 x 64 box (A rows or B columns)
+
+// A tile of BT x BT outputs (BT 64 or 128) has BT / 64 consumer
+// warpgroups (64 rows each) and a producer warp; its epilogue stages the
+// rounded tile in shared memory, rows of BT + 8 bf16.
+__host__ __device__ constexpr int tma_threads(int bt) {
+  return bt / 64 * 128 + 32;
+}
+__host__ __device__ constexpr int tma_stage_bytes(int bt) {
+  return 2 * (bt / 64) * WG_BOX;
+}
+// the ring, the epilogue tile, 2 x WG_STAGES mbarriers, slack to align the
+// ring to 1024
+__host__ __device__ constexpr int tma_smem_bytes(int bt) {
+  return WG_STAGES * tma_stage_bytes(bt) + bt * (bt + 8) * 2 +
+         16 * WG_STAGES + 1024;
+}
+
+struct TmaGemm {
+  const bf16* bias;  // (N,), this layer's
+  int M, N;
+  int layer;         // B's outermost coordinate
+  int k_tiles;       // WG_BK-deep stages a split
+  int tiles_n;       // column tiles
+  int tiles;         // output tiles
+  int items;         // (split, row tile, column tile) work items
+  float* part;       // (splits, M, N) f32 partials when K is split, else null
+  int* tickets;      // a counter an output tile, 0 between launches
+  GemmOut o;
+};
+
+// Work item w of a GEMM: column tile, row tile, K split (the column tile
+// runs fastest, so blocks side by side share an A box in the L2).
+struct Item {
+  int tile, n0, m0, split;
+};
+
+__device__ __forceinline__ Item gemm_item(const TmaGemm& g, int w, int bt) {
+  const int t = w % g.tiles;
+  return {t, (t % g.tiles_n) * bt, (t / g.tiles_n) * bt, w / g.tiles};
+}
+
+// a barrier among the 128 threads of consumer warpgroup wg
+__device__ __forceinline__ void wg_barrier(int wg) {
+  if (wg == 0)
+    named_barrier<2>(128);
+  else
+    named_barrier<3>(128);
+}
+
+// A persistent block walks the work items blockIdx.x, + gridDim.x, ...: a
+// BT x BT output tile over one K split each. The producer warp (the last
+// warp, one thread issuing) first asks for its first item's weight boxes
+// in the L2 (a layer's weights are cold: they come from device memory
+// once, the activations were just written), then streams the boxes
+// through the ring, running ahead into the next item while the consumer
+// warpgroups (64 rows each, sharing B's boxes) finish one: K / 16 wgmma
+// steps a stage into f32 registers, then the epilogue, or, when K is
+// split, a stored partial and, in the tile's last block to finish, the
+// fold. The epilogue (epilogue()'s arithmetic) rounds the sum, adds the
+// bias and rounds into a shared-memory tile, then each warpgroup's threads
+// take 16-byte runs of its rows: GELU, the residual (read 16 bytes at a
+// time) or the q / k / v row, stored 16 bytes at a time. A QKV tile never
+// straddles q, k and v (D is a multiple of BT).
+template <int EPI, int BT>
+__global__ void __launch_bounds__(tma_threads(BT), 1)
+    gemm_tma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                    const __grid_constant__ CUtensorMap tm_b, TmaGemm g) {
+  constexpr int WGS = BT / 64, NJ = BT / 64, CONSUMERS = 128 * WGS;
+  constexpr int STAGE = tma_stage_bytes(BT), B_OFF = WGS * WG_BOX;
+  constexpr int E_LD = BT + 8;
+  extern __shared__ unsigned char dsm[];
+  __shared__ int last;
+  // 128-byte swizzled boxes want 1024-byte aligned tiles
+  unsigned char* ring = dsm + ((1024 - (smem_addr(dsm) & 1023)) & 1023);
+  bf16* epi = reinterpret_cast<bf16*>(ring + WG_STAGES * STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + BT * E_LD);
+  uint64_t* empty = full + WG_STAGES;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
+  if (tid >= CONSUMERS) {
+    if (tid == CONSUMERS) {
+      int it = 0;  // stages issued by this block
+      for (int w = blockIdx.x; w < g.items; w += gridDim.x) {
+        const Item t = gemm_item(g, w, BT);
+        const int k0 = t.split * g.k_tiles * WG_BK;
+        if (w == (int)blockIdx.x)  // the first item: its weights are cold
+          for (int i = 0; i < g.k_tiles; ++i)
+            for (int j = 0; j < NJ; ++j)
+              tma_prefetch_3d(&tm_b, t.n0 + 64 * j, k0 + i * WG_BK, g.layer);
+        for (int i = 0; i < g.k_tiles; ++i, ++it) {
+          const int s = it % WG_STAGES;
+          if (it >= WG_STAGES)
+            mbar_wait(&empty[s], (it / WG_STAGES - 1) & 1);
+          unsigned char* st = ring + s * STAGE;
+          const int k = k0 + i * WG_BK;
+          mbar_expect_tx(&full[s], STAGE);
+          for (int c = 0; c < WGS; ++c)
+            tma_load_2d(st + c * WG_BOX, &tm_a, k, t.m0 + 64 * c, &full[s]);
+          for (int j = 0; j < NJ; ++j)
+            tma_load_3d(st + B_OFF + j * WG_BOX, &tm_b, t.n0 + 64 * j, k,
+                        g.layer, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+  // register 4 n8 + 2 h + e of acc[j]: row 64 wg + 16 warp + lane / 4 +
+  // 8 h, column 64 j + 8 n8 + 2 (lane % 4) + e of the tile
+  const int wg = tid >> 7, wtid = tid & 127, warp = wtid >> 5,
+            lane = tid & 31;
+  const int lc = 2 * (lane & 3);
+  const size_t slab = (size_t)g.M * g.N;
+  const int splits = g.items / g.tiles;
+  const GemmOut& o = g.o;
+  bf16* rows_s = epi + 64 * wg * E_LD;  // this warpgroup's rows of the tile
+  int it = 0;  // stages consumed by this block
+  for (int w = blockIdx.x; w < g.items; w += gridDim.x) {
+    const Item t = gemm_item(g, w, BT);
+    float acc[NJ][32];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int r = 0; r < 32; ++r) acc[j][r] = 0.0f;
+    for (int i = 0; i < g.k_tiles; ++i, ++it) {
+      const int s = it % WG_STAGES;
+      mbar_wait(&full[s], (it / WG_STAGES) & 1);
+      const unsigned char* st = ring + s * STAGE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk) {
+        const uint64_t da =
+            wgmma_desc_sw128(st + wg * WG_BOX + 32 * kk, 16, 1024);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          wgmma_m64n64k16_tb(
+              acc[j], da,
+              wgmma_desc_sw128(st + B_OFF + j * WG_BOX + 2048 * kk, 1024,
+                               1024));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's group is done with its tiles
+      if (i > 0) mbar_arrive(&empty[(it - 1) % WG_STAGES]);
+    }
+    wgmma_wait<0>();
+    mbar_arrive(&empty[(it - 1) % WG_STAGES]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int r = 0; r < 32; ++r) fence_operand(acc[j][r]);
 
-  // epilogue: round, + bias, then GELU / residual / q-k-v split
-  for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
-    const int r = idx / BN, c = idx % BN;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    float v = round_t<T>(Cs[r * C_LD + c]);
-    v = round_t<T>(v + to_f32(bias[n]));
+    const int r_base = 16 * warp + (lane >> 2);  // and + 8: rows in the WG's 64
+    const int m_base = t.m0 + 64 * wg + r_base;
+    if (splits > 1) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m_base + 8 * h;
+            const int n = t.n0 + 64 * j + 8 * n8 + lc;
+            if (m < g.M)
+              *reinterpret_cast<float2*>(g.part + t.split * slab +
+                                         (size_t)m * g.N + n) =
+                  make_float2(acc[j][4 * n8 + 2 * h],
+                              acc[j][4 * n8 + 2 * h + 1]);
+          }
+      __threadfence();
+      named_barrier<1>(CONSUMERS);
+      if (tid == 0) {
+        last = atomicAdd(g.tickets + t.tile, 1) == splits - 1;
+        if (last) g.tickets[t.tile] = 0;  // every split is in: reusable
+      }
+      named_barrier<1>(CONSUMERS);
+      if (!last) continue;
+      __threadfence();
+    }
+    // the sums (the partials folded in split order), rounded, + bias,
+    // rounded, into the shared tile
+    wg_barrier(wg);  // the last item's runs are read
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float2 b[8];
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8)
+        b[n8] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            g.bias + t.n0 + 64 * j + 8 * n8 + lc));
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 64 * j + 8 * n8 + lc;
+          float2 v = make_float2(acc[j][4 * n8 + 2 * h],
+                                 acc[j][4 * n8 + 2 * h + 1]);
+          if (splits > 1 && m_base + 8 * h < g.M) {
+            const float* p = g.part + (size_t)(m_base + 8 * h) * g.N + t.n0 + c;
+            v = __ldcg(reinterpret_cast<const float2*>(p));
+            for (int z = 1; z < splits; ++z) {
+              const float2 u =
+                  __ldcg(reinterpret_cast<const float2*>(p + z * slab));
+              v.x += u.x;
+              v.y += u.y;
+            }
+          }
+          *reinterpret_cast<__nv_bfloat162*>(rows_s + (r_base + 8 * h) * E_LD +
+                                             c) =
+              __floats2bfloat162_rn(round_t<bf16>(v.x) + b[n8].x,
+                                    round_t<bf16>(v.y) + b[n8].y);
+        }
+    }
+    wg_barrier(wg);
+    // 16-byte runs of the warpgroup's rows: GELU, residual or q / k / v
+    int ld = g.N, col0 = t.n0, which = 0;
+    bf16* dst = (bf16*)o.out;
     if (EPI == GE_QKV) {
-      const int D = o.D, which = n / D, col = n % D;
-      const size_t row = which == 0 || o.slot == nullptr ? m : o.slot[m];
-      T* dst = which == 0 ? (T*)o.out : (which == 1 ? (T*)o.kc : (T*)o.vc);
-      dst[row * D + col] = from_f32<T>(v);
-    } else if (EPI == GE_GELU) {
-      ((T*)o.out)[(size_t)m * N + n] = from_f32<T>(round_t<T>(gelu_tanh(v)));
-    } else {
-      T* x = (T*)o.out;
-      x[(size_t)m * N + n] = from_f32<T>(round_t<T>(to_f32(x[(size_t)m * N + n]) + v));
+      which = t.n0 / o.D;
+      ld = o.D;
+      col0 = t.n0 - which * o.D;
+      if (which > 0) dst = (bf16*)(which == 1 ? o.kc : o.vc);
+    }
+    constexpr int RUNS = BT / 8;  // 16-byte runs a row
+    for (int idx = wtid; idx < 64 * RUNS; idx += 128) {
+      const int r = idx / RUNS, c = (idx % RUNS) * 8;
+      const int m = t.m0 + 64 * wg + r;
+      if (m >= g.M) continue;
+      uint4 u = *reinterpret_cast<const uint4*>(rows_s + r * E_LD + c);
+      size_t row = m;
+      if (EPI == GE_QKV && which > 0 && o.slot != nullptr) row = o.slot[m];
+      bf16* out = dst + row * ld + col0 + c;
+      if (EPI != GE_QKV) {
+        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+        uint4 xr;
+        if (EPI == GE_RESID) xr = *reinterpret_cast<const uint4*>(out);
+        const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xr);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float2 f = __bfloat1622float2(h2[e]);
+          if (EPI == GE_GELU) {
+            f.x = gelu_tanh(f.x);
+            f.y = gelu_tanh(f.y);
+          } else {
+            const float2 x = __bfloat1622float2(x2[e]);
+            f.x = x.x + f.x;
+            f.y = x.y + f.y;
+          }
+          h2[e] = __floats2bfloat162_rn(f.x, f.y);
+        }
+      }
+      *reinterpret_cast<uint4*>(out) = u;
     }
   }
+}
+
+// ------------------------------------------------------------ tensor maps
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found once through the runtime
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dims (innermost first; strides in bytes of
+// the outer ones) whose boxes are 64 x box1 (x 1) with 128-byte swizzling,
+// zeros outside the tensor. False if the driver refuses it.
+bool encode_bf16(CUtensorMap* map, const void* base, int rank,
+                 const cuuint64_t* dims, const cuuint64_t* strides,
+                 cuuint32_t box1) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t box[3] = {64, box1, 1}, elem[3] = {1, 1, 1};
+  return fn != nullptr && ((uintptr_t)base & 15) == 0 &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (M, K) row-major activations as {K, M}, boxes of 64 K x 64 rows
+bool encode_rows(CUtensorMap* map, const void* a, int M, int K) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  return encode_bf16(map, a, 2, dims, strides, 64);
+}
+
+// (L, K, N) row-major weights as {N, K, L}, boxes of 64 N x 64 K x 1
+bool encode_weights(CUtensorMap* map, const void* w, int L, int K, int N) {
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)L};
+  const cuuint64_t strides[2] = {(cuuint64_t)N * 2, (cuuint64_t)K * N * 2};
+  return encode_bf16(map, w, 3, dims, strides, WG_BK);
+}
+
+enum { P_QKV = 0, P_PROJ = 1, P_FC = 2, P_OUT = 3 };
+
+// What the bf16 GEMMs of one prefill call read: each projection's A map
+// (hb, ctx, hb, ff over M rows) and weight map, its tile and K splits
+// (`gemm_plan`), and the split-K scratch.
+struct TmaPlan {
+  CUtensorMap a[4];
+  CUtensorMap b[4];
+  int bt[4], splits[4];
+  float* part;
+  int* tickets;
+};
+
+// Fill `tp` for M rows: the weight maps from `wmaps`, the activations'
+// encoded, the plan ((tile, splits) a projection, in P_* order)
+// checked against the widths. False for a plan or a map the kernel does
+// not take.
+bool make_tma_plan(const BarkGPTWeights* w, const void* wmaps,
+                   const int* plan, float* part, int* tickets, int M,
+                   const void* hb, const void* ctx, const void* ff,
+                   TmaPlan* tp) {
+  const int D = w->n_embd;
+  const int nk[4][2] = {{3 * D, D}, {D, D}, {4 * D, D}, {D, 4 * D}};
+  if (wmaps == nullptr || plan == nullptr || tickets == nullptr) return false;
+  for (int g = 0; g < 4; ++g) {
+    const int bt = plan[2 * g], sp = plan[2 * g + 1];
+    const int N = nk[g][0], K = nk[g][1];
+    if ((bt != 64 && bt != 128) || N % bt || K % WG_BK ||
+        (sp != 1 && sp != 2 && sp != 4) || (K / WG_BK) % sp ||
+        (sp > 1 && part == nullptr))
+      return false;
+    tp->bt[g] = bt;
+    tp->splits[g] = sp;
+  }
+  memcpy(tp->b, wmaps, sizeof(tp->b));
+  tp->part = part;
+  tp->tickets = tickets;
+  if (!encode_rows(&tp->a[P_QKV], hb, M, D) ||
+      !encode_rows(&tp->a[P_PROJ], ctx, M, D) ||
+      !encode_rows(&tp->a[P_OUT], ff, M, 4 * D))
+    return false;
+  tp->a[P_FC] = tp->a[P_QKV];
+  return true;
+}
+
+template <int EPI, int BT>
+int launch_tma(const TmaPlan& tp, int g, const TmaGemm& args, int blocks,
+               cudaStream_t st) {
+  gemm_tma_kernel<EPI, BT><<<min(args.items, blocks), tma_threads(BT),
+                             tma_smem_bytes(BT), st>>>(tp.a[g], tp.b[g],
+                                                       args);
+  return (int)cudaGetLastError();
+}
+
+// Each gemm_tma_kernel instance's dynamic shared memory and resident
+// blocks on the card (its persistent grid), set and asked once a process
+// and device: tma_blocks[epilogue][64-row tile, 128-row tile].
+int tma_blocks[3][2];
+int tma_device = -1;
+
+template <int EPI, int BT>
+int set_tma_instance(int sms) {
+  const void* k = (const void*)gemm_tma_kernel<EPI, BT>;
+  int err = (int)cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, tma_smem_bytes(BT));
+  if (!err)
+    err = (int)cudaFuncSetAttribute(
+        k, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+  int per_sm = 0;
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k, tma_threads(BT), tma_smem_bytes(BT));
+  tma_blocks[EPI][BT / 128] = sms * per_sm;
+  return err ? err : (per_sm > 0 ? 0 : -1);
+}
+
+template <int EPI>
+int set_tma_epilogue(int sms) {
+  const int err = set_tma_instance<EPI, 64>(sms);
+  return err ? err : set_tma_instance<EPI, 128>(sms);
+}
+
+int set_tma_smem() {
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err || dev == tma_device) return err;
+  err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev);
+  if (!err) err = set_tma_epilogue<GE_QKV>(sms);
+  if (!err) err = set_tma_epilogue<GE_GELU>(sms);
+  if (!err) err = set_tma_epilogue<GE_RESID>(sms);
+  if (!err) tma_device = dev;
+  return err;
+}
+
+// Projection g of layer l: A (M rows) @ its weights, + bias, then EPI.
+template <typename T, int EPI>
+int gemm(const TmaPlan* tp, int g, const T* A, const T* W, const T* bias,
+         int M, int N, int K, int l, GemmOut o, cudaStream_t st) {
+  if constexpr (sizeof(T) == 2) {
+    const int bt = tp->bt[g], sp = tp->splits[g];
+    const int tiles = N / bt * cdiv(M, bt);
+    const TmaGemm args{bias,   M,          N,       l,
+                       K / WG_BK / sp,     N / bt,  tiles,
+                       tiles * sp,         sp > 1 ? tp->part : nullptr,
+                       tp->tickets,        o};
+    if (bt == 64)
+      return launch_tma<EPI, 64>(*tp, g, args, tma_blocks[EPI][0], st);
+    return launch_tma<EPI, 128>(*tp, g, args, tma_blocks[EPI][1], st);
+  } else {
+    const dim3 grid(N / BN, cdiv(M, BM));
+    gemm_simt_kernel<EPI><<<grid, GEMM_THREADS, 0, st>>>(
+        A, W + (size_t)l * K * N, bias, M, N, K, o);
+    return (int)cudaGetLastError();
+  }
+}
+
+// ------------------------------------------------------------ bf16 attention
+
+constexpr int TQ = 64;        // query rows a block: 4 row groups of 16
+constexpr int TK = 64;        // keys a tile
+constexpr int T_LD = HD + 8;  // bf16 row stride in shared memory (144 bytes)
+constexpr int TA_THREADS = 256;  // 8 warps: 4 row groups x 2 key halves
+constexpr int O_LD = HD + 4;  // f32 row stride of the context partials
+
+// the Q tile, two stages of two V tiles, and `keys` key rows (a multiple
+// of 2 TK: the keys are staged a pair of tiles at a time)
+constexpr size_t tc_smem_bytes(int keys) {
+  return (size_t)(TQ + 4 * TK + keys) * T_LD * sizeof(bf16);
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// The warp's 16 x 64 dot products with a key tile (TK rows from kt): qa
+// holds its query rows as 4 A fragments of 16 dims; s[j] holds keys 8 j ..
+// 8 j + 7 as mma's C fragment (rows lane / 4 and lane / 4 + 8, keys
+// 2 (lane % 4) and + 1).
+__device__ __forceinline__ void tile_scores(float (&s)[8][4],
+                                            const unsigned (&qa)[4][4],
+                                            const bf16* kt, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      unsigned b[4];
+      ldmatrix_x4(b, kt + (8 * j + (lane & 7)) * T_LD + 32 * h +
+                         (lane >> 3) * 8);
+      mma_16816(s[j], qa[2 * h], b[0], b[1]);
+      mma_16816(s[j], qa[2 * h + 1], b[2], b[3]);
+    }
+}
+
+// Causal attention of one head for query rows [r0, r0 + TQ) over keys
+// [0, min(r0 + TQ, n)): bf16 operands, f32 scores and softmax, the
+// normalised weights rounded to bf16 before the V product, the context
+// rounded to bf16. Warp w takes rows 16 (w % 4) .. + 15 over the key tiles
+// of parity w / 4; the two halves' maxima and sums meet in shared memory
+// after the first pass, and their context partials after the second, in
+// the order (even tiles) + (odd tiles), so the result is the same bits
+// every run.
+// The exponential is the fast `__expf` and the division a multiply by
+// 1 / sum: f32 rounding apart, the reference's softmax. Grid (heads, query
+// tiles); with map.tiles64 (K8) the tile's lane, r0 and stacked row of the
+// lane's row 0 come from the table.
+__global__ void __launch_bounds__(TA_THREADS)
+    attn_prefill_tc_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ kc,
+                           const bf16* __restrict__ vc, int n, int S, int D,
+                           float scale, RowMap map, int n_tiles,
+                           bf16* __restrict__ ctx) {
+  extern __shared__ __align__(16) unsigned char tsm[];
+  __shared__ float red[2][2][TQ];  // (max, sum) x key half x row
+  bf16* qs = reinterpret_cast<bf16*>(tsm);  // [TQ][T_LD]
+  bf16* vs = qs + TQ * T_LD;                // [2 stages][2 tiles][TK][T_LD]
+  bf16* ks = vs + 4 * TK * T_LD;            // [keys][T_LD]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = warp & 3, half = warp >> 2;
+  const int off = blockIdx.x * HD;
+  const int tile = n_tiles - 1 - (int)blockIdx.y;  // the longest first
+  int r0 = tile * TQ;
+  if (map.tiles64 != nullptr) {
+    const int* t = map.tiles64 + 3 * tile;
+    n = map.lane_n[t[0]];
+    kc += (size_t)t[0] * S * D;
+    vc += (size_t)t[0] * S * D;
+    r0 = t[1];
+    q += (size_t)t[2] * D;
+    ctx += (size_t)t[2] * D;
+  }
+  const int nq = min(TQ, n - r0), kmax = min(r0 + TQ, n);
+  const int nkt = (kmax + TK - 1) / TK, nst = (nkt + 1) / 2;
+  // rows [0, rows) of a head's slice from src into dst, zeros from `have`
+  auto stage = [&](bf16* dst, const bf16* src, int rows, int have) {
+    for (int i = tid; i < rows * (HD / 8); i += TA_THREADS) {
+      const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+      bf16* d = dst + r * T_LD + c;
+      if (r < have)
+        cp_async16(d, src + (size_t)r * D + off + c);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+    }
+  };
+  // The query rows and the key rows, two tiles (one a half) a commit
+  // group, so that pass 1 starts on the first keys while later ones
+  // arrive; then V tiles 0 and 1.
+  stage(qs, q + (size_t)r0 * D, TQ, nq);
+  for (int st = 0; st < nst; ++st) {
+    stage(ks + st * 2 * TK * T_LD, kc + (size_t)st * 2 * TK * D, 2 * TK,
+          min(2 * TK, kmax - st * 2 * TK));
+    cp_async_commit();
+  }
+  stage(vs, vc, 2 * TK, min(2 * TK, kmax));
+  cp_async_commit();
+  const int row_first = r0 + 16 * rg, last_row = row_first + 15;
+  const int lr = 16 * rg + (lane >> 2);  // this lane's rows: lr and lr + 8
+  const int row0 = r0 + lr, key0 = 2 * (lane & 3);
+  unsigned qa[4][4];
+  float s[8][4];
+  // The warp's scores with key tile kt, times the scale: -inf where the
+  // causal mask hides a key (only a tile that reaches past the warp's
+  // first row has such keys).
+  auto scores = [&](int kt) {
+    tile_scores(s, qa, ks + kt * TK * T_LD, lane);
+    const bool diagonal = kt * TK + TK - 1 > row_first;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = diagonal && kt * TK + 8 * j + key0 + (e & 1) >
+                                  row0 + 8 * (e >> 1)
+                      ? -INFINITY
+                      : s[j][e] * scale;
+  };
+  // pass 1: each row's max over its causal keys and its sum of exp(s -
+  // max), the sum rescaled when the max grows (no weight is formed yet)
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait(nst - st);  // the key groups up to st (and Q) are in
+    __syncthreads();
+    if (st == 0)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldmatrix_x4(qa[kk], qs + (16 * rg + (lane & 15)) * T_LD + 16 * kk +
+                                (lane >> 4) * 8);
+    const int kt = 2 * st + half;
+    if (kt >= nkt || kt * TK > last_row) continue;
+    scores(kt);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float tm = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        tm = fmaxf(tm, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      if (tm > mx[h]) {
+        sum[h] *= __expf(mx[h] - tm);
+        mx[h] = tm;
+      }
+      if (mx[h] != -INFINITY)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          sum[h] += __expf(s[j][2 * h] - mx[h]) +
+                    __expf(s[j][2 * h + 1] - mx[h]);
+    }
+  }
+  // the quad's four lanes (each pair combined commutatively, so every lane
+  // gets the same bits), then the two halves in the order (even, odd)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, mx[h], o);
+      const float l2 = __shfl_xor_sync(0xffffffffu, sum[h], o);
+      const float m = fmaxf(mx[h], m2);
+      sum[h] = m == -INFINITY ? 0.0f
+                              : sum[h] * __expf(mx[h] - m) +
+                                    l2 * __expf(m2 - m);
+      mx[h] = m;
+    }
+    if ((lane & 3) == 0) {
+      red[0][half][lr + 8 * h] = mx[h];
+      red[1][half][lr + 8 * h] = sum[h];
+    }
+  }
+  __syncthreads();
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = lr + 8 * h;
+    mx[h] = fmaxf(red[0][0][r], red[0][1][r]);
+    inv[h] = 1.0f / (red[1][0][r] * __expf(red[0][0][r] - mx[h]) +
+                     (red[0][1][r] == -INFINITY
+                          ? 0.0f
+                          : red[1][1][r] * __expf(red[0][1][r] - mx[h])));
+  }
+  // pass 2: the normalised weights, rounded to bf16, times V; step st
+  // stages V tiles 2 st and 2 st + 1, one for each half
+  float o[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  for (int st = 0; st < nst; ++st) {
+    if (st + 1 < nst)
+      stage(vs + ((st + 1) & 1) * 2 * TK * T_LD,
+            vc + (size_t)(st + 1) * 2 * TK * D, 2 * TK,
+            min(2 * TK, kmax - (st + 1) * 2 * TK));
+    cp_async_commit();
+    cp_async_wait(1);
+    __syncthreads();
+    const int kt = 2 * st + half;
+    if (kt < nkt && kt * TK <= last_row) {
+      scores(kt);
+      unsigned pa[4][4];  // A fragments of P, 16 keys each (masked: 0)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = round_t<bf16>(__expf(s[j][e] - mx[e >> 1]) * inv[e >> 1]);
+        pa[j >> 1][2 * (j & 1)] = pack_bf16(p[0], p[1]);
+        pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
+      }
+      const bf16* vt = vs + ((st & 1) * 2 + half) * TK * T_LD;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int d2 = 0; d2 < 4; ++d2) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b, vt + (16 * kk + (lane & 7) +
+                                     ((lane >> 3) & 1) * 8) * T_LD +
+                                   16 * d2 + (lane >> 4) * 8);
+          mma_16816(o[2 * d2], pa[kk], b[0], b[1]);
+          mma_16816(o[2 * d2 + 1], pa[kk], b[2], b[3]);
+        }
+    }
+    __syncthreads();  // before the next stage overwrites these V tiles
+  }
+  // the odd tiles' partials through shared memory (over the V stages),
+  // added to the even tiles'; rows < nq stored, rounded to bf16
+  float* op = reinterpret_cast<float*>(vs);  // [TQ][O_LD]
+  if (half == 1)
+#pragma unroll
+    for (int d = 0; d < 8; ++d)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(op + (lr + 8 * h) * O_LD + 8 * d + key0) =
+            make_float2(o[d][2 * h], o[d][2 * h + 1]);
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int d = 0; d < 8; ++d)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = lr + 8 * h;
+      if (r < nq) {
+        const float2 u =
+            *reinterpret_cast<const float2*>(op + r * O_LD + 8 * d + key0);
+        *reinterpret_cast<__nv_bfloat162*>(
+            ctx + (size_t)(r0 + r) * D + off + 8 * d + key0) =
+            __floats2bfloat162_rn(o[d][2 * h] + u.x, o[d][2 * h + 1] + u.y);
+      }
+    }
 }
 
 // Causal attention for query rows [r0, r0+QT) of one head over keys
@@ -493,23 +1174,18 @@ __global__ void __launch_bounds__(PA_THREADS)
       ctx[(size_t)(r0 + i) * D + off + d0 + t] = from_f32<T>(acc[t]);
 }
 
-template <typename T, int EPI>
-int gemm(const T* A, const T* B, const T* bias, int M, int N, int K,
-         GemmOut o, cudaStream_t st) {
-  dim3 grid(cdiv(N, BN), cdiv(M, BM));
-  gemm_kernel<T, EPI><<<grid, GEMM_THREADS, 0, st>>>(A, B, bias, M, N, K, o);
-  return (int)cudaGetLastError();
-}
-
 // The prefill of M stacked rows of B lanes (K2: B = 1, M = n_valid, a null
-// map); max_n is the longest lane's n_valid, n_tiles the attention's query
-// tiles. An int8 `kv` (K6) takes kv_rows, (2, M, D) scratch in T for the
-// K/V rows that K6b quantizes.
+// map); max_n is the longest lane's n_valid, n_tiles / n_tiles64 the
+// attention's 16-row / 64-row query tiles. An int8 `kv` (K6) takes kv_rows,
+// (2, M, D) scratch in T for the K/V rows that K6b quantizes. `tp`: the
+// bf16 GEMMs' maps and plan (null for f32).
 template <typename T>
 int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
-              int max_n, int n_tiles, const RowMap& map, const BarkKV& kv,
-              void* x_, void* hb_, void* q_, void* ctx_, void* ff_,
-              void* kv_rows, float* logits, int lo, int hi, cudaStream_t st) {
+              int max_n, int n_tiles, int n_tiles64, const RowMap& map,
+              const BarkKV& kv, void* x_, void* hb_, void* q_, void* ctx_,
+              void* ff_, void* kv_rows, const TmaPlan* tp, float* logits,
+              int lo, int hi, cudaStream_t st) {
+  constexpr bool tc = sizeof(T) == 2;  // tensor cores: bf16
   const int L = w->n_layer, D = w->n_embd, S = w->block_size;
   const int V = w->n_out_vocab;
   const size_t LD = (size_t)D, slab = (size_t)B * S;  // cache rows a layer
@@ -523,14 +1199,23 @@ int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
   const float scale = (float)(1.0 / sqrt((double)(D / w->n_head)));
   const int ld = cdiv(max_n, 4) * 4;
   const size_t att_smem = (size_t)QT * ld * sizeof(float);
-  // up to QT x 1024 scores (64 KB) beyond the default 48 KB window; set on
-  // every call (one host call), so that it holds on whatever device is
-  // current and a refusal is reported here, not as a failed launch
-  int err = (int)cudaFuncSetAttribute(
-      quant ? (const void*)attn_prefill_i8_kernel<T>
-            : (const void*)attn_prefill_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      QT * 1024 * (int)sizeof(float));
+  const size_t tc_smem = tc_smem_bytes(cdiv(max_n, 2 * TK) * 2 * TK);
+  // each attention's dynamic shared memory at its most (1024 keys) beyond
+  // the default 48 KB window, set on every call (one host call each), so
+  // that it holds on whatever device is current and a refusal is reported
+  // here, not as a failed launch
+  int err;
+  if (quant || !tc)
+    err = (int)cudaFuncSetAttribute(
+        quant ? (const void*)attn_prefill_i8_kernel<T>
+              : (const void*)attn_prefill_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        QT * 1024 * (int)sizeof(float));
+  else
+    err = (int)cudaFuncSetAttribute(
+        (const void*)attn_prefill_tc_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc_smem_bytes(1024));
+  if (!err && tc) err = set_tma_smem();
   if (err) return err;
   const int total = M * D;
   embed_rows_kernel<T><<<cdiv(total, 256), 256, 0, st>>>(
@@ -546,8 +1231,8 @@ int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
     const GemmOut qkv_out = quant
         ? GemmOut{qb, rows, rows + (size_t)M * D, D, nullptr}
         : GemmOut{qb, c.k, c.v, D, map.slot};
-    err = gemm<T, GE_QKV>(hb, (const T*)w->qkv_w + l * LD * 3 * D,
-                          (const T*)w->qkv_b + l * 3 * LD, M, 3 * D, D,
+    err = gemm<T, GE_QKV>(tp, P_QKV, hb, (const T*)w->qkv_w,
+                          (const T*)w->qkv_b + l * 3 * LD, M, 3 * D, D, l,
                           qkv_out, st);
     if (err) return err;
     if (quant) {
@@ -559,24 +1244,29 @@ int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
       attn_prefill_i8_kernel<T><<<att_grid, PA_THREADS, att_smem, st>>>(
           qb, (const signed char*)c.k, (const signed char*)c.v, c.ks, c.vs,
           M, S, D, ld, scale, map, ctx);
+    } else if constexpr (tc) {
+      attn_prefill_tc_kernel<<<dim3(w->n_head, n_tiles64), TA_THREADS,
+                               tc_smem, st>>>(
+          qb, (const T*)c.k, (const T*)c.v, M, S, D, scale, map, n_tiles64,
+          ctx);
     } else {
       attn_prefill_kernel<T><<<att_grid, PA_THREADS, att_smem, st>>>(
           qb, (const T*)c.k, (const T*)c.v, M, S, D, ld, scale, map, ctx);
     }
     err = (int)cudaGetLastError();
     if (err) return err;
-    err = gemm<T, GE_RESID>(ctx, (const T*)w->proj_w + l * LD * D,
-                            (const T*)w->proj_b + l * LD, M, D, D,
+    err = gemm<T, GE_RESID>(tp, P_PROJ, ctx, (const T*)w->proj_w,
+                            (const T*)w->proj_b + l * LD, M, D, D, l,
                             GemmOut{x, nullptr, nullptr, D, nullptr}, st);
     if (err) return err;
     ln_rows_kernel<T><<<M, LN_THREADS, D * sizeof(float), st>>>(
         x, (const T*)w->ln2_g + l * LD, (const T*)w->ln2_b + l * LD, D, hb);
-    err = gemm<T, GE_GELU>(hb, (const T*)w->fc_w + l * LD * 4 * D,
-                           (const T*)w->fc_b + l * 4 * LD, M, 4 * D, D,
+    err = gemm<T, GE_GELU>(tp, P_FC, hb, (const T*)w->fc_w,
+                           (const T*)w->fc_b + l * 4 * LD, M, 4 * D, D, l,
                            GemmOut{ff, nullptr, nullptr, D, nullptr}, st);
     if (err) return err;
-    err = gemm<T, GE_RESID>(ff, (const T*)w->out_w + l * LD * 4 * D,
-                            (const T*)w->out_b + l * LD, M, D, 4 * D,
+    err = gemm<T, GE_RESID>(tp, P_OUT, ff, (const T*)w->out_w,
+                            (const T*)w->out_b + l * LD, M, D, 4 * D, l,
                             GemmOut{x, nullptr, nullptr, D, nullptr}, st);
     if (err) return err;
   }
@@ -589,7 +1279,47 @@ int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
   return bark_launch_lm_head(w, x + (size_t)(M - 1) * D, logits, lo, hi, st);
 }
 
+// The dtype's prefill: bf16 through the TMA + wgmma GEMMs (their plan and
+// maps checked, the activations' encoded for M rows, before any launch),
+// f32 through the SIMT ones.
+int prefill_dtype(const BarkGPTWeights* w, const void* x_emb, int B, int M,
+                  int max_n, int n_tiles, int n_tiles64, const RowMap& map,
+                  const BarkKV& kv, void* x, void* hb, void* q, void* ctx,
+                  void* ff, void* kv_rows, const void* wmaps,
+                  const int* plan, float* part, int* tickets, float* logits,
+                  int lo, int hi, cudaStream_t st) {
+  if (w->dtype != BARK_BF16)
+    return prefill_t<float>(w, x_emb, B, M, max_n, n_tiles, n_tiles64, map,
+                            kv, x, hb, q, ctx, ff, kv_rows, nullptr, logits,
+                            lo, hi, st);
+  TmaPlan tp;
+  if (!make_tma_plan(w, wmaps, plan, part, tickets, M, hb, ctx, ff, &tp))
+    return -1;
+  return prefill_t<bf16>(w, x_emb, B, M, max_n, n_tiles, n_tiles64, map, kv,
+                         x, hb, q, ctx, ff, kv_rows, &tp, logits, lo, hi, st);
+}
+
 }  // namespace
+
+// The tensor maps of a bf16 stage's four projection weights, which the
+// prefills' GEMMs read in place: qkv, proj, fc and out, 4 CUtensorMap of
+// 128 bytes into `maps` (host memory the caller keeps with the weights and
+// passes to bark_prefill / bark_prefill_batched). Returns 0, or -1 for f32
+// weights, a width the GEMM does not take, or a map the driver refuses
+// (e.g. weights not 16-byte aligned).
+extern "C" int bark_prefill_weight_maps(const BarkGPTWeights* w,
+                                        void* maps) {
+  const int L = w->n_layer, D = w->n_embd;
+  CUtensorMap m[4];
+  if (w->dtype != BARK_BF16 || D % WG_BK ||
+      !encode_weights(&m[P_QKV], w->qkv_w, L, D, 3 * D) ||
+      !encode_weights(&m[P_PROJ], w->proj_w, L, D, D) ||
+      !encode_weights(&m[P_FC], w->fc_w, L, D, 4 * D) ||
+      !encode_weights(&m[P_OUT], w->out_w, L, 4 * D, D))
+    return -1;
+  memcpy(maps, m, sizeof(m));
+  return 0;
+}
 
 // Returns cudaGetLastError() after the launches (0 on success). x_emb holds
 // >= n_valid rows (T, D) of token embeddings without positions; cache rows
@@ -598,57 +1328,66 @@ int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
 // v_scale are given (K6b, K6c), and kv_rows is then (2, n_valid, D) scratch
 // in the params dtype. x, hb, q, ctx (n_valid, D) and ff (n_valid, 4D) are
 // caller-allocated scratch in the params dtype; logits (n_out_vocab,) f32
-// are those of row n_valid-1, zero outside [lo, hi).
+// are those of row n_valid-1, zero outside [lo, hi). bf16 weights also take
+// `wmaps` (bark_prefill_weight_maps), `plan` (host ints: N tile and K
+// splits of qkv, proj, fc, out; kernels/prefill.py gemm_plan), `part` (f32
+// scratch of splits * n_valid * N floats for every split projection) and
+// `tickets` (int32 scratch, zeroed once, of a projection's row tiles x
+// column tiles); f32 weights ignore them.
 extern "C" int bark_prefill(const BarkGPTWeights* w, const void* x_emb,
                             int n_valid, void* k_cache, void* v_cache,
                             float* k_scale, float* v_scale, void* x, void* hb,
                             void* q, void* ctx, void* ff, void* kv_rows,
-                            float* logits, int lo, int hi,
+                            const void* wmaps, const int* plan, float* part,
+                            int* tickets, float* logits, int lo, int hi,
                             cudaStream_t stream) {
   if (w->n_embd / w->n_head != HD || w->n_embd % BN || n_valid <= 0 ||
       n_valid > w->block_size || w->block_size > 1024 ||
       (k_scale == nullptr) != (v_scale == nullptr) ||
       (k_scale != nullptr && kv_rows == nullptr))
     return -1;
-  const RowMap map{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  const RowMap map{nullptr, nullptr, nullptr, nullptr,
+                   nullptr, nullptr, nullptr};
   const BarkKV kv{k_cache, v_cache, k_scale, v_scale};
-  const int n_tiles = cdiv(n_valid, QT);
-  if (w->dtype == BARK_BF16)
-    return prefill_t<bf16>(w, x_emb, 1, n_valid, n_valid, n_tiles, map, kv, x,
-                           hb, q, ctx, ff, kv_rows, logits, lo, hi, stream);
-  return prefill_t<float>(w, x_emb, 1, n_valid, n_valid, n_tiles, map, kv, x,
-                          hb, q, ctx, ff, kv_rows, logits, lo, hi, stream);
+  return prefill_dtype(w, x_emb, 1, n_valid, n_valid, cdiv(n_valid, QT),
+                       cdiv(n_valid, TQ), map, kv, x, hb, q, ctx, ff,
+                       kv_rows, wmaps, plan, part, tickets, logits, lo, hi,
+                       stream);
 }
 
 // K8. Returns as bark_prefill. x_emb is (B, T, D); the caches are
 // (L, B, S, D); `tables` is one device int32 buffer holding, in order,
 // src, pos, slot (M each), tiles (3 * n_tiles), lane_n and last (B each)
-// of `RowMap`, for M = sum(lane_n) stacked rows; max_n = max(lane_n) and
-// n_tiles = sum(ceil(lane_n / 16)) (query tiles of 16 rows). Int8 caches
-// take (L, B, S) f32 row scales and kv_rows, as bark_prefill. x, hb, q,
-// ctx (M, D) and ff (M, 4D) are scratch in the params dtype; logits (B,
+// of `RowMap`, then tiles64 (3 * n_tiles64), for M = sum(lane_n) stacked
+// rows; max_n = max(lane_n), n_tiles = sum(ceil(lane_n / 16)) and
+// n_tiles64 = sum(ceil(lane_n / 64)) (query tiles of 16 and 64 rows).
+// Int8 caches take (L, B, S) f32 row scales and kv_rows, as bark_prefill.
+// x, hb, q, ctx (M, D) and ff (M, 4D) are scratch in the params dtype;
+// wmaps, plan, part and tickets as bark_prefill's, for M rows; logits (B,
 // n_out_vocab) f32 are those of each lane's last live row, zero outside
 // [lo, hi).
 extern "C" int bark_prefill_batched(const BarkGPTWeights* w,
                                     const void* x_emb, int B, int M,
-                                    int max_n, int n_tiles, const int* tables,
-                                    void* k_cache, void* v_cache,
-                                    float* k_scale, float* v_scale, void* x,
-                                    void* hb, void* q, void* ctx, void* ff,
-                                    void* kv_rows, float* logits, int lo,
+                                    int max_n, int n_tiles, int n_tiles64,
+                                    const int* tables, void* k_cache,
+                                    void* v_cache, float* k_scale,
+                                    float* v_scale, void* x, void* hb,
+                                    void* q, void* ctx, void* ff,
+                                    void* kv_rows, const void* wmaps,
+                                    const int* plan, float* part,
+                                    int* tickets, float* logits, int lo,
                                     int hi, cudaStream_t stream) {
   if (w->n_embd / w->n_head != HD || w->n_embd % BN || B <= 0 || M <= 0 ||
       max_n <= 0 || max_n > w->block_size || w->block_size > 1024 ||
-      n_tiles <= 0 || (k_scale == nullptr) != (v_scale == nullptr) ||
+      n_tiles <= 0 || n_tiles64 <= 0 ||
+      (k_scale == nullptr) != (v_scale == nullptr) ||
       (k_scale != nullptr && kv_rows == nullptr))
     return -1;
+  const int* t = tables + 3 * M + 3 * n_tiles;  // lane_n, last, tiles64
   const RowMap map{tables, tables + M, tables + 2 * M, tables + 3 * M,
-                   tables + 3 * M + 3 * n_tiles,
-                   tables + 3 * M + 3 * n_tiles + B};
+                   t, t + B, t + 2 * B};
   const BarkKV kv{k_cache, v_cache, k_scale, v_scale};
-  if (w->dtype == BARK_BF16)
-    return prefill_t<bf16>(w, x_emb, B, M, max_n, n_tiles, map, kv, x, hb, q,
-                           ctx, ff, kv_rows, logits, lo, hi, stream);
-  return prefill_t<float>(w, x_emb, B, M, max_n, n_tiles, map, kv, x, hb, q,
-                          ctx, ff, kv_rows, logits, lo, hi, stream);
+  return prefill_dtype(w, x_emb, B, M, max_n, n_tiles, n_tiles64, map, kv, x,
+                       hb, q, ctx, ff, kv_rows, wmaps, plan, part, tickets,
+                       logits, lo, hi, stream);
 }

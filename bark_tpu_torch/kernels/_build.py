@@ -132,9 +132,11 @@ _SIGNATURES = {
     "bark_decode_step_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P,
                                 _P, _I, _P, _P, _P, _P],
     # (weights*, x_emb, n_valid, kc, vc, ks, vs, x, hb, q, ctx, ff, kv,
-    #  logits, lo, hi, stream)
+    #  maps*, plan*, partial, tickets, logits, lo, hi, stream)
     "bark_prefill": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _P],
+                     _P, _P, _P, _P, _I, _I, _P],
+    # (weights*, maps*)
+    "bark_prefill_weight_maps": [_P, _P],
     # (weights*, B, tok*, n_past*, kc, vc, ks, vs, x, qkv, ctx, h, partial,
     #  tickets, logits, lo, hi, stream)
     "bark_decode_step_batched": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -142,10 +144,12 @@ _SIGNATURES = {
     # (qweights*, then as bark_decode_step_batched)
     "bark_qdecode_step_batched": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _P, _P, _I, _I, _P],
-    # (weights*, x_emb, B, M, max_n, n_tiles, tables, kc, vc, ks, vs, x, hb,
-    #  q, ctx, ff, kv, logits, lo, hi, stream)
-    "bark_prefill_batched": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # (weights*, x_emb, B, M, max_n, n_tiles, n_tiles64, tables, kc, vc,
+    #  ks, vs, x, hb, q, ctx, ff, kv, maps*, plan*, partial, tickets,
+    #  logits, lo, hi, stream)
+    "bark_prefill_batched": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _P],
     # (logits, ld_logits, base, n, noise, ld_noise, temp, with_eos,
     #  stop_token, min_eos_p, B, tok_out, flag_out, stream)
     "bark_sample_rows": [_P, _I, _I, _I, _P, _I, _F, _I, _I, _F, _I, _P, _P,

@@ -22,6 +22,16 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      beside their bounds and the 62-launch chains' 0.526 / 0.474 ms, with
      their grid, barriers and the per-phase µs of stamped steps (the
      `k1_step` JSON line; K5 on q4_0 under its `k5_q4_0`);
+  2b. the prefill profile (`bark_tpu_torch/probes/prefill_profile.py`):
+     K2 in bf16 at T 257, 437, 617 and 887 (coarse, LM window) and K8 over
+     8 lanes of 257-887 and 8 x 887 rows, each timed and split by device
+     kernel (torch.profiler: GEMMs, attention, LayerNorms, embed, LM head,
+     gaps), the device time of one request's 8 prefills, torch.matmul on
+     the same 48 bf16 products (K2's and K8's `library_ms`, the GEMM
+     phase's yardstick), and `cuobjdump -sass` of the bf16 GEMM, which
+     must show HGMMA and UTMALDG in every instance (its `prefill_profile`
+     JSON line). Phase 2 holds K2 and K8 (dense and int8 caches) bit-equal
+     from run to run in bf16 and their cache rows past n_valid unwritten;
   3. check a small model end to end against the port's plain CPU run with
      the same noise (tokens exact, audio within tolerance), TF32 still off:
      dense weights given as parts, then the same model written to a
@@ -452,9 +462,13 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
         checks.k1_step = k1_step_record(sem_cfg, sem_p, coarse_cfg,
                                         coarse_p, lmw, kc, vc, gen)
 
-    # K2 at T = 257 (semantic prompt) and 887 (coarse re-prime, windowed)
-    for cfg, p, T, win in ((sem_cfg, sem_p, 257, None),
-                           (coarse_cfg, coarse_p, 887, lmw)):
+    # K2 at T = 257 (semantic prompt) and coarse re-primes of 437, 617
+    # (bf16) and 887 rows (windowed); cache rows past T stay unwritten, and
+    # in bf16 a second run gives the same bits
+    shapes = [(sem_cfg, sem_p, 257, None)] + [
+        (coarse_cfg, coarse_p, T, lmw)
+        for T in ((437, 617, 887) if dtype == torch.bfloat16 else (887,))]
+    for cfg, p, T, win in shapes:
         x_emb = p["wte"][0][torch.randint(0, cfg.n_in_vocab, (T,),
                                           generator=gen, device=dev)]
         kc, vc = gpt.init_kv_cache(cfg, dtype, dev)
@@ -465,6 +479,12 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
         checks.record("prefill_fused", name, f"K/V rows T {T}",
                       max(max_err(kc[:, :T], kc2[:, :T]),
                           max_err(vc[:, :T], vc2[:, :T])))
+        prefill_rows_kept(kc, vc, [T], f"K2 {name} T {T}", lanes=False)
+        if dtype == torch.bfloat16:
+            kc3, vc3 = gpt.init_kv_cache(cfg, dtype, dev)
+            again = kpre.prefill_fused(cfg, p, x_emb, kc3, vc3, T,
+                                       lm_window=win)
+            same_bits(f"K2 bf16 T {T}", (out, kc, vc), (again, kc3, vc3))
     if timed:
         x_emb = coarse_p["wte"][0][:887].contiguous()
         kc, vc = gpt.init_kv_cache(coarse_cfg, dtype, dev)
@@ -549,25 +569,77 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
                                                (nb + 60 * cbs * 4, fl))
 
 
+def prefill_phase(smi: str) -> dict:
+    """Phase 2b: `probes/prefill_profile.py`'s record in this process (K2
+    at T 257/437/617/887 and K8 over 8 lanes of 257-887 and 8 x 887 rows,
+    each split by device kernel; the 8 prefills of one request; the
+    torch.matmul yardstick; the GEMM plans), and the bf16 GEMM's SASS,
+    which must hold HGMMA (wgmma) and UTMALDG (TMA loads) in every
+    instance."""
+    from bark_tpu_torch.probes import prefill_profile
+
+    rec = prefill_profile.profile("smoke")
+    sass = prefill_profile.gemm_sass()
+    for key, r in sass.items():
+        log(f"  gemm_tma_kernel<{key}>: {r['lines']} SASS lines, HGMMA "
+            f"{r['HGMMA']} ({r['first'].get('HGMMA')}), UTMALDG "
+            f"{r['UTMALDG']} ({r['first'].get('UTMALDG')})")
+    if len(sass) != 6 or not all(r["HGMMA"] and r["UTMALDG"]
+                                 for r in sass.values()):
+        raise AssertionError(f"the bf16 GEMM is not wgmma fed by TMA in "
+                             f"every instance: {sass}")
+    return dict(card=smi, sass=sass, **rec)
+
+
+def prefill_rows_kept(kc, vc, n_valid, what: str, lanes: bool = True):
+    """Fail unless every cache row past each lane's n_valid is still the
+    zeros `gpt.init_kv_cache` made: (L, B, S, D) lanes, dense or int8
+    values and scales, or one lane's dense (L, S, D) caches (lanes
+    False)."""
+    for c in (kc, vc):
+        for t in (c.values() if isinstance(c, dict) else [c]):
+            for b, n in enumerate(n_valid):
+                if (t[:, b, n:] if lanes else t[:, n:]).any():
+                    raise AssertionError(f"{what}: cache rows past n_valid "
+                                         f"{n} were written")
+
+
+def same_bits(what: str, run, again) -> None:
+    """Fail unless two runs' logits and caches (dense or int8) are equal
+    bit for bit."""
+    import torch
+
+    flat = [[t for x in r for t in (x.values() if isinstance(x, dict)
+                                   else [x])] for r in (run, again)]
+    if not all(torch.equal(a, b) for a, b in zip(*flat)):
+        raise AssertionError(f"{what}: two runs differ")
+    log(f"  {what}: two runs bit-equal (logits and caches)")
+
+
 K1_EARLIER_MS = 0.526  # the 62-launch chain's step at n_past 300 (PERF.md, H100)
 K5_EARLIER_MS = 0.474  # K5 q4_0's 62-launch chain, the same (PERF.md, H100)
 
 
 def device_kernels(fn) -> list:
     """Names of the device kernels one call of fn runs (memcpy and memset
-    aside), from torch.profiler, after a warm-up call; fails when the
-    profiler shows no device activity at all."""
+    aside), from torch.profiler, after a warm-up call. A profiler session
+    now and then records no device activity at all (seen with torch 2.11
+    on the H100 machine, for a call that did launch): such a session is
+    run again, up to 5 times, and then it fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+    else:
         raise AssertionError("torch.profiler saw no device activity")
     return [e.name for e in device
             if not e.name.startswith(("Memcpy", "Memset"))]
@@ -1097,6 +1169,13 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
             max(max_err(kc[:, b, :n], kc2[:, b, :n]),
                 max_err(vc[:, b, :n], vc2[:, b, :n]))
             for b, n in enumerate(n_valid)))
+        prefill_rows_kept(kc, vc, n_valid, f"K8 {name} {tag}")
+        if dtype == torch.bfloat16:
+            kc3, vc3 = gpt.init_kv_cache(cfg, dtype, dev, batch=B)
+            again = kbpre.prefill_fused_batched(cfg, p, x_emb, kc3, vc3,
+                                                n_valid, lm_window=win)
+            same_bits(f"K8 bf16 {tag}", (out, kc, vc), (again, kc3, vc3))
+            del kc3, vc3
         if timed and n_valid == [887] * 8:
             ms = cuda_ms(lambda: kbpre.prefill_fused_batched(
                 cfg, p, x_emb, kc, vc, n_valid, lm_window=win), 5)
@@ -1759,6 +1838,18 @@ def kv8_kernel_checks(checks: Checks, dtype, timed: bool):
                 pairs.append((gpt.kv_view(c, idx), gpt.kv_view(c2, idx)))
         record_kv8_rows(checks, kname, name, f"K/V rows {tag}", pairs,
                         chained=True)
+        prefill_rows_kept(kc, vc, n_valid, f"{kname} {name} {tag}")
+        if dtype == torch.bfloat16:
+            kc3, vc3 = gpt.init_kv_cache(cfg, None, dev, batch=B, quant=True)
+            if single:
+                again = kpre.prefill_fused(cfg, p, x_emb[0], lane(kc3),
+                                           lane(vc3), T, lm_window=win)
+            else:
+                again = kbpre.prefill_fused_batched(
+                    cfg, p, x_emb, kc3, vc3, n_valid, lm_window=win)
+            same_bits(f"{kname} bf16 {tag}", (out, kc, vc),
+                      (again, kc3, vc3))
+            del kc3, vc3
         if timed and (single and win or n_valid == [887] * 8):
             ms = cuda_ms(run, 10 if single else 5)
             plain = cuda_ms(lambda: kbpre.prefill_batched_plain(
@@ -3216,6 +3307,10 @@ def main() -> int:
                 f"{dtype}")
             qbatched_kernel_checks(checks, dtype,
                                    timed=dtype == torch.bfloat16)
+        log("phase 2b: the prefill profile (bf16, bark-small): K2 at T 257, "
+            "437, 617 and 887 and K8 split by device kernel, one request's "
+            "8 prefills, the torch.matmul yardstick, the bf16 GEMM's SASS")
+        prefill_record = prefill_phase(smi)
         log("phase 2: bf16 witness, q4_0 packed steps in bf16 vs f32")
         bf16_witness()
         log("phase 2: D1-D5 (the weight-stream probe) vs plain, every "
@@ -3407,6 +3502,22 @@ def main() -> int:
             ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, bytes=cost[0], flops=cost[1],
         )
+        if name in ("prefill_fused", "prefill_fused_batched"):
+            key = "887" if name == "prefill_fused" else "8 x 887"
+            split = (prefill_record["k2"] if name == "prefill_fused"
+                     else prefill_record["k8"])[key]
+            row.update(
+                library_ms=prefill_record["matmul_device_ms"][key],
+                library_call="torch.matmul on the GEMM phase's 48 bf16 "
+                             "products (4 a layer x 12) at the same M: "
+                             "their device time (torch.profiler)",
+                library_event_ms=prefill_record["matmul_ms"][key],
+                gemm_ms=split["kinds"]["gemm"] / 1e3,
+                split_us=split["kinds"], device_kernels=split["events"])
+            if name == "prefill_fused":
+                row["ms_by_T"] = {T: r["ms"]
+                                  for T, r in prefill_record["k2"].items()}
+                row["request_prefills_ms"] = prefill_record["request"]["ms"]
         if name == "decode_step_fused":
             row.update(checks.k1_step)
         if name == f"{K5}[q4_0]":
@@ -3483,6 +3594,7 @@ def main() -> int:
     print(json.dumps({"dma_probe": dict(card=smi, **dma_record)}))
     print(json.dumps({"cache_probe": cache_record}))
     print(json.dumps({"lowering_probe": lowering_record}))
+    print(json.dumps({"prefill_profile": prefill_record}))
     print(json.dumps({"kernels": table, "to_port": []}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,10 @@ tolerances of their plain versions. C1-C3, the cache probe: its kernel
 bit-equal to x * 2, the scan of it equal to 1024 on ones, its source
 shifted by 7 lines giving the same SASS and object key; and
 `BarkContext.warmup` launching the kernels without moving the generator.
+K2 and K8 in bf16 (the TMA + wgmma GEMM and the tensor-core attention)
+at widths 768, 1024 and 128, T 1 to 1024, dense and int8 caches: within
+1e-1 of the plain version, bit-equal from run to run, rows past n_valid
+unwritten; a misaligned weight refused before any launch.
 P1-P9, the lowering probe: each kernel against its plain version at the
 reference's shapes and at bark-small's (P1 all three ways, P2b fused and
 in two launches, P6 on 132 blocks, P8 leaving the rows outside its
@@ -874,6 +878,143 @@ def test_kv8_batched_prefill_kernel(dev, params, n_valid, win):
     _kv8_close(vc, vc2)
     for b, n in enumerate(n_valid):
         assert not kc["q"][:, b, n:].any()  # dead rows are not written
+
+
+# K2 and K8 in bf16 on the TMA + wgmma GEMM and the tensor-core attention:
+# at bark-small's width (K1_CFG: 12 heads of 64, width 768, 1024 slots),
+# T / n_valid at and around the 64-row tiles and the request's rows, with
+# bark-large's width (16 heads) and the small model's (2) beside it; dense
+# and int8 caches (K6b and K6c over the new GEMM). Logits and live cache
+# rows (int8 ones dequantized) within bf16's 1e-1 of the plain version,
+# logits and caches bit-equal from run to run, rows past n_valid unwritten.
+
+BF16_CFGS = {
+    "w768": K1_CFG,
+    "w1024": dataclasses.replace(K1_CFG, n_layer=1, n_head=16, n_embd=1024),
+    "w128": dataclasses.replace(CFG, block_size=1024),
+}
+BF16_TOL = 1e-1
+
+
+@pytest.fixture(scope="module")
+def bf16_params(dev, k1_params):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {"w768": k1_params[torch.bfloat16]}
+    for name in ("w1024", "w128"):
+        p = gpt.init_params(BF16_CFGS[name], gen, torch.bfloat16, dev)
+        for k, v in p["blocks"].items():
+            if k.endswith("_b") or k.endswith("_g"):
+                v.add_(0.02 * torch.randn(v.shape, generator=gen,
+                                          device=dev).to(torch.bfloat16))
+        out[name] = p
+    return out
+
+
+def _live_rows(c, rows):
+    """A cache's rows `rows` (a tuple of indices) in f32, int8 ones
+    dequantized."""
+    if isinstance(c, dict):
+        return c["q"][rows].float() * c["s"][rows][..., None]
+    return c[rows].float()
+
+
+def _unwritten(c, rows):
+    for t in (c.values() if isinstance(c, dict) else [c]):
+        assert not t[rows].any()
+
+
+def _bit_equal(a, b):
+    if isinstance(a, dict):
+        return all(torch.equal(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+@pytest.mark.parametrize("name,T,n_valid", [
+    *[("w768", t, t) for t in (1, 63, 64, 65, 129, 257, 617, 887, 1024)],
+    ("w768", 700, 333), ("w1024", 384, 300), ("w1024", 257, 257),
+    ("w128", 384, 300), ("w128", 65, 65)])
+def test_bf16_prefill_kernel(dev, bf16_params, name, T, n_valid, cache):
+    cfg, p = BF16_CFGS[name], bf16_params[name]
+    quant = cache == "int8"
+    win = (cfg.n_out_vocab // 2, cfg.n_out_vocab - 7) if n_valid % 2 else None
+    g = torch.Generator(device=dev).manual_seed(T)
+    x = p["wte"][0][torch.randint(0, cfg.n_in_vocab, (T,), generator=g,
+                                  device=dev)]
+    runs = []
+    for _ in range(2):
+        kc, vc = gpt.init_kv_cache(cfg, torch.bfloat16, dev, quant=quant)
+        before, k6 = kpre.launches, kv8.launches
+        out = kpre.prefill_fused(cfg, p, x, kc, vc, n_valid, lm_window=win)
+        torch.cuda.synchronize()
+        assert kpre.launches == before + 1
+        assert kv8.launches == k6 + quant
+        runs.append((out, kc, vc))
+    (out, kc, vc), (out2, kc_2, vc_2) = runs
+    assert torch.equal(out, out2)
+    assert _bit_equal(kc, kc_2) and _bit_equal(vc, vc_2)
+    kc2, vc2 = gpt.init_kv_cache(cfg, torch.bfloat16, dev, quant=quant)
+    ref = kpre.prefill_plain(cfg, p, x, kc2, vc2, n_valid, win)
+    torch.testing.assert_close(out, ref, rtol=0, atol=BF16_TOL)
+    live = (slice(None), slice(0, n_valid))
+    for a, b in ((kc, kc2), (vc, vc2)):
+        torch.testing.assert_close(_live_rows(a, live), _live_rows(b, live),
+                                   rtol=0, atol=BF16_TOL)
+        _unwritten(a, (slice(None), slice(n_valid, None)))
+
+
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+@pytest.mark.parametrize("n_valid,win", [
+    ([1, 65, 300, 887], None),
+    ([64, 129, 1024, 63, 617, 257, 1, 128], K1_WIN)], ids=["4", "8"])
+def test_bf16_batched_prefill_kernel(dev, bf16_params, n_valid, win, cache):
+    from bark_tpu_torch.kernels import bprefill as kbpre
+
+    p, quant = bf16_params["w768"], cache == "int8"
+    B, T = len(n_valid), max(n_valid)
+    g = torch.Generator(device=dev).manual_seed(B)
+    x = p["wte"][0][torch.randint(0, K1_CFG.n_in_vocab, (B, T), generator=g,
+                                  device=dev)]
+    runs = []
+    for _ in range(2):
+        kc, vc = gpt.init_kv_cache(K1_CFG, torch.bfloat16, dev, batch=B,
+                                   quant=quant)
+        before = kbpre.launches
+        out = kbpre.prefill_fused_batched(K1_CFG, p, x, kc, vc, n_valid,
+                                          lm_window=win)
+        torch.cuda.synchronize()
+        assert kbpre.launches == before + 1
+        runs.append((out, kc, vc))
+    (out, kc, vc), (out2, kc_2, vc_2) = runs
+    assert torch.equal(out, out2)
+    assert _bit_equal(kc, kc_2) and _bit_equal(vc, vc_2)
+    kc2, vc2 = gpt.init_kv_cache(K1_CFG, torch.bfloat16, dev, batch=B,
+                                 quant=quant)
+    ref = kbpre.prefill_batched_plain(K1_CFG, p, x, kc2, vc2, n_valid, win)
+    torch.testing.assert_close(out, ref, rtol=0, atol=BF16_TOL)
+    for b, n in enumerate(n_valid):
+        live = (slice(None), b, slice(0, n))
+        for a, c in ((kc, kc2), (vc, vc2)):
+            torch.testing.assert_close(_live_rows(a, live),
+                                       _live_rows(c, live), rtol=0,
+                                       atol=BF16_TOL)
+            _unwritten(a, (slice(None), b, slice(n, None)))
+
+
+def test_bf16_prefill_refuses_misaligned_weights(dev, bf16_params):
+    """A projection weight the GEMM's tensor maps cannot read in place (not
+    16-byte aligned) is refused before any launch."""
+    cfg, p = BF16_CFGS["w128"], dict(bf16_params["w128"])
+    w = p["blocks"]["fc_w"]
+    buf = torch.empty(w.numel() + 1, dtype=w.dtype, device=dev)
+    moved = buf[1:].view(w.shape)
+    moved.copy_(w)
+    p["blocks"] = {**p["blocks"], "fc_w": moved}
+    kc, vc = gpt.init_kv_cache(cfg, torch.bfloat16, dev)
+    before = kpre.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kpre.prefill_fused(cfg, p, p["wte"][0][:8], kc, vc, 8)
+    assert kpre.launches == before and not kc.any()
 
 
 @pytest.mark.parametrize("B", [4, 32])
