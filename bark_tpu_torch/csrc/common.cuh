@@ -287,7 +287,8 @@ __device__ __forceinline__ signed char quant_i8(float x, float inv) {
 extern "C" int bark_launch_lm_head(const BarkGPTWeights* w, const void* x_row,
                                    float* logits, int lo, int hi,
                                    cudaStream_t stream);
-// K7's attention: K1's (or K6a's) for B lanes, lane b's (S, D) cache slab
+// K6a alone (kernels/kv8.py `attn_decode`): one layer's decode attention
+// for B lanes, K1's arithmetic (or K6a's on int8), lane b's (S, D) cache slab
 // at S * b rows into `kv`, its qkv row b of (B, 3D), its context row b of
 // (B, D), at its own slot n_past[b] (B ints in device memory).
 extern "C" int bark_launch_attn_decode_batched(int dtype, const void* qkv,
@@ -295,7 +296,7 @@ extern "C" int bark_launch_attn_decode_batched(int dtype, const void* qkv,
                                                int B, int S, int D,
                                                int n_head, void* ctx,
                                                cudaStream_t stream);
-// K7's LM head for B rows of x (row rows[b] of x for lane b when rows is
+// K8's LM head for B rows of x (row rows[b] of x for lane b when rows is
 // not null, else row b) into logits (B, n_out_vocab) over [lo, hi); the
 // columns outside are left as they were.
 extern "C" int bark_launch_lm_head_batched(const BarkGPTWeights* w,

@@ -218,6 +218,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Ask the TMA engine to bring `bytes` (a multiple of 16) from p (16-byte
+// aligned) into the L2: one instruction for a contiguous run (no shared
+// memory, no completion).
+__device__ __forceinline__ void bulk_prefetch_l2(const void* p,
+                                                 unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p),
+               "r"(bytes)
+               : "memory");
+}
+
 // Ask the TMA engine to bring a box of a 3-D tensor map into the L2 (no
 // shared memory, no completion).
 __device__ __forceinline__ void tma_prefetch_3d(const CUtensorMap* map,

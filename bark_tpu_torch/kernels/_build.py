@@ -117,8 +117,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kc, vc, ks, vs: the caches as `StageWeights.check_cache` returns them (ks
 # and vs, the row scales of an int8 cache, null for a dense one)
 _SIGNATURES = {
-    # one layer's decode attention of B lanes: (dtype, qkv, kv, n_past*, B,
-    #  S, D, n_head, ctx, stream)
+    # K6a alone, one layer's decode attention of B lanes: (dtype, qkv, kv,
+    #  n_past*, B, S, D, n_head, ctx, stream)
     "bark_launch_attn_decode_batched": [_I, _P, BarkKV, _P, _I, _I, _I, _I,
                                         _P, _P],
     # (dtype, scale dtype or -1 for dense weights, has_min, D, S) -> the
@@ -137,13 +137,16 @@ _SIGNATURES = {
                      _P, _P, _P, _P, _I, _I, _P],
     # (weights*, maps*)
     "bark_prefill_weight_maps": [_P, _P],
-    # (weights*, B, tok*, n_past*, kc, vc, ks, vs, x, qkv, ctx, h, partial,
-    #  tickets, logits, lo, hi, stream)
-    "bark_decode_step_batched": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _I, _I, _P],
-    # (qweights*, then as bark_decode_step_batched)
-    "bark_qdecode_step_batched": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _P, _P, _P, _P, _I, _I, _P],
+    # (dtype, scale dtype or -1 for dense weights, has_min, D, S) -> the
+    #  batched step's grid (blocks), or < 0
+    "bark_decode_lanes_blocks": [_I, _I, _I, _I, _I],
+    # (weights*, tiles*[5], plan*, blocks, B, tok*, n_past*, kc, vc, ks, vs,
+    #  work, work_floats, cap, sync*, stamps*, logits, stream)
+    "bark_decode_lanes": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          ctypes.c_longlong, _I, _P, _P, _P, _P],
+    # (qweights*, then as bark_decode_lanes)
+    "bark_decode_lanes_packed": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                                 _P, ctypes.c_longlong, _I, _P, _P, _P, _P],
     # (weights*, x_emb, B, M, max_n, n_tiles, n_tiles64, tables, kc, vc,
     #  ks, vs, x, hb, q, ctx, ff, kv, maps*, plan*, partial, tickets,
     #  logits, lo, hi, stream)

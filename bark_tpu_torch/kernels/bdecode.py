@@ -1,32 +1,48 @@
 """K7: one token through every layer of a GPT stage for B lanes at once.
 
 The counterpart of `bark_tpu.kernels.decode.decode_step_fused_batched`. On
-CUDA tensors the wrapper launches the hand-written kernels of
-`csrc/bdecode.cu` through one C call per step: each weight streams once
-for all B lanes, every lane decodes at its own slot `n_past[b]` and writes
-its K/V row at `[l, b, n_past[b]]` of the flat (L, B, S, D) caches.
-Packed-quantized params (a qpack) go to the packed batched kernel
-K5-batched (`kernels.qbdecode`) on CUDA tensors. On CPU tensors the plain
-version runs, for dense params and qpacks alike: `gpt.decode_step` on
-each lane's (L, S, D) view at its own slot, which is what the JAX
-package's off-TPU `vmap` computes. A CUDA tensor the kernel
-does not take raises a ValueError (head_dim != 64, n_embd % 64, more than
-MAX_LANES lanes; for a qpack also scales other than f16/f32, tensors not
-16-byte aligned, more than one LM head); there is no other path. Int8
-caches (`gpt.init_kv_cache(quant=True, batch=B)`) run K6a as each layer's
-attention (`kernels.kv8`).
+CUDA tensors the wrapper launches the hand-written kernel of
+`csrc/bdecode.cu`: ONE cooperative launch a step of a persistent kernel
+(the card's co-resident block count, 512 threads, the layer loop inside)
+for any B in 1..32, every lane decoding at its own slot `n_past[b]` (read
+on the card) and writing its K/V row at `[l, b, n_past[b]]` of the flat
+(L, B, S, D) caches. Its five products a layer (qkv, proj, fc, out, and
+the LM head after the last) run with the lanes as the N side of the
+tensor cores' mma.sync in bf16 (CUDA-core FMAs in f32), each weight read
+once for every lane from the tile-major copy `decode.lane_tiles`, split
+over the blocks by `decode.lane_plan` (kept with the stage's weights,
+per B and window); each tile's partials are folded once, by the last
+block to write one; the attention runs as (head, lane) units split by
+each lane's live rows. On an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md,
+`probes/bdecode_profile.py`): 0.505-0.509 / 0.524-0.535 / 0.955-0.968 ms
+a bf16 step at n_past 300 for B 1 / 8 / 32 lanes, against 0.559-0.561 /
+0.820 / 2.094-2.098 for the 62-launch chain it replaces; bound not by
+bytes (11-17% of their bound) but by the latency of each phase's chain
+of dependent steps (csrc/bdecode.cu). Packed-quantized params (a qpack) run the same kernel on its
+packed read, counted by `kernels.qbdecode` (K5-batched). On CPU tensors
+the plain version runs, for dense params and qpacks alike:
+`gpt.decode_step` on each lane's (L, S, D) view at its own slot, which is
+what the JAX package's off-TPU `vmap` computes. A CUDA tensor the kernel
+does not take raises a ValueError before any launch (head_dim != 64,
+n_embd % 64, more than 1024 cache slots, more than MAX_LANES lanes or 512
+(head, lane) units; for a qpack also scales other than f16/f32, tensors
+not 16-byte aligned, more than one LM head), and a launch the card
+refuses raises with the CUDA error; there is no other path. Int8 caches
+(`gpt.init_kv_cache(quant=True, batch=B)`) run K6a's arithmetic inside
+the same launch (`kernels.kv8`).
 """
 
 from __future__ import annotations
 
 import torch
 
+import ctypes
+
 from bark_tpu_torch.kernels import _build, kv8, qbdecode
-from bark_tpu_torch.kernels.decode import decode_step_plain
+from bark_tpu_torch.kernels import decode as kdec
+from bark_tpu_torch.kernels.decode import MAX_LANES, decode_step_plain
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
-
-MAX_LANES = 32  # lanes one batched step takes (csrc/bdecode.cu MAX_LANES)
 
 launches = 0  # dense kernel launches through `decode_step_fused_batched`
 
@@ -63,49 +79,89 @@ def lane_ints(v, B: int, device, name: str, hi: int):
     return _build.device_ints(vals, device)
 
 
+def check_lanes(cfg: GPTConfig, params, B: int, lm_window=None):
+    """Raise ValueError for what the batched step's kernel does not take
+    (`decode.check_step`'s shapes and qpack forms, B lanes outside
+    [1, MAX_LANES], more than 512 (head, lane) units, lm_window outside
+    the vocab)."""
+    D = cfg.n_embd
+    if D % kdec.PLAN_TILE or D != cfg.n_head * kdec.HEAD_DIM:
+        raise ValueError(f"the decode kernels take width % "
+                         f"{kdec.PLAN_TILE} == 0 and head dim "
+                         f"{kdec.HEAD_DIM}, got n_embd {D}, n_head "
+                         f"{cfg.n_head}")
+    if cfg.block_size > 1024:
+        raise ValueError(f"the decode kernels take <= 1024 cache slots, got "
+                         f"{cfg.block_size}")
+    if not 1 <= B <= MAX_LANES or cfg.n_head * B > kdec.MAX_UNITS:
+        raise ValueError(f"the batched step takes 1 to {MAX_LANES} lanes "
+                         f"and at most {kdec.MAX_UNITS} (head, lane) units, "
+                         f"got {B} lanes of {cfg.n_head} heads")
+    V = cfg.n_out_vocab
+    lo, hi = lm_window if lm_window is not None else (0, V)
+    if not 0 <= lo <= hi <= V:
+        raise ValueError(f"lm_window {lm_window} outside [0, {V}]")
+    if gpt.is_qpack(params):
+        _build.check_qpack_form(cfg, params)
+
+
 def decode_step_fused_batched(cfg: GPTConfig, params, tokens, k_cache,
-                              v_cache, n_past, *, lm_window=None, out=None):
+                              v_cache, n_past, *, lm_window=None, out=None,
+                              stamps=None):
     """One decode step of B lanes. `tokens` and `n_past` are (B,) int
     tensors on the caches' device (read there by the kernel) or B ints;
     lane b decodes tokens[b] at slot n_past[b] and writes K/V row
     n_past[b] of lane b of every layer of the (L, B, S, D) caches in
     place. Returns the (B, n_out_vocab) f32 logits (into `out` when
-    given), zero outside lm_window."""
+    given), zero outside lm_window. `stamps`: an int64 CUDA tensor
+    (`decode.step_stamps` of the step's `decode.device_lane_plan`) that
+    the kernel fills with every block's ns clock, or None."""
     global launches
     if gpt.kv_device(k_cache).type == "cpu":
         return decode_step_batched_plain(cfg, params, tokens, k_cache,
                                          v_cache, n_past, lm_window)
+    B = lane_count(k_cache)
+    check_lanes(cfg, params, B, lm_window)
+    dev = params["wpe"].device
+    caches = _build.check_kv(cfg, params["wpe"].dtype, dev, k_cache,
+                             v_cache, batch=B)
+    tok = lane_ints(tokens, B, dev, "tokens", cfg.n_in_vocab)
+    npt = lane_ints(n_past, B, dev, "n_past", cfg.block_size)
     packed = gpt.is_qpack(params)
     w = (_build.stage_qweights if packed else _build.stage_weights)(
         cfg, params)
-    B = lane_count(k_cache)
-    caches = w.check_cache(k_cache, v_cache, batch=B)
-    V, D = cfg.n_out_vocab, cfg.n_embd
+    V = cfg.n_out_vocab
     lo, hi = lm_window if lm_window is not None else (0, V)
-    if not 0 <= lo <= hi <= V:
-        raise ValueError(f"lm_window {lm_window} outside [0, {V}]")
-    tok = lane_ints(tokens, B, w.device, "tokens", cfg.n_in_vocab)
-    npt = lane_ints(n_past, B, w.device, "n_past", cfg.block_size)
     if out is None:
         out = torch.empty((B, V), dtype=torch.float32, device=w.device)
     if tuple(out.shape) != (B, V):
         raise ValueError(f"out: want ({B}, {V}), got {tuple(out.shape)}")
     _build.f32_on(out, w.device, B * V, "logits")
-    args = (
-        w.ref, B, tok.data_ptr(), npt.data_ptr(), *caches,
-        w.scratch("x", B, D).data_ptr(),
-        w.scratch("qkv", B, 3 * D).data_ptr(),
-        w.scratch("ctx", B, D).data_ptr(),
-        w.scratch("h", B, 4 * D).data_ptr(),
-        w.scratch("partial", B << 16, dtype=torch.float32).data_ptr(),
-        w.scratch("tickets", 1024, dtype=torch.int32).data_ptr(),
-        out.data_ptr(), lo, hi, _build.stream_ptr(w.device),
-    )
+    if not packed and params["lm_head"].data_ptr() % 16:
+        raise ValueError("lm_head: the step's bulk copies want it 16-byte "
+                         "aligned")
+    plan, table = kdec.device_lane_plan(w, B, (lo, hi))
+    want = plan.n_blocks * (2 * len(plan.phase_names) * plan.n_layer + 3)
+    if stamps is not None and (
+            stamps.dtype != torch.int64 or stamps.device != w.device
+            or not stamps.is_contiguous() or stamps.numel() < want):
+        raise ValueError(f"stamps: want a contiguous int64 tensor of >= "
+                         f"{want} on {w.device} (`decode.step_stamps`)")
+    tiles = kdec.lane_tiles(w, params)
+    work = w.scratch("lane_work", kdec.lane_work_floats(cfg, plan),
+                     dtype=torch.float32)
+    args = (w.ref, ctypes.addressof(tiles), table.data_ptr(),
+            plan.n_blocks, B, tok.data_ptr(), npt.data_ptr(), *caches,
+            work.data_ptr(), work.numel(), plan.partial_floats,
+            w.scratch("lane_sync", 1 + plan.n_tickets,
+                      dtype=torch.int32).data_ptr(),
+            None if stamps is None else stamps.data_ptr(), out.data_ptr(),
+            _build.stream_ptr(w.device))
     if packed:
-        qbdecode.decode_step_packed_batched(args, out)
+        qbdecode.decode_step_packed_batched(args)
     else:
         _build.check("decode_step_fused_batched",
-                     _build.lib().bark_decode_step_batched(*args))
+                     _build.lib().bark_decode_lanes(*args))
         launches += 1
     kv8.count(caches)
     return out

@@ -27,8 +27,15 @@ CUDA error.
 0 (the coarse sampler reads only its two codebook windows).
 
 The caches may be the int8 caches of `gpt.init_kv_cache(quant=True)`: the
-same launch then runs K6a's arithmetic (csrc/decode.cu `attend_int8`) as
+same launch then runs K6a's arithmetic (csrc/step.cuh `attend_int8`) as
 each layer's attention, dense and packed alike.
+
+The batched step (K7, K5-batched: `kernels.bdecode`, csrc/bdecode.cu)
+takes its plan from here too: `lane_plan` (the five products' items and
+fold orders, the attention's (head, lane) units; `lane_units` mirrors the
+kernel's split of those by each lane's live rows), `lane_tiles` (the
+weights in the layout its products read) and `device_lane_plan`; the
+stamp splitters below read either plan.
 """
 
 from __future__ import annotations
@@ -94,6 +101,8 @@ class StepPlan:
     lm: tuple
     packed: bool = False
 
+    phase_names = PHASE_NAMES  # the work between its barriers, a layer
+
     @property
     def partial_floats(self) -> int:
         """f32 of one partial buffer: the most items of a phase, a row
@@ -148,14 +157,19 @@ def _runs(u0: int, u1: int, per_tile: int, rows: int, row0: int = 0):
     return out
 
 
-def _generic_phase(K: int, N: int, G: int, rows: int):
+def _generic_phase(K: int, N: int, G: int, rows: int, cap=None,
+                   tile0: int = 0):
     """Blocks take near-equal runs of the (tile, `rows`-row unit)
-    sequence."""
+    sequence; with `cap`, an item spans at most that many rows (a longer
+    run is cut into several); tiles are numbered from tile0."""
     per = K // rows
     bounds = _split((N // PLAN_TILE) * per, G)
     items, starts = [], [0]
     for b in range(G):
-        items += _runs(bounds[b], bounds[b + 1], per, rows)
+        for t, k0, k1, f in _runs(bounds[b], bounds[b + 1], per, rows):
+            step = cap or k1 - k0
+            items += [(tile0 + t, k, min(k1, k + step), f)
+                      for k in range(k0, k1, step)]
         starts.append(len(items))
     return items, starts
 
@@ -257,6 +271,180 @@ def step_plan(cfg: GPTConfig, n_blocks: int, lm_window=None,
                     packed=packed)
 
 
+# ------------------------------------------------------------ the lane plan
+
+MAX_LANES = 32   # lanes the batched step takes (csrc/bdecode.cu MAX_LANES)
+LANE_UNIT = 16   # a dense lane plan's K ranges: multiples of mma's k16
+LANE_ROWS = 512  # most rows an item spans: its inputs' room in shared
+                 # memory (csrc/bdecode.cu LANE_ROWS)
+ATT_COST = 128   # a (head, lane) unit's cost beside its live rows
+MAX_OWN = 16     # items of a product a block of the kernel holds
+MAX_UNITS = 512  # (head, lane) units a step takes: one a thread
+LANE_PHASES = PHASES + ("lm",)  # the products of the batched step
+# its stamped work between barriers, a layer (the embed's barrier aside)
+LANE_PHASE_NAMES = ("ln1_qkv", "attention", "proj", "ln2_fc", "out")
+# The lane plan table's header slots, as csrc/bdecode.cu's `LP_*` enum
+# names them (keep the two alike): the grid, the barriers, the layers, the
+# lanes, lo, hi, whether the plan is packed, the offset and count of its
+# (head, lane) pairs, then per product (5 slots each, in LANE_PHASES
+# order) the offsets of its items, block starts, fold offsets and fold
+# lists, its first tile and its tiles.
+LP_BLOCKS, LP_BARRIERS, LP_LAYERS, LP_LANES, LP_LO, LP_HI = 0, 1, 2, 3, 4, 5
+LP_PACKED, LP_PAIRS, LP_NPAIRS, LP_ITEMS, LP_STARTS = 6, 7, 8, 9, 14
+LP_FOLD_OFF, LP_FOLD, LP_TILE0, LP_NTILES, LP_HDR = 19, 24, 29, 34, 40
+
+
+@dataclasses.dataclass(frozen=True)
+class LanePlan:
+    """Who does what in the batched step (`lane_plan`), for n_lanes lanes.
+
+    items[p], starts[p], folds[p]: as StepPlan's, for the five products of
+      LANE_PHASES (qkv, proj, fc, out of each layer, then the LM head
+      over lm_window); tile0[p] is the first tile of product p (the LM
+      head's: the 64-column tile of its transposed copy that holds lo),
+      folds[p] are indexed from it. An item's partial is n_lanes rows of
+      64 (lane-major), and the last block to write one of a tile folds
+      the tile in the fold order.
+    pairs: the (head, lane) units of each layer's attention, in the order
+      the blocks split them by cost (`lane_units`).
+    packed: K ranges are whole 32-row quant blocks, else multiples of 16
+      rows (mma's k16).
+    """
+
+    n_blocks: int
+    n_layer: int
+    n_lanes: int
+    lm_window: tuple
+    items: tuple
+    starts: tuple
+    folds: tuple
+    tile0: tuple
+    pairs: tuple
+    packed: bool = False
+
+    phase_names = LANE_PHASE_NAMES
+
+    @property
+    def n_barriers(self) -> int:
+        """Grid barriers a step: the embed's, then 5 a layer."""
+        return len(LANE_PHASE_NAMES) * self.n_layer + 1
+
+    @property
+    def partial_floats(self) -> int:
+        """f32 of the partials: the most items of a product, n_lanes rows
+        of PLAN_TILE each."""
+        return PLAN_TILE * self.n_lanes * max(len(it) for it in self.items)
+
+    @property
+    def max_own(self) -> int:
+        """The most items of a product one block takes."""
+        return max(b - a for st in self.starts for a, b in zip(st, st[1:]))
+
+    @property
+    def n_tickets(self) -> int:
+        """Tickets the step's folds take: the most tiles of a product."""
+        return max(1, max(len(f) for f in self.folds))
+
+    def table(self) -> np.ndarray:
+        """The int32 table csrc/bdecode.cu reads: the header (`LP_*`),
+        then the sections."""
+        hdr = [0] * LP_HDR
+        hdr[LP_BLOCKS], hdr[LP_BARRIERS] = self.n_blocks, self.n_barriers
+        hdr[LP_LAYERS], hdr[LP_LANES] = self.n_layer, self.n_lanes
+        hdr[LP_LO], hdr[LP_HI] = self.lm_window
+        hdr[LP_PACKED], hdr[LP_NPAIRS] = int(self.packed), len(self.pairs)
+        body = []
+
+        def put(slot, values):
+            hdr[slot] = LP_HDR + len(body)
+            body.extend(values)
+
+        put(LP_PAIRS, [v for pair in self.pairs for v in pair])
+        for p in range(len(LANE_PHASES)):
+            put(LP_ITEMS + p, [v for it in self.items[p] for v in it])
+            put(LP_STARTS + p, self.starts[p])
+            offs = [0]
+            for f in self.folds[p]:
+                offs.append(offs[-1] + len(f))
+            put(LP_FOLD_OFF + p, offs)
+            put(LP_FOLD + p, [i for f in self.folds[p] for i in f])
+            hdr[LP_TILE0 + p] = self.tile0[p]
+            hdr[LP_NTILES + p] = len(self.folds[p])
+        return np.asarray(hdr + body, dtype=np.int32)
+
+
+def lane_plan(cfg: GPTConfig, n_blocks: int, n_lanes: int, lm_window=None,
+              packed: bool = False) -> LanePlan:
+    """The batched step's plan for `n_blocks` blocks and `n_lanes` lanes:
+    for each product (qkv, proj, fc, out of a layer, the same every layer,
+    then the LM head over the 64-column tiles that cover lm_window) which
+    block takes which (column tile, K range) item, in near-equal runs of
+    16-row units (whole 32-row quant blocks when `packed`), no item over
+    LANE_ROWS rows, and each tile's fold order; the (head, lane) units of
+    the attention, lane by lane. Raises for what the kernel does not take:
+    a width not a multiple of 64, head dim != 64, no block, lanes outside
+    [1, 32], more than 512 units, a window outside the vocab."""
+    D, H = cfg.n_embd, cfg.n_head
+    if D % PLAN_TILE or D != H * HEAD_DIM or n_blocks < 1:
+        raise ValueError(f"lane_plan takes width % {PLAN_TILE} == 0, head "
+                         f"dim {HEAD_DIM} and >= 1 block, got {cfg}, "
+                         f"{n_blocks} blocks")
+    if not 1 <= n_lanes <= MAX_LANES or H * n_lanes > MAX_UNITS:
+        raise ValueError(f"lane_plan takes 1 to {MAX_LANES} lanes and at "
+                         f"most {MAX_UNITS} (head, lane) units, got "
+                         f"{n_lanes} lanes of {H} heads")
+    lo, hi = lm_window if lm_window is not None else (0, cfg.n_out_vocab)
+    if not 0 <= lo <= hi <= cfg.n_out_vocab:
+        raise ValueError(f"lm_window {lm_window} outside "
+                         f"[0, {cfg.n_out_vocab}]")
+    rows = QBLOCK if packed else LANE_UNIT
+    t0 = lo // PLAN_TILE
+    shapes = {"qkv": (D, 3 * D), "proj": (D, D), "fc": (D, 4 * D),
+              "out": (4 * D, D),
+              "lm": (D, (-(-hi // PLAN_TILE) - t0) * PLAN_TILE)}
+    items, starts, folds, tile0 = [], [], [], []
+    for name in LANE_PHASES:
+        K, N = shapes[name]
+        first = t0 if name == "lm" else 0
+        it, st = _generic_phase(K, N, n_blocks, rows, LANE_ROWS, first)
+        items.append(tuple(it))
+        starts.append(tuple(st))
+        folds.append(_folds([(t - first, *rest) for t, *rest in it],
+                            N // PLAN_TILE))
+        tile0.append(first)
+    pairs = tuple((h, b) for b in range(n_lanes) for h in range(H))
+    return LanePlan(n_blocks=n_blocks, n_layer=cfg.n_layer,
+                    n_lanes=n_lanes, lm_window=(lo, hi), items=tuple(items),
+                    starts=tuple(starts), folds=tuple(folds),
+                    tile0=tuple(tile0), pairs=pairs, packed=packed)
+
+
+def lane_units(plan: LanePlan, n_past, block_size: int) -> list:
+    """The (head, lane) units each block attends, as the kernel splits
+    them from each lane's slot (csrc/bdecode.cu `assign_units`): the
+    plan's pairs in order, pair i costing its lane's live rows n_past + 1
+    (0 for a slot outside the cache) + ATT_COST, go to the block that
+    holds the midpoint of its cost. Returns each block's [p0, p1)."""
+    cost = [(n + 1 if 0 <= n < block_size else 0) + ATT_COST
+            for n in (int(n_past[b]) for _, b in plan.pairs)]
+    total, before, owners = sum(cost), 0, []
+    for c in cost:
+        owners.append((2 * before + c) * plan.n_blocks // (2 * total))
+        before += c
+    return [(sum(o < g for o in owners), sum(o <= g for o in owners))
+            for g in range(plan.n_blocks)]
+
+
+def lane_work_floats(cfg: GPTConfig, plan: LanePlan) -> int:
+    """f32 of the batched step's work buffer (csrc/bdecode.cu
+    `lane_rows_floats` + the partials): x (B, D), qkv (B, 3D), ctx (B, D),
+    h (B, 4D), the residual's tile statistics (D/64, B, 2), the K and V
+    tiles' amax (2D/64, B), then the partials."""
+    B, D = plan.n_lanes, cfg.n_embd
+    return (B * 9 * D + (D // PLAN_TILE) * B * 2 + (2 * D // PLAN_TILE) * B
+            + plan.partial_floats)
+
+
 def check_step(cfg: GPTConfig, params, k_cache, v_cache, n_past: int,
                lm_window=None):
     """Raise ValueError for what the step's kernels do not take: head
@@ -332,18 +520,23 @@ def step_tiles(w, params):
 QTILED = PHASES + ("lm",)  # the qpack weights `step_qtiles` lays out
 
 
-def qtile_records(q, s, m=None):
+def qtile_records(q, s, m=None, frag: bool = False):
     """A packed (..., K, N) weight (int8 values q, (..., K/32, N) scales s
     and mins m or None) as K5's records, (..., N/64, K/32, rec) uint8: a
     record is one 32-row quant block of a 64-column tile, its 32 x 64
     values row by row, then its 64 scales, then its 64 mins, rec = 2048 +
     64 x the scale's bytes (x 2 with mins), a multiple of 16. So any run
     of whole quant blocks of a tile is one contiguous, 16-byte-aligned run
-    of bytes."""
+    of bytes. `frag`: the batched step's bf16 records, whose values are in
+    mma's A-fragment order instead (`frag_order`: per m16 tile of 16
+    columns, each of the 32 threads' 16 values of the block's two k16
+    steps, one 16-byte load)."""
     *lead, K, N = q.shape
     nb, nt = K // QBLOCK, N // PLAN_TILE
-    parts = [q.reshape(*lead, nb, QBLOCK, nt, PLAN_TILE).movedim(-2, -4)
-             .reshape(*lead, nt, nb, QBLOCK * PLAN_TILE).view(torch.uint8)]
+    vals = (frag_order(q, QBLOCK) if frag else
+            q.reshape(*lead, nb, QBLOCK, nt, PLAN_TILE).movedim(-2, -4))
+    parts = [vals.reshape(*lead, nt, nb, QBLOCK * PLAN_TILE)
+             .view(torch.uint8)]
     for t in (s,) if m is None else (s, m):
         parts.append(t.reshape(*lead, nb, nt, PLAN_TILE).movedim(-2, -3)
                      .contiguous().view(torch.uint8))
@@ -369,6 +562,102 @@ def step_qtiles(w, params):
         held.update(versions=versions, tiled=tiled, ptrs=(
             ctypes.c_void_p * len(tiled))(*(t.data_ptr() for t in tiled)))
     return held["ptrs"]
+
+
+def frag_order(W, rows: int):
+    """A (..., K, N) weight's values in the order the batched step's
+    mma.sync m16n8k16 reads them as its A operand (A = the tile's
+    transpose: columns as rows, K rows as its K side), per 64-column tile
+    and `rows`-row group (16: a dense tile's k16 step; 32: a packed
+    record's two): 4 m16 tiles, then thread 4 g + t of the warp, then its
+    values (k16 step s, K half kh, column half mh, pair kl): column 16 mt +
+    8 mh + g, row 16 s + 8 kh + 2 t + kl of the group. Returns (..., N/64,
+    K/rows, 4, 32, rows / 2) in W's dtype, contiguous."""
+    *lead, K, N = W.shape
+    ks = rows // 16
+    x = W.reshape(-1, K // rows, ks, 2, 4, 2, N // PLAN_TILE, 4, 2, 8)
+    # (P, grp, s, kh, t, kl, nt, mt, mh, g) -> (P, nt, grp, mt, g, t, s,
+    # kh, mh, kl)
+    x = x.permute(0, 6, 1, 7, 9, 4, 2, 3, 8, 5).contiguous()
+    return x.reshape(*lead, N // PLAN_TILE, K // rows, 4, 32, rows // 2)
+
+
+def lane_blocks(w) -> int:
+    """The batched step's grid for the stage weights `w` (dense, or the
+    packed read of its qpack's format): its blocks the card holds at once
+    (asked once per stage)."""
+    cfg = w.cfg
+
+    def ask():
+        n = _build.lib().bark_decode_lanes_blocks(
+            _build.DTYPE_CODES[w.dtype],
+            w.struct.scale_dtype if w.packed else -1,
+            w.struct.has_min if w.packed else 0, cfg.n_embd, cfg.block_size)
+        if n <= 0:
+            raise RuntimeError(
+                f"decode_step_fused_batched: the card takes no cooperative "
+                f"grid of the batched step's kernel for {cfg} (code {n})")
+        return n
+
+    return w.memo("lane_blocks", ask)
+
+
+def lane_tiles(w, params):
+    """The weights as the batched step streams them, kept with the stage
+    weights `w` and made again when one was changed in place: the four
+    projection weights and the LM head's transpose (D, v_pad), tile-major,
+    (L, N/64, K, 64) and (v_pad/64, D, 64). In bf16 each 16-row group of a
+    tile is in mma's fragment order (`frag_order`), and a qpack's records
+    too (`qtile_records(frag=True)`); in f32 (CUDA-core FMAs) a dense
+    tile's rows are K1's (`step_tiles`' layout) and a qpack's records are
+    K5's, shared with it (`step_qtiles`). A dense LM head is padded with
+    zero columns to a multiple of 64. Returns the ctypes array of the five
+    pointers (qkv, proj, fc, out, lm)."""
+    frag = w.dtype == torch.bfloat16
+    if w.packed and not frag:
+        return step_qtiles(w, params)
+    if w.packed:
+        blocks = params["blocks"]
+        src = [tuple((blocks if key in PHASES else params).get(
+            f"{key}_{part}") for part in "qsm") for key in QTILED]
+    else:
+        src = [(params["blocks"][key + "_w"],) for key in PHASES]
+        src.append((params["lm_head"],))
+    versions = tuple(t._version for trio in src for t in trio
+                     if t is not None)
+    held = w.memo("lane_tiles", dict)
+    if held.get("versions") != versions:
+        if w.packed:
+            tiled = [qtile_records(*trio, frag=True) for trio in src]
+        else:
+            head = params["lm_head"][0]
+            V, D = head.shape
+            head_t = head.new_zeros(D, -(-V // PLAN_TILE) * PLAN_TILE)
+            head_t[:, :V] = head.t()
+            tiled = [frag_order(W, LANE_UNIT) if frag else
+                     W.unflatten(-1, (-1, PLAN_TILE)).transpose(-3, -2)
+                     .contiguous() for W in [t for t, in src[:4]] + [head_t]]
+        held.update(versions=versions, tiled=tiled, ptrs=(
+            ctypes.c_void_p * len(tiled))(*(t.data_ptr() for t in tiled)))
+    return held["ptrs"]
+
+
+def device_lane_plan(w, n_lanes: int, lm_window):
+    """(LanePlan, its int32 table on the card) for the stage weights `w`
+    (the packed plan for a qpack's), n_lanes lanes and lm_window, made
+    once and kept with the weights."""
+    lo, hi = lm_window if lm_window is not None else (0, w.cfg.n_out_vocab)
+
+    def make():
+        plan = lane_plan(w.cfg, lane_blocks(w), n_lanes, (lo, hi),
+                         packed=w.packed)
+        if plan.max_own > MAX_OWN:
+            raise ValueError(f"lane plan for {w.cfg} on {plan.n_blocks} "
+                             f"blocks: a block takes {plan.max_own} items "
+                             f"of a product, the kernel holds {MAX_OWN}")
+        return plan, _build.device_ints(plan.table().tolist(), w.device)
+
+    return w.memo(("lane_plan", n_lanes, lo, hi), make)
 
 
 def device_plan(w, lm_window):
@@ -473,24 +762,31 @@ def decode_step_fused(cfg: GPTConfig, params, token, k_cache, v_cache,
     return out
 
 
-def step_stamps(plan: StepPlan, device) -> torch.Tensor:
-    """Zeroed stamps for a step of `plan`: a row a block, its ns clock at
-    the start, after the embed, at each barrier's arrival and release, and
-    at the end (2 x barriers + 3)."""
-    return torch.zeros((plan.n_blocks, 2 * plan.n_barriers + 3),
+def _stamped(plan) -> int:
+    """The barriers a step of `plan` stamps: its layers' (every barrier of
+    K1's plan; all but the embed's of a lane plan)."""
+    return len(plan.phase_names) * plan.n_layer
+
+
+def step_stamps(plan, device) -> torch.Tensor:
+    """Zeroed stamps for a step of `plan` (K1's StepPlan or the batched
+    step's LanePlan): a row a block, its ns clock at the start, after the
+    embed, at each layer barrier's arrival and release, and at the end
+    (2 x those barriers + 3)."""
+    return torch.zeros((plan.n_blocks, 2 * _stamped(plan) + 3),
                        dtype=torch.int64, device=device)
 
 
-def _stamp_rows(plan: StepPlan, stamps, blocks: int):
+def _stamp_rows(plan, stamps, blocks: int):
     """(start, embed, arrivals (blocks, barriers), releases, end) of the
     first `blocks` rows of the stamps, as int64 CPU tensors."""
-    per = 2 * plan.n_barriers + 3
+    per = 2 * _stamped(plan) + 3
     t = torch.as_tensor(stamps).reshape(-1)[:blocks * per]
     t = t.reshape(blocks, per).to("cpu", torch.int64)
     return t[:, 0], t[:, 1], t[:, 2:-1:2], t[:, 3::2], t[:, -1]
 
 
-def step_phases_us(plan: StepPlan, stamps) -> dict:
+def step_phases_us(plan, stamps) -> dict:
     """Where one stamped step's time went, in µs, from block 0's clock
     (its row of `stamps` as `decode_step_fused` filled them): the embed;
     each phase's own work (from its barrier's release, or the embed, to its
@@ -500,9 +796,10 @@ def step_phases_us(plan: StepPlan, stamps) -> dict:
     start, embed, arrive, release, end = (
         x[0] for x in _stamp_rows(plan, stamps, 1))
     begin = torch.cat([embed[None], release[:-1]])
-    work = (arrive - begin).double().reshape(plan.n_layer, len(PHASES))
+    work = (arrive - begin).double().reshape(plan.n_layer,
+                                             len(plan.phase_names))
     out = {"embed": float(embed - start) / 1e3}
-    for name, us in zip(PHASE_NAMES, work.mean(0) / 1e3):
+    for name, us in zip(plan.phase_names, work.mean(0) / 1e3):
         out[name] = float(us)
     out["barrier_wait"] = float((release - arrive).double().mean()) / 1e3
     out["lm_head"] = float(end - release[-1]) / 1e3
@@ -510,7 +807,7 @@ def step_phases_us(plan: StepPlan, stamps) -> dict:
     return out
 
 
-def step_critical_us(plan: StepPlan, stamps) -> dict:
+def step_critical_us(plan, stamps) -> dict:
     """Where one stamped step's time went on its slowest blocks, in µs,
     from every block's row of `stamps`: for each phase, as the mean over
     layers, the slowest block's work (its release, or embed, to its
@@ -520,11 +817,11 @@ def step_critical_us(plan: StepPlan, stamps) -> dict:
     start, embed, arrive, release, end = _stamp_rows(plan, stamps,
                                                      plan.n_blocks)
     begin = torch.cat([embed[:, None], release[:, :-1]], dim=1)
-    L, P = plan.n_layer, len(PHASES)
+    L, P = plan.n_layer, len(plan.phase_names)
     work = (arrive - begin).double().reshape(-1, L, P) / 1e3
     spread = (arrive.amax(0) - arrive.amin(0)).double().reshape(L, P) / 1e3
     out = {}
-    for p, name in enumerate(PHASE_NAMES):
+    for p, name in enumerate(plan.phase_names):
         out[name] = dict(slowest=float(work[:, :, p].amax(0).mean()),
                          mean=float(work[:, :, p].mean()),
                          arrival_spread=float(spread[:, p].mean()))

@@ -6,11 +6,12 @@ kernels (`bark_tpu.kernels.decode`: `_quant_qseg`, `_quant_row`,
 Three hand-written kernels, launched inside the C calls of their hosts
 when those are given int8 caches:
 
-- K6a (csrc/decode.cu `attend_int8`): each layer's attention of K1 and
-  K5 inside their persistent step, and of K7 and K5-batched as
-  `attn_decode_i8_kernel`, one launch a layer. It quantizes the fresh K/V
-  rows (scale over all D, computed alike by every head's block), writes
-  them at slot n_past, quantizes the query per head, scores with integer
+- K6a (csrc/step.cuh `attend_int8`): each layer's attention of K1 and
+  K5 inside their persistent step, and of K7 and K5-batched inside theirs
+  (csrc/bdecode.cu, a (head, lane) unit at a time); alone, one launch a
+  layer, as `attn_decode_i8_kernel` (csrc/decode.cu, `attn_decode`
+  below). It quantizes the fresh K/V rows (scale over all D), writes them
+  at slot n_past, quantizes the query per head, scores with integer
   `__dp4a` dots scaled by both scales, and accumulates V dequantized to
   the params dtype.
 - K6b, `quant_rows_kernel` (csrc/prefill.cu): in K2 and K8 the QKV
@@ -73,13 +74,15 @@ def attn_decode_plain(cfg: GPTConfig, qkv, k_cache, v_cache, n_past):
 
 
 def attn_decode(cfg: GPTConfig, qkv, k_cache, v_cache, n_past):
-    """One layer's decode attention of B lanes through the kernel the
-    decode steps run (csrc/decode.cu `bark_launch_attn_decode_batched`):
-    K6a for int8 caches ({"q": (B, S, D) int8, "s": (B, S) f32}), the
-    dense kernel for (B, S, D) caches in qkv's dtype. qkv is (B, 3D);
-    n_past B ints in [0, S), or a (B,) int tensor on the card (taken as it
-    is, as K7 takes it). Writes each lane's fresh row in place and returns
-    the (B, D) context; on CPU tensors the plain version."""
+    """One layer's decode attention of B lanes through K6a's arithmetic
+    alone, one launch (csrc/decode.cu `bark_launch_attn_decode_batched`,
+    the standalone kernels over the decode steps' `attend_int8` and
+    `attend_dense`): K6a for int8 caches ({"q": (B, S, D) int8, "s": (B,
+    S) f32}), the dense kernel for (B, S, D) caches in qkv's dtype. qkv is
+    (B, 3D); n_past B ints in [0, S), or a (B,) int tensor on the card
+    (taken as it is, as the batched step takes it). Writes each lane's
+    fresh row in place and returns the (B, D) context; on CPU tensors the
+    plain version."""
     from bark_tpu_torch.kernels.bdecode import lane_ints
 
     if qkv.device.type == "cpu":

@@ -4,14 +4,22 @@ The counterpart of `bark_tpu.kernels.decode.decode_step_fused_batched(
 quant=True)` (`_tile_stream` dequant, `_qdot`, `_embed_token`, vmapped
 over lanes). `bdecode.decode_step_fused_batched` comes here when its
 params are a qpack (`io.loader.gpt_qparams_from_section`) on CUDA
-tensors: the hand-written kernels of `csrc/qbdecode.cu` (per-lane packed
-embed, L x [packed LN-GEMV QKV, K7's attention, packed GEMV proj +
-residual, packed LN-GEMV fc + GELU, packed GEMV out + residual], packed
-LM head over `lm_window`), through one C call; each packed weight is read
-once per step for every lane. K9 and K10 reach it through their K7 steps.
-On CPU tensors `bdecode.decode_step_batched_plain` runs the plain version,
-`models.gpt.decode_step` on the qpack for each lane. A qpack the kernels
-do not take raises; nothing falls back to dense.
+tensors: ONE cooperative launch a step of K7's persistent kernel
+(csrc/bdecode.cu `lane_step_kernel`) on its packed weight read, which
+streams the quant-block records of `decode.lane_tiles` (in bf16, each
+thread's values of an m16 tile in mma's fragment order), rounds each
+weight to the params dtype from q * s once and feeds every lane's product
+from it on the tensor cores (CUDA-core FMAs in f32), the min term of
+q4_1/q4_k per lane on the CUDA cores (packed embed, L x [LN1+QKV |
+attention | proj | LN2+fc | out], the packed LM head over `lm_window`).
+K9 and K10 reach it through their K7 steps. On an NVIDIA H100 80GB HBM3
+at 700.00 W (PERF.md): q4_0 at n_past 300 0.484 / 0.491-0.498 /
+0.909-0.914 ms at B 1 / 8 / 32, against 0.518-0.529 / 0.716-0.717 /
+1.921-1.922 for the 62-launch chain; the latency of the step's dependent
+phases bounds it, not its bytes (csrc/bdecode.cu). On CPU tensors
+`bdecode.decode_step_batched_plain` runs the plain version,
+`models.gpt.decode_step` on the qpack for each lane. A qpack the kernel
+does not take raises before any launch; nothing falls back to dense.
 """
 
 from __future__ import annotations
@@ -21,14 +29,14 @@ from bark_tpu_torch.kernels import _build
 launches = 0  # kernel launches through `decode_step_packed_batched`
 
 
-def decode_step_packed_batched(args, out):
+def decode_step_packed_batched(args) -> None:
     """Launch the packed batched step. `args` are those of
-    `bark_decode_step_batched` (csrc/bdecode.cu) with the `GPTQWeights`
-    struct in place of the dense one, as `bdecode.decode_step_fused_batched`
-    builds and validates them for a qpack on CUDA tensors; returns `out`,
-    the f32 logits they point to."""
+    `bark_decode_lanes_packed` (csrc/bdecode.cu: the `GPTQWeights` struct,
+    the records' pointers, the packed lane plan's table and grid, B, the
+    tokens and slots, the caches, the step's work and sync scratch, stamps
+    and the logits), as `bdecode.decode_step_fused_batched` builds and
+    validates them for a qpack on CUDA tensors."""
     global launches
-    _build.check("qdecode_step_batched",
-                 _build.lib().bark_qdecode_step_batched(*args))
+    _build.check("decode_step_packed_batched",
+                 _build.lib().bark_decode_lanes_packed(*args))
     launches += 1
-    return out

@@ -82,34 +82,56 @@ def event_ms(fn, n: int = 10) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_split(fn, n: int = 3) -> dict:
-    """One call's device kernels, from torch.profiler, a session for each
-    call (synchronised) after a warm-up call: the kernels a call, their
-    busy µs, the call's span from its first kernel's start to its last
-    kernel's end and the gaps in it, µs by kind and by kernel name (the
-    mean of n sessions). With torch 2.11 on an H100 a session now and then
-    records no device activity, or drops some kernels of a call that
-    launched them all: the calls are the same, so only sessions with the
-    most device events seen are kept (up to 4 n sessions are run)."""
+def profiled_call(fn, wait_s: float = 30.0) -> list:
+    """The device events of one torch.profiler session around one
+    synchronised call of fn, in start order. With torch 2.11 on an H100 a
+    session now and then records no device activity for a call that did
+    launch, and such sessions come in runs (`chip_smoke.py` once saw 12
+    in a row; `probes/profiler_sessions.py` counts them). An empty session
+    is run again after a pause that doubles from 10 ms (at most 2 s),
+    until `wait_s` seconds have passed; then it raises."""
+    import time
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    calls = []
-    for _ in range(4 * n):
+    pause, end = 0.01, time.monotonic() + wait_s
+    while True:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         call = sorted((e for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA),
                       key=lambda e: e.time_range.start)
+        if call:
+            return call
+        if time.monotonic() + pause > end:
+            raise AssertionError("torch.profiler saw no device activity "
+                                 f"in {wait_s:.0f} s of sessions")
+        time.sleep(pause)
+        pause = min(2 * pause, 2.0)
+
+
+def device_split(fn, n: int = 3, tries: int = None) -> dict:
+    """One call's device kernels, from torch.profiler, a session for each
+    call (`profiled_call`) after a warm-up call: the kernels a call, their
+    busy µs, the call's span from its first kernel's start to its last
+    kernel's end and the gaps in it, µs by kind and by kernel name (the
+    mean of n sessions). A session now and then also drops some kernels of
+    a call that launched them all: the calls are the same, so only the
+    sessions with the most device events seen are kept (up to `tries`, by
+    default 4 n, sessions are run)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    calls = []
+    for _ in range(tries or 4 * n):
+        call = profiled_call(fn)
         most = max([len(c) for c in calls] + [len(call)])
-        calls = [c for c in calls + [call] if c and len(c) == most]
+        calls = [c for c in calls + [call] if len(c) == most]
         if len(calls) == n:
             break
-    if not calls:
-        raise AssertionError("torch.profiler saw no device activity")
     events = busy = span = 0.0
     kinds, names = {}, {}
     for call in calls:
@@ -299,38 +321,46 @@ def gemm_sass() -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def main(argv=None, profile=profile, name="prefill_profile",
+         doc=__doc__, flags=()) -> int:
+    """The script's body, shared with `bdecode_profile.py`: put the tree
+    first on sys.path, time it with `profile(tag, **switches)` and print
+    and write its record as the JSON line `name`. `flags`: (flag, help)
+    pairs of on/off switches passed to `profile` by their names."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(HERE)),
                     help="checkout whose bark_tpu_torch is timed")
     ap.add_argument("--tag", default="tree")
+    for flag, help_ in flags:
+        ap.add_argument(flag, action="store_true", help=help_)
     args = ap.parse_args(argv)
+    switches = {k: v for k, v in vars(args).items()
+                if k not in ("tree", "tag")}
     tree = os.path.abspath(args.tree)
     # run by path, this file's directory leads sys.path: only the tree may
     sys.path[:] = [tree] + [p for p in sys.path if os.path.abspath(p) != HERE]
     import torch
 
     if not torch.cuda.is_available():
-        log("prefill_profile: no CUDA device")
+        log(f"{name}: no CUDA device")
         return 1
     import bark_tpu_torch
 
     if not os.path.abspath(bark_tpu_torch.__file__).startswith(tree):
-        log(f"prefill_profile: imported {bark_tpu_torch.__file__}, not the "
-            f"tree {tree}")
+        log(f"{name}: imported {bark_tpu_torch.__file__}, not the tree "
+            f"{tree}")
         return 1
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"prefill_profile {args.tag}: {tree} on {smi}")
-    rec = dict(card=smi, tree=tree, **profile(args.tag))
+    log(f"{name} {args.tag}: {tree} on {smi}")
+    rec = dict(card=smi, tree=tree, **profile(args.tag, **switches))
     out = os.path.join(os.path.dirname(os.path.dirname(HERE)), "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, f"prefill_profile_{args.tag}.json"),
-              "w") as f:
+    with open(os.path.join(out, f"{name}_{args.tag}.json"), "w") as f:
         json.dump(rec, f, indent=1)
-    print(json.dumps({"prefill_profile": rec}), flush=True)
+    print(json.dumps({name: rec}), flush=True)
     return 0
 
 

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --k1       # phase 1, then K1's and K5's records
+    python3 chip_smoke.py --k7       # phase 1, then the batched step's record
 
 Phases, each fatal on failure (exit code 1, and no result lines):
   1. build the CUDA kernels from bark_tpu_torch/csrc (nvcc, sm_90a, one
@@ -22,8 +23,8 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      beside their bounds and the 62-launch chains' 0.526 / 0.474 ms, with
      their grid, barriers and the per-phase µs of stamped steps (the
      `k1_step` JSON line; K5 on q4_0 under its `k5_q4_0`);
-  2b. the prefill profile (`bark_tpu_torch/probes/prefill_profile.py`):
-     K2 in bf16 at T 257, 437, 617 and 887 (coarse, LM window) and K8 over
+  2b. the prefill profile (`bark_tpu_torch/probes/prefill_profile.py`,
+     run in a fresh process as 2c is): K2 in bf16 at T 257, 437, 617 and 887 (coarse, LM window) and K8 over
      8 lanes of 257-887 and 8 x 887 rows, each timed and split by device
      kernel (torch.profiler: GEMMs, attention, LayerNorms, embed, LM head,
      gaps), the device time of one request's 8 prefills, torch.matmul on
@@ -32,6 +33,17 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      must show HGMMA and UTMALDG in every instance (its `prefill_profile`
      JSON line). Phase 2 holds K2 and K8 (dense and int8 caches) bit-equal
      from run to run in bf16 and their cache rows past n_valid unwritten;
+  2c. (run before 2b) the batched step's record (`probes/
+     bdecode_profile.py --no-batches` in a fresh process, whose
+     torch.profiler sees every kernel; `k7_step_record`): K7,
+     K5-batched q4_0 and K6 in K7 (one persistent launch a step,
+     csrc/bdecode.cu) at B 1/8/32 and n_past 0/300/1023 and K7's coarse
+     step at 887 over its window, with their ms and bounds, at n_past 300
+     one device kernel a call, and stamped phases (every block's:
+     `decode.step_critical_us`), K1 and K5 beside them,
+     `torch.matmul`'s device time on the step's products at M = B (the
+     K7 rows' `library_ms`), and `cuobjdump -sass` of the kernel, whose
+     bf16 instances must hold HMMA (its `k7_step` JSON line);
   3. check a small model end to end against the port's plain CPU run with
      the same noise (tokens exact, audio within tolerance), TF32 still off:
      dense weights given as parts, then the same model written to a
@@ -226,7 +238,7 @@ KERNELS.update({  # K6a in K1, K5, K7; K6b + K6c in K2, K8
             "bark_tpu/kernels/decode.py:1603", "decode"),
     K6_K5: ("bark_tpu_torch/csrc/decode.cu",
             "bark_tpu/kernels/decode.py:1603", "qdecode"),
-    **{f"{K6_K7}[B={b}]": ("bark_tpu_torch/csrc/decode.cu",
+    **{f"{K6_K7}[B={b}]": ("bark_tpu_torch/csrc/bdecode.cu",
                            "bark_tpu/kernels/decode.py:1937", "bdecode")
        for b in KV8_BATCHES},
     K6_K2: ("bark_tpu_torch/csrc/prefill.cu",
@@ -240,7 +252,7 @@ K5B = "qdecode_step_fused_batched"
 K5B_ROWS = (("q8_0", 8), ("q4_0", 1), ("q4_0", 8), ("q4_0", 32),
             ("q4_1", 8), ("q4_k", 8))
 KERNELS.update({
-    f"{K5B}[{fmt},B={b}]": ("bark_tpu_torch/csrc/qbdecode.cu",
+    f"{K5B}[{fmt},B={b}]": ("bark_tpu_torch/csrc/bdecode.cu",
                             "bark_tpu/kernels/decode.py:2043", "qbdecode")
     for fmt, b in K5B_ROWS})
 K6_K5B = "qdecode_step_fused_batched[q4_0,kv8]"  # held in phase 2 only
@@ -569,8 +581,29 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
                                                (nb + 60 * cbs * 4, fl))
 
 
+def probe_record(script: str, *flags: str) -> dict:
+    """The record of `bark_tpu_torch/probes/<script>.py`, run by path on
+    this checkout in a fresh process (its log lines pass through to
+    stderr). A fresh process, because with torch 2.11 on the H100 machine
+    torch.profiler in this one, after phase 2's checks, at times records
+    no device activity in any session, while a new process's sessions
+    record every kernel."""
+    import torch
+
+    torch.cuda.empty_cache()
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bark_tpu_torch", "probes",
+                                      f"{script}.py"), "--tag", "smoke",
+         *flags], cwd=ROOT, stdout=subprocess.PIPE, text=True, timeout=600,
+        check=True).stdout
+    rec = json.loads(out.strip().splitlines()[-1])[script]
+    for key in ("card", "tree", "tag"):
+        rec.pop(key, None)
+    return rec
+
+
 def prefill_phase(smi: str) -> dict:
-    """Phase 2b: `probes/prefill_profile.py`'s record in this process (K2
+    """Phase 2b: `probes/prefill_profile.py`'s record (`probe_record`: K2
     at T 257/437/617/887 and K8 over 8 lanes of 257-887 and 8 x 887 rows,
     each split by device kernel; the 8 prefills of one request; the
     torch.matmul yardstick; the GEMM plans), and the bf16 GEMM's SASS,
@@ -578,7 +611,7 @@ def prefill_phase(smi: str) -> dict:
     instance."""
     from bark_tpu_torch.probes import prefill_profile
 
-    rec = prefill_profile.profile("smoke")
+    rec = probe_record("prefill_profile")
     sass = prefill_profile.gemm_sass()
     for key, r in sass.items():
         log(f"  gemm_tma_kernel<{key}>: {r['lines']} SASS lines, HGMMA "
@@ -622,26 +655,17 @@ K5_EARLIER_MS = 0.474  # K5 q4_0's 62-launch chain, the same (PERF.md, H100)
 
 def device_kernels(fn) -> list:
     """Names of the device kernels one call of fn runs (memcpy and memset
-    aside), from torch.profiler, after a warm-up call. A profiler session
-    now and then records no device activity at all (seen with torch 2.11
-    on the H100 machine, for a call that did launch): such a session is
-    run again, up to 5 times, and then it fails."""
+    aside), from one torch.profiler session after a warm-up call. A session
+    that records no device activity (seen now and then with torch 2.11 on
+    the H100 machine, for a call that did launch) is run again:
+    `prefill_profile.profiled_call`."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from bark_tpu_torch.probes import prefill_profile as pp
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        device = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if device:
-            break
-    else:
-        raise AssertionError("torch.profiler saw no device activity")
-    return [e.name for e in device
+    return [e.name for e in pp.profiled_call(fn)
             if not e.name.startswith(("Memcpy", "Memset"))]
 
 
@@ -704,6 +728,65 @@ def k1_step_record(sem_cfg, sem_p, coarse_cfg, coarse_p, lmw, kc, vc, gen):
             sem_cfg, sem_p, tok, kc, vc, 300, out=out, stamps=stamps))
     log_phases("decode_step_fused      bf16", rec["phases_us"])
     return rec
+
+
+def k7_step_record() -> dict:
+    """Phase 2c: the batched step's record, `probes/bdecode_profile.py`
+    (`probe_record`, its batches aside): K7, K5-batched q4_0 and K6 in K7 at B
+    1/8/32 and n_past 0/300/1023 and K7's coarse step at 887 over its
+    window, each with its ms and bound, those at n_past 300 and the
+    coarse step asserted one device kernel a call (torch.profiler); each one's stamped phases at n_past 300 and the
+    slowest block; K1 and K5 q4_0 beside them; `torch.matmul`'s device
+    time on the step's 48 products and LM head at M = B (the K7 rows'
+    library_ms); and `cuobjdump -sass` of the batched step's kernel, whose
+    bf16 instances must hold HMMA (mma.sync) or HGMMA."""
+    from bark_tpu_torch.probes import bdecode_profile
+
+    rec = probe_record("bdecode_profile", "--no-batches")
+    for part in ("k7", "k5b", "k6_k7"):
+        for key, r in rec[part].items():
+            if r.get("device_kernels", 1) != 1:
+                raise AssertionError(f"{part} {key} ran {r['device_kernels']} "
+                                     f"device kernels a step, want 1: "
+                                     f"{r['names']}")
+    sass = bdecode_profile.lane_sass()
+    for key, r in sass.items():
+        log(f"  lane_step_kernel<{key}>: {r['lines']} SASS lines, HMMA "
+            f"{r['HMMA']}, HGMMA {r['HGMMA']} ({r['first']})")
+    bf16 = [r for k, r in sass.items() if "bfloat16" in k]
+    if len(sass) != 10 or len(bf16) != 5 or not all(
+            r["HMMA"] or r["HGMMA"] for r in bf16):
+        raise AssertionError(f"the batched step's bf16 instances are not on "
+                             f"the tensor cores: {sass}")
+    rec["sass"] = sass
+    return rec
+
+
+def k7_row(rec: dict, part: str, B: int) -> dict:
+    """What a K7 / K5-batched / K6-in-K7 kernel row adds from the phase 2c
+    record at B lanes: its ms at n_past 0/300/1023, device kernels a call,
+    the stamped phases at n_past 300, the product phases' time on the
+    slowest block (4 a layer x 12, and the LM head) beside torch.matmul's
+    device time on the same products at M = B (library_ms)."""
+    steps = {k.split(" n_past ")[1]: r["ms"] for k, r in rec[part].items()
+             if k.startswith(f"B={B} ")}
+    ph = rec["phases"].get({"k7": "k7", "k5b": "k5b", "k6_k7": "k6"}[part]
+                           + f" B={B}")
+    out = dict(ms_by_n_past=steps, device_kernels_per_call=rec[part][
+        f"B={B} n_past 300"]["device_kernels"])
+    if ph is not None:
+        blocks = ph["every_block"]
+        gemv_us = sum(blocks[k]["slowest"] for k in
+                      ("ln1_qkv", "proj", "ln2_fc", "out")) * 12
+        out.update(phases_us=ph, gemv_phases_ms=(
+            gemv_us + blocks["lm_head_slowest"]) / 1e3)
+    if part == "k7":
+        out.update(library_ms=rec["matmul_device_ms"][str(B)],
+                   library_call="torch.matmul on the step's 48 bf16 "
+                                "products (4 a layer x 12) and its LM head "
+                                "at M = B: their device time "
+                                "(torch.profiler)")
+    return out
 
 
 def stamped_phases(plan, run) -> dict:
@@ -3288,6 +3371,11 @@ def main() -> int:
     if sys.argv[1:] == ["--k1"]:
         k1_only(smi)
         return 0
+    if sys.argv[1:] == ["--k7"]:
+        with full_f32():
+            rec = k7_step_record()
+        print(json.dumps({"k7_step": dict(card=smi, **rec)}))
+        return 0
 
     checks = Checks()
     with full_f32():
@@ -3307,6 +3395,11 @@ def main() -> int:
                 f"{dtype}")
             qbatched_kernel_checks(checks, dtype,
                                    timed=dtype == torch.bfloat16)
+        log("phase 2c: the batched decode step's record (bf16, bark-small): "
+            "K7, K5-batched q4_0 and K6 in K7 at B 1/8/32 and n_past "
+            "0/300/1023, one device kernel a step, stamped phases, "
+            "torch.matmul at M = B, the kernel's SASS")
+        k7_record = k7_step_record()
         log("phase 2b: the prefill profile (bf16, bark-small): K2 at T 257, "
             "437, 617 and 887 and K8 split by device kernel, one request's "
             "8 prefills, the torch.matmul yardstick, the bf16 GEMM's SASS")
@@ -3518,6 +3611,15 @@ def main() -> int:
                 row["ms_by_T"] = {T: r["ms"]
                                   for T, r in prefill_record["k2"].items()}
                 row["request_prefills_ms"] = prefill_record["request"]["ms"]
+        if name.startswith(f"{K7}[B="):
+            row.update(k7_row(k7_record, "k7", int(name[len(K7) + 3:-1])))
+        elif name.startswith(f"{K6_K7}[B="):
+            row.update(k7_row(k7_record, "k6_k7",
+                              int(name[len(K6_K7) + 3:-1])))
+        elif name == f"{K5B}[q4_0,B=1]" or name in (f"{K5B}[q4_0,B=8]",
+                                                    f"{K5B}[q4_0,B=32]"):
+            row.update(k7_row(k7_record, "k5b",
+                              int(name.split(",B=")[1][:-1])))
         if name == "decode_step_fused":
             row.update(checks.k1_step)
         if name == f"{K5}[q4_0]":
@@ -3591,6 +3693,7 @@ def main() -> int:
         **checks.k1_step, k5_q4_0=dict(
             chain_ms_at_300_quoted_from_perf_md=K5_EARLIER_MS,
             **checks.k5_step))}))
+    print(json.dumps({"k7_step": dict(card=smi, **k7_record)}))
     print(json.dumps({"dma_probe": dict(card=smi, **dma_record)}))
     print(json.dumps({"cache_probe": cache_record}))
     print(json.dumps({"lowering_probe": lowering_record}))

@@ -21,6 +21,12 @@ tolerances of their plain versions. C1-C3, the cache probe: its kernel
 bit-equal to x * 2, the scan of it equal to 1024 on ones, its source
 shifted by 7 lines giving the same SASS and object key; and
 `BarkContext.warmup` launching the kernels without moving the generator.
+K7 and K5-batched, the batched step (one persistent launch a step, its
+products on the tensor cores in bf16), also at bark-small's width for 1,
+3, 8 and 32 lanes at n_past 0/300/1023/887: f32 and bf16, dense and int8
+caches, dense weights and the four scale forms, within 2e-3 (f32) or 1e-1
+(bf16) of the plain version, bit-equal from run to run and stamped, and
+20 steps queued with slots on the card equal to 20 synced ones.
 K2 and K8 in bf16 (the TMA + wgmma GEMM and the tensor-core attention)
 at widths 768, 1024 and 128, T 1 to 1024, dense and int8 caches: within
 1e-1 of the plain version, bit-equal from run to run, rows past n_valid
@@ -760,13 +766,13 @@ def _kv8_clone(c):
     return {k: v.clone() for k, v in c.items()}
 
 
-def _kv8_close(a, b):
+def _kv8_close(a, b, atol=ATOL):
     """Int8 caches equal but for rare one-step flips; scales within
-    ATOL / 127."""
+    atol / 127 (atol: the tolerance of the fresh rows they quantize)."""
     diff = (a["q"].int() - b["q"].int()).abs()
     assert int(diff.max()) <= 1
     assert int((diff > 0).sum()) <= max(1, int(1e-3 * diff.numel()))
-    torch.testing.assert_close(a["s"], b["s"], rtol=0, atol=ATOL / 127)
+    torch.testing.assert_close(a["s"], b["s"], rtol=0, atol=atol / 127)
 
 
 @pytest.mark.parametrize("n_past,win", [(0, None), (40, None), (511, None),
@@ -1173,6 +1179,154 @@ def test_packed_batched_chunk_and_window_kernels(dev, qpack, B):
     for b, c in enumerate(ctx_len):
         torch.testing.assert_close(vc[:, b, c:c + 10], vc2[:, b, c:c + 10],
                                    rtol=0, atol=ATOL)
+
+
+# ------------------------------- K7 / K5-batched at bark-small's width
+
+LANE_BS = (1, 3, 8, 32)
+
+
+def _lane_caches(dev, dtype, B, quant):
+    """(L, B, S, D) caches of K1_CFG, rows [0, 1023) of every lane drawn
+    (int8 through the plain quantizer)."""
+    g = torch.Generator(device=dev).manual_seed(100 + B)
+    kc, vc = gpt.init_kv_cache(K1_CFG, dtype, dev, quant=quant, batch=B)
+    for c in (kc, vc):
+        live = torch.randn((K1_CFG.n_layer, B, 1023, K1_CFG.n_embd),
+                           generator=g, device=dev)
+        if quant:
+            c["q"][:, :, :1023], c["s"][:, :, :1023] = \
+                gpt.quantize_kv_rows(live)
+        else:
+            c[:, :, :1023] = live.to(dtype)
+    return kc, vc
+
+
+def _lane_row(c, b, n):
+    """Lane b's row n of every layer of a batched cache (dense, or int8
+    values and scales)."""
+    if isinstance(c, dict):
+        return {k: t[:, b, n:n + 1] for k, t in c.items()}
+    return c[:, b, n:n + 1]
+
+
+@pytest.mark.parametrize("B", LANE_BS)
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("weights", ["dense", *QFORMS])
+def test_lane_step(dev, k1_params, k5_qpacks, weights, dtype, cache, B):
+    """One launch of the batched step (K7, or K5-batched on a qpack of
+    each scale form) for lanes at n_past 0, 300, 1023 and 887 (B = 3 on
+    the coarse window) against the plain version: f32 within 2e-3 (lanes
+    at n_past 0 on the int8 cache within 5e-2, as K1's), bf16 within 1e-1;
+    each lane's fresh cache rows likewise (int8 in f32: one-step flips,
+    scales within 2e-3 / 127)."""
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import qbdecode
+
+    p = (k1_params[dtype] if weights == "dense"
+         else k5_qpacks[(weights, dtype)])
+    quant = cache == "int8"
+    n_past = [(0, 300, 1023, 887)[b % 4] for b in range(B)]
+    toks = [(17 + 101 * b) % K1_CFG.n_in_vocab for b in range(B)]
+    win = K1_WIN if B == 3 else None
+    kc, vc = _lane_caches(dev, dtype, B, quant)
+    kc2, vc2 = _clone(kc), _clone(vc)
+    counts = kbdec.launches, qbdecode.launches
+    out = kbdec.decode_step_fused_batched(K1_CFG, p, toks, kc, vc, n_past,
+                                          lm_window=win)
+    torch.cuda.synchronize()
+    packed = weights != "dense"
+    assert (kbdec.launches, qbdecode.launches) == (
+        counts[0] + (not packed), counts[1] + packed)
+    ref = kbdec.decode_step_batched_plain(K1_CFG, p, toks, kc2, vc2, n_past,
+                                          win)
+    for b, n in enumerate(n_past):
+        if dtype == torch.bfloat16:
+            tol = 1e-1
+        else:
+            tol = (5e-2 if n == 0 else KV8_ATOL) if quant else 2e-3
+        torch.testing.assert_close(out[b], ref[b], rtol=0, atol=tol)
+        for a, c in ((kc, kc2), (vc, vc2)):
+            ra, rc = _lane_row(a, b, n), _lane_row(c, b, n)
+            if quant and dtype == torch.bfloat16:  # dequantized, as K1's
+                torch.testing.assert_close(
+                    ra["q"].float() * ra["s"][..., None],
+                    rc["q"].float() * rc["s"][..., None], rtol=0, atol=tol)
+            elif not quant:
+                torch.testing.assert_close(ra.float(), rc.float(), rtol=0,
+                                           atol=tol)
+    if quant and dtype == torch.float32:  # every lane's fresh rows at once
+        for a, c in ((kc, kc2), (vc, vc2)):
+            _kv8_close(*({k: torch.cat([_lane_row(x, b, n)[k]
+                                        for b, n in enumerate(n_past)], 1)
+                          for k in ("q", "s")} for x in (a, c)), atol=2e-3)
+    if win is not None:
+        assert not out[:, :win[0]].any() and not out[:, win[1]:].any()
+
+
+@pytest.mark.parametrize("B", [8, 32])
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+@pytest.mark.parametrize("weights", ["dense", "f16", "f32-mins"])
+def test_lane_step_is_bit_equal_run_to_run_and_stamped(dev, k1_params,
+                                                       k5_qpacks, weights,
+                                                       cache, B):
+    """In bf16 the plan's fixed fold order gives the same logits and
+    cache bits twice; a stamped step gives them too, every block's clock
+    running forward, split into the five phases a layer."""
+    from bark_tpu_torch.kernels import bdecode as kbdec
+
+    p = (k1_params[torch.bfloat16] if weights == "dense"
+         else k5_qpacks[(weights, torch.bfloat16)])
+    w = (_build.stage_weights if weights == "dense"
+         else _build.stage_qweights)(K1_CFG, p)
+    plan, _ = kdec.device_lane_plan(w, B, None)
+    assert plan.n_barriers == 5 * K1_CFG.n_layer + 1
+    stamps = kdec.step_stamps(plan, dev)
+    kc, vc = _lane_caches(dev, torch.bfloat16, B, cache == "int8")
+    n_past = [(300, 1023, 0)[b % 3] for b in range(B)]
+    runs = []
+    for st in (None, None, stamps):
+        k, v = _clone(kc), _clone(vc)
+        runs.append((kbdec.decode_step_fused_batched(
+            K1_CFG, p, list(range(B)), k, v, n_past, stamps=st), k, v))
+    for other in runs[1:]:
+        for x, y in zip(runs[0], other):
+            for s, t in (zip(x.values(), y.values()) if isinstance(x, dict)
+                         else [(x, y)]):
+                assert torch.equal(s, t)
+    for t in stamps.tolist():
+        assert all(x <= y for x, y in zip(t, t[1:])) and t[-1] > t[0]
+    us = kdec.step_phases_us(plan, stamps)
+    assert us["attention"] > 0 and us["step"] > 0
+    assert kdec.step_critical_us(plan, stamps)["step"] >= us["step"]
+
+
+def test_lane_step_slots_on_the_card_and_queued(dev, k1_params):
+    """Lanes' tokens and slots read from device tensors, 20 steps queued
+    with no host sync against the same 20 synced: equal logits and
+    caches (a ticket or count left armed would hang or fold early)."""
+    from bark_tpu_torch.kernels import bdecode as kbdec
+
+    p = k1_params[torch.float32]
+    B = 8
+    runs = []
+    for sync in (False, True):
+        kc, vc = _lane_caches(dev, torch.float32, B, False)
+        toks = torch.arange(B, dtype=torch.int32, device=dev)
+        for j in range(20):
+            slots = torch.full((B,), 300 + j, dtype=torch.int32, device=dev)
+            slots[::2] += 100
+            out = kbdec.decode_step_fused_batched(K1_CFG, p, toks, kc, vc,
+                                                  slots)
+            toks = out.argmax(-1).to(torch.int32) % K1_CFG.n_in_vocab
+            if sync:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        runs.append((out.clone(), kc, vc))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
 
 
 # ------------------------------------------------------------ D1-D5
