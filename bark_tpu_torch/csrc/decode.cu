@@ -1,7 +1,9 @@
 // K1: one token through all layers of a GPT stage, for batch 1, as ONE
 // persistent kernel a step; K5, the same step on packed-quantized weights,
-// as a weight-read policy of the same kernel; and K6, the int8 KV cache,
-// inside both.
+// as a weight-read policy of the same kernel; K6, the int8 KV cache,
+// inside both; and K3 and K4, a semantic chunk and a coarse window, as ONE
+// launch of the same step in a loop with the sampler inside
+// (`decode_steps_kernel`, below the step).
 //
 // Replaces bark_tpu/kernels/decode.py `decode_step_fused` (:2392, its one
 // pallas_call at :2536; body `_decode_kernel` :1428, layer loop
@@ -79,6 +81,31 @@
 //   start, after the embed, at each barrier's arrival and release, and at
 //   the end, a row of 2 x barriers + 3 a block.
 //
+// K3 and K4 (replacing bark_tpu/kernels/semantic.py `semantic_chunk_fused`
+// :555, its pallas_call at :740, and bark_tpu/kernels/window.py
+// `coarse_window_fused` :419, pallas_call at :602): n_steps steps of the
+// step above in one cooperative launch. Step j first samples its token
+// from the current logits (the input logits for j = 0), then decodes it at
+// n_past = min(n_past0 + j, clamp). What bounds them is what bounds K1,
+// n_steps times over; what the loop saves is the per-step sample launch
+// and launch gap, and the ring's cold start: each block's chunk sequence is
+// its step's, repeated, so the next step's first chunks are in flight
+// during the LM head and the sample. The sampler is a phase of the LM head:
+// each block reduces the logits it computed that lie in the step's window
+// (its LM rows, or its packed tiles' columns) to a partial (best of
+// logits/temp + noise, its index; for K3 the max and sum of exp of the
+// EOS scale), one grid barrier follows, and every block folds all the
+// partials in the same fixed order, so every block holds the same token
+// with no second barrier and embeds it. Registers: the loop kernel holds
+// the layers' code of K1 plus a step's state, and at 128 registers a
+// thread any state kept live across the layers spilled from their hot
+// loops (its dense bf16 layers ran 7-10% slower than K1's). So the slot,
+// the chunks a step and the ring's producer live in shared memory at a
+// fixed offset (the producer walked by thread 0 alone), the stamps too:
+// probes/k3k4_profile.py on an H100 at 700 W, a dense bf16 chunk of 16
+// steps 6.37 ms with that state in registers, 5.77 with it in shared
+// memory (K1's step 0.360).
+//
 // The attention arithmetic (`attend_dense`, `attend_int8`) and the weight
 // reads live in step.cuh, shared with the batched step (bdecode.cu
 // `lane_step_kernel`, K7 and K5-batched: the same ring, barriers and
@@ -90,6 +117,29 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "step.cuh"
+
+// The step loop's arguments (kernels/_build.py `StepLoop` mirrors it):
+// n_steps steps, step j decoding at min(n_past0 + j, clamp); temp (0:
+// argmax of the logits) and the noise rows (row min(noise_row0 + j,
+// noise_rows - 1) for step j, noise_ld floats apart, each over the
+// window's width; null at temp 0); codebook 0: the window [0,
+// n_out_vocab) with the stop flag (tok == stop_token or eos_p >=
+// min_eos_p), 1: the window [svs + (cbs when step_idx0 + j is odd), + cbs)
+// of the coarse stage, no flag; tok_out (n_steps) int32, flag_out
+// (n_steps) int32 or null when codebook; part, 4 f32 a block; stamps,
+// blocks x (2 + 3 n_steps) uint64 (n_steps <= 64), or null.
+struct BarkStepLoop {
+  int n_steps, n_past0, clamp;
+  float temp;
+  const float* noise;
+  int noise_ld, noise_row0, noise_rows;
+  int codebook, svs, cbs, step_idx0, stop_token;
+  float min_eos_p;
+  int* tok_out;
+  int* flag_out;
+  float* part;
+  unsigned long long* stamps;
+};
 
 namespace {
 
@@ -296,19 +346,42 @@ struct StepArgs {
   unsigned long long* stamps;  // blocks x (2 * barriers + 3), or null
   float* logits;       // (n_out_vocab,)
   int n_past, cap, plan_ints;
+  BarkStepLoop lp;     // the step loop's (zero in K1's single step)
 };
 
-// Shared memory (dynamic): the ring and its mbarriers, the plan, K6a's int8
-// rows, f32 rows.
+// A step's state kept in shared memory at a fixed offset, so that no
+// register holds it across the layers: the slot the step writes, the
+// chunks of a block's sequence a step (the step loop's producer wraps
+// after them), in the step loop the ring's producer (chunks issued and
+// freed, the cursor: thread 0 alone walks it there), the sampler's merge
+// scratch (a warp's partial, 4 words, for each of 16 warps); and the step
+// loop's stamps, thread 0's clock readings, copied out at the end of a
+// stamped launch of at most LOOP_STAMP_STEPS.
+enum {
+  W_N_PAST = 0, W_CHUNKS = 1, W_ISSUED = 2, W_FREED = 3, W_CURSOR = 4,
+  W_MERGE = 8, STATE_WORDS = 8 + 64
+};
+constexpr int LOOP_STAMP_STEPS = 64;
+constexpr int LOOP_STAMPS = 2 + 3 * LOOP_STAMP_STEPS;
+
+// Shared memory (dynamic): the ring and its mbarriers, the loop's stamps,
+// the step's state, the plan, K6a's int8 rows, f32 rows.
 inline size_t step_smem(int D, int S) {
-  const size_t words = PLAN_MAX + 3 * (HD / 4) + D + 4 * D + PS_WARPS * TILE +
-                       S + PS_KG * (HD + 1) + 3 * HD + 32 + 64;
+  const size_t words = 2 * LOOP_STAMPS + STATE_WORDS + PLAN_MAX +
+                       3 * (HD / 4) + D + 4 * D + PS_WARPS * TILE + S +
+                       PS_KG * (HD + 1) + 3 * HD + 32 + 64;
   return RING_BYTES + 8 * MAX_SLOTS + 4 * words;
 }
 
 // One block's view of the step: its shared memory, its chunk ring and the
 // plan. Every member function is called by all threads of the block alike.
-template <typename R>
+// LOOP (the step loop): the ring's producer lives in the state's shared
+// words and thread 0 alone walks it, so that no thread holds it in
+// registers across the phases; in K1 every thread walks it alike. (K1 on
+// the loop's producer was slower: probes/k3k4_profile.py on an H100 at
+// 700 W, the step at n_past 300 q4_0 0.3678-0.3688 ms against 0.3533-
+// 0.3536 with its own, dense 0.3592-0.3622 against 0.3543-0.3579.)
+template <typename R, bool LOOP = false>
 struct Step {
   using T = typename R::T;
   static constexpr int SLOT = R::SLOT;
@@ -318,6 +391,8 @@ struct Step {
   const StepArgs<typename R::Weights>& a;
   int* plan;  // the plan, in shared memory
   int G, L, D, S, b, lm_rows;
+  unsigned long long* stamp_buf;  // the loop's stamps, in shared memory
+  int* state;  // the step's state (W_*), in shared memory
   unsigned char* ring;
   uint64_t* full;  // a slot's mbarrier: its chunk's bytes landed
   int *qw, *kq, *vq;
@@ -339,7 +414,9 @@ struct Step {
     lm_rows = SLOT / (D * (int)sizeof(T));
     ring = smem;
     full = reinterpret_cast<uint64_t*>(smem + RING_BYTES);
-    plan = reinterpret_cast<int*>(full + MAX_SLOTS);
+    stamp_buf = reinterpret_cast<unsigned long long*>(full + MAX_SLOTS);
+    state = reinterpret_cast<int*>(stamp_buf + LOOP_STAMPS);
+    plan = state + STATE_WORDS;
     qw = plan + PLAN_MAX;
     kq = qw + HD / 4;
     vq = kq + HD / 4;
@@ -359,12 +436,23 @@ struct Step {
 
   __device__ __forceinline__ int pl(int i) const { return plan[i]; }
 
-  // the ring's mbarriers, and the plan table into shared memory (it is
-  // read at every chunk and fold)
+  // the slot this step writes: K1's argument, or the step loop's current
+  // step's (in the state's shared words)
+  __device__ __forceinline__ int n_past() const {
+    if constexpr (LOOP)
+      return state[W_N_PAST];
+    else
+      return a.n_past;
+  }
+
+  // the ring's mbarriers, the step's state, and the plan table into shared
+  // memory (it is read at every chunk and fold)
   __device__ void setup() {
     if (threadIdx.x == 0) {
       for (int i = 0; i < NS; ++i) mbar_init(&full[i], 1);
       mbar_fence_init();
+      if (LOOP)
+        for (int i = 0; i < W_MERGE; ++i) state[i] = 0;
     }
     for (int i = threadIdx.x; i < a.plan_ints; i += PS_THREADS)
       plan[i] = __ldg(a.plan + i);
@@ -393,14 +481,43 @@ struct Step {
            (size_t)l * (N / TILE) * R::tile_bytes(K);
   }
 
+  // past a step's last chunk (chunk `issued` would be the next step's
+  // first): the cursor to the next step's start, or false after the
+  // launch's last step (K1's only one)
+  __device__ bool next_step() {
+    if (!LOOP || issued >= state[W_CHUNKS] * a.lp.n_steps) return false;
+    c_layer = c_phase = c_item = c_row = 0;
+    return true;
+  }
+
+  // the chunks of this block's sequence a step, as next_chunk walks them
+  __device__ int chunks_a_step() const {
+    int n = 0;
+    for (int p = 0; p < PH_N; ++p)
+      for (int i = start(p, b); i < start(p, b + 1); ++i) {
+        int tile, k0, k1, flags;
+        item(p, i, tile, k0, k1, flags);
+        n += (k1 - k0 + R::CH - 1) / R::CH;
+      }
+    n *= L;
+    const int v0 = pl(pl(PL_LM) + 2 * b), v1 = pl(pl(PL_LM) + 2 * b + 1);
+    if (v1 > v0)
+      n += R::PACKED ? (v1 - v0) * ((D + R::CH - 1) / R::CH)
+                     : (v1 - v0 + lm_rows - 1) / lm_rows;
+    return n;
+  }
+
   // The chunk at the producer's cursor (`bytes` from src), advancing the
-  // cursor; false past the block's last.
+  // cursor; false past the block's last (of the launch's last step).
   __device__ bool next_chunk(const void*& src, unsigned& bytes) {
     while (true) {
       if (c_layer == L) {
         const int v0 = pl(pl(PL_LM) + 2 * b), v1 = pl(pl(PL_LM) + 2 * b + 1);
         if constexpr (R::PACKED) {  // tiles [v0, v1), each over all D rows
-          if (v0 + c_item >= v1) return false;
+          if (v0 + c_item >= v1) {
+            if (!next_step()) return false;
+            continue;
+          }
           if (c_row >= D) {
             ++c_item;
             c_row = 0;
@@ -413,7 +530,10 @@ struct Step {
           c_row += rows;
           return true;
         } else {  // vocab rows [v0, v1) of the (V, D) head
-          if (v0 + c_row >= v1) return false;
+          if (v0 + c_row >= v1) {
+            if (!next_step()) return false;
+            continue;
+          }
           const int rows = min(lm_rows, v1 - v0 - c_row);
           src = (const T*)a.w.lm_head + (size_t)(v0 + c_row) * D;
           bytes = rows * D * sizeof(T);
@@ -450,8 +570,39 @@ struct Step {
 
   // Fill the free slots: one bulk copy a chunk, issued by thread 0, its
   // bytes completing on the slot's mbarrier (every thread walks the cursor
-  // alike; none waits on the copy's issue but thread 0).
+  // alike, none waiting on the copy's issue but thread 0; LOOP: thread 0
+  // alone, its producer loaded from and stored to the state's words).
   __device__ void top_up() {
+    if constexpr (LOOP) {
+      if (threadIdx.x != 0) return;
+      int* w = state;
+      issued = w[W_ISSUED];
+      freed = w[W_FREED];
+      c_layer = w[W_CURSOR];
+      c_phase = w[W_CURSOR + 1];
+      c_item = w[W_CURSOR + 2];
+      c_row = w[W_CURSOR + 3];
+      fill();
+      w[W_ISSUED] = issued;
+      w[W_CURSOR] = c_layer;
+      w[W_CURSOR + 1] = c_phase;
+      w[W_CURSOR + 2] = c_item;
+      w[W_CURSOR + 3] = c_row;
+    } else {
+      fill();
+    }
+  }
+
+  // the chunks every thread is done with: those before chunk i
+  __device__ __forceinline__ void free_before(int i) {
+    if constexpr (LOOP) {
+      if (threadIdx.x == 0) state[W_FREED] = i;
+    } else {
+      freed = i;
+    }
+  }
+
+  __device__ void fill() {
     while (issued < freed + NS) {
       const void* src;
       unsigned bytes;
@@ -471,7 +622,7 @@ struct Step {
     const int i = taken++;
     mbar_wait(&full[i % NS], (i / NS) & 1);
     __syncthreads();
-    freed = i;
+    free_before(i);
     top_up();
     return ring + (size_t)(i % NS) * SLOT;
   }
@@ -479,7 +630,7 @@ struct Step {
   // after a __syncthreads that follows the last use of the chunks taken
   // (a barrier's arrival)
   __device__ void release() {
-    freed = taken;
+    free_before(taken);
     top_up();
   }
 
@@ -560,15 +711,15 @@ struct Step {
       prefetch_l2((const char*)v + i);
   }
 
-  // x = wte[tok] + wpe[n_past] (NaN for a token outside the table; a
+  // x = wte[t] + wpe[n_past] (NaN for a token outside the table; a
   // packed row dequantized as the densified table holds it); the
-  // rows' loads go out ahead of the first weight chunks (`top_up`), which
-  // the embed then waits behind no longer than its own loads take
-  __device__ void embed_and_start_ring() {
+  // rows' loads go out ahead of the ring's refill (`top_up`: K1's first
+  // weight chunks), which the embed then waits behind no longer than its
+  // own loads take
+  __device__ void embed(int t) {
     constexpr int MAX_PER = VPT;
-    const int t = *a.tok;
     const bool ok = t >= 0 && t < a.w.n_in_vocab;
-    const T* wpe = (const T*)a.w.wpe + (size_t)a.n_past * D;
+    const T* wpe = (const T*)a.w.wpe + (size_t)n_past() * D;
     float e[MAX_PER], q[MAX_PER];
 #pragma unroll
     for (int u = 0; u < MAX_PER; ++u) {
@@ -691,7 +842,7 @@ struct Step {
   __device__ void attend(int l, int h, bool writes, bool scales) {
     const T* bias = (const T*)a.w.qkv_b + (size_t)l * 3 * D;
     const size_t slab = (size_t)l * S;
-    const int off = h * HD;
+    const int off = h * HD, n_past = this->n_past();
     float t;
     if (a.kv.ks == nullptr) {
       if (threadIdx.x < 3 * HD) {
@@ -700,12 +851,12 @@ struct Step {
         (which == 0 ? qs : which == 1 ? kn : vn)[d] = v;
         if (writes && which > 0) {
           T* c = (T*)(which == 1 ? a.kv.k : a.kv.v);
-          c[(slab + a.n_past) * D + off + d] = from_f32<T>(v);
+          c[(slab + n_past) * D + off + d] = from_f32<T>(v);
         }
       }
       __syncthreads();
       t = attend_dense<T, PS_KG>(qs, kn, vn, (const T*)a.kv.k + slab * D + off,
-                                 (const T*)a.kv.v + slab * D + off, a.n_past,
+                                 (const T*)a.kv.v + slab * D + off, n_past,
                                  D, ATT_SCALE, sc, red, part);
     } else {
       float ka = 0.0f, va = 0.0f;
@@ -731,18 +882,18 @@ struct Step {
         reinterpret_cast<signed char*>(kq)[d] = k8;
         reinterpret_cast<signed char*>(vq)[d] = v8;
         if (writes) {
-          kc[(size_t)a.n_past * D + d] = k8;
-          vc[(size_t)a.n_past * D + d] = v8;
+          kc[(size_t)n_past * D + d] = k8;
+          vc[(size_t)n_past * D + d] = v8;
         }
       }
       if (scales && threadIdx.x == 0) {
-        a.kv.ks[slab + a.n_past] = sk;
-        a.kv.vs[slab + a.n_past] = sv;
+        a.kv.ks[slab + n_past] = sk;
+        a.kv.vs[slab + n_past] = sv;
       }
       const float qv = threadIdx.x < HD ? qs[threadIdx.x] * ATT_SCALE : 0.0f;
       const float sq = quant_query(qv, qw, red);
       t = attend_int8<T, PS_KG>(qw, sq, kq, vq, sk, sv, kc, vc,
-                                a.kv.ks + slab, a.kv.vs + slab, a.n_past, D,
+                                a.kv.ks + slab, a.kv.vs + slab, n_past, D,
                                 sc, red, part);
     }
     if (threadIdx.x < HD) vin[off + threadIdx.x] = round_t<T>(t);
@@ -841,6 +992,7 @@ struct Step {
   // block attends), so its loads wait on the L2, not on device memory.
   __device__ void prefetch_next(int l, int done) const {
     const size_t e = sizeof(T), row = (size_t)D * e;
+    const int n_past = this->n_past();
     if (done == PH_QKV) {
       prefetch((const T*)a.w.qkv_b + (size_t)l * 3 * D, 3 * row);
       prefetch((const T*)a.w.proj_b + (size_t)l * D, row);
@@ -854,15 +1006,15 @@ struct Step {
         if (h == last) continue;
         last = h;
         const size_t base = ((size_t)l * S * D + (size_t)h * HD) * re;
-        for (int j = threadIdx.x; j < a.n_past; j += PS_THREADS)
+        for (int j = threadIdx.x; j < n_past; j += PS_THREADS)
           for (size_t o = 0; o < HD * re; o += 128) {
             prefetch_l2((const char*)a.kv.k + base + j * D * re + o);
             prefetch_l2((const char*)a.kv.v + base + j * D * re + o);
           }
       }
       if (q8) {
-        prefetch(a.kv.ks + (size_t)l * S, a.n_past * sizeof(float));
-        prefetch(a.kv.vs + (size_t)l * S, a.n_past * sizeof(float));
+        prefetch(a.kv.ks + (size_t)l * S, n_past * sizeof(float));
+        prefetch(a.kv.vs + (size_t)l * S, n_past * sizeof(float));
       }
     } else if (done == PH_PROJ) {
       prefetch((const T*)a.w.ln2_g + (size_t)l * D, row);
@@ -899,6 +1051,46 @@ struct Step {
     stamp(2 * k + 1);
   }
 
+  // The layers of a step (4 barriers each), from the embedded x; k counts
+  // the launch's barriers.
+  __device__ void layers(int& k) {
+    for (int l = 0; l < L; ++l) {
+      residual_ln(PH_OUT,
+                  l > 0 ? (const T*)a.w.out_b + (size_t)(l - 1) * D : nullptr,
+                  (const T*)a.w.ln1_g + (size_t)l * D,
+                  (const T*)a.w.ln1_b + (size_t)l * D);
+      gemv_phase(PH_QKV);
+      barrier(++k, l, PH_QKV);
+      attention_proj_phase(l);
+      barrier(++k, l, PH_PROJ);
+      fc_phase(l);
+      barrier(++k, l, PH_FC);
+      out_phase(l);
+      barrier(++k, l, PH_OUT);
+    }
+  }
+
+  // the sample's barrier (the k-th of the launch): the block refills its
+  // ring while it waits
+  __device__ void sample_barrier(int k) {
+    grid_arrive(a.count);
+    release();
+    grid_wait(a.count, (unsigned)k * G);
+  }
+
+  // the k-th stamp of this block in the step loop's row of 2 + 3 n_steps,
+  // thread 0's clock: the start, then per step j its token folded (1 +
+  // 3j), its LM head's start (2 + 3j) and end (3 + 3j), and the end (1 + 3
+  // n_steps); kept in shared memory until `loop_stamps_out`
+  __device__ void loop_stamp(int k) const {
+    if (a.lp.stamps != nullptr && threadIdx.x == 0) stamp_buf[k] = global_ns();
+  }
+  __device__ void loop_stamps_out() const {
+    if (a.lp.stamps != nullptr && threadIdx.x == 0)
+      for (int k = 0; k < 2 + 3 * a.lp.n_steps; ++k)
+        a.lp.stamps[(size_t)b * (2 + 3 * a.lp.n_steps) + k] = stamp_buf[k];
+  }
+
   // every block arrives once more; the last resets the count to 0 (all
   // have passed every barrier then, so none reads it again)
   __device__ void leave(int n_barriers) {
@@ -911,10 +1103,212 @@ struct Step {
   }
 };
 
+// ------------------------------------------------ the step loop's sampler
+//
+// It reads the plan and its scratch at fixed offsets of shared memory
+// (`loop_smem`), holding nothing of the step's across the layers. Inlined:
+// out of line (__noinline__), the calls' register saves made the dense
+// chunk and window 4-5% slower (probes/k3k4_profile.py on an H100).
+
+// shared memory at the fixed offset of the step's state (Step::state)
+__device__ __forceinline__ int* loop_state() {
+  extern __shared__ __align__(128) unsigned char loop_smem[];
+  return reinterpret_cast<int*>(loop_smem + RING_BYTES + 8 * MAX_SLOTS +
+                                8 * LOOP_STAMPS);
+}
+
+// step j's sample window [base, base + n)
+__device__ __forceinline__ void loop_window(const BarkStepLoop& lp, int V,
+                                            int j, int& base, int& n) {
+  if (lp.codebook) {
+    n = lp.cbs;
+    base = lp.svs + (((lp.step_idx0 + j) & 1) ? lp.cbs : 0);
+  } else {
+    base = 0;
+    n = V;
+  }
+}
+
+// this block's slots [s0, s1) of step j's window: those of the logits it
+// computes (its LM rows, or its packed tiles' columns within [lo, hi);
+// kernels/decode.py `sample_slots` mirrors the split)
+template <bool PACKED>
+__device__ __forceinline__ void loop_slots(const BarkStepLoop& lp, int V,
+                                           int j, int& s0, int& s1,
+                                           int& base) {
+  const int* plan = loop_state() + STATE_WORDS;
+  const int b = blockIdx.x;
+  int n;
+  loop_window(lp, V, j, base, n);
+  s0 = plan[plan[PL_LM] + 2 * b];
+  s1 = plan[plan[PL_LM] + 2 * b + 1];
+  if (PACKED) {
+    s0 = max(s0 * TILE, plan[PL_LO]);
+    s1 = min(s1 * TILE, plan[PL_HI]);
+  }
+  s0 = max(s0, base);
+  s1 = min(s1, base + n);
+}
+
+// step j's noise row (min(row0 + j, rows - 1)), offset so that slot u of
+// the window reads element u; null at temp 0
+__device__ __forceinline__ const float* loop_noise(const BarkStepLoop& lp,
+                                                   int j, int base) {
+  return lp.temp != 0.0f
+             ? lp.noise +
+                   (size_t)min(lp.noise_row0 + j, lp.noise_rows - 1) *
+                       lp.noise_ld - base
+             : nullptr;
+}
+
+// A hint to bring this block's noise of step j's window into the L2, a
+// step ahead of its sample (a row is first read there, from device memory)
+template <bool PACKED>
+__device__ __forceinline__ void prefetch_noise(const BarkStepLoop& lp, int V,
+                                               int j) {
+  if (lp.temp == 0.0f || j >= lp.n_steps) return;
+  int s0, s1, base;
+  loop_slots<PACKED>(lp, V, j, s0, s1, base);
+  const float* noise = loop_noise(lp, j, base);
+  for (int u = s0 + 32 * (int)threadIdx.x; u < s1; u += 32 * PS_THREADS)
+    prefetch_l2(noise + u);
+}
+
+// logit l on the EOS scale: l / temp, or l / 0.7 at temp 0 (the
+// reference's divide); a true division, as ops/sampling.py `divide`
+__device__ __forceinline__ float eos_scale(const BarkStepLoop& lp, float l) {
+  return lp.temp != 0.0f ? l / lp.temp : l / 0.7f;
+}
+
+// A sample partial: the best (value, index) (argmax_take) and, on the EOS
+// scale, the largest value m and the sum s of exp(e - m) of the slots seen
+// (s 0: none; NaN slots leave m and make s NaN, as a softmax over them
+// does).
+struct Part {
+  float v, m, s;
+  int i;
+};
+
+// `o` merged into `p`: the same result in either order (max, and sums of
+// two terms, commute bit for bit), so lanes that swap partials agree;
+// without `eos`, the best pair alone
+__device__ __forceinline__ void merge(Part& p, const Part& o, bool eos) {
+  argmax_take(p.v, p.i, o.v, o.i);
+  if (!eos) return;
+  const float m = fmaxf(p.m, o.m);
+  p.s = (p.s == 0.0f ? 0.0f : p.s * expf(p.m - m)) +
+        (o.s == 0.0f ? 0.0f : o.s * expf(o.m - m));
+  p.m = m;
+}
+
+// `p` merged over the block (with the EOS sums when `eos`): over each warp
+// by a butterfly, the warps' through the state's merge scratch (one
+// __syncthreads), then in warp order by the threads that ask (`all`, or
+// thread 0 alone). (A second butterfly over the 16 warps' partials in
+// place of the ordered merge made the dense step loop spill more and its
+// layers slower, probes/k3k4_profile.py on an H100.)
+__device__ __forceinline__ Part block_merge(Part p, bool all, bool eos) {
+  float* w = reinterpret_cast<float*>(loop_state() + W_MERGE);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    Part q;
+    q.v = __shfl_xor_sync(0xffffffffu, p.v, o);
+    q.m = __shfl_xor_sync(0xffffffffu, p.m, o);
+    q.s = __shfl_xor_sync(0xffffffffu, p.s, o);
+    q.i = __shfl_xor_sync(0xffffffffu, p.i, o);
+    merge(p, q, eos);
+  }
+  if (lane == 0) {
+    w[4 * warp] = p.v;
+    w[4 * warp + 1] = p.m;
+    w[4 * warp + 2] = p.s;
+    w[4 * warp + 3] = __int_as_float(p.i);
+  }
+  __syncthreads();
+  Part t{-INFINITY, -INFINITY, 0.0f, INT_MAX};
+  if (all || threadIdx.x == 0)
+    for (int u = 0; u < PS_WARPS; ++u)
+      merge(t,
+            Part{w[4 * u], w[4 * u + 1], w[4 * u + 2],
+                 __float_as_int(w[4 * u + 3])},
+            eos);
+  return t;
+}
+
+// Step j's partial from the current logits: this block's slots of the
+// window, those of the logits it computes (its LM rows, or its packed
+// tiles' columns within [lo, hi); kernels/decode.py `sample_slots` mirrors
+// the split), a thread a slot (online over more), written by thread 0 as 4
+// floats of lp.part (value, m, s, index). The block's own logits are read
+// after the __syncthreads that ended its LM head (j > 0), or the input
+// logits (j = 0). One scratch serves every step: the fold reads it right
+// after the sample's barrier, and no block writes it again before the
+// next step's 4 L barriers.
+template <bool PACKED, typename Weights>
+__device__ __forceinline__ void sample_partial(const StepArgs<Weights>* args,
+                                              int j) {
+  const BarkStepLoop& lp = args->lp;
+  int s0, s1, base;
+  loop_slots<PACKED>(lp, args->w.n_out_vocab, j, s0, s1, base);
+  const float* noise = loop_noise(lp, j, base);
+  const bool eos = !lp.codebook;
+  Part p{-INFINITY, -INFINITY, 0.0f, INT_MAX};
+  for (int u = s0 + (int)threadIdx.x; u < s1; u += PS_THREADS) {
+    // what the argmax takes: l / temp + the slot's noise, or l at temp 0
+    const float l = args->logits[u], e = eos_scale(lp, l);
+    if (eos) {
+      const float m = fmaxf(p.m, e);
+      p.s = (p.s == 0.0f ? 0.0f : p.s * expf(p.m - m)) +
+            (e == -INFINITY ? 0.0f : expf(e - m));
+      p.m = m;
+    }
+    argmax_take(p.v, p.i, noise != nullptr ? e + noise[u] : l, u);
+  }
+  p = block_merge(p, false, eos);
+  if (threadIdx.x == 0) {
+    float* o = lp.part + 4 * (size_t)blockIdx.x;
+    __stcg(o, p.v);
+    __stcg(o + 1, p.m);
+    __stcg(o + 2, p.s);
+    __stcg(o + 3, __int_as_float(p.i));
+  }
+}
+
+// After the sample's barrier: every block folds the G partials alike
+// (thread t takes block t's; merged over each warp, then the warps' in
+// order), so all hold the same token (block 0 also the EOS sums). Block 0 writes tok_out[j] and, for
+// K3, flag_out[j] = tok == stop_token or eos_p >= min_eos_p, eos_p =
+// exp(e_last - m) / s at the window's last slot. Returns the token (base +
+// 0 if the window held nothing).
+template <typename Weights>
+__device__ __forceinline__ int fold_sample(const StepArgs<Weights>* args,
+                                          int j) {
+  const BarkStepLoop& lp = args->lp;
+  int base, n;
+  loop_window(lp, args->w.n_out_vocab, j, base, n);
+  const float last = __ldcg(args->logits + base + n - 1);
+  Part p{-INFINITY, -INFINITY, 0.0f, INT_MAX};
+  if (threadIdx.x < gridDim.x) {
+    const float* o = lp.part + 4 * (size_t)threadIdx.x;
+    p = Part{__ldcg(o), __ldcg(o + 1), __ldcg(o + 2),
+             __float_as_int(__ldcg(o + 3))};
+  }
+  // only block 0 writes the flag: the others merge the best pair alone
+  p = block_merge(p, true, !lp.codebook && blockIdx.x == 0);
+  const int tok = p.i == INT_MAX ? base : p.i;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    lp.tok_out[j] = tok;
+    if (!lp.codebook) {
+      const float eos_p = expf(eos_scale(lp, last) - p.m) / p.s;
+      lp.flag_out[j] = (int)(tok == lp.stop_token || eos_p >= lp.min_eos_p);
+    }
+  }
+  return tok;
+}
+
 template <typename R>
 __global__ void __launch_bounds__(PS_THREADS, 1)
     decode_step_kernel(const __grid_constant__ StepArgs<typename R::Weights> a) {
-  using T = typename R::T;
   extern __shared__ __align__(128) unsigned char smem[];
   Step<R> s(a, smem);
   s.stamp(0);
@@ -923,32 +1317,69 @@ __global__ void __launch_bounds__(PS_THREADS, 1)
   if (s.pl(PL_BLOCKS) != (int)gridDim.x || n_barriers != PH_N * s.L ||
       s.pl(PL_LAYERS) != s.L || s.pl(PL_LM_TILES) != (int)R::PACKED)
     __trap();  // a plan for another grid, stage or read: fail the launch
-  s.embed_and_start_ring();
+  s.embed(*a.tok);
   s.stamp(1);
   int k = 0;
-  for (int l = 0; l < s.L; ++l) {
-    s.residual_ln(PH_OUT,
-                  l > 0 ? (const T*)a.w.out_b + (size_t)(l - 1) * s.D
-                        : nullptr,
-                  (const T*)a.w.ln1_g + (size_t)l * s.D,
-                  (const T*)a.w.ln1_b + (size_t)l * s.D);
-    s.gemv_phase(PH_QKV);
-    s.barrier(++k, l, PH_QKV);
-    s.attention_proj_phase(l);
-    s.barrier(++k, l, PH_PROJ);
-    s.fc_phase(l);
-    s.barrier(++k, l, PH_FC);
-    s.out_phase(l);
-    s.barrier(++k, l, PH_OUT);
-  }
+  s.layers(k);
   s.lm_phase();
   s.stamp(2 * n_barriers + 2);
   s.leave(n_barriers);
 }
 
-// The co-resident block count of the step's kernel on read R for rows of D
-// values and S cache slots (its grid), or a negative cudaError / -1 for a
-// shape it does not take.
+// K3/K4: n_steps steps of the kernel above in one cooperative launch, the
+// sampler inside (see the head of this file). A launch takes 4 L + 1
+// barriers a step: the layers', and the sample's before each step's embed.
+template <typename R>
+__global__ void __launch_bounds__(PS_THREADS, 1)
+    decode_steps_kernel(const __grid_constant__ StepArgs<typename R::Weights> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Step<R, true> s(a, smem);
+  s.loop_stamp(0);
+  s.setup();
+  const BarkStepLoop& lp = a.lp;
+  const int V = a.w.n_out_vocab, lo = s.pl(PL_LO), hi = s.pl(PL_HI);
+  const bool window_ok =
+      lp.codebook ? lo <= lp.svs && lp.svs + 2 * lp.cbs <= hi
+                  : lo == 0 && hi == V;
+  if (s.pl(PL_BLOCKS) != (int)gridDim.x ||
+      s.pl(PL_BARRIERS) != PH_N * s.L || s.pl(PL_LAYERS) != s.L ||
+      s.pl(PL_LM_TILES) != (int)R::PACKED || !window_ok)
+    __trap();  // a plan for another grid, stage, read or window
+  if (threadIdx.x == 0) s.state[W_CHUNKS] = s.chunks_a_step();
+  __syncthreads();
+  s.top_up();  // the ring starts under the first sample
+  int k = 0;
+  sample_partial<R::PACKED>(&a, 0);
+  s.sample_barrier(++k);
+  int tok = fold_sample(&a, 0);
+  for (int j = 0; j < lp.n_steps; ++j) {
+    prefetch_noise<R::PACKED>(lp, a.w.n_out_vocab, j + 1);
+    s.loop_stamp(1 + 3 * j);
+    if (threadIdx.x == 0) s.state[W_N_PAST] = min(lp.n_past0 + j, lp.clamp);
+    __syncthreads();
+    s.embed(tok);
+    s.layers(k);
+    s.loop_stamp(2 + 3 * j);
+    s.lm_phase();
+    if (j + 1 < lp.n_steps) {
+      __syncthreads();  // the block's logits written: its partial reads them
+      sample_partial<R::PACKED>(&a, j + 1);
+      s.loop_stamp(3 + 3 * j);  // the LM head's end, its partial written
+      s.sample_barrier(++k);
+      tok = fold_sample(&a, j + 1);
+    } else {
+      s.loop_stamp(3 + 3 * j);
+    }
+  }
+  s.loop_stamp(1 + 3 * lp.n_steps);
+  s.loop_stamps_out();
+  s.leave(k);
+}
+
+// The co-resident block count of the step's kernels (the single step and
+// the step loop) on read R for rows of D values and S cache slots (their
+// grid: the fewer of the two), or a negative cudaError / -1 for a shape
+// they do not take.
 template <typename R>
 int step_blocks_t(int D, int S) {
   const size_t smem = step_smem(D, S);
@@ -963,24 +1394,32 @@ int step_blocks_t(int D, int S) {
   if (!err)
     err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev);
-  if (!err)
-    err = (int)cudaFuncSetAttribute(
-        decode_step_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MAX_SMEM);
+  int loop_per_sm = 0;
+  for (const void* f : {(const void*)decode_step_kernel<R>,
+                        (const void*)decode_steps_kernel<R>}) {
+    if (!err)
+      err = (int)cudaFuncSetAttribute(
+          f, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  }
   if (!err)
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, decode_step_kernel<R>, PS_THREADS, smem);
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &loop_per_sm, decode_steps_kernel<R>, PS_THREADS, smem);
   if (err) return -err;
-  return coop ? per_sm * sms : -1;
+  return coop ? std::min(per_sm, loop_per_sm) * sms : -1;
 }
 
+// one cooperative launch of the single step (loop false) or the step loop
 template <typename R>
 int decode_step_t(const StepArgs<typename R::Weights>& a, int blocks,
-                  cudaStream_t st) {
+                  cudaStream_t st, bool loop = false) {
   const size_t smem = step_smem(a.w.n_embd, a.w.block_size);
   void* args[] = {(void*)&a};
-  return (int)cudaLaunchCooperativeKernel((const void*)decode_step_kernel<R>,
-                                          dim3(blocks), dim3(PS_THREADS),
+  const void* f = loop ? (const void*)decode_steps_kernel<R>
+                       : (const void*)decode_step_kernel<R>;
+  return (int)cudaLaunchCooperativeKernel(f, dim3(blocks), dim3(PS_THREADS),
                                           args, smem, st);
 }
 
@@ -1011,6 +1450,27 @@ bool step_args(const Weights* w, const void* const* tiles, int n_tiles,
                         cap,
                         plan_ints};
   for (int i = 0; i < n_tiles; ++i) a.tiles[i] = tiles[i];
+  return true;
+}
+
+// `a` given the step loop `lp`, or false for a loop the kernel does not
+// take
+template <typename Weights>
+bool loop_args(const BarkStepLoop* lp, int blocks, StepArgs<Weights>& a) {
+  const int V = a.w.n_out_vocab, S = a.w.block_size;
+  if (lp == nullptr || lp->n_steps < 1 || lp->n_past0 < 0 || lp->clamp < 0 ||
+      lp->clamp >= S || blocks > PS_THREADS || lp->tok_out == nullptr ||
+      (lp->stamps != nullptr && lp->n_steps > LOOP_STAMP_STEPS) ||
+      lp->part == nullptr ||
+      (long long)lp->n_steps * (PH_N * a.w.n_layer + 1) * blocks >
+          (1ll << 31) ||
+      (lp->temp != 0.0f &&
+       (lp->noise == nullptr || lp->noise_rows < 1 || lp->noise_row0 < 0)))
+    return false;
+  if (lp->codebook ? lp->cbs < 1 || lp->svs < 0 || lp->svs + 2 * lp->cbs > V
+                   : lp->flag_out == nullptr)
+    return false;
+  a.lp = *lp;
   return true;
 }
 
@@ -1105,6 +1565,57 @@ extern "C" int bark_decode_step_packed(
     return -1;
   auto launch = [&](auto r) {
     return decode_step_t<decltype(r)>(a, blocks, stream);
+  };
+  if (w->dtype == BARK_BF16)
+    return with_packed_read<bf16>(w->scale_dtype, w->has_min, launch);
+  return with_packed_read<float>(w->scale_dtype, w->has_min, launch);
+}
+
+// K3/K4: `lp->n_steps` steps of bark_decode_step as ONE cooperative launch
+// of the step loop (decode_steps_kernel), each sampling its token from the
+// last logits inside the launch. logits holds the input logits (the
+// prefill's or the last chunk's) and is left holding the last step's;
+// plan must cover the sample window ([0, n_out_vocab) for codebook 0, [svs,
+// svs + 2 cbs) for 1), which the kernel checks. The rest as
+// bark_decode_step's, the token and the stamps aside (the loop's are in
+// lp). Returns the launch's cudaError (0 on success), -1 for arguments it
+// does not take; nothing falls back.
+extern "C" int bark_decode_steps(const BarkGPTWeights* w,
+                                 const void* const* tiles, const int* plan,
+                                 int plan_ints, int blocks,
+                                 const BarkStepLoop* lp, void* k_cache,
+                                 void* v_cache, float* k_scale,
+                                 float* v_scale, float* partial, int cap,
+                                 unsigned* count, float* logits,
+                                 cudaStream_t stream) {
+  StepArgs<BarkGPTWeights> a;
+  if (lp == nullptr ||
+      !step_args(w, tiles, PH_N, plan, plan_ints, blocks, nullptr,
+                 std::min(lp->n_past0, lp->clamp), k_cache, v_cache, k_scale,
+                 v_scale, partial, cap, count, nullptr, logits, a) ||
+      !loop_args(lp, blocks, a))
+    return -1;
+  if (w->dtype == BARK_BF16)
+    return decode_step_t<DenseRead<bf16>>(a, blocks, stream, true);
+  return decode_step_t<DenseRead<float>>(a, blocks, stream, true);
+}
+
+// K3/K4 on a qpack: bark_decode_steps on the packed read (the weights and
+// tiles of bark_decode_step_packed).
+extern "C" int bark_decode_steps_packed(
+    const BarkGPTQWeights* w, const void* const* tiles, const int* plan,
+    int plan_ints, int blocks, const BarkStepLoop* lp, void* k_cache,
+    void* v_cache, float* k_scale, float* v_scale, float* partial, int cap,
+    unsigned* count, float* logits, cudaStream_t stream) {
+  StepArgs<BarkGPTQWeights> a;
+  if (lp == nullptr || w->v_pad % TILE ||
+      !step_args(w, tiles, PH_N + 1, plan, plan_ints, blocks, nullptr,
+                 std::min(lp->n_past0, lp->clamp), k_cache, v_cache, k_scale,
+                 v_scale, partial, cap, count, nullptr, logits, a) ||
+      !loop_args(lp, blocks, a))
+    return -1;
+  auto launch = [&](auto r) {
+    return decode_step_t<decltype(r)>(a, blocks, stream, true);
   };
   if (w->dtype == BARK_BF16)
     return with_packed_read<bf16>(w->scale_dtype, w->has_min, launch);

@@ -1,8 +1,9 @@
-// K3/K4 sampling: the in-kernel sampler of bark_tpu/kernels/semantic.py
-// `semantic_chunk_fused` (`_semantic_kernel`) and bark_tpu/kernels/
-// window.py `coarse_window_fused` (`_window_kernel`); it also serves B
-// lanes in one launch for K9 and K10, the batched kernels
-// (`_semantic_kernel_batched`, `_window_kernel_batched`).
+// K9/K10 sampling: the in-kernel sampler of bark_tpu/kernels/semantic.py
+// `semantic_chunk_fused_batched` (`_semantic_kernel_batched`) and
+// bark_tpu/kernels/window.py `coarse_window_fused_batched`
+// (`_window_kernel_batched`), B lanes in one launch. The single-lane chunk
+// and window (K3, K4) sample inside their one launch instead (decode.cu
+// `decode_steps_kernel`).
 //
 // sample_rows: block b reduces lane b's logits[base : base+n] / temp +
 // noise to the argmax, lowest index winning ties as jnp.argmax does, and
@@ -15,8 +16,9 @@
 // What bounds it: it moves at most 80 KB per lane (a 10048-wide logit row
 // and its noise row), so it is bound by launch latency, not by bandwidth
 // or arithmetic. The design keeps it to one block per lane and a single
-// launch, with no host round trip; folding it into the decode step (one
-// launch a chunk) is later work.
+// launch, with no host round trip; folding it into the batched step
+// (`lane_step_kernel`), as decode.cu's step loop folds K3/K4's, is the
+// next work on K9/K10.
 #include <limits.h>
 
 #include "common.cuh"

@@ -1,12 +1,14 @@
 // The parts of the persistent decode step that K1/K5 (decode.cu, one lane)
 // and K7/K5-batched (bdecode.cu, B lanes) share: the launch shape, the
 // head's attention on a dense or an int8 cache (`attend_dense`,
-// `attend_int8`), and the two weight reads, `DenseRead` and `PackedRead`,
+// `attend_int8`), the sampler's merge (`argmax_take`, the step loop's of
+// decode.cu), and the two weight reads, `DenseRead` and `PackedRead`,
 // each with the layout of its tile-major copy (kernels/decode.py
 // `step_tiles`, `step_qtiles`, `lane_tiles`) and a wte value.
 #pragma once
 
 #include <cuda_fp16.h>
+#include <limits.h>
 
 #include "common.cuh"
 
@@ -267,6 +269,26 @@ __device__ float attend_int8(const int* qw, float sq, const int* knew,
             sv, sc[j]);
   for (int i = 0; i < 8; ++i) part[kg][dg + i] = acc[i];
   return sum_groups<KG, Grp>(part);
+}
+
+// ------------------------------------------------------------ sampling
+
+// The sampler's (value, index) merge, a max by a total order: NaN above
+// every number, then the larger value, then on a tie the lower index, as
+// torch.argmax and jnp.argmax pick (the first NaN, else the first
+// maximum). Index INT_MAX is "nothing seen yet". The order is total, so any
+// merge order ends at the same pair.
+__device__ __forceinline__ void argmax_take(float& v, int& i, float ov,
+                                            int oi) {
+  if (oi == INT_MAX) return;
+  const bool take =
+      i == INT_MAX ||
+      (isnan(ov) ? (!isnan(v) || oi < i)
+                 : (!isnan(v) && (ov > v || (ov == v && oi < i))));
+  if (take) {
+    v = ov;
+    i = oi;
+  }
 }
 
 // ------------------------------------------------------------ weight reads

@@ -113,6 +113,21 @@ class BarkKV(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in ("k", "v", "ks", "vs")]
 
 
+class StepLoop(ctypes.Structure):
+    """Mirror of `BarkStepLoop` in csrc/decode.cu (passed by pointer): the
+    step loop of K3/K4, its slots, sampler and outputs."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("n_steps", "n_past0", "clamp")] + [
+        ("temp", ctypes.c_float), ("noise", ctypes.c_void_p)] + [
+        (name, ctypes.c_int) for name in
+        ("noise_ld", "noise_row0", "noise_rows", "codebook", "svs", "cbs",
+         "step_idx0", "stop_token")] + [
+        ("min_eos_p", ctypes.c_float)] + [
+        (name, ctypes.c_void_p) for name in
+        ("tok_out", "flag_out", "part", "stamps")]
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kc, vc, ks, vs: the caches as `StageWeights.check_cache` returns them (ks
 # and vs, the row scales of an int8 cache, null for a dense one)
@@ -131,6 +146,13 @@ _SIGNATURES = {
     # (qweights*, tiles*[5], then as bark_decode_step)
     "bark_decode_step_packed": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P,
                                 _P, _I, _P, _P, _P, _P],
+    # K3/K4's step loop: (weights*, tiles*[4], plan*, plan_ints, blocks,
+    #  loop*, kc, vc, ks, vs, partial, cap, count*, logits, stream)
+    "bark_decode_steps": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                          _P, _P, _P],
+    # (qweights*, tiles*[5], then as bark_decode_steps)
+    "bark_decode_steps_packed": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                                 _I, _P, _P, _P],
     # (weights*, x_emb, n_valid, kc, vc, ks, vs, x, hb, q, ctx, ff, kv,
     #  maps*, plan*, partial, tickets, logits, lo, hi, stream)
     "bark_prefill": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -26,6 +26,16 @@ CUDA error.
 `lm_window=(lo, hi)`: only those logit columns are computed, the rest are
 0 (the coarse sampler reads only its two codebook windows).
 
+K3 and K4 (`kernels.semantic`, `kernels.window`) run the same step in a
+loop: `decode_steps_fused` is ONE cooperative launch of a chunk or window
+(csrc/decode.cu `decode_steps_kernel`, on the same plan and tiled
+weights), step j sampling its token inside the launch (`LoopSample`) from
+the logits before it and decoding it at `loop_n_past`. Each block samples
+the logits it computed (`sample_slots`); `sample_partials` and
+`fold_partials` are the CPU mirror of the kernel's split and fold.
+Its launches count in `loop_launches` (a qpack's in
+`qdecode.loop_launches`), not in K1's or K5's `launches`.
+
 The caches may be the int8 caches of `gpt.init_kv_cache(quant=True)`: the
 same launch then runs K6a's arithmetic (csrc/step.cuh `attend_int8`) as
 each layer's attention, dense and packed alike.
@@ -42,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -49,8 +60,13 @@ import torch
 from bark_tpu_torch.kernels import _build, kv8, qdecode
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
+from bark_tpu_torch.ops import sampling
 
-launches = 0  # kernel launches through `decode_step_fused`
+# launches of K1's step through `decode_step_fused`, and of the step loop
+# (K3, K4) through `decode_steps_fused`, on dense weights (a qpack's counts
+# are `qdecode`'s)
+launches = 0
+loop_launches = 0
 
 HEAD_DIM = 64     # the kernel's head dim
 PLAN_TILE = 64    # output columns of a work item
@@ -711,6 +727,32 @@ def _token_on(token, device):
     return token.reshape(1).contiguous()
 
 
+def _stage_launch(cfg: GPTConfig, params, logits, lm_window):
+    """What a launch of the persistent step (K1, K5) and one of its loop
+    (K3, K4) share, for the stage of `params` (dense, or a qpack's packed
+    read) on the card: (packed, stage weights, plan, head, scratch). head:
+    the weights, the tiles' pointers, the plan's table, its ints and the
+    grid; scratch: the partials' buffers, their floats and the barrier
+    count. The f32 output `logits` and the LM head's alignment are checked
+    before the plan is made (which asks the card for the grid)."""
+    packed = gpt.is_qpack(params)
+    w = (_build.stage_qweights if packed else _build.stage_weights)(
+        cfg, params)
+    _build.f32_on(logits, w.device, cfg.n_out_vocab, "logits")
+    if not packed and params["lm_head"].data_ptr() % 16:
+        raise ValueError("lm_head: the step's bulk copies want it 16-byte "
+                         "aligned")
+    plan, table = device_plan(w, lm_window)
+    cap = plan.partial_floats
+    tiles = (step_qtiles if packed else step_tiles)(w, params)
+    head = (w.ref, ctypes.addressof(tiles), table.data_ptr(), table.numel(),
+            plan.n_blocks)
+    scratch = (w.scratch("step_partial", 2 * cap,
+                         dtype=torch.float32).data_ptr(), cap,
+               w.scratch("step_count", 1, dtype=torch.int32).data_ptr())
+    return packed, w, plan, head, scratch
+
+
 def decode_step_fused(cfg: GPTConfig, params, token, k_cache, v_cache,
                       n_past: int, *, lm_window=None, out=None, stamps=None):
     """One decode step: writes K/V row `n_past` of every layer of the
@@ -725,32 +767,19 @@ def decode_step_fused(cfg: GPTConfig, params, token, k_cache, v_cache,
         return decode_step_plain(cfg, params, token, k_cache, v_cache,
                                  n_past, lm_window)
     caches = check_step(cfg, params, k_cache, v_cache, n_past, lm_window)
-    packed = gpt.is_qpack(params)
-    w = (_build.stage_qweights if packed else _build.stage_weights)(
-        cfg, params)
-    V = cfg.n_out_vocab
-    lo, hi = lm_window if lm_window is not None else (0, V)
-    tok = _token_on(token, w.device)
     if out is None:
-        out = torch.empty((V,), dtype=torch.float32, device=w.device)
-    _build.f32_on(out, w.device, V, "logits")
-    if not packed and params["lm_head"].data_ptr() % 16:
-        raise ValueError("lm_head: the step's bulk copies want it 16-byte "
-                         "aligned")
-    plan, table = device_plan(w, (lo, hi))
+        out = torch.empty((cfg.n_out_vocab,), dtype=torch.float32,
+                          device=params["wpe"].device)
+    packed, w, plan, head, scratch = _stage_launch(cfg, params, out,
+                                                   lm_window)
+    tok = _token_on(token, w.device)
     want = plan.n_blocks * (2 * plan.n_barriers + 3)
     if stamps is not None and (
             stamps.dtype != torch.int64 or stamps.device != w.device
             or not stamps.is_contiguous() or stamps.numel() < want):
         raise ValueError(f"stamps: want a contiguous int64 tensor of >= "
                          f"{want} on {w.device} (`step_stamps`)")
-    cap = plan.partial_floats
-    tiles = (step_qtiles if packed else step_tiles)(w, params)
-    args = (w.ref, ctypes.addressof(tiles), table.data_ptr(), table.numel(),
-            plan.n_blocks, tok.data_ptr(), n_past, *caches,
-            w.scratch("step_partial", 2 * cap,
-                      dtype=torch.float32).data_ptr(), cap,
-            w.scratch("step_count", 1, dtype=torch.int32).data_ptr(),
+    args = (*head, tok.data_ptr(), n_past, *caches, *scratch,
             None if stamps is None else stamps.data_ptr(), out.data_ptr(),
             _build.stream_ptr(w.device))
     if packed:
@@ -828,4 +857,257 @@ def step_critical_us(plan, stamps) -> dict:
     out["embed_slowest"] = float((embed - start).amax()) / 1e3
     out["lm_head_slowest"] = float((end - release[:, -1]).amax()) / 1e3
     out["step"] = float(end.amax() - start.amin()) / 1e3
+    return out
+
+
+# ------------------------------------------------------------ the step loop
+
+LOOP_STAMP_STEPS = 64  # steps a stamped launch records (csrc/decode.cu)
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopSample:
+    """What step j of a step-loop launch (`decode_steps_fused`) samples
+    from the logits before it, as `ops.sampling.sample` would.
+
+    temp: 0 takes the argmax of the logits, else of logits/temp + noise.
+    codebook: None for the full vocab [0, n_out_vocab) and the stop flag
+      (K3: tok == stop_token or eos_p >= min_eos_p); or (svs, cbs,
+      step_idx0) for the coarse window [svs + (cbs if step_idx0 + j is odd
+      else 0), + cbs) and no flag (K4).
+    noise_row0: step j reads noise row min(noise_row0 + j, rows - 1).
+    """
+
+    temp: float
+    codebook: tuple = None
+    stop_token: int = -1
+    min_eos_p: float = 2.0
+    noise_row0: int = 0
+
+    def window(self, j: int, n_out_vocab: int) -> tuple:
+        """(base, n): step j's sample window [base, base + n)."""
+        if self.codebook is None:
+            return 0, n_out_vocab
+        svs, cbs, step0 = self.codebook
+        return svs + (cbs if (step0 + j) % 2 else 0), cbs
+
+    def noise_row(self, j: int, rows: int) -> int:
+        return min(self.noise_row0 + j, rows - 1)
+
+
+def loop_n_past(n_past0: int, clamp: int, j: int) -> int:
+    """The slot step j of a step-loop launch decodes at."""
+    return min(n_past0 + j, clamp)
+
+
+def sample_slots(plan: StepPlan, base: int, n: int) -> list:
+    """Each block's slots [s0, s1) of the sample window [base, base + n)
+    in the step loop: those of the logits it computes, its vocab rows or
+    its packed tiles' columns within lm_window (an empty run is (s0, s0)),
+    as csrc/decode.cu `sample_partial` cuts them."""
+    lo, hi = plan.lm_window
+    out = []
+    for v0, v1 in plan.lm:
+        if plan.packed:
+            v0, v1 = max(v0 * PLAN_TILE, lo), min(v1 * PLAN_TILE, hi)
+        s0, s1 = max(v0, base), min(v1, base + n)
+        out.append((s0, max(s0, s1)))
+    return out
+
+
+def _take(best, other):
+    """The larger of two (value, index) pairs (index None: nothing seen) by
+    the sampler's total order: NaN above every number, then the value, then
+    the lower index (csrc/step.cuh `argmax_take`)."""
+    (v, i), (ov, oi) = best, other
+    if oi is None:
+        return best
+    if i is None:
+        return other
+    if math.isnan(ov):
+        return other if not math.isnan(v) or oi < i else best
+    if math.isnan(v):
+        return best
+    return other if ov > v or (ov == v and oi < i) else best
+
+
+def _eos_scale(logits, temp: float):
+    return sampling.divide(logits, temp if temp != 0.0 else 0.7)
+
+
+def sample_partials(plan: StepPlan, logits, sample: LoopSample, j: int,
+                    noise=None) -> list:
+    """Every block's partial of step j's sample from the (n_out_vocab,) f32
+    logits, as the kernel forms it over the block's `sample_slots`: the
+    best (value, index) of logits/temp + noise[row] (of the logits at temp
+    0), and the max m of the EOS scale over its slots (NaN aside, as
+    fmaxf) with the sum of exp(e - m); (value, None, -inf, 0) for a block
+    with no slot."""
+    logits = logits.float()
+    base, n = sample.window(j, logits.shape[0])
+    row = (None if sample.temp == 0.0 else
+           noise[sample.noise_row(j, noise.shape[0])].float())
+    out = []
+    for s0, s1 in sample_slots(plan, base, n):
+        if s0 == s1:
+            out.append((-math.inf, None, -math.inf, 0.0))
+            continue
+        e = _eos_scale(logits[s0:s1], sample.temp)
+        c = logits[s0:s1] if row is None else e + row[s0 - base:s1 - base]
+        nan = torch.isnan(c)
+        k = int(nan.nonzero()[0]) if nan.any() else int(torch.argmax(c))
+        live = e[~torch.isnan(e)]
+        m = float(live.max()) if live.numel() else -math.inf
+        out.append((float(c[k]), s0 + k, m,
+                    float(torch.exp(e - m).sum())))
+    return out
+
+
+def fold_partials(parts, logits, sample: LoopSample, j: int) -> tuple:
+    """(token, eos_p) of step j from the blocks' partials, as every block
+    of the kernel folds them: the best pair by the sampler's order (the
+    window's base if none), and for the full window eos_p = exp(e_last -
+    M) / S, M the largest m, S the sum of s exp(m - M) over the blocks
+    with slots (in block order here; in the kernel by a butterfly over
+    each warp's 32 blocks, then the warps in order), else None."""
+    base, n = sample.window(j, logits.shape[0])
+    best = (-math.inf, None)
+    for v, i, _, _ in parts:
+        best = _take(best, (v, i))
+    tok = base if best[1] is None else best[1]
+    if sample.codebook is not None:
+        return tok, None
+    M = max(m for _, _, m, _ in parts)
+    S = sum(s * math.exp(m - M) for _, i, m, s in parts if i is not None)
+    e_last = float(_eos_scale(logits[base + n - 1:base + n].float(),
+                              sample.temp)[0])
+    return tok, math.exp(e_last - M) / S
+
+
+def check_loop(cfg: GPTConfig, sample: LoopSample, n_steps: int,
+               lm_window=None) -> None:
+    """Raise ValueError for a loop the step loop does not sample: no step,
+    or a sample window outside lm_window (the full vocab's window needs
+    the full head)."""
+    V = cfg.n_out_vocab
+    lo, hi = lm_window if lm_window is not None else (0, V)
+    if n_steps < 1:
+        raise ValueError(f"the step loop takes >= 1 step, got {n_steps}")
+    for j in range(min(n_steps, 2)):
+        base, n = sample.window(j, V)
+        if sample.codebook is None and (lo, hi) != (0, V) or not (
+                lo <= base and base + n <= hi):
+            raise ValueError(f"sample window [{base}, {base + n}) of step "
+                             f"{j} outside lm_window ({lo}, {hi})")
+
+
+def _loop_tensor(t, dev, dtype, n: int, name: str):
+    if (t is None or t.dtype != dtype or t.device != dev
+            or not t.is_contiguous() or t.numel() < n):
+        raise ValueError(f"{name}: want a contiguous {dtype} tensor of >= "
+                         f"{n} elements on {dev}")
+
+
+def decode_steps_fused(cfg: GPTConfig, params, logits, k_cache, v_cache,
+                       n_past0: int, clamp: int, n_steps: int,
+                       sample: LoopSample, noise, tok_out, flag_out=None, *,
+                       lm_window=None, stamps=None):
+    """K3/K4's step loop on CUDA tensors: ONE cooperative launch of
+    n_steps steps (csrc/decode.cu `decode_steps_kernel`, dense or on a
+    qpack's packed read), step j sampling its token as `sample` says from
+    the logits before it (`logits`, (n_out_vocab,) f32, holds the input
+    logits and is left holding the last step's), writing it to tok_out[j]
+    (and for the full window its stop flag to flag_out[j]), then decoding
+    it at `loop_n_past(n_past0, clamp, j)` with the LM head over
+    lm_window. `noise`: (rows, >= window) f32 rows with unit column
+    stride, None at temp 0. `stamps`: an int64 tensor (`loop_stamps`), or
+    None. Raises ValueError before any launch for what the kernel does
+    not take; nothing falls back."""
+    global loop_launches
+    check_loop(cfg, sample, n_steps, lm_window)
+    for j in (0, n_steps - 1):
+        caches = check_step(cfg, params, k_cache, v_cache,
+                            loop_n_past(n_past0, clamp, j), lm_window)
+    if not 0 <= clamp < cfg.block_size:
+        raise ValueError(f"clamp {clamp} outside [0, {cfg.block_size})")
+    dev = params["wpe"].device
+    _loop_tensor(tok_out, dev, torch.int32, n_steps, "tok_out")
+    if sample.codebook is None:
+        _loop_tensor(flag_out, dev, torch.int32, n_steps, "flag_out")
+    width = sample.window(0, cfg.n_out_vocab)[1]
+    if sample.temp != 0.0 and (
+            noise is None or noise.dim() != 2 or noise.dtype != torch.float32
+            or noise.device != dev or noise.shape[0] < 1
+            or noise.shape[1] < width or noise.stride(1) != 1):
+        raise ValueError(f"noise: want (rows, >= {width}) float32 rows on "
+                         f"{dev} with unit column stride, got "
+                         f"{None if noise is None else tuple(noise.shape)}")
+    packed, w, plan, head, scratch = _stage_launch(cfg, params, logits,
+                                                   lm_window)
+    if stamps is not None:
+        if n_steps > LOOP_STAMP_STEPS:
+            raise ValueError(f"stamps: a stamped launch takes at most "
+                             f"{LOOP_STAMP_STEPS} steps, got {n_steps}")
+        _loop_tensor(stamps, dev, torch.int64,
+                     plan.n_blocks * (2 + 3 * n_steps), "stamps")
+    svs, cbs, step0 = sample.codebook or (0, 0, 0)
+    hot = sample.temp != 0.0
+    loop = _build.StepLoop(
+        n_steps=n_steps, n_past0=n_past0, clamp=clamp, temp=sample.temp,
+        noise=noise.data_ptr() if hot else None,
+        noise_ld=noise.stride(0) if hot else 0,
+        noise_row0=sample.noise_row0,
+        noise_rows=noise.shape[0] if hot else 1,
+        codebook=int(sample.codebook is not None), svs=svs, cbs=cbs,
+        step_idx0=step0, stop_token=sample.stop_token,
+        min_eos_p=sample.min_eos_p, tok_out=tok_out.data_ptr(),
+        flag_out=None if flag_out is None else flag_out.data_ptr(),
+        part=w.scratch("loop_part", 4 * plan.n_blocks,
+                       dtype=torch.float32).data_ptr(),
+        stamps=None if stamps is None else stamps.data_ptr())
+    args = (*head, ctypes.addressof(loop), *caches, *scratch,
+            logits.data_ptr(), _build.stream_ptr(w.device))
+    if packed:
+        qdecode.decode_steps_packed(args)
+    else:
+        _build.check("decode_steps_fused",
+                     _build.lib().bark_decode_steps(*args))
+        loop_launches += 1
+    kv8.count(caches)
+    return logits
+
+
+def loop_stamps(plan: StepPlan, n_steps: int, device) -> torch.Tensor:
+    """Zeroed stamps for a step-loop launch of n_steps (at most
+    LOOP_STAMP_STEPS) on `plan`: a row a block, its thread 0's ns clock at
+    the start, then per step j its token folded (1 + 3 j), its LM head's
+    start (2 + 3 j) and end with the next sample's partial (3 + 3 j), and
+    at the end (1 + 3 n_steps)."""
+    return torch.zeros((plan.n_blocks, 2 + 3 * n_steps), dtype=torch.int64,
+                       device=device)
+
+
+def loop_phases_us(plan: StepPlan, stamps, n_steps: int) -> dict:
+    """Where a stamped step-loop launch's time went, in µs: for block 0
+    and, taking each part's slowest block, for every block: the opening
+    sample (the start to step 0's token), a step's layers (its token to
+    its LM head), its LM head with the next sample's partial, the next
+    sample's barrier wait and fold (each the mean over steps), the mean
+    step (token to token) and the whole launch."""
+    t = torch.as_tensor(stamps).reshape(-1)[:plan.n_blocks * (2 + 3 * n_steps)]
+    t = t.reshape(plan.n_blocks, 2 + 3 * n_steps).to("cpu", torch.float64)
+    tok = t[:, 1:2 + 3 * (n_steps - 1):3]  # step j's token folded
+    parts = {
+        "opening_sample": t[:, 1] - t[:, 0],
+        "layers": (t[:, 2::3][:, :n_steps] - tok).mean(1),
+        "lm_head": (t[:, 3::3][:, :n_steps] - t[:, 2::3][:, :n_steps])
+        .mean(1),
+    }
+    if n_steps > 1:
+        parts["sample_fold"] = (tok[:, 1:] - t[:, 3:3 * n_steps - 2:3]).mean(1)
+        parts["step"] = (tok[:, -1] - tok[:, 0]) / (n_steps - 1)
+    parts["launch"] = t[:, -1] - t[:, 0]
+    out = dict(block0={k: float(v[0]) / 1e3 for k, v in parts.items()},
+               slowest={k: float(v.max()) / 1e3 for k, v in parts.items()})
+    out["launch_us"] = float(t[:, -1].max() - t[:, 0].min()) / 1e3
     return out

@@ -7,8 +7,9 @@ on CUDA tensors: ONE cooperative launch a step of K1's persistent kernel
 (csrc/decode.cu `decode_step_kernel`) on its packed weight read, which
 streams the quant-block records of `decode.step_qtiles` and dequantizes
 them in shared memory (packed embed, L x [LN1+QKV | attention+proj |
-LN2+fc | out], the packed LM head over `lm_window`). K3 and K4 reach it
-through their steps. On CPU tensors `decode.decode_step_plain` runs the
+LN2+fc | out], the packed LM head over `lm_window`). K3 and K4 on a
+qpack launch its step loop (csrc/decode.cu `decode_steps_kernel` on the
+packed read: a chunk or a window in one launch, `decode_steps_packed`). On CPU tensors `decode.decode_step_plain` runs the
 plain version, `models.gpt.decode_step` on the qpack (`gpt.qdot`,
 `gpt.embed_rows`). A qpack the kernel does not take raises before any
 launch; nothing falls back to dense.
@@ -18,7 +19,8 @@ from __future__ import annotations
 
 from bark_tpu_torch.kernels import _build
 
-launches = 0  # kernel launches through `decode_step_packed`
+launches = 0  # K5's step launched through `decode_step_packed`
+loop_launches = 0  # its step loop (K3, K4) through `decode_steps_packed`
 
 
 def decode_step_packed(args) -> None:
@@ -32,3 +34,13 @@ def decode_step_packed(args) -> None:
     _build.check("decode_step_packed",
                  _build.lib().bark_decode_step_packed(*args))
     launches += 1
+
+
+def decode_steps_packed(args) -> None:
+    """Launch the packed step loop of K3/K4: `args` are those of
+    `bark_decode_steps_packed` (csrc/decode.cu), as
+    `decode.decode_steps_fused` builds and validates them for a qpack."""
+    global loop_launches
+    _build.check("decode_steps_packed",
+                 _build.lib().bark_decode_steps_packed(*args))
+    loop_launches += 1

@@ -1,10 +1,12 @@
-"""The sampler of K3/K4 and, for B lanes in one launch, of K9/K10:
-`sample_rows` of `csrc/sample.cu`.
+"""The sampler of K9/K10, the batched chunk and window, for B lanes in one
+launch: `sample_rows` of `csrc/sample.cu`.
 
 One launch reduces a window of each lane's logits to its sampled token
-(and, for K3/K9, the stop flag) and writes them to device memory, where
-the next decode step (K1 or K7) reads the token, so a chunk or window
-never waits on the host. The plain version of what it computes is
+(and, for K9, the stop flag) and writes them to device memory, where the
+next batched decode step (K7) reads the token, so a chunk or window never
+waits on the host. The single-lane chunk and window (K3, K4) no longer
+launch it: each is one launch with the sampler inside
+(`decode.decode_steps_fused`). The plain version of what it computes is
 `ops.sampling.sample`, which the chunk and window loops run on CPU
 tensors.
 """

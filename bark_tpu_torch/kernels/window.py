@@ -7,11 +7,13 @@ global step `step_idx0 + j` is odd and svs when it is even, writes the
 offset-carrying token `base + argmax`, and decodes it at slot
 `ctx_len + j` with the LM head restricted to `lm_window`.
 
-On CUDA tensors a step is `sample_window` (csrc/sample.cu, through
-`kernels.sample`) then K1, with no host read inside the window; on CPU
-tensors the plain version runs (`ops.sampling.sample` + `gpt.decode_step`).
-A qpack is taken as it is, as in K3: the steps are then K5 launches.
-Int8 caches are taken as in K3.
+On CUDA tensors the window is ONE cooperative launch of K1's step in a
+loop (`kernels.decode.decode_steps_fused`, csrc/decode.cu
+`decode_steps_kernel`), each step sampling its codebook window inside the
+launch (`window_loop`), with no host read inside the window; on CPU
+tensors the plain version runs (`ops.sampling.sample` +
+`gpt.decode_step`). A qpack is taken as it is, as in K3: the loop then
+runs K5's packed read. Int8 caches are taken as in K3.
 """
 
 from __future__ import annotations
@@ -19,18 +21,26 @@ from __future__ import annotations
 import torch
 
 from bark_tpu_torch.kernels import _build
-from bark_tpu_torch.kernels.decode import decode_step_fused, decode_step_plain
-from bark_tpu_torch.kernels.sample import sample_window
+from bark_tpu_torch.kernels import decode as kdec
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 from bark_tpu_torch.ops import sampling
 
-launches = 0  # launches of the window kernels through `coarse_window_fused`
+launches = 0  # windows launched through `coarse_window_fused`
 
 
 def codebook_base(step: int, svs: int, cbs: int) -> int:
     """The first logit of global step `step`'s codebook window."""
     return svs + (0 if step % 2 == 0 else cbs)
+
+
+def window_loop(cfg: GPTConfig, ctx_len: int, step_idx0: int, temp: float,
+                semantic_vocab_size: int, codebook_size: int):
+    """(n_past0, clamp, LoopSample) of a K4 window as one step-loop launch:
+    step j decodes at ctx_len + j and samples the codebook window of
+    global step step_idx0 + j with noise row j."""
+    return (ctx_len, cfg.block_size - 1, kdec.LoopSample(
+        temp=temp, codebook=(semantic_vocab_size, codebook_size, step_idx0)))
 
 
 def coarse_window_plain(cfg: GPTConfig, params, logits0, k_cache, v_cache,
@@ -47,8 +57,8 @@ def coarse_window_plain(cfg: GPTConfig, params, logits0, k_cache, v_cache,
         )
         tok = base + rel_tok
         toks.append(tok)
-        logits = decode_step_plain(cfg, params, tok, k_cache, v_cache,
-                                   ctx_len + j, lm_window)
+        logits = kdec.decode_step_plain(cfg, params, tok, k_cache, v_cache,
+                                        ctx_len + j, lm_window)
     return torch.stack(toks).to(torch.int32)
 
 
@@ -80,11 +90,10 @@ def coarse_window_fused(cfg: GPTConfig, params, logits0, k_cache, v_cache,
         raise ValueError(f"noise: want ({sws}, {cbs}), got {noise.shape}")
     buf = _build.f32_on(logits0, dev, V, "logits0").clone()
     toks = torch.empty((sws,), dtype=torch.int32, device=dev)
-    for j in range(sws):
-        sample_window(buf, codebook_base(step_idx0 + j, svs, cbs), cbs,
-                      None if temp == 0.0 else noise[j], temp,
-                      toks[j:j + 1])
-        decode_step_fused(cfg, params, toks[j:j + 1], k_cache, v_cache,
-                          ctx_len + j, lm_window=lm_window, out=buf)
+    n_past0, clamp, sample = window_loop(cfg, ctx_len, step_idx0, temp, svs,
+                                         cbs)
+    kdec.decode_steps_fused(cfg, params, buf, k_cache, v_cache, n_past0,
+                            clamp, sws, sample, noise, toks,
+                            lm_window=lm_window)
     launches += 1
     return toks

@@ -10,7 +10,7 @@ WITHOUT appending the stopping token; at most max_steps tokens.
 The prefill is K2 and each chunk is K3 (on CPU tensors, their plain
 versions). Packed-quantized params (a qpack) are densified once per call
 (`io.loader.densify`): the prompt embedding and K2 read the dense copy, K3
-decodes from the qpack (its K1 steps are then the packed kernel, K5). The
+decodes from the qpack (its step loop then runs K5's packed read). The
 host reads the K stop flags once per chunk and appends the tokens before
 the first stop, exactly as the JAX package's chunked loop does; step g
 uses noise row g, as the stepped JAX loop uses key subs[g].

@@ -16,7 +16,11 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      kernel on its packed weight read) the same way on random qpacks of
      five formats (q8_0, q4_0, q5_0: f16 scales; q4_1: f16 scales and
      mins; q4_k: f32 scales and mins), also on the int8 cache, and K3/K4
-     over a q8_0 qpack; time each against its plain version. K1 and K5,
+     over a q8_0 qpack; time each against its plain version. K3 and K4,
+     one launch of K1's step loop a call and no sampler launch, also give
+     in f32 the bits of K1's steps launched one by one on their tokens
+     (a chunk whose slots reach the clamp, and both window parities among
+     them), and in bf16 two runs the same bits. K1 and K5,
      each one cooperative launch a step, must give the same bits twice,
      run one device kernel a call (torch.profiler, bf16 and int8 caches),
      and are timed at n_past 0/300/1023 (and the coarse window at 887)
@@ -44,13 +48,22 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      `torch.matmul`'s device time on the step's products at M = B (the
      K7 rows' `library_ms`), and `cuobjdump -sass` of the kernel, whose
      bf16 instances must hold HMMA (its `k7_step` JSON line);
+  2d. (run after 2b) the chunk and window record (`probes/k3k4_profile.py`
+     in a fresh process, `k3k4_phase`): K3 (16 steps after 257 rows) and K4
+     (60 steps at context 887, LM window), dense and q4_0, each one launch
+     of K1's (K5's) step loop with the sampler inside (csrc/decode.cu
+     `decode_steps_kernel`), asserted one device kernel a call
+     (torch.profiler), timed beside K1's (K5's) step in the same process
+     (µs a step over it) and split by stamps (its `k3k4` JSON line);
   3. check a small model end to end against the port's plain CPU run with
      the same noise (tokens exact, audio within tolerance), TF32 still off:
      dense weights given as parts, then the same model written to a
      ggml_weights.bin, quantized to q8_0 and loaded packed;
   4. answer 3 bark_generate_audio requests on bark-small with random bf16
      weights, different prompts and seeds, at PyTorch's default precision
-     settings; check the audio and that every kernel was launched by them;
+     settings; check the audio and that every kernel was launched by them,
+     each semantic chunk and coarse window as one launch of the step loop
+     and the sampler never (so in 4b and 4d);
   4b. answer packed requests on bark-small qpacks built from a seed on the
      card (bf16 dense leaves): 2 in q4_0, then 1 each in q8_0, q4_1, q4_k
      and q5_0; check the audio, that K5 was launched by each and K1 by
@@ -203,9 +216,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, launch-count module)
                           "bark_tpu/kernels/decode.py:2392", "decode"),
     "prefill_fused": ("bark_tpu_torch/csrc/prefill.cu",
                       "bark_tpu/kernels/prefill.py:683", "prefill"),
-    "semantic_chunk_fused": ("bark_tpu_torch/csrc/sample.cu",
+    "semantic_chunk_fused": ("bark_tpu_torch/csrc/decode.cu",
                              "bark_tpu/kernels/semantic.py:555", "semantic"),
-    "coarse_window_fused": ("bark_tpu_torch/csrc/sample.cu",
+    "coarse_window_fused": ("bark_tpu_torch/csrc/decode.cu",
                             "bark_tpu/kernels/window.py:419", "window"),
     **{f"{K5}[{fmt}]": ("bark_tpu_torch/csrc/decode.cu",
                         "bark_tpu/kernels/decode.py:1016", "qdecode")
@@ -507,31 +520,61 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
         checks.times["prefill_fused"] = (
             ms, plain, prefill_cost(coarse_cfg, coarse_p, 887, lmw))
 
-    # K3: one 16-step chunk after the 257-row prompt, temp 0.7. In f32 the
-    # chunk must give the plain version's tokens and flags exactly; in bf16
-    # a near-tie argmax may flip after a step, so the error is taken over
-    # one step, whose token is sampled from identical logits
+    # K3: one 16-step chunk after the 257-row prompt, temp 0.7, and in f32
+    # one whose slots reach the clamp at block_size - 1 (count0 760 after
+    # 257 rows). In f32 the chunk must give the plain version's tokens and
+    # flags exactly and K1's steps, one launch each on its tokens, its bits;
+    # in bf16 a near-tie argmax may flip after a step, so the error is taken
+    # over one step, whose token is sampled from identical logits, and two
+    # runs of the chunk must give the same bits. Each call is one launch
+    # of K1's step loop and no sampler launch.
     noise = sampling.gumbel((32, sem_cfg.n_out_vocab), gen, dev)
     x_emb = sem_p["wte"][0][:257].contiguous()
     kc0, vc0 = gpt.init_kv_cache(sem_cfg, dtype, dev)
     logits0 = kpre.prefill_plain(sem_cfg, sem_p, x_emb, kc0, vc0, 257)
-    args = (257, 3, noise, 2.0)
-    for K in ((16,) if dtype == torch.float32 else (16, 1)):
+    cases = [(16, 3)] + ([(16, 760)] if dtype == torch.float32 else [(1, 3)])
+    for K, count0 in cases:
+        args = (257, count0, noise, 2.0)
         kw = dict(K=K, temp=0.7, semantic_vocab_size=svs)
         kc, vc, kc2, vc2 = kc0.clone(), vc0.clone(), kc0.clone(), vc0.clone()
+        if count0 > 3:  # rows up to the chunk's first slot
+            for c, c2 in ((kc, kc2), (vc, vc2)):
+                c[:, 257:257 + count0] = c[:, :count0]
+                c2.copy_(c)
+        kc3, vc3 = kc.clone(), vc.clone()
+        before = loop_counts()
         toks, flags, lg = ksem.semantic_chunk_fused(
             sem_cfg, sem_p, logits0, kc, vc, *args, **kw)
+        if loop_counts(before) != (1, 0, 0):
+            raise AssertionError(f"K3 {name}: {loop_counts(before)} launches "
+                                 f"of the step loop, K1 and the sampler, "
+                                 f"want 1, 0 and 0")
         rtoks, rflags, rlg = ksem.semantic_chunk_plain(
             sem_cfg, sem_p, logits0, kc2, vc2, *args, **kw)
         same = int((toks.cpu() == rtoks.cpu()).sum())
         flags_same = bool((flags.cpu() == rflags.cpu()).all())
-        log(f"  semantic_chunk_fused   {name:9s} K={K}: tokens equal "
+        tag = f"K={K}" + (f" count0 {count0} (clamp)" if count0 > 3 else "")
+        log(f"  semantic_chunk_fused   {name:9s} {tag}: tokens equal "
             f"{same}/{K}, flags equal {flags_same}")
         if dtype == torch.float32 or K == 1:
             if same != K or not flags_same:
-                raise AssertionError(f"K3 {name} K={K}: tokens/flags differ")
+                raise AssertionError(f"K3 {name} {tag}: tokens/flags differ")
             checks.record("semantic_chunk_fused", name,
-                          f"logits after {K} steps", max_err(lg, rlg))
+                          f"logits after {K} steps" + (" (clamp)" if count0 > 3
+                                                       else ""),
+                          max_err(lg, rlg))
+        if dtype == torch.float32:
+            k1_chain(f"K3 {name} {tag}", sem_cfg, sem_p, logits0, kc3, vc3,
+                     kc, vc, toks, lg, [min(257 + count0 + j,
+                                            sem_cfg.block_size - 1)
+                                        for j in range(K)], None)
+        elif K == 16:
+            k, v = kc0.clone(), vc0.clone()
+            again = ksem.semantic_chunk_fused(sem_cfg, sem_p, logits0, k, v,
+                                              *args, **kw)
+            same_bits(f"K3 bf16 {tag}", (toks, flags, lg, kc, vc),
+                      (*again, k, v))
+    args = (257, 3, noise, 2.0)
     if timed:
         kw = dict(K=16, temp=0.7, semantic_vocab_size=svs)
         ms = cuda_ms(lambda: ksem.semantic_chunk_fused(
@@ -543,32 +586,48 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
             ms, plain, (nb + 16 * sem_cfg.n_out_vocab * 4, fl))
 
     # K4: one 60-step window after an 887-row re-prime, temp 0.7, step
-    # parity odd; the same exactness rule as K3, the error taken on the
-    # K/V rows the window writes
+    # parity odd (and in f32 even too); the same exactness rules as K3, the
+    # error taken on the K/V rows the window writes
     noise = sampling.gumbel((60, cbs), gen, dev)
     x_emb = coarse_p["wte"][0][:887].contiguous()
     kc0, vc0 = gpt.init_kv_cache(coarse_cfg, dtype, dev)
     logits0 = kpre.prefill_plain(coarse_cfg, coarse_p, x_emb, kc0, vc0, 887,
                                  lmw)
-    for sws in ((60,) if dtype == torch.float32 else (60, 1)):
+    for sws, step0 in (((60, 1), (60, 0)) if dtype == torch.float32
+                       else ((60, 1), (1, 1))):
         kw = dict(sws=sws, temp=0.7, semantic_vocab_size=svs,
                   codebook_size=cbs, lm_window=lmw)
         kc, vc, kc2, vc2 = kc0.clone(), vc0.clone(), kc0.clone(), vc0.clone()
+        kc3, vc3 = kc.clone(), vc.clone()
+        before = loop_counts()
         toks = kwin.coarse_window_fused(coarse_cfg, coarse_p, logits0, kc,
-                                        vc, 887, 1, noise[:sws], **kw)
+                                        vc, 887, step0, noise[:sws], **kw)
+        if loop_counts(before) != (1, 0, 0):
+            raise AssertionError(f"K4 {name}: not one launch of the step "
+                                 f"loop and no sampler launch")
         rtoks = kwin.coarse_window_plain(coarse_cfg, coarse_p, logits0, kc2,
-                                         vc2, 887, 1, noise[:sws], **kw)
+                                         vc2, 887, step0, noise[:sws], **kw)
         same = int((toks.cpu() == rtoks.cpu()).sum())
-        log(f"  coarse_window_fused    {name:9s} sws={sws}: tokens equal "
+        tag = f"sws={sws} parity {'odd' if step0 else 'even'}"
+        log(f"  coarse_window_fused    {name:9s} {tag}: tokens equal "
             f"{same}/{sws}")
         if dtype == torch.float32 or sws == 1:
             if same != sws:
-                raise AssertionError(f"K4 {name} sws={sws}: tokens differ")
+                raise AssertionError(f"K4 {name} {tag}: tokens differ")
             rows = slice(887, 887 + sws)
             checks.record("coarse_window_fused", name,
                           f"K/V rows of a {sws}-step window",
                           max(max_err(kc[:, rows], kc2[:, rows]),
                               max_err(vc[:, rows], vc2[:, rows])))
+        if dtype == torch.float32:
+            k1_chain(f"K4 {name} {tag}", coarse_cfg, coarse_p, logits0, kc3,
+                     vc3, kc, vc, toks, None, [887 + j for j in range(sws)],
+                     lmw)
+        elif sws == 60:
+            k, v = kc0.clone(), vc0.clone()
+            again = kwin.coarse_window_fused(coarse_cfg, coarse_p, logits0, k,
+                                             v, 887, step0, noise, **kw)
+            same_bits(f"K4 bf16 {tag}", (toks, kc, vc), (again, k, v))
     if timed:
         kw = dict(sws=60, temp=0.7, semantic_vocab_size=svs,
                   codebook_size=cbs, lm_window=lmw)
@@ -579,6 +638,27 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
         nb, fl = decode_cost(coarse_cfg, coarse_p, 887, lmw, steps=60)
         checks.times["coarse_window_fused"] = (ms, plain,
                                                (nb + 60 * cbs * 4, fl))
+
+
+def k1_chain(what, cfg, p, logits0, k, v, kc, vc, toks, logits, slots,
+             lm_window):
+    """Fail unless K1's steps, one launch each on the step loop's tokens at
+    its slots, from the caches (k, v) the loop started from, give the
+    loop's caches (kc, vc) and, for K3, its logits bit for bit: the loop
+    runs K1's step and arithmetic, one launch a chunk or window."""
+    import torch
+
+    from bark_tpu_torch.kernels import decode as kdec
+
+    buf = logits0.clone()
+    for j, tok in enumerate(toks.tolist()):
+        kdec.decode_step_fused(cfg, p, tok, k, v, slots[j],
+                               lm_window=lm_window, out=buf)
+    if not (torch.equal(k, kc) and torch.equal(v, vc)
+            and (logits is None or torch.equal(buf, logits))):
+        raise AssertionError(f"{what}: the step loop differs from K1's steps "
+                             f"on its tokens")
+    log(f"  {what}: bit-equal to {len(slots)} K1 launches on its tokens")
 
 
 def probe_record(script: str, *flags: str) -> dict:
@@ -650,6 +730,23 @@ def same_bits(what: str, run, again) -> None:
 
 
 K1_EARLIER_MS = 0.526  # the 62-launch chain's step at n_past 300 (PERF.md, H100)
+
+
+def loop_counts(before=None, packed: bool = False) -> tuple:
+    """(launches of the step loop on the dense or packed read, launches
+    of any other single-lane decode kernel: K1's or K5's own step or the
+    other read's loop, launches of the sampler), or what they grew by
+    since `before`."""
+    from bark_tpu_torch.kernels import decode as kdec
+    from bark_tpu_torch.kernels import qdecode as kq
+    from bark_tpu_torch.kernels import sample as ksample
+
+    loop, other = (kq, kdec) if packed else (kdec, kq)
+    now = (loop.loop_launches,
+           other.loop_launches + kdec.launches + kq.launches,
+           ksample.launches)
+    return now if before is None else tuple(
+        a - b for a, b in zip(now, before))
 K5_EARLIER_MS = 0.474  # K5 q4_0's 62-launch chain, the same (PERF.md, H100)
 
 
@@ -759,6 +856,24 @@ def k7_step_record() -> dict:
         raise AssertionError(f"the batched step's bf16 instances are not on "
                              f"the tensor cores: {sass}")
     rec["sass"] = sass
+    return rec
+
+
+def k3k4_phase() -> dict:
+    """Phase 2d: `probes/k3k4_profile.py`'s record (`probe_record`): K3 and
+    K4, dense and q4_0, each asserted one device kernel a call, the step
+    loop's (`decode_steps_kernel`), with no sampler kernel."""
+    rec = probe_record("k3k4_profile")
+    for weights in ("dense", "q4_0"):
+        for part in ("k3", "k4"):
+            r = rec[weights][part]
+            names = list(r["names"])
+            if (r["device_kernels"] != 1
+                    or not any("decode_steps_kernel" in n for n in names)
+                    or any("sample_rows" in n for n in names)):
+                raise AssertionError(f"{weights} {part}: {r['device_kernels']}"
+                                     f" device kernels a call, want the step "
+                                     f"loop's one: {names}")
     return rec
 
 
@@ -943,7 +1058,8 @@ def qkernel_checks(checks: Checks, dtype, timed: bool):
     the full head and 300 on the coarse window, and at 300 on an int8
     cache (the rows by `record_kv8_rows`); each call must launch K5 once
     and not K1; two runs of a step give the same bits; K3 and K4 over a
-    q8_0 qpack in f32, tokens and flags equal. Timed in bf16 at n_past
+    q8_0 qpack in f32, tokens and flags equal, each one launch of K5's
+    step loop and no sampler launch. Timed in bf16 at n_past
     300, and q4_0's step record (`k5_step_record`)."""
     import torch
 
@@ -1034,7 +1150,7 @@ def qkernel_checks(checks: Checks, dtype, timed: bool):
             kc2, vc2 = kc.clone(), vc.clone()
             kw = dict(K=16, temp=0.7, semantic_vocab_size=svs)
             args = (257, 3, noise, 2.0)
-            before = kq.launches
+            before = loop_counts(packed=True)
             toks, flags, lg = ksem.semantic_chunk_fused(
                 sem_cfg, sem_q, logits0, kc, vc, *args, **kw)
             rtoks, rflags, rlg = ksem.semantic_chunk_plain(
@@ -1057,16 +1173,18 @@ def qkernel_checks(checks: Checks, dtype, timed: bool):
                                              kc2, vc2, 887, 1, noise, **kw)
             if toks.tolist() != rtoks.tolist():
                 raise AssertionError("K4 over q8_0: tokens differ")
-            if kq.launches - before != 16 + 60:
-                raise AssertionError(f"K3/K4 over q8_0 launched K5 "
-                                     f"{kq.launches - before} times, want "
-                                     f"one a step")
+            got = loop_counts(before, packed=True)
+            if got != (2, 0, 0):
+                raise AssertionError(f"K3/K4 over q8_0: {got} launches of "
+                                     f"K5's step loop, of K1's or K5's own "
+                                     f"step or a dense loop, and of the "
+                                     f"sampler, want one a call, 0 and 0")
             rows = slice(887, 947)
             checks.record(kname, name, "K4 K/V rows of 60 steps",
                           max(max_err(kc[:, rows], kc2[:, rows]),
                               max_err(vc[:, rows], vc2[:, rows])))
             log(f"  K3 (16 steps) and K4 (60 steps) over q8_0: tokens "
-                f"and flags equal, one K5 launch a step, f32")
+                f"and flags equal, one launch of K5's step loop a call, f32")
         del sem_q, coarse_q
         torch.cuda.empty_cache()
 
@@ -2177,13 +2295,15 @@ def small_model_reference(packed_path=None, kv8: bool = False):
     sum in another order). With `packed_path` (a quantized model file) it
     is loaded with dequantize_on_load=False, so the GPU run decodes through
     K5; otherwise the dense parts are given directly. kv8: with the int8
-    KV cache, so the GPU run goes through K6 (which must launch)."""
+    KV cache, so the GPU run goes through K6 (which must launch). The GPU
+    run's semantic chunks and coarse windows must each be one launch of
+    the step loop (K1's, or K5's when packed), with no sampler launch."""
     import numpy as np
     import torch
 
     import bark_tpu_torch as bt
+    from bark_tpu_torch import kernels
     from bark_tpu_torch.kernels import kv8 as kkv8
-    from bark_tpu_torch.kernels import qdecode as kq
     from bark_tpu_torch.ops import sampling
 
     runs = {}
@@ -2207,12 +2327,19 @@ def small_model_reference(packed_path=None, kv8: bool = False):
             lambda stage, shape, g=gen, d=device:
             sampling.gumbel(shape, g, "cpu").to(d)
         )
-        before, k6 = kq.launches, kkv8.launches
+        kernels.reset_launches()
         if not bt.bark_generate_audio(ctx, "hello world"):
             raise AssertionError(f"small model generate failed on {device}")
-        if packed_path and device == "cuda" and kq.launches == before:
-            raise AssertionError("the packed small model did not launch K5")
-        if kv8 and device == "cuda" and kkv8.launches == k6:
+        counts = kernels.launch_counts()
+        loop = loop_counts(packed=bool(packed_path))
+        if device == "cuda" and (
+                min(counts["semantic"], counts["window"]) <= 0
+                or loop != (counts["semantic"] + counts["window"], 0, 0)):
+            raise AssertionError(f"small model: the chunks and windows were "
+                                 f"not one step-loop launch each (on the "
+                                 f"{'packed' if packed_path else 'dense'} "
+                                 f"read): {counts}, loop {loop}")
+        if kv8 and device == "cuda" and kkv8.launches == 0:
             raise AssertionError("the kv8 small model did not launch K6")
         runs[device] = ctx
     cpu, gpu = runs["cpu"], runs["cuda"]
@@ -2319,13 +2446,16 @@ def bark_small_stages(fmt=None):
 
 
 def bark_small_requests(stages, n: int, label: str, need,
-                        kv8: bool = False):
+                        kv8: bool = False, packed: bool = False):
     """Phases 4, 4b and 4d: n requests on bark-small (`stages`), 138
     semantic steps with the EOS-probability stop off (bench.py's workload),
     at PyTorch's default precision settings (cuDNN TF32 on for the f32
     codec, matmul TF32 off), driven with the launch counts set to 0 just
     before and read just after. Every kernel module in `need` must have
-    been launched. kv8: with the int8 KV cache, every host launch must
+    been launched; each semantic chunk and coarse window must have been
+    one launch of the step loop (K1's, or K5's when `packed`), and K1's
+    and K5's own step, the other read's loop and the sampler never
+    launched. kv8: with the int8 KV cache, every host launch must
     have run K6 and no plain version may have run. Returns (per-request
     results, counts)."""
     import torch
@@ -2354,6 +2484,12 @@ def bark_small_requests(stages, n: int, label: str, need,
     if min(counts[m] for m in need) <= 0:
         raise AssertionError(f"a kernel of the {label} path was not "
                              f"launched: {counts}")
+    loop = loop_counts(packed=packed)
+    if loop != (counts["semantic"] + counts["window"], 0, 0):
+        raise AssertionError(f"the {label} path did not run each chunk and "
+                             f"window as one launch of the step loop, with "
+                             f"no other step and no sampler launch: "
+                             f"{counts}, loop {loop}")
     if kv8:
         check_kv8_run(label, counts, plain)
     return results, counts
@@ -2397,9 +2533,10 @@ def bark_small_request(stages, codec, params, seed: int, text: str,
     return result
 
 
-# the wrappers whose C calls run K6 when given int8 caches
-K6_HOSTS = ("decode", "qdecode", "prefill", "bdecode", "qbdecode",
-            "bprefill")
+# the wrappers whose C calls run K6 when given int8 caches (a chunk's or
+# window's is its one launch of the step loop)
+K6_HOSTS = ("decode", "qdecode", "semantic", "window", "prefill", "bdecode",
+            "qbdecode", "bprefill")
 
 
 def check_kv8_run(label: str, counts, plain) -> None:
@@ -3404,6 +3541,10 @@ def main() -> int:
             "437, 617 and 887 and K8 split by device kernel, one request's "
             "8 prefills, the torch.matmul yardstick, the bf16 GEMM's SASS")
         prefill_record = prefill_phase(smi)
+        log("phase 2d: the chunk and window record (bf16, bark-small): K3 "
+            "and K4, dense and q4_0, one device kernel a call, beside K1's "
+            "and K5's step, stamped")
+        k3k4_record = k3k4_phase()
         log("phase 2: bf16 witness, q4_0 packed steps in bf16 vs f32")
         bf16_witness()
         log("phase 2: D1-D5 (the weight-stream probe) vs plain, every "
@@ -3439,26 +3580,22 @@ def main() -> int:
     log(f"phase 4: bark-small, 3 requests (PyTorch defaults: cuDNN TF32 "
         f"{torch.backends.cudnn.allow_tf32}, matmul TF32 "
         f"{torch.backends.cuda.matmul.allow_tf32})")
-    dense_need = ("decode", "prefill", "semantic", "window", "sample")
+    need = ("prefill", "semantic", "window")
     results, counts = bark_small_requests(bark_small_stages(), 3, "dense",
-                                          dense_need)
+                                          need)
     log("phase 4b: bark-small on packed-quantized weights")
-    packed_need = ("qdecode", "prefill", "semantic", "window", "sample")
     t0 = time.perf_counter()
     stages = bark_small_stages("q4_0")
     torch.cuda.synchronize()
     log(f"  q4_0 qpacks of the three stages built on the card in "
         f"{time.perf_counter() - t0:.3f} s")
-    q_results, q_counts = bark_small_requests(stages, 2, "q4_0", packed_need)
-    if q_counts["decode"] != 0:
-        raise AssertionError("the packed path launched the dense K1")
+    q_results, q_counts = bark_small_requests(stages, 2, "q4_0", need,
+                                              packed=True)
     k5_launches = {"q4_0": q_counts["qdecode"]}
     del stages
     for fmt in ("q8_0", "q4_1", "q4_k", "q5_0"):
         _, c = bark_small_requests(bark_small_stages(fmt), 1, fmt,
-                                   packed_need)
-        if c["decode"] != 0:
-            raise AssertionError(f"the {fmt} path launched the dense K1")
+                                   need, packed=True)
         k5_launches[fmt] = c["qdecode"]
     torch.cuda.empty_cache()
     log(f"phase 4c: bark-small batched requests, B in {BATCHES}")
@@ -3469,14 +3606,14 @@ def main() -> int:
         "'int8'): 2 dense requests, 1 on q4_0 qpacks, batches of "
         f"{KV8_BATCHES}")
     kv8_results, kv8_counts = bark_small_requests(
-        stages, 2, "kv8 dense", dense_need + ("kv8",), kv8=True)
+        stages, 2, "kv8 dense", need + ("kv8",), kv8=True)
     kv8_batches = [bark_small_batch(stages, B, kv8=True)
                    for B in KV8_BATCHES]
     del stages
     torch.cuda.empty_cache()
     kv8_q_results, kv8_q_counts = bark_small_requests(
-        bark_small_stages("q4_0"), 1, "kv8 q4_0", packed_need + ("kv8",),
-        kv8=True)
+        bark_small_stages("q4_0"), 1, "kv8 q4_0", need + ("kv8",),
+        kv8=True, packed=True)
     torch.cuda.empty_cache()
     log(f"phase 4e: bark-small batched on q4_0 qpacks, B in {BATCHES} "
         f"(bf16 cache) and {KV8_BATCHES} (int8 cache); one batch of 8 in "
@@ -3620,6 +3757,16 @@ def main() -> int:
                                                     f"{K5B}[q4_0,B=32]"):
             row.update(k7_row(k7_record, "k5b",
                               int(name.split(",B=")[1][:-1])))
+        if name in ("semantic_chunk_fused", "coarse_window_fused"):
+            part = "k3" if name == "semantic_chunk_fused" else "k4"
+            row.update(
+                steps=16 if part == "k3" else 60,
+                **{f"record_{w}": k3k4_record[w][part] for w in
+                   ("dense", "q4_0")},
+                device_kernels_per_call=k3k4_record["dense"][part][
+                    "device_kernels"],
+                us_a_step_over_k1=k3k4_record["dense"][part][
+                    "us_a_step_over_step"])
         if name == "decode_step_fused":
             row.update(checks.k1_step)
         if name == f"{K5}[q4_0]":
@@ -3694,6 +3841,7 @@ def main() -> int:
             chain_ms_at_300_quoted_from_perf_md=K5_EARLIER_MS,
             **checks.k5_step))}))
     print(json.dumps({"k7_step": dict(card=smi, **k7_record)}))
+    print(json.dumps({"k3k4": dict(card=smi, **k3k4_record)}))
     print(json.dumps({"dma_probe": dict(card=smi, **dma_record)}))
     print(json.dumps({"cache_probe": cache_record}))
     print(json.dumps({"lowering_probe": lowering_record}))

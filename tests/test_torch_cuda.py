@@ -5,7 +5,12 @@ sums in another order). K1, one cooperative launch a step, also at
 bark-small's width (12 heads of 64) with 1024 slots: n_past 0/300/1023,
 full head and coarse window, f32 and bf16, dense and int8 caches,
 bit-equal from run to run, 60 queued steps equal to 60 synced ones, and
-K3/K4 over it token-equal to their plain versions. K5, the packed step
+K3/K4 over it token-equal to their plain versions. K3 and K4, one launch
+of K1's step in a loop with the sampler inside: against their plain
+versions (f32 tokens and flags equal; dense, q8_0 and q4_0; bf16 and int8
+caches; the K3 slot clamp; both K4 parities) and bit-equal to K1's steps
+on the same tokens, one launch and one device kernel a call, bit-equal
+from run to run in bf16 and stamped. K5, the packed step
 (the same persistent kernel on its packed weight read), and K5-batched,
 the packed batched step (with K9 and K10 over it), run on qpacks loaded
 from sections quantized in q8_0, q4_0, q4_1, q5_1 and q4_k; K5 also at
@@ -198,7 +203,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, params):
 # moves its int8 value a step), bit-equal
 # from run to run (the plan's fixed fold order), steps queued with no host
 # sync equal to synced ones (the barrier count re-armed), and K3/K4 over it
-# token-equal to their plain versions in f32.
+# token-equal to their plain versions in f32 (K3/K4 are now one launch of
+# its step loop: their own section below).
 
 K1_CFG = GPTConfig(n_layer=2, n_head=12, n_embd=768, block_size=1024,
                    n_in_vocab=12096, n_out_vocab=12096, bias=True)
@@ -477,16 +483,17 @@ QFORMS = {"f16": (torch.float16, False), "f16-mins": (torch.float16, True),
           "f32": (torch.float32, False), "f32-mins": (torch.float32, True)}
 
 
-def _random_qpack(cfg, dtype, form, gen):
+def _random_qpack(cfg, dtype, form, gen, qrange=None):
     """A qpack at cfg's widths drawn on the card, in the layout of
     io.loader's gpt_qparams_from_section: values in [-7, 7] ([0, 15] with
-    mins centring each block), per-block scales near 0.02 / std(values),
-    so weights are ~N(0, 0.02); dense leaves in `dtype`, biases and LN
-    affines off their defaults; the v_pad columns of the LM head zero."""
+    mins centring each block; `qrange` if given, e.g. q8_0's [-127, 127]),
+    per-block scales near 0.02 / std(values), so weights are ~N(0, 0.02);
+    dense leaves in `dtype`, biases and LN affines off their defaults; the
+    v_pad columns of the LM head zero."""
     sdt, has_min = QFORMS[form]
     dev = gen.device
     L, D, V = cfg.n_layer, cfg.n_embd, cfg.n_out_vocab
-    qlo, qhi = (0, 15) if has_min else (-7, 7)
+    qlo, qhi = qrange or ((0, 15) if has_min else (-7, 7))
     base = 0.02 / (((qhi - qlo + 1) ** 2 - 1) / 12) ** 0.5
 
     def randn(*shape, scale=0.02):
@@ -588,6 +595,199 @@ def test_packed_step_is_bit_equal_run_to_run_and_stamped(dev, k5_qpacks,
     for t in stamps.tolist():
         assert all(x <= y for x, y in zip(t, t[1:])) and t[-1] > t[0]
     assert kdec.step_critical_us(plan, stamps)["step"] > 0
+
+
+# ----------------------------- K3/K4, one launch of the step loop a call
+# At K1_CFG (bark-small's width, 2 layers): K3's 16-step chunk after 257
+# rows, and one whose slots reach the clamp at block_size - 1; K4's
+# 60-step window after 887 rows at both step parities; dense weights and
+# q8_0 / q4_0 qpacks, bf16 and int8 caches. In f32 the tokens and flags
+# equal the plain versions' and the K/V rows lie within their tolerances
+# (dense ATOL; int8 `_kv8_close`); and the launch is bit-equal to K1's
+# (K5's) steps run one launch each on the same tokens, its logits and
+# every cache row it writes (the same plan and arithmetic, a step at a
+# time). One launch a call (K1's or K5's count, K3's or K4's, and no
+# sampler launch), one device kernel a call (torch.profiler), two bf16
+# runs bit-equal, and a stamped launch gives the same tokens.
+
+LOOP_QRANGES = {"q8_0": (-127, 127), "q4_0": (-8, 7)}
+# case -> (K3: (ctx_len, count0); K4: (ctx_len, step parity))
+LOOP_CASES = {"chunk": (257, 3), "chunk-clamp": (257, 760),
+              "window-odd": (887, 1), "window-even": (887, 0)}
+
+
+@pytest.fixture(scope="module")
+def loop_weights(dev, k1_params):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {"dense": k1_params}
+    for fmt, qr in LOOP_QRANGES.items():
+        out[fmt] = {dt: _random_qpack(K1_CFG, dt, "f16", gen, qrange=qr)
+                    for dt in (torch.float32, torch.bfloat16)}
+    return out
+
+
+def _loop_inputs(dev, case, dtype, quant):
+    """(logits0, noise, caches, K3 or K4 keyword args, ctx_len, arg) of a
+    case."""
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    V = K1_CFG.n_out_vocab
+    logits0 = torch.randn(V, generator=gen, device=dev) * 2
+    ctx_len, arg = LOOP_CASES[case]
+    chunk = case.startswith("chunk")
+    kc, vc = _k1_caches(dev, dtype, ctx_len + (arg if chunk else 0), quant)
+    if chunk:
+        noise = sampling.gumbel((32, V), gen, dev)
+        kw = dict(K=16, temp=0.7, semantic_vocab_size=10000)
+    else:
+        noise = sampling.gumbel((60, 1024), gen, dev)
+        kw = dict(sws=60, temp=0.7, semantic_vocab_size=10000,
+                  codebook_size=1024, lm_window=K1_WIN)
+    return logits0, noise, kc, vc, kw, ctx_len, arg
+
+
+def _loop_call(case, p, logits0, noise, kc, vc, kw, ctx_len, arg,
+               plain=False):
+    """K3 or K4 (or its plain version): (tokens, flags or None, logits or
+    None)."""
+    if case.startswith("chunk"):
+        fn = ksem.semantic_chunk_plain if plain else ksem.semantic_chunk_fused
+        return fn(K1_CFG, p, logits0, kc, vc, ctx_len, arg, noise, 2.0, **kw)
+    fn = kwin.coarse_window_plain if plain else kwin.coarse_window_fused
+    return (fn(K1_CFG, p, logits0, kc, vc, ctx_len, arg, noise, **kw), None,
+            None)
+
+
+def _written(case, ctx_len, arg):
+    """The cache rows a case's launch writes."""
+    if case.startswith("chunk"):
+        first = min(ctx_len + arg, K1_CFG.block_size - 1)
+        return slice(first, min(ctx_len + arg + 16, K1_CFG.block_size))
+    return slice(ctx_len, ctx_len + 60)
+
+
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+@pytest.mark.parametrize("weights", ["dense", "q8_0", "q4_0"])
+@pytest.mark.parametrize("case", list(LOOP_CASES))
+def test_step_loop_against_plain_and_k1(dev, loop_weights, case, weights,
+                                        cache):
+    from bark_tpu_torch.kernels import qdecode
+    from bark_tpu_torch.kernels import sample
+
+    p, quant = loop_weights[weights][torch.float32], cache == "int8"
+    logits0, noise, kc, vc, kw, ctx_len, arg = _loop_inputs(
+        dev, case, torch.float32, quant)
+    kc2, vc2, kc3, vc3 = _clone(kc), _clone(vc), _clone(kc), _clone(vc)
+    mod = ksem if case.startswith("chunk") else kwin
+    counters = ((kdec, "loop_launches"), (qdecode, "loop_launches"),
+                (kdec, "launches"), (qdecode, "launches"),
+                (sample, "launches"), (mod, "launches"))
+    before = [getattr(m, c) for m, c in counters]
+    t, f, lg = _loop_call(case, p, logits0, noise, kc, vc, kw, ctx_len, arg)
+    torch.cuda.synchronize()
+    dense = int(weights == "dense")
+    # one launch of the step loop on its read; none of K1's or K5's own
+    # step, none of the sampler
+    assert [getattr(m, c) - b for (m, c), b in zip(counters, before)] == [
+        dense, 1 - dense, 0, 0, 0, 1]
+    rt, rf, rlg = _loop_call(case, p, logits0, noise, kc2, vc2, kw, ctx_len,
+                             arg, plain=True)
+    assert t.tolist() == rt.tolist()
+    if f is not None:
+        assert f.tolist() == rf.tolist()
+        torch.testing.assert_close(lg, rlg, rtol=0,
+                                   atol=KV8_ATOL if quant else ATOL)
+    rows = _written(case, ctx_len, arg)
+    for a, b in ((kc, kc2), (vc, vc2)):
+        if quant:  # rows of chained steps: held as the int8 logits are
+            _kv8_close({k: x[:, rows] for k, x in a.items()},
+                       {k: x[:, rows] for k, x in b.items()}, KV8_ATOL)
+        else:
+            torch.testing.assert_close(a[:, rows], b[:, rows], rtol=0,
+                                       atol=ATOL)
+    # K1's (K5's) steps, one launch each, on the launch's tokens
+    buf = logits0.clone()
+    win = kw.get("lm_window")
+    for j, tok in enumerate(t.tolist()):
+        n_past = (min(ctx_len + arg + j, K1_CFG.block_size - 1)
+                  if f is not None else ctx_len + j)
+        kdec.decode_step_fused(K1_CFG, p, tok, kc3, vc3, n_past,
+                               lm_window=win, out=buf)
+    if f is not None:
+        assert torch.equal(lg, buf)
+    for a, b in ((kc, kc3), (vc, vc3)):
+        for x, y in (zip(a.values(), b.values()) if quant else [(a, b)]):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("weights", ["dense", "q4_0"])
+@pytest.mark.parametrize("case", ["chunk", "window-odd"])
+def test_step_loop_is_one_device_kernel_and_bit_equal(dev, loop_weights,
+                                                      case, weights):
+    """One device kernel a call (torch.profiler), and two bf16 runs give
+    the same bits: tokens, flags, logits and caches."""
+    from bark_tpu_torch.probes import prefill_profile
+
+    p = loop_weights[weights][torch.bfloat16]
+    logits0, noise, kc, vc, kw, ctx_len, arg = _loop_inputs(
+        dev, case, torch.bfloat16, False)
+    runs = []
+    for _ in range(2):
+        k, v = _clone(kc), _clone(vc)
+        runs.append((*_loop_call(case, p, logits0, noise, k, v, kw, ctx_len,
+                                 arg), k, v))
+    for x, y in zip(*runs):
+        assert (x is None and y is None) or torch.equal(x, y)
+    torch.cuda.synchronize()
+    names = [e.name for e in prefill_profile.profiled_call(
+        lambda: _loop_call(case, p, logits0, noise, _clone(kc), _clone(vc),
+                           kw, ctx_len, arg))
+        if not e.name.startswith(("Memcpy", "Memset"))]
+    loops = [n for n in names if "decode_steps_kernel" in n]
+    assert len(loops) == 1 and not any(
+        "sample_rows" in n or "decode_step_kernel" in n for n in names), names
+
+
+def test_step_loop_stamps(dev, loop_weights):
+    """A stamped launch gives the unstamped launch's tokens; every block's
+    clock readings run forward and split into the loop's parts."""
+    p = loop_weights["dense"][torch.bfloat16]
+    logits0, noise, kc, vc, kw, ctx_len, arg = _loop_inputs(
+        dev, "chunk", torch.bfloat16, False)
+    plan, _ = kdec.device_plan(_build.stage_weights(K1_CFG, p), None)
+    stamps = kdec.loop_stamps(plan, 16, dev)
+    n_past0, clamp, sample = ksem.chunk_loop(K1_CFG, ctx_len, arg, 0.7,
+                                             10000, 2.0)
+    toks = torch.empty(16, dtype=torch.int32, device=dev)
+    flags = torch.empty(16, dtype=torch.int32, device=dev)
+    kdec.decode_steps_fused(K1_CFG, p, logits0.clone(), _clone(kc),
+                            _clone(vc), n_past0, clamp, 16, sample, noise,
+                            toks, flags, stamps=stamps)
+    t, f, _ = _loop_call("chunk", p, logits0, noise, _clone(kc), _clone(vc),
+                         kw, ctx_len, arg)
+    assert toks.tolist() == t.tolist() and flags.tolist() == f.tolist()
+    for row in stamps.tolist():
+        assert all(x <= y for x, y in zip(row, row[1:])) and row[-1] > row[0]
+    us = kdec.loop_phases_us(plan, stamps, 16)
+    assert us["block0"]["step"] > 0
+    assert us["launch_us"] >= us["block0"]["launch"]
+
+
+def test_step_loop_refuses_what_it_does_not_take(dev, k1_params):
+    p = k1_params[torch.float32]
+    kc, vc = _k1_caches(dev, torch.float32, 40, False)
+    V = K1_CFG.n_out_vocab
+    toks = torch.empty(4, dtype=torch.int32, device=dev)
+    before = kdec.launches, kdec.loop_launches
+    with pytest.raises(ValueError, match="noise"):  # rows too narrow
+        kdec.decode_steps_fused(
+            K1_CFG, p, torch.zeros(V, device=dev), kc, vc, 40, 1023, 4,
+            kdec.LoopSample(0.7, stop_token=10000),
+            torch.zeros((4, V - 1), device=dev), toks, toks)
+    with pytest.raises(ValueError, match="flag_out"):  # K3 without flags
+        kdec.decode_steps_fused(
+            K1_CFG, p, torch.zeros(V, device=dev), kc, vc, 40, 1023, 4,
+            kdec.LoopSample(0.0, stop_token=10000), None, toks)
+    assert (kdec.launches, kdec.loop_launches) == before
 
 
 def test_packed_wrapper_refuses_what_the_kernel_does_not_take(dev, qpack):
@@ -1475,8 +1675,11 @@ def test_warmup_launches_the_kernels_and_leaves_the_generator(dev):
     kernels.reset_launches()
     assert ctx.warmup() >= 0
     counts = kernels.launch_counts()
-    assert all(counts[m] > 0 for m in ("decode", "prefill", "semantic",
-                                       "window", "sample"))
+    assert all(counts[m] > 0 for m in ("prefill", "semantic", "window"))
+    # each chunk and window one launch of K1's step loop; no launch of K1's
+    # own step, none of the sampler
+    assert kdec.loop_launches == counts["semantic"] + counts["window"]
+    assert counts["decode"] == 0 and counts["sample"] == 0
     assert torch.equal(ctx.generator.get_state(), state)
     assert ctx.generate_audio("hello world")
     fresh = _small_context(dev, seed=3)
