@@ -17,8 +17,9 @@ other section loads dense.
 
 Batched serving: `BarkContext.generate_audio_batch(texts)` runs up to
 32 prompts through one batched pipeline (K8 prefills, K9 semantic chunks
-and K10 coarse windows over the batched decode step K7, which reads each
-weight once per step for every lane), then the fine stage and the codec
+and K10 coarse windows, each one launch of the batched decode step K7 in
+a loop with the sampler inside; K7 reads each weight once per step for
+every lane), then the fine stage and the codec
 per lane. Packed stages take the same path: K9 and K10 then decode
 through the packed batched step (K5-batched), and the prefills and the
 fine stage read a dense copy made once per batch and stage.

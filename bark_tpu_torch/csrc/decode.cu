@@ -106,12 +106,13 @@
 // steps 6.37 ms with that state in registers, 5.77 with it in shared
 // memory (K1's step 0.360).
 //
-// The attention arithmetic (`attend_dense`, `attend_int8`) and the weight
-// reads live in step.cuh, shared with the batched step (bdecode.cu
-// `lane_step_kernel`, K7 and K5-batched: the same ring, barriers and
-// reads for 1-32 lanes, its products on the tensor cores) and with the
-// standalone attention kernels below, which K6a alone launches a layer at
-// a time (bark_launch_attn_decode_batched, kernels/kv8.py).
+// The attention arithmetic (`attend_dense`, `attend_int8`), the weight
+// reads and the sampler's merge live in step.cuh, shared with the batched
+// step (lane.cuh, run by bdecode.cu `lane_step_kernel`, K7 and
+// K5-batched, and in a loop by bloop.cuh, K9 and K10: the same ring,
+// barriers and reads for 1-32 lanes, its products on the tensor cores) and
+// with the standalone attention kernels below, which K6a alone launches a
+// layer at a time (bark_launch_attn_decode_batched, kernels/kv8.py).
 #include <algorithm>
 
 #include "common.cuh"
@@ -1174,33 +1175,6 @@ __device__ __forceinline__ void prefetch_noise(const BarkStepLoop& lp, int V,
     prefetch_l2(noise + u);
 }
 
-// logit l on the EOS scale: l / temp, or l / 0.7 at temp 0 (the
-// reference's divide); a true division, as ops/sampling.py `divide`
-__device__ __forceinline__ float eos_scale(const BarkStepLoop& lp, float l) {
-  return lp.temp != 0.0f ? l / lp.temp : l / 0.7f;
-}
-
-// A sample partial: the best (value, index) (argmax_take) and, on the EOS
-// scale, the largest value m and the sum s of exp(e - m) of the slots seen
-// (s 0: none; NaN slots leave m and make s NaN, as a softmax over them
-// does).
-struct Part {
-  float v, m, s;
-  int i;
-};
-
-// `o` merged into `p`: the same result in either order (max, and sums of
-// two terms, commute bit for bit), so lanes that swap partials agree;
-// without `eos`, the best pair alone
-__device__ __forceinline__ void merge(Part& p, const Part& o, bool eos) {
-  argmax_take(p.v, p.i, o.v, o.i);
-  if (!eos) return;
-  const float m = fmaxf(p.m, o.m);
-  p.s = (p.s == 0.0f ? 0.0f : p.s * expf(p.m - m)) +
-        (o.s == 0.0f ? 0.0f : o.s * expf(o.m - m));
-  p.m = m;
-}
-
 // `p` merged over the block (with the EOS sums when `eos`): over each warp
 // by a butterfly, the warps' through the state's merge scratch (one
 // __syncthreads), then in warp order by the threads that ask (`all`, or
@@ -1210,14 +1184,7 @@ __device__ __forceinline__ void merge(Part& p, const Part& o, bool eos) {
 __device__ __forceinline__ Part block_merge(Part p, bool all, bool eos) {
   float* w = reinterpret_cast<float*>(loop_state() + W_MERGE);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    Part q;
-    q.v = __shfl_xor_sync(0xffffffffu, p.v, o);
-    q.m = __shfl_xor_sync(0xffffffffu, p.m, o);
-    q.s = __shfl_xor_sync(0xffffffffu, p.s, o);
-    q.i = __shfl_xor_sync(0xffffffffu, p.i, o);
-    merge(p, q, eos);
-  }
+  p = warp_merge(p, eos);
   if (lane == 0) {
     w[4 * warp] = p.v;
     w[4 * warp + 1] = p.m;
@@ -1253,17 +1220,8 @@ __device__ __forceinline__ void sample_partial(const StepArgs<Weights>* args,
   const float* noise = loop_noise(lp, j, base);
   const bool eos = !lp.codebook;
   Part p{-INFINITY, -INFINITY, 0.0f, INT_MAX};
-  for (int u = s0 + (int)threadIdx.x; u < s1; u += PS_THREADS) {
-    // what the argmax takes: l / temp + the slot's noise, or l at temp 0
-    const float l = args->logits[u], e = eos_scale(lp, l);
-    if (eos) {
-      const float m = fmaxf(p.m, e);
-      p.s = (p.s == 0.0f ? 0.0f : p.s * expf(p.m - m)) +
-            (e == -INFINITY ? 0.0f : expf(e - m));
-      p.m = m;
-    }
-    argmax_take(p.v, p.i, noise != nullptr ? e + noise[u] : l, u);
-  }
+  for (int u = s0 + (int)threadIdx.x; u < s1; u += PS_THREADS)
+    take_slot(p, u, args->logits[u], lp.temp, noise, eos);
   p = block_merge(p, false, eos);
   if (threadIdx.x == 0) {
     float* o = lp.part + 4 * (size_t)blockIdx.x;
@@ -1299,7 +1257,7 @@ __device__ __forceinline__ int fold_sample(const StepArgs<Weights>* args,
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     lp.tok_out[j] = tok;
     if (!lp.codebook) {
-      const float eos_p = expf(eos_scale(lp, last) - p.m) / p.s;
+      const float eos_p = expf(eos_scale(lp.temp, last) - p.m) / p.s;
       lp.flag_out[j] = (int)(tok == lp.stop_token || eos_p >= lp.min_eos_p);
     }
   }

@@ -1,10 +1,11 @@
 // The parts of the persistent decode step that K1/K5 (decode.cu, one lane)
-// and K7/K5-batched (bdecode.cu, B lanes) share: the launch shape, the
+// and K7/K5-batched (lane.cuh, B lanes) share: the launch shape, the
 // head's attention on a dense or an int8 cache (`attend_dense`,
-// `attend_int8`), the sampler's merge (`argmax_take`, the step loop's of
-// decode.cu), and the two weight reads, `DenseRead` and `PackedRead`,
-// each with the layout of its tile-major copy (kernels/decode.py
-// `step_tiles`, `step_qtiles`, `lane_tiles`) and a wte value.
+// `attend_int8`), the step loops' sampler (`argmax_take`, `take_slot`,
+// `merge`: decode.cu's and lane.cuh's), and the two weight reads,
+// `DenseRead` and `PackedRead`, each with the layout of its tile-major copy
+// (kernels/decode.py `step_tiles`, `step_qtiles`, `lane_tiles`) and a wte
+// value.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -28,24 +29,37 @@ constexpr float ATT_SCALE = 0.125f;  // 1 / sqrt(HD)
 
 // ------------------------------------------------------------ attention
 
+// threadIdx.x read anew: an opaque value, so that nothing derived from it
+// is hoisted out of a loop around its read and kept in a register (the
+// batched step loop reads it at each use: lane.cuh)
+__device__ __forceinline__ unsigned opaque_tid() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(r));
+  return r;
+}
+
 // The threads that run one head's attention: a whole block (K1, K5; K6a
 // alone), or one of a block's groups of N consecutive threads (the batched
 // step, a (head, lane) unit a group), which wait for each other at named
-// barrier 1 + the group's index.
+// barrier 1 + the group's index. OPAQUE: the thread's index by
+// `opaque_tid` (the batched step loop's).
 struct WholeBlock {
   static constexpr bool WHOLE = true;
+  __device__ static unsigned index() { return threadIdx.x; }
   __device__ static int tid() { return threadIdx.x; }
   __device__ static int size() { return blockDim.x; }
   __device__ static void sync() { __syncthreads(); }
 };
-template <int N>
+template <int N, bool OPAQUE = false>
 struct ThreadGroup {
   static constexpr bool WHOLE = false;
-  __device__ static int tid() { return threadIdx.x % N; }
+  __device__ static unsigned index() {
+    return OPAQUE ? opaque_tid() : threadIdx.x;
+  }
+  __device__ static int tid() { return index() % N; }
   __device__ static int size() { return N; }
   __device__ static void sync() {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + (int)threadIdx.x / N),
-                 "n"(N)
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + (int)index() / N), "n"(N)
                  : "memory");
   }
 };
@@ -57,7 +71,7 @@ __device__ __forceinline__ float grp_max(float v, float* red) {
   if constexpr (Grp::WHOLE) {
     return block_max(v, red);
   } else {
-    const int lane = threadIdx.x & 31, w = Grp::tid() >> 5;
+    const int lane = Grp::index() & 31, w = Grp::tid() >> 5;
     v = warp_max(v);
     Grp::sync();
     if (lane == 0) red[w] = v;
@@ -70,7 +84,7 @@ __device__ __forceinline__ float grp_sum(float v, float* red) {
   if constexpr (Grp::WHOLE) {
     return block_sum(v, red);
   } else {
-    const int lane = threadIdx.x & 31, w = Grp::tid() >> 5;
+    const int lane = Grp::index() & 31, w = Grp::tid() >> 5;
     v = warp_sum(v);
     Grp::sync();
     if (lane == 0) red[w] = v;
@@ -291,11 +305,67 @@ __device__ __forceinline__ void argmax_take(float& v, int& i, float ov,
   }
 }
 
+// logit l on the EOS scale: l / temp, or l / 0.7 at temp 0 (the
+// reference's divide); a true division, as ops/sampling.py `divide`
+__device__ __forceinline__ float eos_scale(float temp, float l) {
+  return temp != 0.0f ? l / temp : l / 0.7f;
+}
+
+// A sample partial (the step loops': decode.cu's, and bloop.cuh's of B
+// lanes): the best (value, index) (argmax_take) and, on the EOS scale, the
+// largest value m and the sum s of exp(e - m) of the slots seen (s 0: none;
+// NaN slots leave m and make s NaN, as a softmax over them does).
+struct Part {
+  float v, m, s;
+  int i;
+};
+
+// slot u of a sample window, logit l, taken into p: the argmax takes l /
+// temp + noise[u], or l at temp 0 (noise null); with `eos` the EOS sums
+// take l / temp (l / 0.7 at temp 0)
+__device__ __forceinline__ void take_slot(Part& p, int u, float l, float temp,
+                                          const float* noise, bool eos) {
+  const float e = eos_scale(temp, l);
+  if (eos) {
+    const float m = fmaxf(p.m, e);
+    p.s = (p.s == 0.0f ? 0.0f : p.s * expf(p.m - m)) +
+          (e == -INFINITY ? 0.0f : expf(e - m));
+    p.m = m;
+  }
+  argmax_take(p.v, p.i, noise != nullptr ? e + noise[u] : l, u);
+}
+
+// `o` merged into `p`: the same result in either order (max, and sums of
+// two terms, commute bit for bit), so lanes that swap partials agree;
+// without `eos`, the best pair alone
+__device__ __forceinline__ void merge(Part& p, const Part& o, bool eos) {
+  argmax_take(p.v, p.i, o.v, o.i);
+  if (!eos) return;
+  const float m = fmaxf(p.m, o.m);
+  p.s = (p.s == 0.0f ? 0.0f : p.s * expf(p.m - m)) +
+        (o.s == 0.0f ? 0.0f : o.s * expf(o.m - m));
+  p.m = m;
+}
+
+// p merged over the warp by a butterfly: every thread ends with the same
+// result (the merge commutes)
+__device__ __forceinline__ Part warp_merge(Part p, bool eos) {
+  for (int o = 16; o > 0; o >>= 1) {
+    Part q;
+    q.v = __shfl_xor_sync(0xffffffffu, p.v, o);
+    q.m = __shfl_xor_sync(0xffffffffu, p.m, o);
+    q.s = __shfl_xor_sync(0xffffffffu, p.s, o);
+    q.i = __shfl_xor_sync(0xffffffffu, p.i, o);
+    merge(p, q, eos);
+  }
+  return p;
+}
+
 // ------------------------------------------------------------ weight reads
 
 // How the persistent steps read their weights: the policy both kernels are
-// templated on (decode.cu `decode_step_kernel`, bdecode.cu
-// `lane_step_kernel`). Each gives the params dtype T, the weight struct,
+// templated on (decode.cu `decode_step_kernel`, lane.cuh `LaneStep`).
+// Each gives the params dtype T, the weight struct,
 // the rows of a K-range unit of K1's plan (UNIT) and of a ring chunk (CH),
 // a slot's bytes, where rows of a tile lie in the tiled copy, K1's share
 // of a chunk's product for a thread, and a wte value. The batched step

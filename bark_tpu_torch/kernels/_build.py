@@ -128,7 +128,24 @@ class StepLoop(ctypes.Structure):
         ("tok_out", "flag_out", "part", "stamps")]
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+class LaneLoop(ctypes.Structure):
+    """Mirror of `BarkLaneLoop` in csrc/lane.cuh (passed by pointer): the
+    batched step loop of K9/K10, its slot table, sampler (each lane's noise
+    rows `noise_lane_ld` apart, a step's `noise_step_ld`) and outputs."""
+
+    _fields_ = [("n_steps", ctypes.c_int), ("slots", ctypes.c_void_p),
+                ("temp", ctypes.c_float), ("noise", ctypes.c_void_p),
+                ("noise_lane_ld", ctypes.c_longlong),
+                ("noise_step_ld", ctypes.c_longlong)] + [
+        (name, ctypes.c_int) for name in
+        ("noise_row0", "noise_rows", "codebook", "svs", "cbs", "step_idx0",
+         "stop_token")] + [
+        ("min_eos_p", ctypes.c_float)] + [
+        (name, ctypes.c_void_p) for name in
+        ("tok_out", "flag_out", "part", "stamps")]
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 # kc, vc, ks, vs: the caches as `StageWeights.check_cache` returns them (ks
 # and vs, the row scales of an int8 cache, null for a dense one)
 _SIGNATURES = {
@@ -169,16 +186,22 @@ _SIGNATURES = {
     # (qweights*, then as bark_decode_lanes)
     "bark_decode_lanes_packed": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
                                  _P, ctypes.c_longlong, _I, _P, _P, _P, _P],
+    # (dtype, scale dtype or -1 for dense weights, has_min, D, S) -> the
+    #  batched step loop's grid (blocks), or < 0
+    "bark_decode_lane_steps_blocks": [_I, _I, _I, _I, _I],
+    # K9/K10's batched step loop: (weights*, tiles*[5], plan*, blocks, B,
+    #  loop*, kc, vc, ks, vs, work, work_floats, cap, sync*, logits, stream)
+    "bark_decode_lane_steps": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                               ctypes.c_longlong, _I, _P, _P, _P],
+    # (qweights*, then as bark_decode_lane_steps)
+    "bark_decode_lane_steps_packed": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                                      _P, ctypes.c_longlong, _I, _P, _P, _P],
     # (weights*, x_emb, B, M, max_n, n_tiles, n_tiles64, tables, kc, vc,
     #  ks, vs, x, hb, q, ctx, ff, kv, maps*, plan*, partial, tickets,
     #  logits, lo, hi, stream)
     "bark_prefill_batched": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _P],
-    # (logits, ld_logits, base, n, noise, ld_noise, temp, with_eos,
-    #  stop_token, min_eos_p, B, tok_out, flag_out, stream)
-    "bark_sample_rows": [_P, _I, _I, _I, _P, _I, _F, _I, _I, _F, _I, _P, _P,
-                         _P],
     # (form, method, src, x, xbuf, N, R, G, ring, stage_rows, passes,
     #  partial, cap, tickets, n_tickets, total, out, check, stream)
     "bark_dma_probe": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,

@@ -30,6 +30,15 @@ not 16-byte aligned, more than one LM head), and a launch the card
 refuses raises with the CUDA error; there is no other path. Int8 caches
 (`gpt.init_kv_cache(quant=True, batch=B)`) run K6a's arithmetic inside
 the same launch (`kernels.kv8`).
+
+K9 and K10 (`kernels.bsemantic`, `kernels.bwindow`) run the same step in
+a loop: `decode_lane_steps` is ONE cooperative launch of a chunk or window
+(csrc/bloop.cuh `lane_steps_kernel`, on the same lane plan and tiled
+weights), step j sampling every lane's token inside the launch
+(`decode.LoopSample`) from the lane's logits before it, each LM tile's
+folding warps writing the tile's partial for every lane, then decoding the
+tokens at row j of a slot table. Its launches count in `loop_launches` (a
+qpack's in `qbdecode.loop_launches`), not in `launches`.
 """
 
 from __future__ import annotations
@@ -44,7 +53,11 @@ from bark_tpu_torch.kernels.decode import MAX_LANES, decode_step_plain
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 
-launches = 0  # dense kernel launches through `decode_step_fused_batched`
+# dense launches of K7's step through `decode_step_fused_batched`, and of
+# the batched step loop (K9, K10) through `decode_lane_steps` (a qpack's
+# counts are `qbdecode`'s)
+launches = 0
+loop_launches = 0
 
 
 def _host_ints(v):
@@ -165,6 +178,103 @@ def decode_step_fused_batched(cfg: GPTConfig, params, tokens, k_cache,
         launches += 1
     kv8.count(caches)
     return out
+
+
+def decode_lane_steps(cfg: GPTConfig, params, logits, k_cache, v_cache,
+                      slots, sample: kdec.LoopSample, noise, tok_out,
+                      flag_out=None, *, noise_lane_dim: int = 0,
+                      lm_window=None, stamps=None):
+    """K9/K10's batched step loop on CUDA tensors: ONE cooperative launch
+    of len(slots) steps of B lanes (csrc/bloop.cuh `lane_steps_kernel`,
+    dense or on a qpack's packed read), step j sampling every lane's token
+    as `sample` says from the lane's logits before it (`logits`, (B,
+    n_out_vocab) f32, holds the input logits and is left holding the last
+    step's), writing it to tok_out[j, b] (and for the full window its stop
+    flag to flag_out[j, b]), then decoding the tokens, lane b at slot
+    slots[j][b] (host ints in [0, block_size), uploaded as one table),
+    with the LM head over lm_window. `noise` (None at temp 0): f32 rows of
+    the window's width with unit column stride, lane b's row of step j at
+    index b of dim `noise_lane_dim` and row `sample.noise_row(j)` of the
+    other leading dim (K9: (B, rows, V), dim 0; K10: (rows, B, cbs), dim
+    1). `stamps`: an int64 tensor (`decode.loop_stamps` of the lane plan),
+    or None. Raises ValueError before any launch for what the kernel does
+    not take; nothing falls back."""
+    global loop_launches
+    B, n_steps = lane_count(k_cache), len(slots)
+    check_lanes(cfg, params, B, lm_window)
+    kdec.check_loop(cfg, sample, n_steps, lm_window)
+    dev = params["wpe"].device
+    caches = _build.check_kv(cfg, params["wpe"].dtype, dev, k_cache,
+                             v_cache, batch=B)
+    S, V = cfg.block_size, cfg.n_out_vocab
+    if any(len(r) != B or not all(0 <= int(x) < S for x in r)
+           for r in slots):
+        raise ValueError(f"slots: want {n_steps} rows of {B} slots in "
+                         f"[0, {S})")
+    if tuple(logits.shape) != (B, V):
+        raise ValueError(f"logits: want ({B}, {V}), got "
+                         f"{tuple(logits.shape)}")
+    _build.f32_on(logits, dev, B * V, "logits")
+    kdec._loop_tensor(tok_out, dev, torch.int32, n_steps * B, "tok_out")
+    if sample.codebook is None:
+        kdec._loop_tensor(flag_out, dev, torch.int32, n_steps * B,
+                          "flag_out")
+    width = sample.window(0, V)[1]
+    hot = sample.temp != 0.0
+    if hot and (noise is None or noise.dim() != 3
+                or noise.dtype != torch.float32 or noise.device != dev
+                or noise.shape[noise_lane_dim] != B
+                or noise.shape[1 - noise_lane_dim] < 1
+                or noise.shape[2] < width or noise.stride(2) != 1):
+        raise ValueError(
+            f"noise: want float32 rows of >= {width} on {dev} with unit "
+            f"column stride, {B} lanes in dim {noise_lane_dim}, got "
+            f"{None if noise is None else tuple(noise.shape)}")
+    packed = gpt.is_qpack(params)
+    w = (_build.stage_qweights if packed else _build.stage_weights)(
+        cfg, params)
+    if not packed and params["lm_head"].data_ptr() % 16:
+        raise ValueError("lm_head: the step's bulk copies want it 16-byte "
+                         "aligned")
+    plan, table = kdec.device_lane_plan(w, B, lm_window)
+    if stamps is not None:
+        kdec._loop_tensor(stamps, dev, torch.int64,
+                          plan.n_blocks * (2 + 3 * n_steps), "stamps")
+    tiles = kdec.lane_tiles(w, params)
+    work = w.scratch("lane_work", kdec.lane_work_floats(cfg, plan),
+                     dtype=torch.float32)
+    table_slots = _build.device_ints([[int(x) for x in r] for r in slots],
+                                     dev)
+    n_tiles = len(plan.folds[kdec.LANE_PHASES.index("lm")])
+    svs, cbs, step0 = sample.codebook or (0, 0, 0)
+    loop = _build.LaneLoop(
+        n_steps=n_steps, slots=table_slots.data_ptr(), temp=sample.temp,
+        noise=noise.data_ptr() if hot else None,
+        noise_lane_ld=noise.stride(noise_lane_dim) if hot else 0,
+        noise_step_ld=noise.stride(1 - noise_lane_dim) if hot else 0,
+        noise_row0=sample.noise_row0,
+        noise_rows=noise.shape[1 - noise_lane_dim] if hot else 1,
+        codebook=int(sample.codebook is not None), svs=svs, cbs=cbs,
+        step_idx0=step0, stop_token=sample.stop_token,
+        min_eos_p=sample.min_eos_p, tok_out=tok_out.data_ptr(),
+        flag_out=None if flag_out is None else flag_out.data_ptr(),
+        part=w.scratch("lane_loop_part", 4 * n_tiles * B,
+                       dtype=torch.float32).data_ptr(),
+        stamps=None if stamps is None else stamps.data_ptr())
+    args = (w.ref, ctypes.addressof(tiles), table.data_ptr(),
+            plan.n_blocks, B, ctypes.addressof(loop), *caches,
+            work.data_ptr(), work.numel(), plan.partial_floats,
+            w.scratch("lane_sync", 1 + plan.n_tickets,
+                      dtype=torch.int32).data_ptr(),
+            logits.data_ptr(), _build.stream_ptr(w.device))
+    if packed:
+        qbdecode.decode_lane_steps_packed(args)
+    else:
+        _build.check("decode_lane_steps",
+                     _build.lib().bark_decode_lane_steps(*args))
+        loop_launches += 1
+    kv8.count(caches)
+    return logits
 
 
 def lane_count(k_cache) -> int:

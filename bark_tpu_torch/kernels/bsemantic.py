@@ -12,13 +12,16 @@ Lanes that have stopped keep decoding (their rewrites of their own cache
 rows are never read); the caller freezes their tokens and count, exactly
 as the JAX package's batched loop does.
 
-On CUDA tensors a step is two launches: `sample_window` over the B rows
-(`kernels.sample`), which writes B tokens and B flags to device memory,
-and K7 (`kernels.bdecode`), which embeds those tokens from there, at the
-step's row of a (K, B) slot table uploaded once per chunk. Nothing waits
-on the host inside the chunk. On CPU tensors the plain version runs: K3's
-plain version on each lane. Int8 caches are taken as they are: the K7
-steps then run K6a (`kernels.kv8`).
+On CUDA tensors the chunk is ONE cooperative launch
+(`kernels.bdecode.decode_lane_steps`, csrc/bloop.cuh
+`lane_steps_kernel`): K7's persistent step in a loop of K steps, each
+step's tokens and stop flags sampled inside the launch from the logits
+before it (`chunk_lane_loop`) and written to device memory, each step at
+its row of a (K, B) slot table uploaded once per chunk. Nothing waits on
+the host inside the chunk. A qpack runs the loop on K5-batched's packed
+read (`kernels.qbdecode`); int8 caches are taken as they are (K6a inside,
+`kernels.kv8`). On CPU tensors the plain version runs: K3's plain version
+on each lane.
 """
 
 from __future__ import annotations
@@ -26,13 +29,26 @@ from __future__ import annotations
 import torch
 
 from bark_tpu_torch.kernels import _build
-from bark_tpu_torch.kernels.bdecode import decode_step_fused_batched
-from bark_tpu_torch.kernels.sample import sample_window
+from bark_tpu_torch.kernels import decode as kdec
+from bark_tpu_torch.kernels.bdecode import decode_lane_steps
 from bark_tpu_torch.kernels.semantic import semantic_chunk_plain
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 
 launches = 0  # chunks run through `semantic_chunk_fused_batched`
+
+
+def chunk_lane_loop(cfg: GPTConfig, ctx_len: int, count0: int, K: int,
+                    temp: float, semantic_vocab_size: int,
+                    min_eos_p: float, B: int):
+    """(slots, LoopSample) of a K9 chunk of B lanes as one launch of the
+    batched step loop: every lane of step j (global step count0 + j, its
+    noise row) decodes at the shared slot min(ctx_len + count0 + j,
+    block_size - 1) and samples the full vocab with the stop flag."""
+    slots = [[min(ctx_len + count0 + j, cfg.block_size - 1)] * B
+             for j in range(K)]
+    return slots, kdec.LoopSample(temp=temp, stop_token=semantic_vocab_size,
+                                  min_eos_p=min_eos_p, noise_row0=count0)
 
 
 def semantic_chunk_batched_plain(cfg: GPTConfig, params, logits, k_cache,
@@ -69,7 +85,7 @@ def semantic_chunk_fused_batched(cfg: GPTConfig, params, logits, k_cache,
             min_eos_p, K=K, temp=temp,
             semantic_vocab_size=semantic_vocab_size,
         )
-    dev, V, S = gpt.kv_device(k_cache), cfg.n_out_vocab, cfg.block_size
+    dev, V = gpt.kv_device(k_cache), cfg.n_out_vocab
     B = logits.shape[0]
     if logits.dim() != 2 or logits.shape[1] != V:
         raise ValueError(f"logits: want (B, {V}), got {tuple(logits.shape)}")
@@ -80,14 +96,9 @@ def semantic_chunk_fused_batched(cfg: GPTConfig, params, logits, k_cache,
     buf = _build.f32_on(logits, dev, B * V, "logits").clone()
     toks = torch.empty((K, B), dtype=torch.int32, device=dev)
     flags = torch.empty((K, B), dtype=torch.int32, device=dev)
-    slots = _build.device_ints(
-        [[min(ctx_len + count0 + j, S - 1)] * B for j in range(K)], dev)
-    for j in range(K):
-        g = count0 + j
-        rows = None if temp == 0.0 else noise[:, min(g, noise.shape[1] - 1)]
-        sample_window(buf, 0, V, rows, temp, toks[j], flags[j],
-                      stop_token=semantic_vocab_size, min_eos_p=min_eos_p)
-        decode_step_fused_batched(cfg, params, toks[j], k_cache, v_cache,
-                                  slots[j], out=buf)
+    slots, sample = chunk_lane_loop(cfg, ctx_len, count0, K, temp,
+                                    semantic_vocab_size, min_eos_p, B)
+    decode_lane_steps(cfg, params, buf, k_cache, v_cache, slots, sample,
+                      noise, toks, flags, noise_lane_dim=0)
     launches += 1
     return toks.t(), flags.t(), buf

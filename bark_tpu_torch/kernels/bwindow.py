@@ -8,11 +8,13 @@ even, writes the offset-carrying token `base + argmax`, and decodes it at
 the lane's own slot `ctx_len[b] + j` with the LM head restricted to
 `lm_window`.
 
-On CUDA tensors a step is one `sample_window` launch over the B rows
-(`kernels.sample`) and one K7 step (`kernels.bdecode`), whose per-lane
-slots are the step's row of a (sws, B) table uploaded once per window; no
-host read inside the window. On CPU tensors the plain version runs: K4's
-plain version on each lane. Int8 caches are taken as in K9.
+On CUDA tensors the window is ONE cooperative launch of K7's step in a
+loop (`kernels.bdecode.decode_lane_steps`, csrc/bloop.cuh
+`lane_steps_kernel`), each step sampling every lane's codebook window
+inside the launch (`window_lane_loop`) at its per-lane slots, the step's
+row of a (sws, B) table uploaded once per window; no host read inside the
+window. Qpacks and int8 caches are taken as in K9. On CPU tensors the
+plain version runs: K4's plain version on each lane.
 """
 
 from __future__ import annotations
@@ -20,13 +22,24 @@ from __future__ import annotations
 import torch
 
 from bark_tpu_torch.kernels import _build
-from bark_tpu_torch.kernels.bdecode import decode_step_fused_batched
-from bark_tpu_torch.kernels.sample import sample_window
-from bark_tpu_torch.kernels.window import codebook_base, coarse_window_plain
+from bark_tpu_torch.kernels import decode as kdec
+from bark_tpu_torch.kernels.bdecode import decode_lane_steps
+from bark_tpu_torch.kernels.window import coarse_window_plain
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 
 launches = 0  # windows run through `coarse_window_fused_batched`
+
+
+def window_lane_loop(ctx_len, step_idx0: int, sws: int, temp: float,
+                     semantic_vocab_size: int, codebook_size: int):
+    """(slots, LoopSample) of a K10 window as one launch of the batched
+    step loop: lane b of step j decodes at ctx_len[b] + j, and every lane
+    samples the codebook window of global step step_idx0 + j with its
+    noise row j."""
+    slots = [[c + j for c in ctx_len] for j in range(sws)]
+    return slots, kdec.LoopSample(
+        temp=temp, codebook=(semantic_vocab_size, codebook_size, step_idx0))
 
 
 def coarse_window_batched_plain(cfg: GPTConfig, params, logits0, k_cache,
@@ -84,12 +97,8 @@ def coarse_window_fused_batched(cfg: GPTConfig, params, logits0, k_cache,
                          f"{tuple(noise.shape)}")
     buf = _build.f32_on(logits0, dev, B * V, "logits0").clone()
     toks = torch.empty((sws, B), dtype=torch.int32, device=dev)
-    slots = _build.device_ints([[c + j for c in ctx_len] for j in range(sws)],
-                               dev)
-    for j in range(sws):
-        sample_window(buf, codebook_base(step_idx0 + j, svs, cbs), cbs,
-                      None if temp == 0.0 else noise[j], temp, toks[j])
-        decode_step_fused_batched(cfg, params, toks[j], k_cache, v_cache,
-                                  slots[j], lm_window=lm_window, out=buf)
+    slots, sample = window_lane_loop(ctx_len, step_idx0, sws, temp, svs, cbs)
+    decode_lane_steps(cfg, params, buf, k_cache, v_cache, slots, sample,
+                      noise, toks, noise_lane_dim=1, lm_window=lm_window)
     launches += 1
     return toks.t()

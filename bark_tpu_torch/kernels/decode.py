@@ -45,7 +45,11 @@ takes its plan from here too: `lane_plan` (the five products' items and
 fold orders, the attention's (head, lane) units; `lane_units` mirrors the
 kernel's split of those by each lane's live rows), `lane_tiles` (the
 weights in the layout its products read) and `device_lane_plan`; the
-stamp splitters below read either plan.
+stamp splitters below read either plan. Its step loop (K9, K10:
+`bdecode.decode_lane_steps`) samples inside the launch with partials keyed
+by LM tile: `lane_sample_slots`, `lane_sample_partials` and
+`lane_fold_partials` are the CPU mirror of that split and fold, and
+`loop_stamps` / `loop_phases_us` serve its stamps too.
 """
 
 from __future__ import annotations
@@ -289,17 +293,17 @@ def step_plan(cfg: GPTConfig, n_blocks: int, lm_window=None,
 
 # ------------------------------------------------------------ the lane plan
 
-MAX_LANES = 32   # lanes the batched step takes (csrc/bdecode.cu MAX_LANES)
+MAX_LANES = 32   # lanes the batched step takes (csrc/lane.cuh MAX_LANES)
 LANE_UNIT = 16   # a dense lane plan's K ranges: multiples of mma's k16
 LANE_ROWS = 512  # most rows an item spans: its inputs' room in shared
-                 # memory (csrc/bdecode.cu LANE_ROWS)
+                 # memory (csrc/lane.cuh LANE_ROWS)
 ATT_COST = 128   # a (head, lane) unit's cost beside its live rows
 MAX_OWN = 16     # items of a product a block of the kernel holds
 MAX_UNITS = 512  # (head, lane) units a step takes: one a thread
 LANE_PHASES = PHASES + ("lm",)  # the products of the batched step
 # its stamped work between barriers, a layer (the embed's barrier aside)
 LANE_PHASE_NAMES = ("ln1_qkv", "attention", "proj", "ln2_fc", "out")
-# The lane plan table's header slots, as csrc/bdecode.cu's `LP_*` enum
+# The lane plan table's header slots, as csrc/lane.cuh's `LP_*` enum
 # names them (keep the two alike): the grid, the barriers, the layers, the
 # lanes, lo, hi, whether the plan is packed, the offset and count of its
 # (head, lane) pairs, then per product (5 slots each, in LANE_PHASES
@@ -362,7 +366,7 @@ class LanePlan:
         return max(1, max(len(f) for f in self.folds))
 
     def table(self) -> np.ndarray:
-        """The int32 table csrc/bdecode.cu reads: the header (`LP_*`),
+        """The int32 table csrc/lane.cuh reads: the header (`LP_*`),
         then the sections."""
         hdr = [0] * LP_HDR
         hdr[LP_BLOCKS], hdr[LP_BARRIERS] = self.n_blocks, self.n_barriers
@@ -437,7 +441,7 @@ def lane_plan(cfg: GPTConfig, n_blocks: int, n_lanes: int, lm_window=None,
 
 def lane_units(plan: LanePlan, n_past, block_size: int) -> list:
     """The (head, lane) units each block attends, as the kernel splits
-    them from each lane's slot (csrc/bdecode.cu `assign_units`): the
+    them from each lane's slot (csrc/lane.cuh `assign_units`): the
     plan's pairs in order, pair i costing its lane's live rows n_past + 1
     (0 for a slot outside the cache) + ATT_COST, go to the block that
     holds the midpoint of its cost. Returns each block's [p0, p1)."""
@@ -452,7 +456,7 @@ def lane_units(plan: LanePlan, n_past, block_size: int) -> list:
 
 
 def lane_work_floats(cfg: GPTConfig, plan: LanePlan) -> int:
-    """f32 of the batched step's work buffer (csrc/bdecode.cu
+    """f32 of the batched step's work buffer (csrc/lane.cuh
     `lane_rows_floats` + the partials): x (B, D), qkv (B, 3D), ctx (B, D),
     h (B, 4D), the residual's tile statistics (D/64, B, 2), the K and V
     tiles' amax (2D/64, B), then the partials."""
@@ -600,15 +604,19 @@ def frag_order(W, rows: int):
 
 def lane_blocks(w) -> int:
     """The batched step's grid for the stage weights `w` (dense, or the
-    packed read of its qpack's format): its blocks the card holds at once
-    (asked once per stage)."""
+    packed read of its qpack's format): the blocks the card holds at once
+    of both its kernels, the single step (K7) and the step loop (K9, K10),
+    which share its lane plans (asked once per stage)."""
     cfg = w.cfg
 
     def ask():
-        n = _build.lib().bark_decode_lanes_blocks(
-            _build.DTYPE_CODES[w.dtype],
-            w.struct.scale_dtype if w.packed else -1,
-            w.struct.has_min if w.packed else 0, cfg.n_embd, cfg.block_size)
+        lib = _build.lib()
+        n = min(fn(_build.DTYPE_CODES[w.dtype],
+                   w.struct.scale_dtype if w.packed else -1,
+                   w.struct.has_min if w.packed else 0, cfg.n_embd,
+                   cfg.block_size)
+                for fn in (lib.bark_decode_lanes_blocks,
+                           lib.bark_decode_lane_steps_blocks))
         if n <= 0:
             raise RuntimeError(
                 f"decode_step_fused_batched: the card takes no cooperative "
@@ -935,41 +943,43 @@ def _eos_scale(logits, temp: float):
     return sampling.divide(logits, temp if temp != 0.0 else 0.7)
 
 
+def _partial(logits, s0: int, s1: int, base: int, temp: float, row):
+    """The sampler's partial over slots [s0, s1) of the (V,) f32 logits
+    (csrc/step.cuh `take_slot`): the best (value, index) of logits/temp +
+    row[slot - base] (of the logits at temp 0, row None), and the max m of
+    the EOS scale (NaN aside, as fmaxf) with the sum of exp(e - m);
+    (-inf, None, -inf, 0) for no slot."""
+    if s0 == s1:
+        return (-math.inf, None, -math.inf, 0.0)
+    e = _eos_scale(logits[s0:s1], temp)
+    c = logits[s0:s1] if row is None else e + row[s0 - base:s1 - base]
+    nan = torch.isnan(c)
+    k = int(nan.nonzero()[0]) if nan.any() else int(torch.argmax(c))
+    live = e[~torch.isnan(e)]
+    m = float(live.max()) if live.numel() else -math.inf
+    return (float(c[k]), s0 + k, m, float(torch.exp(e - m).sum()))
+
+
 def sample_partials(plan: StepPlan, logits, sample: LoopSample, j: int,
                     noise=None) -> list:
     """Every block's partial of step j's sample from the (n_out_vocab,) f32
-    logits, as the kernel forms it over the block's `sample_slots`: the
-    best (value, index) of logits/temp + noise[row] (of the logits at temp
-    0), and the max m of the EOS scale over its slots (NaN aside, as
-    fmaxf) with the sum of exp(e - m); (value, None, -inf, 0) for a block
-    with no slot."""
+    logits, as the kernel forms it over the block's `sample_slots`
+    (`_partial`, with noise row `sample.noise_row(j)`)."""
     logits = logits.float()
     base, n = sample.window(j, logits.shape[0])
     row = (None if sample.temp == 0.0 else
            noise[sample.noise_row(j, noise.shape[0])].float())
-    out = []
-    for s0, s1 in sample_slots(plan, base, n):
-        if s0 == s1:
-            out.append((-math.inf, None, -math.inf, 0.0))
-            continue
-        e = _eos_scale(logits[s0:s1], sample.temp)
-        c = logits[s0:s1] if row is None else e + row[s0 - base:s1 - base]
-        nan = torch.isnan(c)
-        k = int(nan.nonzero()[0]) if nan.any() else int(torch.argmax(c))
-        live = e[~torch.isnan(e)]
-        m = float(live.max()) if live.numel() else -math.inf
-        out.append((float(c[k]), s0 + k, m,
-                    float(torch.exp(e - m).sum())))
-    return out
+    return [_partial(logits, s0, s1, base, sample.temp, row)
+            for s0, s1 in sample_slots(plan, base, n)]
 
 
 def fold_partials(parts, logits, sample: LoopSample, j: int) -> tuple:
-    """(token, eos_p) of step j from the blocks' partials, as every block
-    of the kernel folds them: the best pair by the sampler's order (the
-    window's base if none), and for the full window eos_p = exp(e_last -
-    M) / S, M the largest m, S the sum of s exp(m - M) over the blocks
-    with slots (in block order here; in the kernel by a butterfly over
-    each warp's 32 blocks, then the warps in order), else None."""
+    """(token, eos_p) of step j from the partials (K3/K4's: the blocks'; a
+    lane's of K9/K10: its LM tiles'), as the kernels fold them: the best
+    pair by the sampler's order (the window's base if none), and for the
+    full window eos_p = exp(e_last - M) / S, M the largest m, S the sum of
+    s exp(m - M) over the partials with slots (in order here; in the
+    kernels by a butterfly over a warp), else None."""
     base, n = sample.window(j, logits.shape[0])
     best = (-math.inf, None)
     for v, i, _, _ in parts:
@@ -982,6 +992,43 @@ def fold_partials(parts, logits, sample: LoopSample, j: int) -> tuple:
     e_last = float(_eos_scale(logits[base + n - 1:base + n].float(),
                               sample.temp)[0])
     return tok, math.exp(e_last - M) / S
+
+
+def lane_sample_slots(plan: LanePlan, base: int, n: int) -> list:
+    """Each LM tile's slots [s0, s1) of the sample window [base, base + n)
+    in the batched step loop (K9/K10), in the plan's tile order (its first
+    tile holds lm_window's lo): the tile's 64 columns within the window,
+    which the block that folds the tile samples for every lane (an empty
+    run is (s0, s0)), as csrc/lane.cuh `LaneSampler::put` cuts them."""
+    t0 = plan.tile0[LANE_PHASES.index("lm")]
+    out = []
+    for t in range(t0, t0 + len(plan.folds[LANE_PHASES.index("lm")])):
+        s0 = max(t * PLAN_TILE, base)
+        out.append((s0, max(s0, min((t + 1) * PLAN_TILE, base + n))))
+    return out
+
+
+def lane_sample_partials(plan: LanePlan, logits, sample: LoopSample, j: int,
+                         rows=None) -> list:
+    """The partials of step j's sample in the batched step loop, a list
+    per LM tile of one per lane, from the (B, n_out_vocab) f32 logits and
+    each lane's noise row of the step (`rows`, (B, >= window), None at
+    temp 0), as the tiles' folds form them (`lane_sample_slots`,
+    `_partial`)."""
+    logits = logits.float()
+    base, n = sample.window(j, logits.shape[1])
+    return [[_partial(logits[b], s0, s1, base, sample.temp,
+                      None if rows is None else rows[b].float())
+             for b in range(logits.shape[0])]
+            for s0, s1 in lane_sample_slots(plan, base, n)]
+
+
+def lane_fold_partials(parts, logits, sample: LoopSample, j: int) -> list:
+    """(token, eos_p) of each lane at step j from `lane_sample_partials`,
+    folding the lane's partials in tile order (`fold_partials`), as the
+    blocks that embed the lane do in csrc/lane.cuh `LaneSampler::fold`."""
+    return [fold_partials([tile[b] for tile in parts], logits[b], sample, j)
+            for b in range(logits.shape[0])]
 
 
 def check_loop(cfg: GPTConfig, sample: LoopSample, n_steps: int,
@@ -1077,23 +1124,24 @@ def decode_steps_fused(cfg: GPTConfig, params, logits, k_cache, v_cache,
     return logits
 
 
-def loop_stamps(plan: StepPlan, n_steps: int, device) -> torch.Tensor:
-    """Zeroed stamps for a step-loop launch of n_steps (at most
-    LOOP_STAMP_STEPS) on `plan`: a row a block, its thread 0's ns clock at
-    the start, then per step j its token folded (1 + 3 j), its LM head's
-    start (2 + 3 j) and end with the next sample's partial (3 + 3 j), and
-    at the end (1 + 3 n_steps)."""
+def loop_stamps(plan, n_steps: int, device) -> torch.Tensor:
+    """Zeroed stamps for a step-loop launch of n_steps on `plan` (K3/K4's
+    StepPlan, at most LOOP_STAMP_STEPS steps; or K9/K10's LanePlan): a row
+    a block, its thread 0's ns clock at the start, then per step j its
+    token folded (1 + 3 j), its LM head's start (2 + 3 j) and end with the
+    next sample's partials (3 + 3 j), and at the end (1 + 3 n_steps)."""
     return torch.zeros((plan.n_blocks, 2 + 3 * n_steps), dtype=torch.int64,
                        device=device)
 
 
-def loop_phases_us(plan: StepPlan, stamps, n_steps: int) -> dict:
-    """Where a stamped step-loop launch's time went, in µs: for block 0
-    and, taking each part's slowest block, for every block: the opening
-    sample (the start to step 0's token), a step's layers (its token to
-    its LM head), its LM head with the next sample's partial, the next
-    sample's barrier wait and fold (each the mean over steps), the mean
-    step (token to token) and the whole launch."""
+def loop_phases_us(plan, stamps, n_steps: int) -> dict:
+    """Where a stamped step-loop launch's time went, in µs (either loop's:
+    the rows are alike): for block 0 and, taking each part's slowest
+    block, for every block: the opening sample (the start to step 0's
+    token), a step's layers (its token to its LM head), its LM head with
+    the next sample's partial, the next sample's barrier wait and fold
+    (each the mean over steps), the mean step (token to token) and the
+    whole launch."""
     t = torch.as_tensor(stamps).reshape(-1)[:plan.n_blocks * (2 + 3 * n_steps)]
     t = t.reshape(plan.n_blocks, 2 + 3 * n_steps).to("cpu", torch.float64)
     tok = t[:, 1:2 + 3 * (n_steps - 1):3]  # step j's token folded

@@ -12,8 +12,9 @@ weight to the params dtype from q * s once and feeds every lane's product
 from it on the tensor cores (CUDA-core FMAs in f32), the min term of
 q4_1/q4_k per lane on the CUDA cores (packed embed, L x [LN1+QKV |
 attention | proj | LN2+fc | out], the packed LM head over `lm_window`).
-K9 and K10 reach it through their K7 steps. On an NVIDIA H100 80GB HBM3
-at 700.00 W (PERF.md): q4_0 at n_past 300 0.484 / 0.491-0.498 /
+K9 and K10 run the same step on a qpack in a loop, one launch a chunk or
+window (`decode_lane_steps_packed`, csrc/bloop.cu). On an NVIDIA H100
+80GB HBM3 at 700.00 W (PERF.md): q4_0 at n_past 300 0.484 / 0.491-0.498 /
 0.909-0.914 ms at B 1 / 8 / 32, against 0.518-0.529 / 0.716-0.717 /
 1.921-1.922 for the 62-launch chain; the latency of the step's dependent
 phases bounds it, not its bytes (csrc/bdecode.cu). On CPU tensors
@@ -26,7 +27,11 @@ from __future__ import annotations
 
 from bark_tpu_torch.kernels import _build
 
-launches = 0  # kernel launches through `decode_step_packed_batched`
+# launches of K5-batched's step through `decode_step_packed_batched`, and
+# of the batched step loop on the packed read (K9, K10 on a qpack) through
+# `decode_lane_steps_packed`
+launches = 0
+loop_launches = 0
 
 
 def decode_step_packed_batched(args) -> None:
@@ -40,3 +45,14 @@ def decode_step_packed_batched(args) -> None:
     _build.check("decode_step_packed_batched",
                  _build.lib().bark_decode_lanes_packed(*args))
     launches += 1
+
+
+def decode_lane_steps_packed(args) -> None:
+    """Launch the batched step loop on the packed read. `args` are those of
+    `bark_decode_lane_steps_packed` (csrc/bloop.cu), as
+    `bdecode.decode_lane_steps` builds and validates them for a qpack on
+    CUDA tensors."""
+    global loop_launches
+    _build.check("decode_lane_steps_packed",
+                 _build.lib().bark_decode_lane_steps_packed(*args))
+    loop_launches += 1

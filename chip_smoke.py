@@ -17,7 +17,7 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      five formats (q8_0, q4_0, q5_0: f16 scales; q4_1: f16 scales and
      mins; q4_k: f32 scales and mins), also on the int8 cache, and K3/K4
      over a q8_0 qpack; time each against its plain version. K3 and K4,
-     one launch of K1's step loop a call and no sampler launch, also give
+     one launch of K1's step loop a call and none of K1's step, also give
      in f32 the bits of K1's steps launched one by one on their tokens
      (a chunk whose slots reach the clamp, and both window parities among
      them), and in bf16 two runs the same bits. K1 and K5,
@@ -55,6 +55,15 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      `decode_steps_kernel`), asserted one device kernel a call
      (torch.profiler), timed beside K1's (K5's) step in the same process
      (µs a step over it) and split by stamps (its `k3k4` JSON line);
+  2e. (run after 2d) the batched chunk and window record (`probes/
+     k9k10_profile.py` in a fresh process, `k9k10_phase`): K9 (16 steps
+     after 257 rows) and K10 (60 steps at context 887, LM window), dense
+     and q4_0, at 8 and 32 lanes, each one launch of the batched step loop
+     with the sampler inside (csrc/bloop.cuh `lane_steps_kernel`), asserted
+     one device kernel a call with no sampler and no K7 step
+     (torch.profiler), timed beside K7's (K5-batched's) step in the same
+     process (µs a step over it) and split by stamps (its `k9k10` JSON
+     line);
   3. check a small model end to end against the port's plain CPU run with
      the same noise (tokens exact, audio within tolerance), TF32 still off:
      dense weights given as parts, then the same model written to a
@@ -63,26 +72,29 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      weights, different prompts and seeds, at PyTorch's default precision
      settings; check the audio and that every kernel was launched by them,
      each semantic chunk and coarse window as one launch of the step loop
-     and the sampler never (so in 4b and 4d);
+     and K1's own step never (so in 4b and 4d);
   4b. answer packed requests on bark-small qpacks built from a seed on the
      card (bf16 dense leaves): 2 in q4_0, then 1 each in q8_0, q4_1, q4_k
      and q5_0; check the audio, that K5 was launched by each and K1 by
      none;
   4c. answer batched requests on bark-small (`generate_audio_batch` of 1, 8
-     and 32 prompts); check the audio, that K7-K10 and the sampler were
-     launched, that the single-lane kernels were not, and that no plain
-     version ran (the plain references `gpt.decode_step` and `gpt.prefill`
-     are counted while the batches run);
+     and 32 prompts); check the audio, that K8-K10 were launched, each
+     semantic chunk and coarse window as one launch of the batched step
+     loop (K7's own step and the single-lane kernels never), and that no
+     plain version ran (the plain references `gpt.decode_step` and
+     `gpt.prefill` are counted while the batches run);
   4d. the int8 KV cache (kv_cache_dtype="int8") on bark-small: 2 dense
      requests, `generate_audio_batch` of 8 and 32 prompts, and 1 request
-     on q4_0 qpacks; check that every host launch of K1/K5/K7/K2/K8 ran
-     K6 and that no plain version ran, and print the RTFs and batched
+     on q4_0 qpacks; check that every host launch of K2-K4 and K8-K10
+     ran K6 and that no plain version ran, and print the RTFs and batched
      throughput beside phases 4-4c's bf16-cache numbers;
   4e. batched requests on bark-small q4_0 qpacks (`generate_audio_batch`
      of 1, 8 and 32 prompts with the bf16 cache, 8 and 32 with the int8
      cache), then one batch of 8 each in q8_0, q4_1 and q4_k; check that
-     every semantic and coarse step launched K5-batched, that dense K7 and
-     the single-lane K1/K5 did not launch and that no plain version ran,
+     every semantic chunk and coarse window was one launch of the batched
+     step loop on the packed read, that the dense loop, K7's and
+     K5-batched's own step and the single-lane K1/K5 did not launch and
+     that no plain version ran,
      and print the throughput and RTF per request beside phase 4c's dense
      numbers;
   5. the weight-stream probe (`bark_tpu_torch.probes.dma`, D1-D5, the
@@ -130,13 +142,16 @@ Phases, each fatal on failure (exit code 1, and no result lines):
 Phase 2 also checks the batched kernels K7-K10 against their plain
 versions at the lane counts phase 4c gives them (K7 at B 1/3/8/32 with
 n_past 0/300/1023; K8 over 3, 8 and 32 lanes with n_valid 257 to 887; K9
-over 16 steps of 4, 8 and 32 lanes; K10 over 60 steps of 4 and 8 lanes
-and 12 of 32), and phase 3 the small model's batched generation on the
+over 16 steps of 1, 3, 8 and 32 lanes, a chunk reaching the clamp; K10
+over 60 steps of 1, 3 (both parities) and 8 lanes and 12 of 32; in f32
+K9/K10 also bit-equal to K7's steps launched one by one on their tokens,
+in bf16 two runs bit-equal), and phase 3 the small model's batched
+generation on the
 GPU against the CPU (tokens equal). For K5-batched (K7's step on packed
 weights) phase 2 holds the step against its plain version on random
 qpacks of the four formats at B 1/3/8/32 (n_past 0/300/1023; full head
-and coarse window), K9 (8 lanes x 16 steps) and K10 (8 lanes x 60 steps,
-32 x 12) over a q4_0 qpack in f32 (tokens and flags equal), and the q4_0 step on
+and coarse window), K9 (8 lanes x 16 steps) and K10 (8 and 32 lanes x 60
+steps) over a q4_0 qpack in f32 (tokens and flags equal), and the q4_0 step on
 int8 caches at B 8 and 32; phase 3 runs the small model's q8_0 file
 packed through `generate_audio_batch`, with both caches. For K6, the
 int8 KV cache, phase 2 holds each kernel that reads or writes it against
@@ -228,10 +243,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, launch-count module)
        for b in BATCHES},
     "prefill_fused_batched": ("bark_tpu_torch/csrc/prefill.cu",
                               "bark_tpu/kernels/prefill.py:971", "bprefill"),
-    "semantic_chunk_fused_batched": ("bark_tpu_torch/csrc/sample.cu",
+    "semantic_chunk_fused_batched": ("bark_tpu_torch/csrc/bloop.cuh",
                                      "bark_tpu/kernels/semantic.py:1239",
                                      "bsemantic"),
-    "coarse_window_fused_batched": ("bark_tpu_torch/csrc/sample.cu",
+    "coarse_window_fused_batched": ("bark_tpu_torch/csrc/bloop.cuh",
                                     "bark_tpu/kernels/window.py:1117",
                                     "bwindow"),
 }
@@ -274,8 +289,28 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no TF32
 
 
+_START = time.perf_counter()
+
+
 def log(*a):
-    print(*a, file=sys.stderr, flush=True)
+    """A line on stderr, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _START:7.1f} s]", *a, file=sys.stderr,
+          flush=True)
+
+
+def once_ms(fn):
+    """(fn()'s result, its device time in ms between CUDA events): one call,
+    for a plain version already run at another size (K9's and K10's take
+    2-9 s a call: timing the check's own call spares two more)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -527,7 +562,7 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
     # in bf16 a near-tie argmax may flip after a step, so the error is taken
     # over one step, whose token is sampled from identical logits, and two
     # runs of the chunk must give the same bits. Each call is one launch
-    # of K1's step loop and no sampler launch.
+    # of K1's step loop and none of K1's own step.
     noise = sampling.gumbel((32, sem_cfg.n_out_vocab), gen, dev)
     x_emb = sem_p["wte"][0][:257].contiguous()
     kc0, vc0 = gpt.init_kv_cache(sem_cfg, dtype, dev)
@@ -545,10 +580,9 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
         before = loop_counts()
         toks, flags, lg = ksem.semantic_chunk_fused(
             sem_cfg, sem_p, logits0, kc, vc, *args, **kw)
-        if loop_counts(before) != (1, 0, 0):
+        if loop_counts(before) != (1, 0):
             raise AssertionError(f"K3 {name}: {loop_counts(before)} launches "
-                                 f"of the step loop, K1 and the sampler, "
-                                 f"want 1, 0 and 0")
+                                 f"of the step loop and of K1, want 1 and 0")
         rtoks, rflags, rlg = ksem.semantic_chunk_plain(
             sem_cfg, sem_p, logits0, kc2, vc2, *args, **kw)
         same = int((toks.cpu() == rtoks.cpu()).sum())
@@ -602,9 +636,9 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
         before = loop_counts()
         toks = kwin.coarse_window_fused(coarse_cfg, coarse_p, logits0, kc,
                                         vc, 887, step0, noise[:sws], **kw)
-        if loop_counts(before) != (1, 0, 0):
+        if loop_counts(before) != (1, 0):
             raise AssertionError(f"K4 {name}: not one launch of the step "
-                                 f"loop and no sampler launch")
+                                 f"loop and none of K1")
         rtoks = kwin.coarse_window_plain(coarse_cfg, coarse_p, logits0, kc2,
                                          vc2, 887, step0, noise[:sws], **kw)
         same = int((toks.cpu() == rtoks.cpu()).sum())
@@ -735,18 +769,58 @@ K1_EARLIER_MS = 0.526  # the 62-launch chain's step at n_past 300 (PERF.md, H100
 def loop_counts(before=None, packed: bool = False) -> tuple:
     """(launches of the step loop on the dense or packed read, launches
     of any other single-lane decode kernel: K1's or K5's own step or the
-    other read's loop, launches of the sampler), or what they grew by
-    since `before`."""
+    other read's loop), or what they grew by since `before`."""
     from bark_tpu_torch.kernels import decode as kdec
     from bark_tpu_torch.kernels import qdecode as kq
-    from bark_tpu_torch.kernels import sample as ksample
 
     loop, other = (kq, kdec) if packed else (kdec, kq)
     now = (loop.loop_launches,
-           other.loop_launches + kdec.launches + kq.launches,
-           ksample.launches)
+           other.loop_launches + kdec.launches + kq.launches)
     return now if before is None else tuple(
         a - b for a, b in zip(now, before))
+
+
+def lane_counts(before=None, packed: bool = False) -> tuple:
+    """(launches of the batched step loop (K9, K10) on the dense or packed
+    read, launches of any other batched decode kernel: K7's or
+    K5-batched's own step or the other read's loop), or what they grew by
+    since `before`."""
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import qbdecode as kqb
+
+    loop, other = (kqb, kbdec) if packed else (kbdec, kqb)
+    now = (loop.loop_launches,
+           other.loop_launches + kbdec.launches + kqb.launches)
+    return now if before is None else tuple(
+        a - b for a, b in zip(now, before))
+
+
+def k7_chain(what, cfg, p, logits0, k, v, kc, vc, toks, logits, slots,
+             lm_window):
+    """Fail unless K7's (K5-batched's) steps, one launch each on the batched
+    loop's (B, steps) tokens at its (steps, B) slots, from the caches (k,
+    v) the loop started from, give the loop's caches (kc, vc, dense or
+    int8) and, for K9, its logits bit for bit: the loop runs K7's step and
+    arithmetic, one launch a chunk or window."""
+    import torch
+
+    from bark_tpu_torch.kernels import _build
+    from bark_tpu_torch.kernels import bdecode as kbdec
+
+    buf = logits0.clone()
+    steps = toks.t().contiguous()
+    for j, row in enumerate(slots):
+        kbdec.decode_step_fused_batched(
+            cfg, p, steps[j], k, v, _build.device_ints(row, buf.device),
+            lm_window=lm_window, out=buf)
+    flat = [[t for x in pair for t in (x.values() if isinstance(x, dict)
+                                       else [x])] for pair in ((k, v),
+                                                               (kc, vc))]
+    if not (all(torch.equal(a, b) for a, b in zip(*flat))
+            and (logits is None or torch.equal(buf, logits))):
+        raise AssertionError(f"{what}: the batched loop differs from K7's "
+                             f"steps on its tokens")
+    log(f"  {what}: bit-equal to {len(slots)} K7 launches on its tokens")
 K5_EARLIER_MS = 0.474  # K5 q4_0's 62-launch chain, the same (PERF.md, H100)
 
 
@@ -874,6 +948,37 @@ def k3k4_phase() -> dict:
                 raise AssertionError(f"{weights} {part}: {r['device_kernels']}"
                                      f" device kernels a call, want the step "
                                      f"loop's one: {names}")
+    return rec
+
+
+def k9k10_phase() -> dict:
+    """Phase 2e: `probes/k9k10_profile.py`'s record (`probe_record`): K9
+    and K10, dense and q4_0, at 8 and 32 lanes, each asserted one device
+    kernel a call, the batched step loop's (`lane_steps_kernel`), with no
+    sampler kernel and no launch of K7's own step; and `probes/lane_sass`'s
+    SASS of the loop beside K7's step for the bf16 reads, dense and q4_0
+    (registers, spills, opcodes, the products' chunk loops)."""
+    from bark_tpu_torch.probes import lane_sass
+
+    rec = probe_record("k9k10_profile")
+    sass = lane_sass.record()
+    rec["sass"] = {}
+    for read in ("DenseRead<bf16>", "PackedRead<bf16,f16,min0>"):
+        log(lane_sass.summary(read, sass[read]))
+        rec["sass"][read] = lane_sass.brief(sass[read])
+    for weights in ("dense", "q4_0"):
+        for lanes, r2 in rec[weights].items():
+            for part in ("k9", "k10"):
+                r = r2[part]
+                names = list(r["names"])
+                if (r["device_kernels"] != 1
+                        or not any("lane_steps_kernel" in n for n in names)
+                        or any("sample_rows" in n or "lane_step_kernel" in n
+                               for n in names)):
+                    raise AssertionError(
+                        f"{weights} {lanes} {part}: {r['device_kernels']} "
+                        f"device kernels a call, want the batched loop's "
+                        f"one: {names}")
     return rec
 
 
@@ -1059,7 +1164,7 @@ def qkernel_checks(checks: Checks, dtype, timed: bool):
     cache (the rows by `record_kv8_rows`); each call must launch K5 once
     and not K1; two runs of a step give the same bits; K3 and K4 over a
     q8_0 qpack in f32, tokens and flags equal, each one launch of K5's
-    step loop and no sampler launch. Timed in bf16 at n_past
+    step loop and none of K5's own step. Timed in bf16 at n_past
     300, and q4_0's step record (`k5_step_record`)."""
     import torch
 
@@ -1174,11 +1279,11 @@ def qkernel_checks(checks: Checks, dtype, timed: bool):
             if toks.tolist() != rtoks.tolist():
                 raise AssertionError("K4 over q8_0: tokens differ")
             got = loop_counts(before, packed=True)
-            if got != (2, 0, 0):
+            if got != (2, 0):
                 raise AssertionError(f"K3/K4 over q8_0: {got} launches of "
-                                     f"K5's step loop, of K1's or K5's own "
-                                     f"step or a dense loop, and of the "
-                                     f"sampler, want one a call, 0 and 0")
+                                     f"K5's step loop and of K1's or K5's "
+                                     f"own step or a dense loop, want one a "
+                                     f"call and 0")
             rows = slice(887, 947)
             checks.record(kname, name, "K4 K/V rows of 60 steps",
                           max(max_err(kc[:, rows], kc2[:, rows]),
@@ -1275,9 +1380,12 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
     shapes and random weights, up to the 32 lanes of phase 4c. K7 at B
     1/3/8/32 with n_past cycling 0/300/1023 on the full head, and at B 8 on
     the coarse window; K8 over 3 and 32 lanes of 257 rows and 4, 8 and 32
-    lanes of 257 to 887 rows; K9 (16 steps) over 4, 8 and 32 lanes; K10 (60
-    steps) over 4 and 8 lanes and 12 steps over 32; tokens and flags equal
-    in f32 (in bf16 over one step, as for K3 and K4). Timed in bf16, on
+    lanes of 257 to 887 rows; K9 (16 steps) over 1, 3, 8 and 32 lanes and
+    a chunk that reaches the clamp; K10 (60 steps) over 1, 3 (both
+    parities in f32) and 8 lanes, and 32 in f32; tokens and flags
+    equal in f32 and K9/K10 bit-equal to K7's steps on their tokens (in
+    bf16 over one step, as for K3 and K4, the only step of 32 lanes there,
+    and two runs bit-equal). Timed in bf16, on
     inputs checked first: K7 at B 1/8/32 at n_past 300, K8 over 8 lanes of
     887 rows, K9 and K10 over 8 lanes."""
     import torch
@@ -1387,8 +1495,15 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
         del x_emb, kc, vc, kc2, vc2
     torch.cuda.empty_cache()
 
-    # K9: 16 steps after 257-row prompts, temp 0.7, over 4, 8 (timed) and 32
-    # lanes
+    # K9: 16 steps after 257-row prompts, temp 0.7, over 1, 3, 8 (timed)
+    # and 32 lanes, and in f32 a chunk of 3 lanes whose shared slot reaches
+    # the clamp at block_size - 1 (count0 760). Each call one launch of the
+    # batched step loop and none of K7's step. In f32 the chunk must give
+    # the plain version's tokens and flags exactly and K7's steps, one
+    # launch each on its tokens, its bits; in bf16 a near-tie argmax may
+    # flip after a step, so the error is taken over one step (the only
+    # chunk of 32 lanes in bf16: its longer chunks run in phases 2e and
+    # 4c), and two runs of the chunk must give the same bits.
     def sem_start(B):
         x_emb = sem_p["wte"][0][torch.randint(
             0, sem_cfg.n_in_vocab, (B * 257,), generator=gen,
@@ -1398,45 +1513,74 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
                                              [257] * B)
         return logits, kc, vc
 
-    for B in (4, 8, 32):
+    f32 = dtype == torch.float32
+    plain_ms = {}  # (lanes, steps): the checks' plain calls, timed
+    sem_cases = [(1, 3), (3, 3), (8, 3), (32, 3)] + ([(3, 760)] if f32
+                                                      else [])
+    for B, count0 in sem_cases:
         noise = sampling.gumbel((B, 32, sem_cfg.n_out_vocab), gen, dev)
         logits0, kc0, vc0 = sem_start(B)
-        args = (257, 3, noise, 2.0)
-        for K in ((16,) if dtype == torch.float32 else (16, 1)):
+        if count0 > 3:  # rows up to the chunk's first slot
+            for c in (kc0, vc0):
+                c[:, :, 257:257 + count0] = c[:, :, :count0]
+        args = (257, count0, noise, 2.0)
+        slots = [[min(257 + count0 + j, sem_cfg.block_size - 1)] * B
+                 for j in range(16)]
+        tag = f"B={B}" + (f" count0 {count0} (clamp)" if count0 > 3 else "")
+        for K in ((16,) if f32 else (16, 1) if B < 32 else (1,)):
             kw = dict(K=K, temp=0.7, semantic_vocab_size=svs)
             kc, vc = kc0.clone(), vc0.clone()
             kc2, vc2 = kc0.clone(), vc0.clone()
+            before = lane_counts()
             toks, flags, lg = kbsem.semantic_chunk_fused_batched(
                 sem_cfg, sem_p, logits0, kc, vc, *args, **kw)
-            rtoks, rflags, rlg = kbsem.semantic_chunk_batched_plain(
-                sem_cfg, sem_p, logits0, kc2, vc2, *args, **kw)
+            if lane_counts(before) != (1, 0):
+                raise AssertionError(f"K9 {name} {tag}: {lane_counts(before)}"
+                                     f" launches of the batched loop and of "
+                                     f"K7's step, want 1 and 0")
+            (rtoks, rflags, rlg), plain_ms[B, K] = once_ms(
+                lambda: kbsem.semantic_chunk_batched_plain(
+                    sem_cfg, sem_p, logits0, kc2, vc2, *args, **kw))
             same = int((toks.cpu() == rtoks.cpu()).sum())
             flags_same = bool((flags.cpu() == rflags.cpu()).all())
-            log(f"  semantic_chunk_fused_batched {name:9s} B={B} K={K}: "
+            log(f"  semantic_chunk_fused_batched {name:9s} {tag} K={K}: "
                 f"tokens equal {same}/{B * K}, flags equal {flags_same}")
-            if dtype == torch.float32 or K == 1:
+            if f32 or K == 1:
                 if same != B * K or not flags_same:
                     raise AssertionError(
-                        f"K9 {name} B={B} K={K}: tokens/flags differ")
+                        f"K9 {name} {tag} K={K}: tokens/flags differ")
                 checks.record("semantic_chunk_fused_batched", name,
-                              f"logits, {B} lanes, {K} steps",
+                              f"logits, {B} lanes, {K} steps"
+                              + (" (clamp)" if count0 > 3 else ""),
                               max_err(lg, rlg))
+            if f32:
+                k7_chain(f"K9 {name} {tag}", sem_cfg, sem_p, logits0,
+                         kc0.clone(), vc0.clone(), kc, vc, toks, lg,
+                         slots[:K], None)
+            elif K == 16 and B == 8:
+                k, v = kc0.clone(), vc0.clone()
+                again = kbsem.semantic_chunk_fused_batched(
+                    sem_cfg, sem_p, logits0, k, v, *args, **kw)
+                same_bits(f"K9 bf16 {tag}", (toks, flags, lg, kc, vc),
+                          (*again, k, v))
             del kc, vc, kc2, vc2
         if timed and B == 8:  # the inputs checked just above
             kw = dict(K=16, temp=0.7, semantic_vocab_size=svs)
             ms = cuda_ms(lambda: kbsem.semantic_chunk_fused_batched(
                 sem_cfg, sem_p, logits0, kc0, vc0, *args, **kw), 3)
-            plain = cuda_ms(lambda: kbsem.semantic_chunk_batched_plain(
-                sem_cfg, sem_p, logits0, kc0, vc0, *args, **kw), 1)
+            plain = plain_ms[8, 16]
             nb, fl = decode_cost(sem_cfg, sem_p, 257 + 3, steps=16, lanes=B)
             checks.times["semantic_chunk_fused_batched"] = (
                 ms, plain, (nb + B * 16 * sem_cfg.n_out_vocab * 4, fl))
         del noise, kc0, vc0
         torch.cuda.empty_cache()
 
-    # K10: one window, step parity odd: 60 steps of 4 lanes with contexts of
-    # 887, 700, 500 and 257 rows, 60 steps of 8 lanes of 887 (timed), and 12
-    # steps of 32 lanes cycling the 4 contexts
+    # K10: one window: 60 steps of 3 lanes with contexts of 887, 700 and
+    # 500 rows, step parity odd and (f32) even; 60 steps of 1 lane of 257
+    # rows; 60 steps of 8 lanes of 887 (timed); 32 lanes cycling 887, 700,
+    # 500, 257: in f32 60 steps (the main path's largest window, held to
+    # the plain version and to K7's steps), in bf16 one. The rules of K9,
+    # the error taken on the K/V rows the window writes.
     def coarse_start(ctx_len):
         B = len(ctx_len)
         x_emb = coarse_p["wte"][0][torch.randint(
@@ -1448,29 +1592,39 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
         return logits, kc, vc
 
     cycle = [887, 700, 500, 257]
-    for ctx_len, steps in ((cycle, 60), ([887] * 8, 60),
-                           ([cycle[b % 4] for b in range(32)], 12)):
+    win_cases = [(cycle[:3], 60, 1), ([257], 60, 1), ([887] * 8, 60, 1),
+                 ([cycle[b % 4] for b in range(32)], 60 if f32 else 1, 1)]
+    if f32:
+        win_cases.insert(1, (cycle[:3], 60, 0))
+    for ctx_len, steps, step0 in win_cases:
         B = len(ctx_len)
         noise = sampling.gumbel((steps, B, cbs), gen, dev)
         logits0, kc0, vc0 = coarse_start(ctx_len)
-        for sws in ((steps,) if dtype == torch.float32 else (steps, 1)):
+        tag = f"B={B} parity {'odd' if step0 else 'even'}"
+        for sws in ((steps,) if f32 or steps == 1 else (steps, 1)):
             kw = dict(sws=sws, temp=0.7, semantic_vocab_size=svs,
                       codebook_size=cbs, lm_window=lmw)
             kc, vc = kc0.clone(), vc0.clone()
             kc2, vc2 = kc0.clone(), vc0.clone()
+            before = lane_counts()
             toks = kbwin.coarse_window_fused_batched(
-                coarse_cfg, coarse_p, logits0, kc, vc, ctx_len, 1,
+                coarse_cfg, coarse_p, logits0, kc, vc, ctx_len, step0,
                 noise[:sws], **kw)
-            rtoks = kbwin.coarse_window_batched_plain(
-                coarse_cfg, coarse_p, logits0, kc2, vc2, ctx_len, 1,
-                noise[:sws], **kw)
+            if lane_counts(before) != (1, 0):
+                raise AssertionError(f"K10 {name} {tag}: not one launch of "
+                                     f"the batched loop and none of K7's "
+                                     f"step")
+            rtoks, plain_ms[B, sws] = once_ms(
+                lambda: kbwin.coarse_window_batched_plain(
+                    coarse_cfg, coarse_p, logits0, kc2, vc2, ctx_len, step0,
+                    noise[:sws], **kw))
             same = int((toks.cpu() == rtoks.cpu()).sum())
-            log(f"  coarse_window_fused_batched  {name:9s} B={B} sws={sws}: "
+            log(f"  coarse_window_fused_batched  {name:9s} {tag} sws={sws}: "
                 f"tokens equal {same}/{B * sws}")
-            if dtype == torch.float32 or sws == 1:
+            if f32 or sws == 1:
                 if same != B * sws:
                     raise AssertionError(
-                        f"K10 {name} B={B} sws={sws}: tokens differ")
+                        f"K10 {name} {tag} sws={sws}: tokens differ")
                 checks.record("coarse_window_fused_batched", name,
                               f"K/V rows, {B} lanes, {sws} steps", max(
                                   max(max_err(kc[:, b, c:c + sws],
@@ -1478,6 +1632,16 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
                                       max_err(vc[:, b, c:c + sws],
                                               vc2[:, b, c:c + sws]))
                                   for b, c in enumerate(ctx_len)))
+            if f32:
+                k7_chain(f"K10 {name} {tag}", coarse_cfg, coarse_p, logits0,
+                         kc0.clone(), vc0.clone(), kc, vc, toks, None,
+                         [[c + j for c in ctx_len] for j in range(sws)], lmw)
+            elif sws == steps and B == 8:
+                k, v = kc0.clone(), vc0.clone()
+                again = kbwin.coarse_window_fused_batched(
+                    coarse_cfg, coarse_p, logits0, k, v, ctx_len, step0,
+                    noise, **kw)
+                same_bits(f"K10 bf16 {tag}", (toks, kc, vc), (again, k, v))
             del kc, vc, kc2, vc2
         if timed and B == 8:  # the inputs checked just above
             kw = dict(sws=60, temp=0.7, semantic_vocab_size=svs,
@@ -1485,9 +1649,7 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
             ms = cuda_ms(lambda: kbwin.coarse_window_fused_batched(
                 coarse_cfg, coarse_p, logits0, kc0, vc0, ctx_len, 1, noise,
                 **kw), 2)
-            plain = cuda_ms(lambda: kbwin.coarse_window_batched_plain(
-                coarse_cfg, coarse_p, logits0, kc0, vc0, ctx_len, 1, noise,
-                **kw), 1)
+            plain = plain_ms[8, 60]
             nb, fl = decode_cost(coarse_cfg, coarse_p, 887, lmw, steps=60,
                                  lanes=B)
             checks.times["coarse_window_fused_batched"] = (
@@ -1501,10 +1663,11 @@ def qbatched_kernel_checks(checks: Checks, dtype, timed: bool):
     against its plain version (models.gpt on the same qpack, lane by lane)
     for every format of K5B_FORMATS at B 1/3/8/32 with n_past cycling
     0/300/1023, on the full head and on the coarse window; on a q4_0 qpack
-    also K9 (16 steps of 8 lanes) and K10 (60 steps of 8 lanes, 12 of 32)
-    in f32, tokens and flags equal, and the step on int8 caches at B 8 and
-    32 (K6a inside; lanes at n_past 0 held to TOL_KV8_FIRST, the cache
-    rows by `record_kv8_rows`). Timed in bf16 at n_past 300, each case
+    also K9 (16 steps of 8 lanes) and K10 (60 steps of 8 and of 32 lanes)
+    in f32, tokens and flags equal, each one launch of the packed batched
+    loop and bit-equal to K5-batched's steps on its tokens, and the step on
+    int8 caches at B 8 and 32 (K6a inside; lanes at n_past 0 held to
+    TOL_KV8_FIRST, the cache rows by `record_kv8_rows`). Timed in bf16 at n_past 300, each case
     checked first on the inputs it is timed on: every format at B 8, q4_0
     also at B 1 and 32."""
     import torch
@@ -1588,17 +1751,22 @@ def qbatched_kernel_checks(checks: Checks, dtype, timed: bool):
                 del kc, vc
         if fmt == "q4_0" and dtype == torch.float32:
             # K9: 16 steps of 8 lanes after 257 rows; K10: 60 steps of 8
-            # lanes after 887, 700, 500 and 257 rows
+            # and of 32 lanes after 887, 700, 500 and 257 rows
             B = 8
             noise = sampling.gumbel((B, 32, sem_cfg.n_out_vocab), gen, dev)
             logits0 = torch.randn((B, sem_cfg.n_out_vocab), generator=gen,
                                   device=dev)
             kc, vc = filled_batched_cache(sem_cfg, B, 257, dtype, gen)
             kc2, vc2 = kc.clone(), vc.clone()
+            kc3, vc3 = kc.clone(), vc.clone()
             kw = dict(K=16, temp=0.7, semantic_vocab_size=svs)
             args = (257, 3, noise, 2.0)
+            before = lane_counts(packed=True)
             got = kbsem.semantic_chunk_fused_batched(
                 sem_cfg, sem_q, logits0, kc, vc, *args, **kw)
+            if lane_counts(before, packed=True) != (1, 0):
+                raise AssertionError("K9 over q4_0: not one launch of the "
+                                     "packed batched loop")
             want = kbsem.semantic_chunk_batched_plain(
                 sem_cfg, sem_q, logits0, kc2, vc2, *args, **kw)
             if (got[0].tolist() != want[0].tolist()
@@ -1606,19 +1774,30 @@ def qbatched_kernel_checks(checks: Checks, dtype, timed: bool):
                 raise AssertionError("K9 over q4_0: tokens/flags differ")
             checks.record(kname, name, "K9 logits, 8 lanes x 16 steps",
                           max_err(got[2], want[2]))
-            del kc, vc, kc2, vc2
-            for B, sws in ((8, 60), (32, 12)):
+            k7_chain("K9 over q4_0", sem_cfg, sem_q, logits0, kc3, vc3, kc,
+                     vc, got[0], got[2], [[260 + j] * B for j in range(16)],
+                     None)
+            del kc, vc, kc2, vc2, kc3, vc3
+            for B, sws in ((8, 60), (32, 60)):
                 ctx_len = [(887, 700, 500, 257)[b % 4] for b in range(B)]
                 noise = sampling.gumbel((sws, B, cbs), gen, dev)
                 logits0 = torch.randn((B, coarse_cfg.n_out_vocab),
                                       generator=gen, device=dev)
                 kc, vc = filled_batched_cache(coarse_cfg, B, 887, dtype, gen)
                 kc2, vc2 = kc.clone(), vc.clone()
+                kc3, vc3 = kc.clone(), vc.clone()
                 kw = dict(sws=sws, temp=0.7, semantic_vocab_size=svs,
                           codebook_size=cbs, lm_window=lmw)
+                before = lane_counts(packed=True)
                 toks = kbwin.coarse_window_fused_batched(
                     coarse_cfg, coarse_q, logits0, kc, vc, ctx_len, 1, noise,
                     **kw)
+                if lane_counts(before, packed=True) != (1, 0):
+                    raise AssertionError(f"K10 over q4_0, {B} lanes: not one "
+                                         f"launch of the packed batched loop")
+                k7_chain(f"K10 over q4_0, {B} lanes", coarse_cfg, coarse_q,
+                         logits0, kc3, vc3, kc, vc, toks, None,
+                         [[c + j for c in ctx_len] for j in range(sws)], lmw)
                 rtoks = kbwin.coarse_window_batched_plain(
                     coarse_cfg, coarse_q, logits0, kc2, vc2, ctx_len, 1,
                     noise, **kw)
@@ -1632,9 +1811,11 @@ def qbatched_kernel_checks(checks: Checks, dtype, timed: bool):
                                       max_err(vc[:, b, c:c + sws],
                                               vc2[:, b, c:c + sws]))
                                   for b, c in enumerate(ctx_len)))
-                del kc, vc, kc2, vc2, noise
-            log(f"  K9 (8 lanes x 16 steps) and K10 (8 lanes x 60 steps, 32 "
-                f"x 12) over q4_0: tokens and flags equal, f32")
+                del kc, vc, kc2, vc2, kc3, vc3, noise
+            log(f"  K9 (8 lanes x 16 steps) and K10 (8 and 32 lanes x 60 "
+                f"steps) over q4_0: tokens and flags equal, f32, one launch "
+                f"of the packed batched loop a call, bit-equal to K5-batched's "
+                f"steps")
         if fmt == "q4_0":
             # the packed batched step on int8 caches (K6a inside)
             for B in KV8_BATCHES:
@@ -2297,7 +2478,7 @@ def small_model_reference(packed_path=None, kv8: bool = False):
     K5; otherwise the dense parts are given directly. kv8: with the int8
     KV cache, so the GPU run goes through K6 (which must launch). The GPU
     run's semantic chunks and coarse windows must each be one launch of
-    the step loop (K1's, or K5's when packed), with no sampler launch."""
+    the step loop (K1's, or K5's when packed), with no other step."""
     import numpy as np
     import torch
 
@@ -2334,7 +2515,7 @@ def small_model_reference(packed_path=None, kv8: bool = False):
         loop = loop_counts(packed=bool(packed_path))
         if device == "cuda" and (
                 min(counts["semantic"], counts["window"]) <= 0
-                or loop != (counts["semantic"] + counts["window"], 0, 0)):
+                or loop != (counts["semantic"] + counts["window"], 0)):
             raise AssertionError(f"small model: the chunks and windows were "
                                  f"not one step-loop launch each (on the "
                                  f"{'packed' if packed_path else 'dense'} "
@@ -2363,7 +2544,9 @@ def small_model_batched_reference(kv8: bool = False, packed_path=None):
     coarse and fine tokens equal, audio within 1e-3. kv8: with the int8
     KV cache (K6 inside K7 and K8). `packed_path`: a quantized model file
     loaded with dequantize_on_load=False, so the GPU run decodes through
-    K5-batched (which must launch, and dense K7 not)."""
+    K5-batched's packed read. Each chunk and window must be one launch of
+    the batched step loop on the read (K9, K10), and no other batched
+    step may launch."""
     import numpy as np
     import torch
 
@@ -2395,14 +2578,14 @@ def small_model_batched_reference(kv8: bool = False, packed_path=None):
         runs[device] = ctx._generate_batch(texts)
         if device == "cuda":
             counts = kernels.launch_counts()
-            step, other = (("qbdecode", "bdecode") if packed_path
-                           else ("bdecode", "qbdecode"))
-            if min(counts[m] for m in (step, "bprefill", "bsemantic",
-                                       "bwindow") + ("kv8",) * kv8) <= 0 \
-                    or counts[other]:
+            loop = lane_counts(packed=bool(packed_path))
+            if min(counts[m] for m in ("bprefill", "bsemantic", "bwindow")
+                   + ("kv8",) * kv8) <= 0 or loop != (
+                       counts["bsemantic"] + counts["bwindow"], 0):
                 raise AssertionError(f"small model batch: a batched kernel "
-                                     f"was not launched, or {other} was: "
-                                     f"{counts}")
+                                     f"was not launched, or a chunk or "
+                                     f"window was not one launch of the "
+                                     f"batched loop: {counts}, loop {loop}")
     err = 0.0
     for b, (cpu, gpu) in enumerate(zip(runs["cpu"], runs["cuda"])):
         for key in ("semantic", "coarse", "fine"):
@@ -2454,8 +2637,7 @@ def bark_small_requests(stages, n: int, label: str, need,
     before and read just after. Every kernel module in `need` must have
     been launched; each semantic chunk and coarse window must have been
     one launch of the step loop (K1's, or K5's when `packed`), and K1's
-    and K5's own step, the other read's loop and the sampler never
-    launched. kv8: with the int8 KV cache, every host launch must
+    and K5's own step and the other read's loop never launched. kv8: with the int8 KV cache, every host launch must
     have run K6 and no plain version may have run. Returns (per-request
     results, counts)."""
     import torch
@@ -2485,11 +2667,10 @@ def bark_small_requests(stages, n: int, label: str, need,
         raise AssertionError(f"a kernel of the {label} path was not "
                              f"launched: {counts}")
     loop = loop_counts(packed=packed)
-    if loop != (counts["semantic"] + counts["window"], 0, 0):
+    if loop != (counts["semantic"] + counts["window"], 0):
         raise AssertionError(f"the {label} path did not run each chunk and "
                              f"window as one launch of the step loop, with "
-                             f"no other step and no sampler launch: "
-                             f"{counts}, loop {loop}")
+                             f"no other step: {counts}, loop {loop}")
     if kv8:
         check_kv8_run(label, counts, plain)
     return results, counts
@@ -2534,9 +2715,9 @@ def bark_small_request(stages, codec, params, seed: int, text: str,
 
 
 # the wrappers whose C calls run K6 when given int8 caches (a chunk's or
-# window's is its one launch of the step loop)
+# window's, single-lane or batched, is its one launch of the step loop)
 K6_HOSTS = ("decode", "qdecode", "semantic", "window", "prefill", "bdecode",
-            "qbdecode", "bprefill")
+            "qbdecode", "bprefill", "bsemantic", "bwindow")
 
 
 def check_kv8_run(label: str, counts, plain) -> None:
@@ -2579,12 +2760,12 @@ def bark_small_batch(stages, B: int, kv8: bool = False,
     bark-small (`stages`, dense bf16, or qpacks when `packed`), 138
     semantic steps with the EOS-probability stop off, at PyTorch's default
     precision settings, driven with the launch counts set to 0 just before
-    and read just after. K7 (K5-batched when packed) must have launched
-    once for every semantic and coarse step, K8-K10 and the sampler must
-    have launched, K1-K5 and the other batched step must not have, and no
-    plain version may have run; kv8: with the int8 KV cache, and every
-    K7/K5-batched/K8 launch must have run K6. Returns the batch's
-    result."""
+    and read just after. K8-K10 must have launched, each chunk (K9) and
+    window (K10) as one launch of the batched step loop on the dense (on
+    the packed when `packed`) read; K1-K5, K7's and K5-batched's own step
+    and the other read's loop must not have launched, and no plain version
+    may have run; kv8: with the int8 KV cache, and every K8-K10 launch must
+    have run K6. Returns the batch's result."""
     import numpy as np
     import torch
 
@@ -2592,7 +2773,6 @@ def bark_small_batch(stages, B: int, kv8: bool = False,
     from bark_tpu_torch import kernels
     from bark_tpu_torch.io import loader
     from bark_tpu_torch.models.presets import ENCODEC_24KHZ
-    from bark_tpu_torch.pipeline import semantic as semantic_pipe
 
     dev = torch.device("cuda")
     codec = loader.params_from_numpy(
@@ -2618,19 +2798,17 @@ def bark_small_batch(stages, B: int, kv8: bool = False,
         if a.size == 0 or a.size % 320 or not np.isfinite(a).all():
             raise AssertionError(f"{label}, lane {b}: audio {a.shape}, "
                                  f"finite {np.isfinite(a).all()}")
-    step, other = ("qbdecode", "bdecode") if packed else ("bdecode",
-                                                          "qbdecode")
-    steps = (counts["bsemantic"] * semantic_pipe.CHUNK
-             + counts["bwindow"] * ctx.params.sliding_window_size)
-    if (min(counts[m] for m in (step, "bprefill", "bsemantic", "bwindow",
-                                "sample")) <= 0
-            or counts[step] != steps
+    loop = lane_counts(packed=packed)
+    if (min(counts[m] for m in ("bprefill", "bsemantic", "bwindow")) <= 0
+            or loop != (counts["bsemantic"] + counts["bwindow"], 0)
             or any(counts[m] for m in ("decode", "qdecode", "prefill",
-                                       "semantic", "window", other))
+                                       "semantic", "window"))
             or any(plain.values())):
-        raise AssertionError(f"{label} did not run on {step} and K8-K10 "
-                             f"alone, one step launch per step: {counts}, "
-                             f"plain calls {plain}")
+        raise AssertionError(f"{label} did not run on K8-K10 alone, each "
+                             f"chunk and window one launch of the batched "
+                             f"loop on the {'packed' if packed else 'dense'}"
+                             f" read: {counts}, loop {loop}, plain calls "
+                             f"{plain}")
     if kv8:
         check_kv8_run(f"kv8 {label}", counts, plain)
     s = ctx.stats
@@ -3545,6 +3723,11 @@ def main() -> int:
             "and K4, dense and q4_0, one device kernel a call, beside K1's "
             "and K5's step, stamped")
         k3k4_record = k3k4_phase()
+        log("phase 2e: the batched chunk and window record (bf16, "
+            "bark-small): K9 (16 steps after 257 rows) and K10 (60 steps at "
+            "887, LM window), dense and q4_0, at 8 and 32 lanes, one launch "
+            "of the batched step loop a call, beside K7's step")
+        k9k10_record = k9k10_phase()
         log("phase 2: bf16 witness, q4_0 packed steps in bf16 vs f32")
         bf16_witness()
         log("phase 2: D1-D5 (the weight-stream probe) vs plain, every "
@@ -3757,6 +3940,17 @@ def main() -> int:
                                                     f"{K5B}[q4_0,B=32]"):
             row.update(k7_row(k7_record, "k5b",
                               int(name.split(",B=")[1][:-1])))
+        if name in ("semantic_chunk_fused_batched",
+                    "coarse_window_fused_batched"):
+            part = "k9" if name == "semantic_chunk_fused_batched" else "k10"
+            row.update(
+                steps=16 if part == "k9" else 60, lanes=8,
+                **{f"record_{w}": k9k10_record[w] for w in
+                   ("dense", "q4_0")},
+                device_kernels_per_call=k9k10_record["dense"]["B8"][part][
+                    "device_kernels"],
+                us_a_step_over_k7=k9k10_record["dense"]["B8"][part][
+                    "us_a_step_over_step"])
         if name in ("semantic_chunk_fused", "coarse_window_fused"):
             part = "k3" if name == "semantic_chunk_fused" else "k4"
             row.update(
@@ -3842,6 +4036,7 @@ def main() -> int:
             **checks.k5_step))}))
     print(json.dumps({"k7_step": dict(card=smi, **k7_record)}))
     print(json.dumps({"k3k4": dict(card=smi, **k3k4_record)}))
+    print(json.dumps({"k9k10": dict(card=smi, **k9k10_record)}))
     print(json.dumps({"dma_probe": dict(card=smi, **dma_record)}))
     print(json.dumps({"cache_probe": cache_record}))
     print(json.dumps({"lowering_probe": lowering_record}))

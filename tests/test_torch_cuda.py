@@ -31,7 +31,12 @@ products on the tensor cores in bf16), also at bark-small's width for 1,
 3, 8 and 32 lanes at n_past 0/300/1023/887: f32 and bf16, dense and int8
 caches, dense weights and the four scale forms, within 2e-3 (f32) or 1e-1
 (bf16) of the plain version, bit-equal from run to run and stamped, and
-20 steps queued with slots on the card equal to 20 synced ones.
+20 steps queued with slots on the card equal to 20 synced ones. K9 and
+K10, one launch of that step in a loop with the sampler inside, at the
+same width for 1, 3, 8 and 32 lanes (dense, q8_0 and q4_0; bf16 and int8
+caches; the clamp; both parities): f32 tokens and flags equal to the plain
+version's and bit-equal to K7's steps on the same tokens, one device
+kernel a call, bf16 bit-equal from run to run, and stamped.
 K2 and K8 in bf16 (the TMA + wgmma GEMM and the tensor-core attention)
 at widths 768, 1024 and 128, T 1 to 1024, dense and int8 caches: within
 1e-1 of the plain version, bit-equal from run to run, rows past n_valid
@@ -58,7 +63,6 @@ from bark_tpu_torch.kernels import _build
 from bark_tpu_torch.kernels import decode as kdec
 from bark_tpu_torch.kernels import kv8
 from bark_tpu_torch.kernels import prefill as kpre
-from bark_tpu_torch.kernels.sample import sample_window
 from bark_tpu_torch.kernels import semantic as ksem
 from bark_tpu_torch.kernels import window as kwin
 from bark_tpu_torch.models import gpt
@@ -299,10 +303,11 @@ def test_persistent_step_is_bit_equal_run_to_run(dev, k1_params, cache):
 
 
 def test_queued_steps_rearm_the_barrier(dev, k1_params):
-    """60 steps, each sampling its token on the card from the last
-    logits, queued with no host sync, against the same 60 with a sync
-    after each: the same tokens and logits (a count left armed would
-    hang or run a step early)."""
+    """60 steps, each taking its token on the card from the last logits
+    (`torch.argmax` of the first 1000 into a device tensor), queued with
+    no host sync, against the same 60 with a sync after each: the same
+    tokens and logits (a count left armed would hang or run a step
+    early)."""
     p = k1_params[torch.float32]
     runs = []
     for sync in (False, True):
@@ -311,7 +316,7 @@ def test_queued_steps_rearm_the_barrier(dev, k1_params):
         buf[5] = 1.0
         toks = torch.empty(60, dtype=torch.int32, device=dev)
         for j in range(60):
-            sample_window(buf, 0, 1000, None, 0.0, toks[j:j + 1])
+            toks[j:j + 1] = torch.argmax(buf[:1000])
             kdec.decode_step_fused(K1_CFG, p, toks[j:j + 1], kc, vc, 300 + j,
                                    out=buf)
             if sync:
@@ -671,7 +676,6 @@ def _written(case, ctx_len, arg):
 def test_step_loop_against_plain_and_k1(dev, loop_weights, case, weights,
                                         cache):
     from bark_tpu_torch.kernels import qdecode
-    from bark_tpu_torch.kernels import sample
 
     p, quant = loop_weights[weights][torch.float32], cache == "int8"
     logits0, noise, kc, vc, kw, ctx_len, arg = _loop_inputs(
@@ -679,16 +683,15 @@ def test_step_loop_against_plain_and_k1(dev, loop_weights, case, weights,
     kc2, vc2, kc3, vc3 = _clone(kc), _clone(vc), _clone(kc), _clone(vc)
     mod = ksem if case.startswith("chunk") else kwin
     counters = ((kdec, "loop_launches"), (qdecode, "loop_launches"),
-                (kdec, "launches"), (qdecode, "launches"),
-                (sample, "launches"), (mod, "launches"))
+                (kdec, "launches"), (qdecode, "launches"), (mod, "launches"))
     before = [getattr(m, c) for m, c in counters]
     t, f, lg = _loop_call(case, p, logits0, noise, kc, vc, kw, ctx_len, arg)
     torch.cuda.synchronize()
     dense = int(weights == "dense")
     # one launch of the step loop on its read; none of K1's or K5's own
-    # step, none of the sampler
+    # step
     assert [getattr(m, c) - b for (m, c), b in zip(counters, before)] == [
-        dense, 1 - dense, 0, 0, 0, 1]
+        dense, 1 - dense, 0, 0, 1]
     rt, rf, rlg = _loop_call(case, p, logits0, noise, kc2, vc2, kw, ctx_len,
                              arg, plain=True)
     assert t.tolist() == rt.tolist()
@@ -1358,7 +1361,7 @@ def test_packed_batched_chunk_and_window_kernels(dev, qpack, B):
     logits0 = torch.randn(B, QCFG.n_out_vocab, generator=gen, device=dev) * 2
     kc, vc = _bcaches(dev, B, 100)
     kc2, vc2 = kc.clone(), vc.clone()
-    before = qbdecode.launches
+    before = qbdecode.loop_launches, qbdecode.launches
     kw = dict(K=8, temp=0.7, semantic_vocab_size=150)
     t, f, lg = kbsem.semantic_chunk_fused_batched(
         QCFG, qpack, logits0, kc, vc, 40, 3, noise, 2.0, **kw)
@@ -1375,7 +1378,9 @@ def test_packed_batched_chunk_and_window_kernels(dev, qpack, B):
     rt = kbwin.coarse_window_batched_plain(QCFG, qpack, logits0, kc2, vc2,
                                            ctx_len, 1, wnoise, **kw)
     assert t.tolist() == rt.tolist()
-    assert qbdecode.launches == before + 18  # one a step
+    # one launch of the packed step loop a chunk or window, none of the step
+    assert (qbdecode.loop_launches, qbdecode.launches) == (before[0] + 2,
+                                                           before[1])
     for b, c in enumerate(ctx_len):
         torch.testing.assert_close(vc[:, b, c:c + 10], vc2[:, b, c:c + 10],
                                    rtol=0, atol=ATOL)
@@ -1529,6 +1534,273 @@ def test_lane_step_slots_on_the_card_and_queued(dev, k1_params):
         assert torch.equal(x, y)
 
 
+# ---------------------- K9 / K10 at bark-small's width: the batched loop
+#
+# A chunk or window is ONE launch of K7's (K5-batched's) step in a loop,
+# the sampler inside (csrc/bloop.cuh `lane_steps_kernel`), for 1, 3, 8
+# and 32 lanes: K9 16 steps after 257 rows (and a chunk whose shared slot
+# reaches the clamp at block_size - 1), K10 24 steps at contexts 887 down
+# to 596 across lanes, both parities. In f32, dense and q8_0/q4_0, bf16
+# and int8 caches: the plain version's tokens and flags, and the bits of
+# K7's (K5-batched's) steps launched one by one on the same tokens; one
+# loop launch a call and none of the step's own. In bf16 two runs give
+# the same bits, a call is one device kernel, and a stamped launch gives
+# the same tokens.
+
+LANE_LOOP_CASES = {"chunk": (257, 3), "chunk-clamp": (257, 760),
+                   "window-odd": (887, 1), "window-even": (887, 0)}
+
+
+def _lane_loop_inputs(dev, case, dtype, quant, B):
+    """(logits0, noise, caches, K9 or K10 keyword args, context, arg, the
+    (steps, B) slots) of a case: K9's shared context and count0, or K10's
+    per-lane contexts and step parity."""
+    gen = torch.Generator(device=dev).manual_seed(len(case) + B)
+    V, S = K1_CFG.n_out_vocab, K1_CFG.block_size
+    logits0 = torch.randn((B, V), generator=gen, device=dev) * 2
+    kc, vc = _lane_caches(dev, dtype, B, quant)
+    ctx, arg = LANE_LOOP_CASES[case]
+    if case.startswith("chunk"):
+        noise = sampling.gumbel((B, 32, V), gen, dev)
+        kw = dict(K=16, temp=0.7, semantic_vocab_size=10000)
+        slots = [[min(ctx + arg + j, S - 1)] * B for j in range(16)]
+        return logits0, noise, kc, vc, kw, ctx, arg, slots
+    ctx = [ctx - 97 * (b % 4) for b in range(B)]
+    noise = sampling.gumbel((24, B, 1024), gen, dev)
+    kw = dict(sws=24, temp=0.7, semantic_vocab_size=10000,
+              codebook_size=1024, lm_window=K1_WIN)
+    return logits0, noise, kc, vc, kw, ctx, arg, [[c + j for c in ctx]
+                                                  for j in range(24)]
+
+
+def _lane_loop_call(case, p, logits0, noise, kc, vc, kw, ctx, arg,
+                    plain=False):
+    """K9 or K10 (or its plain version): (tokens (B, steps), flags or
+    None, logits or None)."""
+    from bark_tpu_torch.kernels import bsemantic as kbsem
+    from bark_tpu_torch.kernels import bwindow as kbwin
+
+    if case.startswith("chunk"):
+        fn = (kbsem.semantic_chunk_batched_plain if plain
+              else kbsem.semantic_chunk_fused_batched)
+        return fn(K1_CFG, p, logits0, kc, vc, ctx, arg, noise, 2.0, **kw)
+    fn = (kbwin.coarse_window_batched_plain if plain
+          else kbwin.coarse_window_fused_batched)
+    return (fn(K1_CFG, p, logits0, kc, vc, ctx, arg, noise, **kw), None,
+            None)
+
+
+@pytest.mark.parametrize("B", LANE_BS)
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+@pytest.mark.parametrize("weights", ["dense", "q8_0", "q4_0"])
+@pytest.mark.parametrize("case", list(LANE_LOOP_CASES))
+def test_lane_loop_against_plain_and_k7(dev, loop_weights, case, weights,
+                                        cache, B):
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import bsemantic as kbsem
+    from bark_tpu_torch.kernels import bwindow as kbwin
+    from bark_tpu_torch.kernels import qbdecode
+
+    p, quant = loop_weights[weights][torch.float32], cache == "int8"
+    logits0, noise, kc, vc, kw, ctx, arg, slots = _lane_loop_inputs(
+        dev, case, torch.float32, quant, B)
+    kc2, vc2, kc3, vc3 = _clone(kc), _clone(vc), _clone(kc), _clone(vc)
+    mod = kbsem if case.startswith("chunk") else kbwin
+    counters = ((kbdec, "loop_launches"), (qbdecode, "loop_launches"),
+                (kbdec, "launches"), (qbdecode, "launches"),
+                (mod, "launches"))
+    before = [getattr(m, c) for m, c in counters]
+    t, f, lg = _lane_loop_call(case, p, logits0, noise, kc, vc, kw, ctx,
+                               arg)
+    torch.cuda.synchronize()
+    dense = int(weights == "dense")
+    # one launch of the loop on its read; none of K7's or K5-batched's own
+    # step
+    assert [getattr(m, c) - b for (m, c), b in zip(counters, before)] == [
+        dense, 1 - dense, 0, 0, 1]
+    rt, rf, rlg = _lane_loop_call(case, p, logits0, noise, kc2, vc2, kw,
+                                  ctx, arg, plain=True)
+    assert t.tolist() == rt.tolist()
+    if f is not None:
+        assert f.tolist() == rf.tolist()
+        torch.testing.assert_close(lg, rlg, rtol=0,
+                                   atol=KV8_ATOL if quant else ATOL)
+    for b in range(B):
+        rows = sorted({r[b] for r in slots})
+        for x, y in ((kc, kc2), (vc, vc2)):
+            if quant:  # rows of chained steps, the clamp's rewritten ones
+                # among them: one-step flips in at most 1% of the values,
+                # the bound chip_smoke.py's `record_kv8_rows` sets for a
+                # step's rows
+                xq, yq = x["q"][:, b, rows].int(), y["q"][:, b, rows].int()
+                flips = (xq - yq).abs()
+                assert int(flips.max()) <= 1
+                assert int((flips > 0).sum()) <= max(1, flips.numel() // 100)
+                torch.testing.assert_close(x["s"][:, b, rows],
+                                           y["s"][:, b, rows], rtol=0,
+                                           atol=KV8_ATOL / 127)
+            else:
+                torch.testing.assert_close(x[:, b, rows], y[:, b, rows],
+                                           rtol=0, atol=ATOL)
+    # K7's (K5-batched's) steps, one launch each, on the loop's tokens
+    buf = logits0.clone()
+    toks = t.t().contiguous()
+    for j, row in enumerate(slots):
+        kbdec.decode_step_fused_batched(K1_CFG, p, toks[j], kc3, vc3, row,
+                                        lm_window=kw.get("lm_window"),
+                                        out=buf)
+    if f is not None:
+        assert torch.equal(lg, buf)
+    for a, b in ((kc, kc3), (vc, vc3)):
+        for x, y in (zip(a.values(), b.values()) if quant else [(a, b)]):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+@pytest.mark.parametrize("B", [3, 32])
+@pytest.mark.parametrize("weights", ["dense", "q4_0"])
+@pytest.mark.parametrize("case", ["chunk-clamp", "window-odd"])
+def test_lane_loop_is_bit_equal_run_to_run(dev, loop_weights, case, weights,
+                                           B, cache):
+    """Two bf16 runs give the same bits: tokens, flags, logits and
+    caches."""
+    p = loop_weights[weights][torch.bfloat16]
+    logits0, noise, kc, vc, kw, ctx, arg, _ = _lane_loop_inputs(
+        dev, case, torch.bfloat16, cache == "int8", B)
+    runs = []
+    for _ in range(2):
+        k, v = _clone(kc), _clone(vc)
+        runs.append((*_lane_loop_call(case, p, logits0, noise, k, v, kw, ctx,
+                                      arg), k, v))
+    for x, y in zip(*runs):
+        if isinstance(x, dict):
+            assert all(torch.equal(x[k], y[k]) for k in x)
+        else:
+            assert (x is None and y is None) or torch.equal(x, y)
+
+
+# a fresh process's torch.profiler sessions of one K9 and one K10 call at 8
+# lanes in bf16, dense and q4_0: {"<weights> <case>": the device kernels}
+_ONE_KERNEL = """
+import json, sys, torch
+sys.path[:0] = sys.argv[1:]
+import test_torch_cuda as t
+from bark_tpu_torch.models import gpt
+from bark_tpu_torch.probes import prefill_profile
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(12)
+weights = {"dense": gpt.init_params(t.K1_CFG, gen, torch.bfloat16, dev),
+           "q4_0": t._random_qpack(t.K1_CFG, torch.bfloat16, "f16", gen,
+                                   qrange=(-8, 7))}
+out = {}
+for w, p in weights.items():
+    for case in ("chunk-clamp", "window-odd"):
+        logits0, noise, kc, vc, kw, ctx, arg, _ = t._lane_loop_inputs(
+            dev, case, torch.bfloat16, False, 8)
+        def run():
+            return t._lane_loop_call(case, p, logits0, noise, t._clone(kc),
+                                     t._clone(vc), kw, ctx, arg)
+        run()
+        torch.cuda.synchronize()
+        out[w + " " + case] = [
+            e.name for e in prefill_profile.profiled_call(run)
+            if not e.name.startswith(("Memcpy", "Memset"))]
+print(json.dumps(out))
+"""
+
+
+def test_lane_loop_is_one_device_kernel(dev):
+    """A K9 or K10 call is one device kernel, the loop's, dense and q4_0
+    (torch.profiler in a fresh process: in a long-lived one its sessions
+    at times record no device activity, as chip_smoke.py's `probe_record`
+    notes)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-c", _ONE_KERNEL, here, os.path.dirname(here)],
+        stdout=subprocess.PIPE, text=True, timeout=600, check=True).stdout
+    calls = json.loads(out.strip().splitlines()[-1])
+    assert len(calls) == 4
+    for what, names in calls.items():
+        assert len(names) == 1 and "lane_steps_kernel" in names[0], (what,
+                                                                     names)
+
+
+def test_lane_loop_stamps(dev, loop_weights):
+    """A stamped launch gives the unstamped launch's tokens and flags;
+    every block's clock readings run forward and split into the loop's
+    parts (`decode.loop_phases_us` on the lane plan)."""
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import bsemantic as kbsem
+
+    B = 8
+    p = loop_weights["dense"][torch.bfloat16]
+    logits0, noise, kc, vc, kw, ctx, arg, _ = _lane_loop_inputs(
+        dev, "chunk", torch.bfloat16, False, B)
+    plan, _ = kdec.device_lane_plan(_build.stage_weights(K1_CFG, p), B,
+                                    None)
+    stamps = kdec.loop_stamps(plan, 16, dev)
+    slots, sample = kbsem.chunk_lane_loop(K1_CFG, ctx, arg, 16, 0.7, 10000,
+                                          2.0, B)
+    toks = torch.empty((16, B), dtype=torch.int32, device=dev)
+    flags = torch.empty((16, B), dtype=torch.int32, device=dev)
+    kbdec.decode_lane_steps(K1_CFG, p, logits0.clone(), _clone(kc),
+                            _clone(vc), slots, sample, noise, toks, flags,
+                            stamps=stamps)
+    t, f, _ = _lane_loop_call("chunk", p, logits0, noise, _clone(kc),
+                              _clone(vc), kw, ctx, arg)
+    assert toks.t().tolist() == t.tolist()
+    assert flags.t().tolist() == f.tolist()
+    for row in stamps.tolist():
+        assert all(x <= y for x, y in zip(row, row[1:])) and row[-1] > row[0]
+    us = kdec.loop_phases_us(plan, stamps, 16)
+    assert us["block0"]["step"] > 0 and us["block0"]["sample_fold"] > 0
+    assert us["launch_us"] >= us["block0"]["launch"]
+
+
+def test_lane_loop_refuses_what_it_does_not_take(dev, k1_params):
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import bsemantic as kbsem
+    from bark_tpu_torch.kernels import bwindow as kbwin
+
+    p = k1_params[torch.float32]
+    B, V = 4, K1_CFG.n_out_vocab
+    kc, vc = _lane_caches(dev, torch.float32, B, False)
+    logits = torch.zeros((B, V), device=dev)
+    toks = torch.empty((4, B), dtype=torch.int32, device=dev)
+    slots = [[40] * B for _ in range(4)]
+    sample = kdec.LoopSample(0.7, stop_token=10000)
+    before = kbdec.launches, kbdec.loop_launches
+    with pytest.raises(ValueError, match="noise"):  # rows too narrow
+        kbdec.decode_lane_steps(K1_CFG, p, logits, kc, vc, slots, sample,
+                                torch.zeros((B, 4, V - 1), device=dev), toks,
+                                toks)
+    with pytest.raises(ValueError, match="flag_out"):  # K9 without flags
+        kbdec.decode_lane_steps(K1_CFG, p, logits, kc, vc, slots,
+                                kdec.LoopSample(0.0, stop_token=10000), None,
+                                toks)
+    with pytest.raises(ValueError, match="slots"):  # past the cache
+        kbdec.decode_lane_steps(K1_CFG, p, logits, kc, vc,
+                                [[K1_CFG.block_size] * B], sample,
+                                torch.zeros((B, 4, V), device=dev), toks,
+                                toks)
+    with pytest.raises(ValueError, match="sample window"):  # full head
+        kbwin.coarse_window_fused_batched(
+            K1_CFG, p, logits, kc, vc, [40] * B, 0, None, sws=4, temp=0.0,
+            semantic_vocab_size=10000, codebook_size=1024,
+            lm_window=(10000, 11024))
+    with pytest.raises(ValueError, match="noise"):  # another width
+        kbsem.semantic_chunk_fused_batched(
+            K1_CFG, p, logits, kc, vc, 40, 0,
+            torch.zeros((B, 4, 100), device=dev), 2.0, K=4, temp=0.7,
+            semantic_vocab_size=10000)
+    assert (kbdec.launches, kbdec.loop_launches) == before
+
+
 # ------------------------------------------------------------ D1-D5
 
 
@@ -1677,9 +1949,9 @@ def test_warmup_launches_the_kernels_and_leaves_the_generator(dev):
     counts = kernels.launch_counts()
     assert all(counts[m] > 0 for m in ("prefill", "semantic", "window"))
     # each chunk and window one launch of K1's step loop; no launch of K1's
-    # own step, none of the sampler
+    # own step
     assert kdec.loop_launches == counts["semantic"] + counts["window"]
-    assert counts["decode"] == 0 and counts["sample"] == 0
+    assert counts["decode"] == 0
     assert torch.equal(ctx.generator.get_state(), state)
     assert ctx.generate_audio("hello world")
     fresh = _small_context(dev, seed=3)

@@ -187,5 +187,5 @@ def test_cpu_calls_count_no_launches():
     tkdec.decode_step_fused(cfg, tp, 3, kc, vc, 12)
     assert tkernels.launch_counts() == {
         "decode": 0, "qdecode": 0, "prefill": 0, "semantic": 0, "window": 0,
-        "sample": 0, "bdecode": 0, "qbdecode": 0, "bprefill": 0,
-        "bsemantic": 0, "bwindow": 0, "kv8": 0}
+        "bdecode": 0, "qbdecode": 0, "bprefill": 0, "bsemantic": 0,
+        "bwindow": 0, "kv8": 0}

@@ -99,7 +99,7 @@ def test_lane_plan_covers_each_column_and_unit_once(cfg, win, B, G, packed):
     assert sorted(plan.pairs) == [(h, b) for h in range(cfg.n_head)
                                   for b in range(B)]
     # the table's header, where the kernel reads it (kdec.LP_*,
-    # csrc/bdecode.cu's LP_*)
+    # csrc/lane.cuh's LP_*)
     t = plan.table()
     assert list(t[[kdec.LP_BLOCKS, kdec.LP_BARRIERS, kdec.LP_LAYERS,
                    kdec.LP_LANES, kdec.LP_LO, kdec.LP_HI, kdec.LP_PACKED,
@@ -164,7 +164,7 @@ def test_lane_plan_refuses_what_the_kernel_does_not_take(fault):
 
 def _tile_stats(x):
     """(B, D/64, 2): each 64-column tile's mean and squared deviations,
-    per lane (csrc/bdecode.cu `tile_stats`)."""
+    per lane (csrc/lane.cuh `tile_stats`)."""
     t = x.reshape(x.shape[0], -1, kdec.PLAN_TILE)
     mean = t.sum(-1) / kdec.PLAN_TILE
     return torch.stack([mean, ((t - mean[..., None]) ** 2).sum(-1)], -1)
@@ -172,7 +172,7 @@ def _tile_stats(x):
 
 def _ln(x, stats, g, b):
     """LayerNorm of each lane from its tile statistics, combined in tile
-    order as the kernel does (csrc/bdecode.cu `build_vin`): the mean of
+    order as the kernel does (csrc/lane.cuh `build_vin`): the mean of
     the tiles' means, and the sum of their squared deviations, each with
     64 x its mean's from the row's."""
     T = kdec.PLAN_TILE
