@@ -2,8 +2,8 @@
 // persistent decode step (decode.cu) and the probes (dma_probe.cu,
 // lowering_probe.cu):
 //
-// - cp.async: 16-byte copies from device memory into shared memory, in
-//   commit groups;
+// - cp.async: 16-byte (and 4-byte) copies from device memory into shared
+//   memory, in commit groups;
 // - mbarriers in shared memory: arrivals, and the transaction bytes a bulk
 //   copy reports to them;
 // - bulk copies (the TMA engine, no tensor map): device memory to shared
@@ -30,6 +30,14 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// 4 bytes (a row scale), through the L1
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src)
                : "memory");
@@ -335,5 +343,20 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b over a 16 x 8 x 32 step, int8 operands, exact int32 accumulate.
+// Its fragments hold, byte for byte, what mma_16816's hold (A: rows
+// lane / 4 and + 8, bytes 4 (lane % 4) .. + 3 and + 16 of each 32-byte
+// k-step; B: key lane / 4, the same bytes), so ldmatrix_x4 loads them from
+// rows of 16 bytes as it loads the bf16 ones.
+__device__ __forceinline__ void mma_16832_s8(int (&d)[4],
+                                             const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }

@@ -42,20 +42,20 @@
 //   once per call (they depend on M), by the driver's
 //   cuTensorMapEncodeTiled reached through the runtime, so the library
 //   links no libcuda.
-// - attention, `attn_prefill_tc_kernel`: one block of 8 warps per (head,
-//   64 query rows), on the tensor cores (mma.sync m16n8k16, ldmatrix): 16
-//   rows a warp, over the even or the odd key tiles. The query tile and
-//   every key row it can see are staged in shared memory once, a pair of
-//   key tiles a cp.async group, the first pass starting on the first pair
-//   while the rest arrive; two passes over the keys (the causal mask
-//   applied only on tiles that reach past a warp's first row): the first
-//   gives each row's max and sum of exp(s - max) (the sum rescaled as the
-//   max grows), the second the weights exp(s - max) / sum, rounded to
-//   bf16, times V (V tiles double-buffered by cp.async), the halves
-//   meeting in shared memory in a fixed order. So
-//   the weights are normalised before the V product, as the reference's:
-//   no unnormalised weights are rescaled. A warp skips key tiles past its
-//   last row; the longest query tiles are launched first.
+// - attention, `attn_prefill_tc_kernel<DenseTiles>`: one block of 8 warps
+//   per (head, 64 query rows), on the tensor cores (mma.sync m16n8k16,
+//   ldmatrix): 16 rows a warp, over the even or the odd key tiles. The
+//   query tile and every key row it can see are staged in shared memory
+//   once, a pair of key tiles a cp.async group, the first pass starting on
+//   the first pair while the rest arrive; two passes over the keys (the
+//   causal mask applied only on tiles that reach past a warp's first
+//   row): the first gives each row's max and sum of exp(s - max) (the sum
+//   rescaled as the max grows), the second the weights exp(s - max) / sum,
+//   rounded to bf16, times V (V tiles double-buffered), the halves meeting
+//   in shared memory in a fixed order. So the weights are normalised
+//   before the V product, as the reference's: no unnormalised weights are
+//   rescaled. A warp skips key tiles past its last row; the longest query
+//   tiles are launched first.
 // The epilogue, both dtypes (the reference's prefill.py:484-487,
 // :521-523, :533-537, :541-548): the f32 sum rounded to T, + bias rounded,
 // then q to scratch and k, v to their cache rows (or to kv_rows for K6b),
@@ -78,10 +78,15 @@
 //
 // With int8 caches (K6) the QKV epilogue writes k, v in T to scratch, K6b
 // (`quant_rows_kernel`) quantizes each row into its cache row, one launch
-// a layer, and the attention is K6c (`attn_prefill_i8_kernel`). The JAX
-// package runs such a prefill in XLA; both compute models/gpt.py's int8
-// path. What bounds them: K6b moves ~3 bytes a K/V value, K6c reads int8
-// tiles; both are small beside the projections' GEMMs.
+// a layer, and the attention is K6c: in bf16 the tensor-core kernel above
+// reading the int8 tiles (`attn_prefill_tc_kernel<Int8Tiles>`: the query
+// tile quantized per row and head, scores by mma m16n8k32 s8 with both
+// row scales folded in after the exact integer sum, value tiles
+// dequantized to bf16 as they enter their stage), in f32 the scalar
+// `attn_prefill_i8_kernel`. The JAX package runs such a prefill in XLA;
+// both compute models/gpt.py's int8 path. What bounds them: K6b moves ~3
+// bytes a K/V value; K6c, at T 887, ~0.6 G int8 operations and as many
+// bf16 flops over ~1.4 MB of int8 K/V a layer, like the bf16 attention.
 #include <string.h>
 
 #include "common.cuh"
@@ -666,28 +671,47 @@ int gemm(const TmaPlan* tp, int g, const T* A, const T* W, const T* bias,
   }
 }
 
-// ------------------------------------------------------------ bf16 attention
+// ------------------------------------------------ tensor-core attention
 
 constexpr int TQ = 64;        // query rows a block: 4 row groups of 16
 constexpr int TK = 64;        // keys a tile
 constexpr int T_LD = HD + 8;  // bf16 row stride in shared memory (144 bytes)
+// int8 row stride (80 bytes: the 8 rows of an ldmatrix matrix fall in 8
+// distinct quads of banks)
+constexpr int I8_LD = HD + 16;
 constexpr int TA_THREADS = 256;  // 8 warps: 4 row groups x 2 key halves
 constexpr int O_LD = HD + 4;  // f32 row stride of the context partials
-
-// the Q tile, two stages of two V tiles, and `keys` key rows (a multiple
-// of 2 TK: the keys are staged a pair of tiles at a time)
-constexpr size_t tc_smem_bytes(int keys) {
-  return (size_t)(TQ + 4 * TK + keys) * T_LD * sizeof(bf16);
-}
+static_assert(TA_THREADS == TQ * (HD / 16),
+              "Int8Tiles: a thread a 16-dim quarter of a query row");
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// The warp's 16 x 64 dot products with a key tile (TK rows from kt): qa
-// holds its query rows as 4 A fragments of 16 dims; s[j] holds keys 8 j ..
-// 8 j + 7 as mma's C fragment (rows lane / 4 and lane / 4 + 8, keys
+// byte k of w as a signed int8 value
+__device__ __forceinline__ float i8_at(unsigned w, int k) {
+  return (float)((int)(w << (24 - 8 * k)) >> 24);
+}
+
+// rows [0, rows) of a head's bf16 slice (columns off .. off + 63, rows D
+// apart) from src into dst (rows T_LD apart) by cp.async, zeros from `have`
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src,
+                                           int rows, int have, int D,
+                                           int off) {
+  for (int i = threadIdx.x; i < rows * (HD / 8); i += TA_THREADS) {
+    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+    bf16* d = dst + r * T_LD + c;
+    if (r < have)
+      cp_async16(d, src + (size_t)r * D + off + c);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The warp's 16 x 64 dot products with a bf16 key tile (TK rows from kt):
+// qa holds its query rows as 4 A fragments of 16 dims; s[j] holds keys
+// 8 j .. 8 j + 7 as mma's C fragment (rows lane / 4 and lane / 4 + 8, keys
 // 2 (lane % 4) and + 1).
 __device__ __forceinline__ void tile_scores(float (&s)[8][4],
                                             const unsigned (&qa)[4][4],
@@ -706,86 +730,311 @@ __device__ __forceinline__ void tile_scores(float (&s)[8][4],
     }
 }
 
+// How attn_prefill_tc_kernel reads a layer's cache: a bf16 cache
+// (DenseTiles) or an int8 one with f32 row scales (Int8Tiles). The kernel
+// argument holds the layer's cache; a block makes a `Block` of it over its
+// shared memory and its lane's slab, which stages the query tile (inside
+// the first key pair's cp.async group) and each pair of key tiles (a group
+// each), loads a warp's query rows as A fragments, scores a key tile into
+// mma's C fragments (f32, scaled, not yet masked), and brings each pair of
+// value tiles into a V stage as bf16: `fetch_values` at the top of a step,
+// `land_values` after its products.
+struct DenseTiles {
+  const bf16* k;
+  const bf16* v;
+  float scale;  // 1 / sqrt(head dim)
+
+  // the query tile, two stages of two V tiles, and `keys` key rows (a
+  // multiple of 2 TK: the keys are staged a pair of tiles at a time)
+  static constexpr size_t smem_bytes(int keys) {
+    return (size_t)(TQ + 4 * TK + keys) * T_LD * sizeof(bf16);
+  }
+
+  struct Block {
+    const bf16* k;
+    const bf16* v;
+    float scale;
+    int D, off;
+    bf16* qs;  // [TQ][T_LD]
+    bf16* vs;  // [2 stages][2 tiles][TK][T_LD]
+    bf16* ks;  // [keys][T_LD]
+    unsigned qa[4][4];  // the warp's query rows: 4 A fragments of 16 dims
+
+    // slab: the lane's first cache row
+    __device__ Block(const DenseTiles& c, unsigned char* sm, size_t slab,
+                     int D, int off, int)
+        : k(c.k + slab * D), v(c.v + slab * D), scale(c.scale), D(D),
+          off(off) {
+      qs = reinterpret_cast<bf16*>(sm);
+      vs = qs + TQ * T_LD;
+      ks = vs + 4 * TK * T_LD;
+    }
+    // q: the tile's first row; rows from nq on are zeros
+    __device__ void stage_query(const bf16* q, int nq) {
+      stage_bf16(qs, q, TQ, nq, D, off);
+    }
+    __device__ void stage_keys(int st, int kmax) {
+      stage_bf16(ks + st * 2 * TK * T_LD, k + (size_t)st * 2 * TK * D,
+                 2 * TK, min(2 * TK, kmax - st * 2 * TK), D, off);
+    }
+    __device__ void fetch_values(int st, int kmax) {
+      stage_bf16(vs + (st & 1) * 2 * TK * T_LD, v + (size_t)st * 2 * TK * D,
+                 2 * TK, min(2 * TK, kmax - st * 2 * TK), D, off);
+    }
+    __device__ void land_values(int) {}  // cp.async wrote the stage
+    __device__ const bf16* values(int st, int half) const {
+      return vs + ((st & 1) * 2 + half) * TK * T_LD;
+    }
+    __device__ void load_query(int rg, int lane) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldmatrix_x4(qa[kk], qs + (16 * rg + (lane & 15)) * T_LD + 16 * kk +
+                                (lane >> 4) * 8);
+    }
+    __device__ void scores(float (&s)[8][4], int kt, int lane) const {
+      tile_scores(s, qa, ks + kt * TK * T_LD, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+    }
+  };
+};
+
+// K6c's reads, models/gpt.py `_attention_int8`: each query row of the tile
+// is scaled by 1 / sqrt(64) and quantized per (row, head) in registers (a
+// thread a 16-dim quarter of a row, the quarters' amax met by shuffles),
+// and kept in shared memory as int8 with its f32 scale. Key tiles are
+// staged as int8 rows (64 bytes, 80 apart) with their f32 row scales by
+// cp.async, and scored by mma m16n8k32 s8 in two k-steps: the int32 sum
+// is exact (|dot| <= 127^2 * 64 < 2^24), so each score ((float)dot * s_q)
+// * s_k is the reference's to the bit. Value tiles are dequantized once,
+// to bf16 (round(q * s_v), the reference's `_kv_read`), as they enter a V
+// stage; from there the bf16 pass runs unchanged. They come through
+// registers, not cp.async: a step issues its loads of the next pair before
+// its products and converts and stores them after, so their latency hides
+// behind the mma work and no int8 staging buffer or extra barrier is
+// needed.
+struct Int8Tiles {
+  const signed char* k;
+  const signed char* v;
+  const float* ks;  // the rows' scales
+  const float* vs;
+  float scale;  // 1 / sqrt(head dim), applied before q is quantized
+
+  // two stages of two bf16 V tiles; the int8 query tile and its scales;
+  // `keys` key rows' scales, then the int8 rows
+  static constexpr size_t smem_bytes(int keys) {
+    return (size_t)4 * TK * T_LD * sizeof(bf16) +
+           (size_t)(TQ + keys) * (I8_LD + sizeof(float));
+  }
+
+  struct Block {
+    const signed char* k;
+    const signed char* v;
+    const float* ks;
+    const float* vs;
+    float scale;
+    int D, off;
+    bf16* vst;         // [2 stages][2 tiles][TK][T_LD]
+    signed char* qq;   // [TQ][I8_LD]
+    float* qsc;        // [TQ]
+    float* ksc;        // [keys]
+    signed char* kq;   // [keys][I8_LD]
+    unsigned qa[2][4];  // the warp's query rows: 2 A fragments of 32 dims
+    float sq[2];        // their scales (rows lane / 4 and + 8)
+    uint4 vr[2];        // the thread's two 16-byte chunks of a value pair
+    float vsr[2];       // their rows' scales
+
+    __device__ Block(const Int8Tiles& c, unsigned char* sm, size_t slab,
+                     int D, int off, int keys)
+        : k(c.k + slab * D), v(c.v + slab * D), ks(c.ks + slab),
+          vs(c.vs + slab), scale(c.scale), D(D), off(off) {
+      vst = reinterpret_cast<bf16*>(sm);
+      qq = reinterpret_cast<signed char*>(vst + 4 * TK * T_LD);
+      qsc = reinterpret_cast<float*>(qq + TQ * I8_LD);
+      ksc = qsc + TQ;
+      kq = reinterpret_cast<signed char*>(ksc + keys);
+    }
+    __device__ void stage_query(const bf16* q, int nq) {
+      const int i = threadIdx.x >> 2, c = (threadIdx.x & 3) * 16;
+      float x[16];
+      if (i < nq) {
+        const uint4* p =
+            reinterpret_cast<const uint4*>(q + (size_t)i * D + off + c);
+        const uint4 u0 = p[0], u1 = p[1];
+        const unsigned w[8] = {u0.x, u0.y, u0.z, u0.w,
+                               u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {  // a bf16's f32 is its bits << 16
+          x[2 * t] = __uint_as_float(w[t] << 16) * scale;
+          x[2 * t + 1] = __uint_as_float(w[t] & 0xffff0000u) * scale;
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < 16; ++t) x[t] = 0.0f;
+      }
+      float a = 0.0f;
+#pragma unroll
+      for (int t = 0; t < 16; ++t) a = fmaxf(a, fabsf(x[t]));
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 1));
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 2));
+      const float s = i8_scale(a), inv = i8_inv(s);
+      unsigned w[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int t = 0; t < 16; ++t)
+        w[t >> 2] |= (unsigned)(unsigned char)quant_i8(x[t], inv)
+                     << (8 * (t & 3));
+      *reinterpret_cast<uint4*>(qq + i * I8_LD + c) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+      if (c == 0) qsc[i] = s;
+    }
+    __device__ void stage_keys(int st, int kmax) {
+      const int k0 = st * 2 * TK, have = min(2 * TK, kmax - k0);
+      for (int i = threadIdx.x; i < 2 * TK * (HD / 16); i += TA_THREADS) {
+        const int r = i / (HD / 16), c = (i % (HD / 16)) * 16;
+        signed char* d = kq + (k0 + r) * I8_LD + c;
+        if (r < have)
+          cp_async16(d, k + (size_t)(k0 + r) * D + off + c);
+        else
+          *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+      }
+      for (int r = threadIdx.x; r < 2 * TK; r += TA_THREADS) {
+        if (r < have)
+          cp_async4(ksc + k0 + r, ks + k0 + r);
+        else
+          ksc[k0 + r] = 0.0f;
+      }
+    }
+    // value rows [k0, k0 + 2 TK) into registers: chunk i = tid + 256 h is
+    // row i / 4, dims 16 (i % 4) .. + 15
+    __device__ void fetch_values(int st, int kmax) {
+      const int k0 = st * 2 * TK, have = min(2 * TK, kmax - k0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = threadIdx.x + h * TA_THREADS;
+        const int r = i / (HD / 16), c = (i % (HD / 16)) * 16;
+        vr[h] = make_uint4(0, 0, 0, 0);
+        vsr[h] = 0.0f;
+        if (r < have) {
+          vr[h] = *reinterpret_cast<const uint4*>(v + (size_t)(k0 + r) * D +
+                                                  off + c);
+          vsr[h] = vs[k0 + r];
+        }
+      }
+    }
+    __device__ void land_values(int st) {
+      bf16* stage = vst + (st & 1) * 2 * TK * T_LD;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = threadIdx.x + h * TA_THREADS;
+        const int r = i / (HD / 16), c = (i % (HD / 16)) * 16;
+        const unsigned u[4] = {vr[h].x, vr[h].y, vr[h].z, vr[h].w};
+        unsigned w[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int b = 2 * (t & 1);
+          w[t] = pack_bf16(i8_at(u[t >> 1], b) * vsr[h],
+                           i8_at(u[t >> 1], b + 1) * vsr[h]);
+        }
+        uint4* d = reinterpret_cast<uint4*>(stage + r * T_LD + c);
+        d[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        d[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      }
+    }
+    __device__ const bf16* values(int st, int half) const {
+      return vst + ((st & 1) * 2 + half) * TK * T_LD;
+    }
+    __device__ void load_query(int rg, int lane) {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        ldmatrix_x4(qa[kk], qq + (16 * rg + (lane & 15)) * I8_LD + 32 * kk +
+                                (lane >> 4) * 16);
+      sq[0] = qsc[16 * rg + (lane >> 2)];
+      sq[1] = qsc[16 * rg + (lane >> 2) + 8];
+    }
+    __device__ void scores(float (&s)[8][4], int kt, int lane) const {
+      const signed char* rows = kq + kt * TK * I8_LD;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        int acc[4] = {0, 0, 0, 0};
+        unsigned b[4];
+        ldmatrix_x4(b, rows + (8 * j + (lane & 7)) * I8_LD + (lane >> 3) * 16);
+        mma_16832_s8(acc, qa[0], b[0], b[1]);
+        mma_16832_s8(acc, qa[1], b[2], b[3]);
+        const float2 sk = *reinterpret_cast<const float2*>(
+            ksc + kt * TK + 8 * j + 2 * (lane & 3));
+        s[j][0] = ((float)acc[0] * sq[0]) * sk.x;
+        s[j][1] = ((float)acc[1] * sq[0]) * sk.y;
+        s[j][2] = ((float)acc[2] * sq[1]) * sk.x;
+        s[j][3] = ((float)acc[3] * sq[1]) * sk.y;
+      }
+    }
+  };
+};
+
 // Causal attention of one head for query rows [r0, r0 + TQ) over keys
-// [0, min(r0 + TQ, n)): bf16 operands, f32 scores and softmax, the
-// normalised weights rounded to bf16 before the V product, the context
-// rounded to bf16. Warp w takes rows 16 (w % 4) .. + 15 over the key tiles
-// of parity w / 4; the two halves' maxima and sums meet in shared memory
-// after the first pass, and their context partials after the second, in
-// the order (even tiles) + (odd tiles), so the result is the same bits
-// every run.
+// [0, min(r0 + TQ, n)), on the tensor cores, the cache read as `Tiles`
+// says: f32 scores and softmax, the normalised weights rounded to bf16
+// before the V product (bf16 values), the context rounded to bf16. Warp w
+// takes rows 16 (w % 4) .. + 15 over the key tiles of parity w / 4; the
+// two halves' maxima and sums meet in shared memory after the first pass,
+// and their context partials after the second, in the order (even tiles)
+// + (odd tiles), so the result is the same bits every run.
 // The exponential is the fast `__expf` and the division a multiply by
 // 1 / sum: f32 rounding apart, the reference's softmax. Grid (heads, query
 // tiles); with map.tiles64 (K8) the tile's lane, r0 and stacked row of the
-// lane's row 0 come from the table.
+// lane's row 0 come from the table, and the lane's (S, D) slab is read.
+template <class Tiles>
 __global__ void __launch_bounds__(TA_THREADS)
-    attn_prefill_tc_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ kc,
-                           const bf16* __restrict__ vc, int n, int S, int D,
-                           float scale, RowMap map, int n_tiles,
+    attn_prefill_tc_kernel(const bf16* __restrict__ q, Tiles cache, int n,
+                           int S, int D, RowMap map, int n_tiles,
                            bf16* __restrict__ ctx) {
   extern __shared__ __align__(16) unsigned char tsm[];
   __shared__ float red[2][2][TQ];  // (max, sum) x key half x row
-  bf16* qs = reinterpret_cast<bf16*>(tsm);  // [TQ][T_LD]
-  bf16* vs = qs + TQ * T_LD;                // [2 stages][2 tiles][TK][T_LD]
-  bf16* ks = vs + 4 * TK * T_LD;            // [keys][T_LD]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = warp & 3, half = warp >> 2;
   const int off = blockIdx.x * HD;
   const int tile = n_tiles - 1 - (int)blockIdx.y;  // the longest first
   int r0 = tile * TQ;
+  size_t slab = 0;
   if (map.tiles64 != nullptr) {
     const int* t = map.tiles64 + 3 * tile;
     n = map.lane_n[t[0]];
-    kc += (size_t)t[0] * S * D;
-    vc += (size_t)t[0] * S * D;
+    slab = (size_t)t[0] * S;
     r0 = t[1];
     q += (size_t)t[2] * D;
     ctx += (size_t)t[2] * D;
   }
   const int nq = min(TQ, n - r0), kmax = min(r0 + TQ, n);
   const int nkt = (kmax + TK - 1) / TK, nst = (nkt + 1) / 2;
-  // rows [0, rows) of a head's slice from src into dst, zeros from `have`
-  auto stage = [&](bf16* dst, const bf16* src, int rows, int have) {
-    for (int i = tid; i < rows * (HD / 8); i += TA_THREADS) {
-      const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-      bf16* d = dst + r * T_LD + c;
-      if (r < have)
-        cp_async16(d, src + (size_t)r * D + off + c);
-      else
-        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-    }
-  };
-  // The query rows and the key rows, two tiles (one a half) a commit
-  // group, so that pass 1 starts on the first keys while later ones
-  // arrive; then V tiles 0 and 1.
-  stage(qs, q + (size_t)r0 * D, TQ, nq);
+  typename Tiles::Block c(cache, tsm, slab, D, off, nst * 2 * TK);
+  // The key rows, two tiles (one a half) a commit group, the query tile
+  // in the first, so that pass 1 starts on the first keys while later
+  // ones arrive; then V tiles 0 and 1.
   for (int st = 0; st < nst; ++st) {
-    stage(ks + st * 2 * TK * T_LD, kc + (size_t)st * 2 * TK * D, 2 * TK,
-          min(2 * TK, kmax - st * 2 * TK));
+    c.stage_keys(st, kmax);
+    if (st == 0) c.stage_query(q + (size_t)r0 * D, nq);
     cp_async_commit();
   }
-  stage(vs, vc, 2 * TK, min(2 * TK, kmax));
+  c.fetch_values(0, kmax);
   cp_async_commit();
   const int row_first = r0 + 16 * rg, last_row = row_first + 15;
   const int lr = 16 * rg + (lane >> 2);  // this lane's rows: lr and lr + 8
   const int row0 = r0 + lr, key0 = 2 * (lane & 3);
-  unsigned qa[4][4];
   float s[8][4];
-  // The warp's scores with key tile kt, times the scale: -inf where the
-  // causal mask hides a key (only a tile that reaches past the warp's
-  // first row has such keys).
+  // The warp's scores with key tile kt: -inf where the causal mask hides
+  // a key (only a tile that reaches past the warp's first row has such
+  // keys).
   auto scores = [&](int kt) {
-    tile_scores(s, qa, ks + kt * TK * T_LD, lane);
-    const bool diagonal = kt * TK + TK - 1 > row_first;
+    c.scores(s, kt, lane);
+    if (kt * TK + TK - 1 > row_first)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[j][e] = diagonal && kt * TK + 8 * j + key0 + (e & 1) >
-                                  row0 + 8 * (e >> 1)
-                      ? -INFINITY
-                      : s[j][e] * scale;
+        for (int e = 0; e < 4; ++e)
+          if (kt * TK + 8 * j + key0 + (e & 1) > row0 + 8 * (e >> 1))
+            s[j][e] = -INFINITY;
   };
   // pass 1: each row's max over its causal keys and its sum of exp(s -
   // max), the sum rescaled when the max grows (no weight is formed yet)
@@ -793,11 +1042,7 @@ __global__ void __launch_bounds__(TA_THREADS)
   for (int st = 0; st < nst; ++st) {
     cp_async_wait(nst - st);  // the key groups up to st (and Q) are in
     __syncthreads();
-    if (st == 0)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        ldmatrix_x4(qa[kk], qs + (16 * rg + (lane & 15)) * T_LD + 16 * kk +
-                                (lane >> 4) * 8);
+    if (st == 0) c.load_query(rg, lane);
     const int kt = 2 * st + half;
     if (kt >= nkt || kt * TK > last_row) continue;
     scores(kt);
@@ -837,6 +1082,7 @@ __global__ void __launch_bounds__(TA_THREADS)
       red[1][half][lr + 8 * h] = sum[h];
     }
   }
+  c.land_values(0);
   __syncthreads();
   float inv[2];
 #pragma unroll
@@ -849,15 +1095,13 @@ __global__ void __launch_bounds__(TA_THREADS)
                           : red[1][1][r] * __expf(red[0][1][r] - mx[h])));
   }
   // pass 2: the normalised weights, rounded to bf16, times V; step st
-  // stages V tiles 2 st and 2 st + 1, one for each half
+  // holds V tiles 2 st and 2 st + 1, one for each half, and brings in the
+  // next pair
   float o[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
   for (int st = 0; st < nst; ++st) {
-    if (st + 1 < nst)
-      stage(vs + ((st + 1) & 1) * 2 * TK * T_LD,
-            vc + (size_t)(st + 1) * 2 * TK * D, 2 * TK,
-            min(2 * TK, kmax - (st + 1) * 2 * TK));
+    if (st + 1 < nst) c.fetch_values(st + 1, kmax);
     cp_async_commit();
     cp_async_wait(1);
     __syncthreads();
@@ -874,7 +1118,7 @@ __global__ void __launch_bounds__(TA_THREADS)
         pa[j >> 1][2 * (j & 1)] = pack_bf16(p[0], p[1]);
         pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
       }
-      const bf16* vt = vs + ((st & 1) * 2 + half) * TK * T_LD;
+      const bf16* vt = c.values(st, half);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -887,11 +1131,12 @@ __global__ void __launch_bounds__(TA_THREADS)
           mma_16816(o[2 * d2 + 1], pa[kk], b[2], b[3]);
         }
     }
-    __syncthreads();  // before the next stage overwrites these V tiles
+    if (st + 1 < nst) c.land_values(st + 1);
+    __syncthreads();  // before the next step reads, or overwrites, a stage
   }
   // the odd tiles' partials through shared memory (over the V stages),
   // added to the even tiles'; rows < nq stored, rounded to bf16
-  float* op = reinterpret_cast<float*>(vs);  // [TQ][O_LD]
+  float* op = reinterpret_cast<float*>(const_cast<bf16*>(c.values(0, 0)));
   if (half == 1)
 #pragma unroll
     for (int d = 0; d < 8; ++d)
@@ -1039,15 +1284,16 @@ __global__ void __launch_bounds__(LN_THREADS)
   if (threadIdx.x == 0) (is_v ? vs : ks)[row] = s;
 }
 
-// K6c: attn_prefill_kernel on the int8 cache, as models/gpt.py
+// K6c in f32 (bf16 runs attn_prefill_tc_kernel<Int8Tiles>): the scalar
+// attn_prefill_kernel on the int8 cache, as models/gpt.py
 // `_attention_int8` computes it: the query tile's rows are quantized per
 // (row, head) in shared memory (q * (1/sqrt(64)), scale amax / 127), key
 // tiles are staged as int8 with their row scales and scored with integer
 // __dp4a dots, (score * s_q) * s_k; value tiles are dequantized to T as
 // they are staged (round_t<T>(q * s_v)). The causal softmax and the exact
-// zeros past each row are attn_prefill_kernel's. Replaces the JAX
-// package's XLA attention of an int8 prefill (bark_tpu/models/gpt.py:273;
-// its Pallas prefill takes no int8 cache).
+// zeros past each row are attn_prefill_kernel's. Replaces, with the
+// tensor-core kernel, the JAX package's XLA attention of an int8 prefill
+// (bark_tpu/models/gpt.py:273; its Pallas prefill takes no int8 cache).
 template <typename T>
 __global__ void __launch_bounds__(PA_THREADS)
     attn_prefill_i8_kernel(const T* __restrict__ q,
@@ -1174,6 +1420,69 @@ __global__ void __launch_bounds__(PA_THREADS)
       ctx[(size_t)(r0 + i) * D + off + d0 + t] = from_f32<T>(acc[t]);
 }
 
+// The dynamic shared memory of the attention a prefill in T on a dense or
+// int8 (`quant`) cache runs, at its most (1024 keys) beyond the default 48
+// KB window, set on every call (one host call each), so that it holds on
+// whatever device is current and a refusal is reported here, not as a
+// failed launch.
+template <typename T>
+int set_attn_smem(bool quant) {
+  const void* k;
+  int bytes = QT * 1024 * (int)sizeof(float);  // the scalar kernels' scores
+  if constexpr (sizeof(T) == 2) {
+    k = quant ? (const void*)attn_prefill_tc_kernel<Int8Tiles>
+              : (const void*)attn_prefill_tc_kernel<DenseTiles>;
+    bytes = (int)(quant ? Int8Tiles::smem_bytes(1024)
+                        : DenseTiles::smem_bytes(1024));
+  } else {
+    k = quant ? (const void*)attn_prefill_i8_kernel<T>
+              : (const void*)attn_prefill_kernel<T>;
+  }
+  return (int)cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// One layer's causal attention of M stacked query rows q (D wide, heads of
+// 64) into ctx over the layer's cache c (int8 when it has row scales):
+// bf16 on the tensor cores (attn_prefill_tc_kernel over 64-row query
+// tiles, DenseTiles or Int8Tiles), f32 by the scalar kernels (16-row
+// tiles). The lanes, query tiles and n_valid as prefill_t takes them.
+template <typename T>
+int attention(const T* q, const BarkKV& c, int M, int max_n, int n_tiles,
+              int n_tiles64, int S, int D, int n_head, const RowMap& map,
+              T* ctx, cudaStream_t st) {
+  const float scale = (float)(1.0 / sqrt((double)(D / n_head)));
+  const bool quant = c.ks != nullptr;
+  if constexpr (sizeof(T) == 2) {
+    const int keys = cdiv(max_n, 2 * TK) * 2 * TK;
+    const dim3 grid(n_head, n_tiles64);
+    if (quant)
+      attn_prefill_tc_kernel<<<grid, TA_THREADS, Int8Tiles::smem_bytes(keys),
+                               st>>>(
+          q,
+          Int8Tiles{(const signed char*)c.k, (const signed char*)c.v, c.ks,
+                    c.vs, scale},
+          M, S, D, map, n_tiles64, ctx);
+    else
+      attn_prefill_tc_kernel<<<grid, TA_THREADS,
+                               DenseTiles::smem_bytes(keys), st>>>(
+          q, DenseTiles{(const bf16*)c.k, (const bf16*)c.v, scale}, M, S, D,
+          map, n_tiles64, ctx);
+  } else {
+    const int ld = cdiv(max_n, 4) * 4;
+    const dim3 grid(n_head, n_tiles);
+    const size_t smem = (size_t)QT * ld * sizeof(float);
+    if (quant)
+      attn_prefill_i8_kernel<T><<<grid, PA_THREADS, smem, st>>>(
+          q, (const signed char*)c.k, (const signed char*)c.v, c.ks, c.vs,
+          M, S, D, ld, scale, map, ctx);
+    else
+      attn_prefill_kernel<T><<<grid, PA_THREADS, smem, st>>>(
+          q, (const T*)c.k, (const T*)c.v, M, S, D, ld, scale, map, ctx);
+  }
+  return (int)cudaGetLastError();
+}
+
 // The prefill of M stacked rows of B lanes (K2: B = 1, M = n_valid, a null
 // map); max_n is the longest lane's n_valid, n_tiles / n_tiles64 the
 // attention's 16-row / 64-row query tiles. An int8 `kv` (K6) takes kv_rows,
@@ -1196,25 +1505,7 @@ int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
   T* ctx = (T*)ctx_;
   T* ff = (T*)ff_;
   T* rows = (T*)kv_rows;
-  const float scale = (float)(1.0 / sqrt((double)(D / w->n_head)));
-  const int ld = cdiv(max_n, 4) * 4;
-  const size_t att_smem = (size_t)QT * ld * sizeof(float);
-  const size_t tc_smem = tc_smem_bytes(cdiv(max_n, 2 * TK) * 2 * TK);
-  // each attention's dynamic shared memory at its most (1024 keys) beyond
-  // the default 48 KB window, set on every call (one host call each), so
-  // that it holds on whatever device is current and a refusal is reported
-  // here, not as a failed launch
-  int err;
-  if (quant || !tc)
-    err = (int)cudaFuncSetAttribute(
-        quant ? (const void*)attn_prefill_i8_kernel<T>
-              : (const void*)attn_prefill_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        QT * 1024 * (int)sizeof(float));
-  else
-    err = (int)cudaFuncSetAttribute(
-        (const void*)attn_prefill_tc_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc_smem_bytes(1024));
+  int err = set_attn_smem<T>(quant);
   if (!err && tc) err = set_tma_smem();
   if (err) return err;
   const int total = M * D;
@@ -1222,7 +1513,6 @@ int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
       (const T*)x_emb, (const T*)w->wpe, M, D, map, x);
   err = (int)cudaGetLastError();
   if (err) return err;
-  const dim3 att_grid(w->n_head, n_tiles);
   for (int l = 0; l < L; ++l) {
     const BarkKV c = kv_at(kv, l * slab, D, sizeof(T));
     ln_rows_kernel<T><<<M, LN_THREADS, D * sizeof(float), st>>>(
@@ -1241,19 +1531,9 @@ int prefill_t(const BarkGPTWeights* w, const void* x_emb, int B, int M,
           c.vs);
       err = (int)cudaGetLastError();
       if (err) return err;
-      attn_prefill_i8_kernel<T><<<att_grid, PA_THREADS, att_smem, st>>>(
-          qb, (const signed char*)c.k, (const signed char*)c.v, c.ks, c.vs,
-          M, S, D, ld, scale, map, ctx);
-    } else if constexpr (tc) {
-      attn_prefill_tc_kernel<<<dim3(w->n_head, n_tiles64), TA_THREADS,
-                               tc_smem, st>>>(
-          qb, (const T*)c.k, (const T*)c.v, M, S, D, scale, map, n_tiles64,
-          ctx);
-    } else {
-      attn_prefill_kernel<T><<<att_grid, PA_THREADS, att_smem, st>>>(
-          qb, (const T*)c.k, (const T*)c.v, M, S, D, ld, scale, map, ctx);
     }
-    err = (int)cudaGetLastError();
+    err = attention<T>(qb, c, M, max_n, n_tiles, n_tiles64, S, D, w->n_head,
+                       map, ctx, st);
     if (err) return err;
     err = gemm<T, GE_RESID>(tp, P_PROJ, ctx, (const T*)w->proj_w,
                             (const T*)w->proj_b + l * LD, M, D, D, l,
@@ -1297,6 +1577,14 @@ int prefill_dtype(const BarkGPTWeights* w, const void* x_emb, int B, int M,
     return -1;
   return prefill_t<bf16>(w, x_emb, B, M, max_n, n_tiles, n_tiles64, map, kv,
                          x, hb, q, ctx, ff, kv_rows, &tp, logits, lo, hi, st);
+}
+
+// The RowMap of K8's `tables` (bark_prefill_batched) for B lanes, M
+// stacked rows and n_tiles 16-row query tiles.
+RowMap lane_map(const int* tables, int B, int M, int n_tiles) {
+  const int* t = tables + 3 * M + 3 * n_tiles;  // lane_n, last, tiles64
+  return RowMap{tables, tables + M, tables + 2 * M, tables + 3 * M,
+                t, t + B, t + 2 * B};
 }
 
 }  // namespace
@@ -1383,11 +1671,50 @@ extern "C" int bark_prefill_batched(const BarkGPTWeights* w,
       (k_scale == nullptr) != (v_scale == nullptr) ||
       (k_scale != nullptr && kv_rows == nullptr))
     return -1;
-  const int* t = tables + 3 * M + 3 * n_tiles;  // lane_n, last, tiles64
-  const RowMap map{tables, tables + M, tables + 2 * M, tables + 3 * M,
-                   t, t + B, t + 2 * B};
   const BarkKV kv{k_cache, v_cache, k_scale, v_scale};
-  return prefill_dtype(w, x_emb, B, M, max_n, n_tiles, n_tiles64, map, kv, x,
-                       hb, q, ctx, ff, kv_rows, wmaps, plan, part, tickets,
-                       logits, lo, hi, stream);
+  return prefill_dtype(w, x_emb, B, M, max_n, n_tiles, n_tiles64,
+                       lane_map(tables, B, M, n_tiles), kv, x, hb, q, ctx, ff,
+                       kv_rows, wmaps, plan, part, tickets, logits, lo, hi,
+                       stream);
+}
+
+// K6c alone (kernels/kv8.py `attn_prefill`): one layer's causal attention
+// of a prefill, the prefills' own launch, on given query rows; the
+// prefills never call it. q and ctx are (M, D) in `dtype` (BARK_BF16: the
+// tensor-core kernel, else f32: the scalar one), heads of 64; kv holds the
+// layer's cache, (B, S, D) int8 values with (B, S) f32 row scales (K6c),
+// or, without scales, (B, S, D) in `dtype` (the dense attention, its
+// yardstick). One lane (B 1, tables null): M = max_n = n_valid, n_tiles =
+// ceil(M / 16), n_tiles64 = ceil(M / 64). B lanes: M stacked rows and
+// `tables`, max_n, n_tiles and n_tiles64 as bark_prefill_batched takes
+// them. Returns cudaGetLastError() after the launch, or -1 for a shape it
+// does not take.
+extern "C" int bark_launch_attn_prefill(int dtype, const void* q, BarkKV kv,
+                                        int B, int M, int max_n,
+                                        int n_tiles, int n_tiles64,
+                                        const int* tables, int S, int D,
+                                        int n_head, void* ctx,
+                                        cudaStream_t stream) {
+  if (n_head <= 0 || D != n_head * HD || S > 1024 || B <= 0 || M <= 0 ||
+      max_n <= 0 || max_n > S || n_tiles <= 0 || n_tiles64 <= 0 ||
+      (kv.ks == nullptr) != (kv.vs == nullptr) ||
+      (tables == nullptr && (B != 1 || M != max_n)))
+    return -1;
+  const bool quant = kv.ks != nullptr;
+  const RowMap map = tables != nullptr
+                         ? lane_map(tables, B, M, n_tiles)
+                         : RowMap{nullptr, nullptr, nullptr, nullptr,
+                                  nullptr, nullptr, nullptr};
+  if (dtype == BARK_BF16) {
+    const int err = set_attn_smem<bf16>(quant);
+    return err ? err
+               : attention<bf16>((const bf16*)q, kv, M, max_n, n_tiles,
+                                 n_tiles64, S, D, n_head, map, (bf16*)ctx,
+                                 stream);
+  }
+  const int err = set_attn_smem<float>(quant);
+  return err ? err
+             : attention<float>((const float*)q, kv, M, max_n, n_tiles,
+                                n_tiles64, S, D, n_head, map, (float*)ctx,
+                                stream);
 }

@@ -153,6 +153,11 @@ _SIGNATURES = {
     #  n_past*, B, S, D, n_head, ctx, stream)
     "bark_launch_attn_decode_batched": [_I, _P, BarkKV, _P, _I, _I, _I, _I,
                                         _P, _P],
+    # K6c alone, one layer's prefill attention of B lanes on an int8 (or a
+    #  dense) cache: (dtype, q, kv, B, M, max_n, n_tiles, n_tiles64, tables
+    #  or null, S, D, n_head, ctx, stream)
+    "bark_launch_attn_prefill": [_I, _P, BarkKV, _I, _I, _I, _I, _I, _P, _I,
+                                 _I, _I, _P, _P],
     # (dtype, scale dtype or -1 for dense weights, has_min, D, S) -> the
     #  persistent step's grid (blocks), or < 0
     "bark_decode_step_blocks": [_I, _I, _I, _I, _I],

@@ -2,6 +2,7 @@
 split by device kernel.
 
     python3 bark_tpu_torch/probes/prefill_profile.py [--tree PATH] [--tag NAME]
+        [--kv8]
 
 Run it by path, not with `-m`: `--tree` (default: the checkout this file
 lies in) is put first on sys.path before anything is imported, so that
@@ -29,6 +30,11 @@ It measures, on random bf16 weights from seed 7:
 - where the tree has `kernels.prefill.gemm_plan`, each GEMM's plan
   (N tile, K splits, tiles) at M 257, 617 and 887.
 
+With `--kv8` the caches are int8 (`gpt.init_kv_cache(quant=True)`, K6):
+K2, K8 and the request's prefills as above, where the kinds split K6b
+(`kv_quant`, the row quantizer) and K6c (`attention`) out of each call;
+no yardstick and no plans.
+
 Prints log lines on stderr and one `prefill_profile` JSON line on stdout,
 also written to chiprun_out/prefill_profile_<tag>.json.
 """
@@ -36,6 +42,7 @@ also written to chiprun_out/prefill_profile_<tag>.json.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -196,7 +203,7 @@ def matmul_ms(params, T: int, gen):
     return event_ms(run), device_split(run)["busy_us"] / 1e3
 
 
-def profile(tag: str) -> dict:
+def profile(tag: str, kv8: bool = False) -> dict:
     import torch
 
     from bark_tpu_torch.kernels import bprefill as kbpre
@@ -211,7 +218,10 @@ def profile(tag: str) -> dict:
     sem_p = random_params(sem_cfg, gen, dt)
     coarse_p = random_params(coarse_cfg, gen, dt)
     rec = dict(tag=tag, torch=torch.__version__, cuda=torch.version.cuda,
-               k2={}, k8={}, matmul_ms={}, matmul_device_ms={}, plan={})
+               kv8=kv8, k2={}, k8={}, matmul_ms={}, matmul_device_ms={},
+               plan={})
+    caches = functools.partial(gpt.init_kv_cache, dtype=dt, device=dev,
+                               quant=kv8)
 
     def x_for(cfg, p, T, B=None):
         shape = (T,) if B is None else (B, T)
@@ -219,7 +229,7 @@ def profile(tag: str) -> dict:
                             device=dev)
         return p["wte"][0][idx].contiguous()
 
-    kc, vc = gpt.init_kv_cache(coarse_cfg, dt, dev)
+    kc, vc = caches(coarse_cfg)
     for T in K2_T:
         x = x_for(coarse_cfg, coarse_p, T)
 
@@ -231,17 +241,20 @@ def profile(tag: str) -> dict:
         s = device_split(run)
         rec["k2"][str(T)] = dict(ms=ms, **s)
         log_split(f"K2 T {T}", ms, s)
-        rec["matmul_ms"][str(T)], rec["matmul_device_ms"][str(T)] = \
-            matmul_ms(coarse_p, T, gen)
+        if not kv8:
+            rec["matmul_ms"][str(T)], rec["matmul_device_ms"][str(T)] = \
+                matmul_ms(coarse_p, T, gen)
     del kc, vc
-    (rec["matmul_ms"]["8 x 887"],
-     rec["matmul_device_ms"]["8 x 887"]) = matmul_ms(coarse_p, 8 * 887, gen)
+    if not kv8:
+        (rec["matmul_ms"]["8 x 887"],
+         rec["matmul_device_ms"]["8 x 887"]) = matmul_ms(coarse_p, 8 * 887,
+                                                         gen)
     for M, ms in rec["matmul_ms"].items():
         log(f"  torch.matmul, 4 products x 12 layers at M {M}: {ms:.3f} ms "
             f"(events), {rec['matmul_device_ms'][M]:.3f} ms of device time")
     for label, lanes in K8_LANES.items():
         B = len(lanes)
-        kc, vc = gpt.init_kv_cache(coarse_cfg, dt, dev, batch=B)
+        kc, vc = caches(coarse_cfg, batch=B)
         x = x_for(coarse_cfg, coarse_p, max(lanes), B)
 
         def run():
@@ -254,8 +267,8 @@ def profile(tag: str) -> dict:
         log_split(f"K8 {label}", ms, s)
         del kc, vc
     # one smoke request's prefills: the semantic prompt, 7 coarse re-primes
-    skc, svc = gpt.init_kv_cache(sem_cfg, dt, dev)
-    ckc, cvc = gpt.init_kv_cache(coarse_cfg, dt, dev)
+    skc, svc = caches(sem_cfg)
+    ckc, cvc = caches(coarse_cfg)
     sx = x_for(sem_cfg, sem_p, 257)
     cx = x_for(coarse_cfg, coarse_p, max(REQUEST_T))
     calls = [lambda: kpre.prefill_fused(sem_cfg, sem_p, sx, skc, svc, 257)]
@@ -276,7 +289,7 @@ def profile(tag: str) -> dict:
         f"{r['span_us']:.1f} us; " + ", ".join(
             f"{k} {v:.1f} us" for k, v in sorted(r["kinds"].items())))
     plan = getattr(kpre, "gemm_plan", None)
-    if plan is not None:
+    if plan is not None and not kv8:
         D = coarse_cfg.n_embd
         for M in (257, 617, 887):
             rec["plan"][str(M)] = {
@@ -365,4 +378,4 @@ def main(argv=None, profile=profile, name="prefill_profile",
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(flags=(("--kv8", "int8 KV caches (K6b, K6c)"),)))

@@ -34,7 +34,10 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      gaps), the device time of one request's 8 prefills, torch.matmul on
      the same 48 bf16 products (K2's and K8's `library_ms`, the GEMM
      phase's yardstick), and `cuobjdump -sass` of the bf16 GEMM, which
-     must show HGMMA and UTMALDG in every instance (its `prefill_profile`
+     must show HGMMA and UTMALDG in every instance; then the same prefills
+     on int8 caches (`--kv8`, K6b and K6c split out), every bf16 call on
+     the tensor-core K6c and none on the scalar int8 attention, which the
+     library holds in f32 alone (`kv8_profile`; its `prefill_profile`
      JSON line). Phase 2 holds K2 and K8 (dense and int8 caches) bit-equal
      from run to run in bf16 and their cache rows past n_valid unwritten;
   2c. (run before 2b) the batched step's record (`probes/
@@ -156,10 +159,16 @@ int8 caches at B 8 and 32; phase 3 runs the small model's q8_0 file
 packed through `generate_audio_batch`, with both caches. For K6, the
 int8 KV cache, phase 2 holds each kernel that reads or writes it against
 its plain version on int8 caches filled by the plain quantizer (K1 at
-n_past 0/300/1023 and windowed, K5 q4_0, K7 at B 1/8/32, K2 at T 257 and
-887, K8 over 8 and 32 lanes, K3, K4, K9, K10), logits within TOL, the
-cache bytes with their count of one-step flips and the scales
-(`record_kv8_rows`), and times K1, K5, K7, K2 and K8 on int8 caches;
+n_past 0/300/1023 and windowed, K5 q4_0, K7 at B 1/8/32, K2 at T 257,
+437, 617 and 887, K8 over 8 and 32 lanes, K3, K4, K9, K10), logits within
+TOL, the cache bytes with their count of one-step flips and the scales
+(`record_kv8_rows`), K6c alone (`kv8.attn_prefill`, one layer's prefill
+attention on an int8 cache) at T 1 to 1024 and over 8 and 32 lanes (bf16
+element by element within K6C_RTOL |plain| + K6C_ATOL), and times K1, K5, K7, K2 and K8 on int8 caches, and K6c alone at T 887 and
+8 x 887 beside the bf16 cache's attention alone (the `kernels` line's
+K6-in-K2 and K6-in-K8 rows, `k6c_alone`); phase 2b's int8-cache
+profile must see the tensor-core K6c and no scalar int8 attention in
+every bf16 call, and the library must hold the scalar one in f32 only;
 phase 3 runs the small model with the int8 cache, single and batched,
 tokens equal on GPU and CPU.
 
@@ -210,6 +219,13 @@ TOL = {"float32": 2e-3, "bfloat16": 1e-1}
 # own fresh V row, so one boundary value moves its f32 logits by up to
 # ~2e-2 (measured at 32 lanes) where the dense path differs by an ulp.
 TOL_KV8_FIRST = {"float32": 5e-2, "bfloat16": 1e-1}
+# K6c alone in bf16 is held element by element to K6C_RTOL |plain| +
+# K6C_ATOL, a couple of bf16 ulps of the plain version's value: its scores
+# are the plain version's to the bit, and weights and context are rounded
+# to bf16 at the same points, so a difference is a rounding flip. TOL's
+# 1e-1 is as large as a context value of a long prefill (std ~0.05 at row
+# 887 on these inputs) and would pass a wrong key scale or a lost tile.
+K6C_RTOL, K6C_ATOL = 2 ** -6, 2e-3
 
 # packed formats of K5: name -> (lowest value, highest value, scale dtype
 # name, has mins), the ranges repack_to_int8 gives each format's values
@@ -259,8 +275,10 @@ K6_K3, K6_K4 = "semantic_chunk_fused[kv8]", "coarse_window_fused[kv8]"
 K6_K9 = "semantic_chunk_fused_batched[kv8]"
 K6_K10 = "coarse_window_fused_batched[kv8]"
 KV8_BATCHES = (8, 32)  # phase 4d's batch sizes, and K7's timed ones at kv8
-# one layer's decode attention on its own: K6a, and the dense kernel
+# one layer's decode attention on its own: K6a, and the dense kernel;
+# one layer's prefill attention on an int8 cache on its own: K6c
 K6A, ATTN = "attn_decode_i8 (K6a alone)", "attn_decode (dense, alone)"
+K6C = "attn_prefill_i8 (K6c alone)"
 KERNELS.update({  # K6a in K1, K5, K7; K6b + K6c in K2, K8
     K6_K1: ("bark_tpu_torch/csrc/decode.cu",
             "bark_tpu/kernels/decode.py:1603", "decode"),
@@ -420,6 +438,8 @@ class Checks:
         self.kv8_flips = {}  # (kernel, dtype) -> (int8 flips, values)
         self.k1_step = {}  # K1's persistent step: grid, timings, phases
         self.k5_step = {}  # K5's (q4_0), the same
+        self.k6c = {}  # K6c alone, timed: rows -> ms, bound, dense beside
+        self.excess = {}  # (kernel, dtype) -> max |err| / record_close limit
 
     def record(self, kernel, dtype_name, what, err, tol=None):
         tol = (tol or TOL)[dtype_name]
@@ -430,6 +450,24 @@ class Checks:
             f"{err:.3e}  tol {tol:.0e}  {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{kernel} {dtype_name} {what}: {err} > {tol}")
+
+    def record_close(self, kernel, dtype_name, what, out, ref, rtol, atol):
+        """Fail unless every |out - ref| <= rtol |ref| + atol; records the
+        max abs error, and the largest |out - ref| / (rtol |ref| + atol)
+        (1 at the limit) under `self.excess`."""
+        a, b = out.float(), ref.float()
+        err, excess = max_err(a, b), float(
+            ((a - b).abs() / (rtol * b.abs() + atol)).max())
+        key = (kernel, dtype_name)
+        self.errors[key] = max(self.errors.get(key, 0.0), err)
+        self.excess[key] = max(self.excess.get(key, 0.0), excess)
+        ok = excess <= 1.0
+        log(f"  {kernel:26s} {dtype_name:9s} {what:34s} max|err| "
+            f"{err:.3e}  {excess:.3f} of {rtol:.3g}|ref| + {atol:.0e}  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{kernel} {dtype_name} {what}: |err| "
+                                 f"{excess} x ({rtol}|ref| + {atol})")
 
 
 def filled_cache(cfg, rows: int, dtype, gen):
@@ -720,12 +758,13 @@ def prefill_phase(smi: str) -> dict:
     """Phase 2b: `probes/prefill_profile.py`'s record (`probe_record`: K2
     at T 257/437/617/887 and K8 over 8 lanes of 257-887 and 8 x 887 rows,
     each split by device kernel; the 8 prefills of one request; the
-    torch.matmul yardstick; the GEMM plans), and the bf16 GEMM's SASS,
-    which must hold HGMMA (wgmma) and UTMALDG (TMA loads) in every
-    instance."""
+    torch.matmul yardstick; the GEMM plans) and its int8-cache record
+    under "kv8" (`kv8_profile`), and the bf16 GEMM's SASS, which must hold
+    HGMMA (wgmma) and UTMALDG (TMA loads) in every instance."""
     from bark_tpu_torch.probes import prefill_profile
 
     rec = probe_record("prefill_profile")
+    rec["kv8"] = kv8_profile()
     sass = prefill_profile.gemm_sass()
     for key, r in sass.items():
         log(f"  gemm_tma_kernel<{key}>: {r['lines']} SASS lines, HGMMA "
@@ -736,6 +775,39 @@ def prefill_phase(smi: str) -> dict:
         raise AssertionError(f"the bf16 GEMM is not wgmma fed by TMA in "
                              f"every instance: {sass}")
     return dict(card=smi, sass=sass, **rec)
+
+
+def kv8_profile() -> dict:
+    """Phase 2b on int8 caches: `prefill_profile.py --kv8`'s record (K2,
+    K8 and a request's prefills, K6b's `kv_quant` and K6c's `attention`
+    split out). Every bf16 call must have run the tensor-core attention on
+    int8 tiles and no scalar int8 attention (its kernels by name), and the
+    library's ptxas report must hold the scalar int8 attention in f32
+    alone: a bf16 prefill cannot reach it."""
+    import re
+
+    from bark_tpu_torch.kernels import _build
+
+    rec = probe_record("prefill_profile", "--kv8")
+    calls = {f"K2 T {T}": r for T, r in rec["k2"].items()}
+    calls.update({f"K8 {k}": r for k, r in rec["k8"].items()})
+    for what, r in calls.items():
+        names = r["names"]
+        tc = sum(v["count"] for k, v in names.items()
+                 if "attn_prefill_tc_kernel" in k and "Int8Tiles" in k)
+        scalar = [k for k in names if "attn_prefill_i8_kernel" in k]
+        if tc <= 0 or scalar:
+            raise AssertionError(f"kv8 {what}: {tc} tensor-core int8 "
+                                 f"attention launches, scalar {scalar}")
+    scalar = set(re.findall(r"attn_prefill_i8_kernelI(\w+?)E",
+                            _build.report_path().read_text()))
+    log(f"  kv8 profile: every bf16 call ran attn_prefill_tc_kernel"
+        f"<Int8Tiles> and no scalar int8 attention; the library's scalar "
+        f"int8 attention instances: {sorted(scalar)}")
+    if scalar != {"f"}:
+        raise AssertionError(f"the scalar int8 attention is built for "
+                             f"{sorted(scalar)}, not f32 alone")
+    return rec
 
 
 def prefill_rows_kept(kc, vc, n_valid, what: str, lanes: bool = True):
@@ -2056,20 +2128,115 @@ def k6a_alone_checks(checks: Checks, dtype, timed: bool):
                 f"{bound(cost, name)[0]:.4f} ms)")
 
 
+K6C_T = (1, 63, 64, 65, 257, 437, 617, 887, 1024)  # K6c alone, one lane
+K6C_MIXED = (887, 257, 600, 431, 800, 350, 700, 500)  # lanes' n_valid
+
+
+def attn_prefill_cost(D: int, lanes, item: int, kv8: bool):
+    """(bytes, flops) of one layer's causal prefill attention over lanes of
+    n rows: the query rows read and the context written in the params
+    dtype, each lane's n cache rows of K and V read (int8 rows and their
+    scales when kv8); 2 D n (n + 1) flops a lane (QK^T and PV over the
+    causal pairs, all heads)."""
+    rows = sum(lanes)
+    return (2 * rows * D * item + 2 * rows * kv_row_bytes(D, item, kv8),
+            sum(2 * D * n * (n + 1) for n in lanes))
+
+
+def k6c_alone_checks(checks: Checks, dtype, timed: bool):
+    """K6c on its own (`kv8.attn_prefill`: one layer's causal prefill
+    attention on an int8 cache, the prefills' launch) against its plain
+    version on the same query rows and caches, at bark-small's width (12
+    heads of 64, 1024 slots): one lane at T in K6C_T, K8's 8 lanes of
+    257-887 rows and 32 lanes; the context in f32 within TOL, in bf16
+    element by element within K6C_RTOL |plain| + K6C_ATOL, two bf16 runs
+    bit-equal. Timed in bf16 at T 887 and 8 x 887 beside the same entry on
+    the bf16 cache (the dense attention, `attn_prefill_tc_kernel` on
+    DenseTiles) at the same shapes, the stacked lanes' tables uploaded
+    once before the timed calls, into `checks.k6c`."""
+    import dataclasses
+
+    import torch
+
+    from bark_tpu_torch.kernels import kv8
+    from bark_tpu_torch.models import gpt
+    from bark_tpu_torch.models.presets import BARK_SMALL
+
+    dev = torch.device("cuda")
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    cfg = dataclasses.replace(BARK_SMALL["coarse"], n_layer=1)
+    D = cfg.n_embd
+    gen = torch.Generator(device=dev).manual_seed(43)
+    cases = [[T] for T in K6C_T] + [list(K6C_MIXED),
+                                    [K6C_MIXED[b % 8] for b in range(32)]]
+    for lanes in cases:
+        B = len(lanes)
+        kc, vc = (gpt.kv_view(c, 0) for c in kv8_cache(cfg, max(lanes), gen,
+                                                        batch=B))
+        n = lanes
+        if B == 1:
+            kc, vc, n = gpt.kv_view(kc, 0), gpt.kv_view(vc, 0), lanes[0]
+        q = torch.randn((sum(lanes), D), generator=gen, device=dev).to(dtype)
+        ctx = kv8.attn_prefill(cfg, q, kc, vc, n)
+        ref = kv8.attn_prefill_plain(cfg, q, kc, vc, n)
+        what = (f"T {lanes[0]}" if B == 1 else
+                f"{B} lanes, n_valid {min(lanes)}-{max(lanes)}")
+        if dtype == torch.bfloat16:
+            checks.record_close(K6C, name, f"context {what}", ctx, ref,
+                                K6C_RTOL, K6C_ATOL)
+        else:
+            checks.record(K6C, name, f"context {what}", max_err(ctx, ref))
+        if dtype == torch.bfloat16:
+            same_bits(f"{K6C} bf16 {what}", (ctx,),
+                      (kv8.attn_prefill(cfg, q, kc, vc, n),))
+        del kc, vc
+    if not timed:
+        return
+    for label, lanes in (("887", [887]), ("8 x 887", [887] * 8)):
+        B = len(lanes)
+        kq, vq = (gpt.kv_view(c, 0) for c in kv8_cache(cfg, 887, gen,
+                                                        batch=B))
+        n = lanes
+        if B == 1:
+            kq, vq, n = gpt.kv_view(kq, 0), gpt.kv_view(vq, 0), lanes[0]
+        kd, vd = ((c["q"].float() * c["s"][..., None]).to(dtype)
+                  for c in (kq, vq))
+        q = torch.randn((sum(lanes), D), generator=gen, device=dev).to(dtype)
+        tables = (None if B == 1 else
+                  kv8.attn_prefill_tables(lanes, cfg.block_size, dev))
+        rec = {}
+        for kv, kc, vc in (("int8", kq, vq), ("bf16", kd, vd)):
+            ms = device_ms(lambda: kv8.attn_prefill(cfg, q, kc, vc, n,
+                                                    tables=tables), 50)
+            plain = cuda_ms(lambda: kv8.attn_prefill_plain(cfg, q, kc, vc, n),
+                            3)
+            cost = attn_prefill_cost(D, lanes, 2, kv == "int8")
+            bound_ms, bound_by = bound(cost, name)
+            rec[kv] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                           bound_by=bound_by, bytes=cost[0], flops=cost[1])
+            log(f"  prefill attention alone, {kv} cache, {label} rows: "
+                f"{ms:.4f} ms (plain {plain:.3f} ms, bound {bound_ms:.4f} ms, "
+                f"{bound_by})")
+        checks.k6c[label] = dict(lanes=B, rows=lanes[0], **rec["int8"],
+                                 library_ms=None,
+                                 bf16_cache_attention=rec["bf16"])
+        del kq, vq, kd, vd
+
+
 def kv8_kernel_checks(checks: Checks, dtype, timed: bool):
     """Phase 2 for K6, one dtype: every kernel that reads or writes the
     int8 cache (K6a inside K1, K5 and K7; K6b and K6c inside K2 and K8;
     and K3, K4, K9, K10 over them) against its plain version on int8
     caches filled by the plain `gpt.quantize_kv_rows`, at bark-small
     shapes: K1 at n_past 0/300/1023 and 300 on the coarse window; K5 q4_0
-    at 300; K7 at B 1/8/32 with n_past cycling 0/300/1023; K2 at T 257
-    and 887 windowed; K8 over 8 and 32 lanes of 257-887 rows; K3 16 steps,
-    K4 60 steps, K9 16 steps of 8 and 32 lanes, K10 60 steps of 8 lanes
-    and 12 of 32 (tokens equal in f32; bf16 over one step only). First
-    K6a alone (`k6a_alone_checks`). The logits against TOL (TOL_KV8_FIRST
-    for lanes at n_past 0), the cache rows by `record_kv8_rows`. Timed in
-    bf16: K1, K5 and K7 at n_past 300, K2 at 887 rows, K8 over 8 x 887
-    rows."""
+    at 300; K7 at B 1/8/32 with n_past cycling 0/300/1023; K2 at T 257,
+    and 437, 617 and 887 windowed; K8 over 8 and 32 lanes of 257-887 rows; K3 16
+    steps, K4 60 steps, K9 16 steps of 8 and 32 lanes, K10 60 steps of 8
+    lanes and 12 of 32 (tokens equal in f32; bf16 over one step only).
+    First K6a and K6c alone (`k6a_alone_checks`, `k6c_alone_checks`). The
+    logits against TOL (TOL_KV8_FIRST for lanes at n_past 0), the cache
+    rows by `record_kv8_rows`. Timed in bf16: K1, K5 and K7 at n_past 300,
+    K2 at 887 rows, K8 over 8 x 887 rows."""
     import torch
 
     from bark_tpu_torch.kernels import _build
@@ -2093,6 +2260,7 @@ def kv8_kernel_checks(checks: Checks, dtype, timed: bool):
     svs, cbs = 10000, 1024
     lmw = (svs, svs + 2 * cbs)
     k6a_alone_checks(checks, dtype, timed)
+    k6c_alone_checks(checks, dtype, timed)
     sem_p = random_stage_params(sem_cfg, gen, dtype)
     coarse_p = random_stage_params(coarse_cfg, gen, dtype)
     sem_q = random_qpack(sem_cfg, "q4_0", dtype, gen, dev)
@@ -2180,15 +2348,17 @@ def kv8_kernel_checks(checks: Checks, dtype, timed: bool):
             del kc, vc
     torch.cuda.empty_cache()
 
-    # K2 (T 257; 887 windowed) and K8 (8 x 887, 32 lanes of 257-887)
-    mixed = (887, 257, 600, 431, 800, 350, 700, 500)
+    # K2 (T 257; 437, 617 and 887 windowed) and K8 (8 x 887, 32 lanes of
+    # 257-887)
+    mixed = K6C_MIXED
     for cfg, p, n_valid, win in (
-            (sem_cfg, sem_p, None, None), (coarse_cfg, coarse_p, None, lmw),
+            (sem_cfg, sem_p, 257, None), (coarse_cfg, coarse_p, 437, lmw),
+            (coarse_cfg, coarse_p, 617, lmw), (coarse_cfg, coarse_p, 887, lmw),
             (coarse_cfg, coarse_p, [887] * 8, lmw),
             (coarse_cfg, coarse_p, [mixed[b % 8] for b in range(32)], lmw)):
-        single = n_valid is None
+        single = isinstance(n_valid, int)
         if single:
-            n_valid = [887 if win else 257]
+            n_valid = [n_valid]
         B, T = len(n_valid), max(n_valid)
         x_emb = p["wte"][0][torch.randint(
             0, cfg.n_in_vocab, (B * T,), generator=gen, device=dev)].reshape(
@@ -2232,7 +2402,7 @@ def kv8_kernel_checks(checks: Checks, dtype, timed: bool):
             same_bits(f"{kname} bf16 {tag}", (out, kc, vc),
                       (again, kc3, vc3))
             del kc3, vc3
-        if timed and (single and win or n_valid == [887] * 8):
+        if timed and (single and T == 887 or n_valid == [887] * 8):
             ms = cuda_ms(run, 10 if single else 5)
             plain = cuda_ms(lambda: kbpre.prefill_batched_plain(
                 cfg, p, x_emb, kc2, vc2, n_valid, win), 1 if B > 1 else 3)
@@ -3717,7 +3887,8 @@ def main() -> int:
         k7_record = k7_step_record()
         log("phase 2b: the prefill profile (bf16, bark-small): K2 at T 257, "
             "437, 617 and 887 and K8 split by device kernel, one request's "
-            "8 prefills, the torch.matmul yardstick, the bf16 GEMM's SASS")
+            "8 prefills, the torch.matmul yardstick, the bf16 GEMM's SASS; "
+            "the same prefills on int8 caches (K6b, K6c)")
         prefill_record = prefill_phase(smi)
         log("phase 2d: the chunk and window record (bf16, bark-small): K3 "
             "and K4, dense and q4_0, one device kernel a call, beside K1's "
@@ -3961,6 +4132,17 @@ def main() -> int:
                     "device_kernels"],
                 us_a_step_over_k1=k3k4_record["dense"][part][
                     "us_a_step_over_step"])
+        if name in (K6_K2, K6_K8):
+            row["k6c_alone"] = checks.k6c["887" if name == K6_K2
+                                          else "8 x 887"]
+            row["k6c_alone_bf16_limit"] = dict(
+                rtol=K6C_RTOL, atol=K6C_ATOL,
+                max_abs_err=checks.errors[(K6C, "bfloat16")],
+                max_of_limit=checks.excess[(K6C, "bfloat16")])
+            split = (prefill_record["kv8"]["k2"]["887"] if name == K6_K2
+                     else prefill_record["kv8"]["k8"]["8 x 887"])
+            row.update(profile_ms=split["ms"], split_us=split["kinds"],
+                       device_kernels=split["events"])
         if name == "decode_step_fused":
             row.update(checks.k1_step)
         if name == f"{K5}[q4_0]":

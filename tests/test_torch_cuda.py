@@ -1210,6 +1210,44 @@ def test_bf16_batched_prefill_kernel(dev, bf16_params, n_valid, win, cache):
             _unwritten(a, (slice(None), b, slice(n, None)))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("lanes", [1, 63, 64, 65, 257, 887, 1024,
+                                   [887, 257, 600, 431, 1, 64, 65, 1024]])
+def test_kv8_attn_prefill_alone(dev, lanes, dtype):
+    """K6c alone (`kv8.attn_prefill`, one layer at bark-small's width)
+    against its plain version on the same rows: the context within
+    KV8_ATOL (f32), or in bf16 element by element within 2^-6 |plain| +
+    2e-3 (a couple of bf16 ulps: scores are bit-equal and weights and
+    context round at the same points), bf16 bit-equal run to run; on the
+    bf16 cache the dense attention against its plain version the same
+    way."""
+    cfg = dataclasses.replace(K1_CFG, n_layer=1)
+    one = isinstance(lanes, int)
+    ns = [lanes] if one else lanes
+    S, D = cfg.block_size, cfg.n_embd
+    g = torch.Generator(device=dev).manual_seed(len(ns) * 1000 + ns[0])
+    kc, vc = ({"q": torch.zeros((len(ns), S, D), dtype=torch.int8,
+                                device=dev),
+               "s": torch.zeros((len(ns), S), device=dev)} for _ in range(2))
+    for c in (kc, vc):
+        for b, n in enumerate(ns):
+            c["q"][b, :n], c["s"][b, :n] = gpt.quantize_kv_rows(
+                torch.randn((n, D), generator=g, device=dev))
+    if one:
+        kc, vc = ({k: v[0] for k, v in c.items()} for c in (kc, vc))
+    q = torch.randn((sum(ns), D), generator=g, device=dev).to(dtype)
+    rtol, atol = (0, KV8_ATOL) if dtype == torch.float32 else (2 ** -6, 2e-3)
+    for k, v in ((kc, vc), tuple((c["q"].float() * c["s"][..., None]).to(
+            dtype) for c in (kc, vc))):
+        out = kv8.attn_prefill(cfg, q, k, v, lanes)
+        ref = kv8.attn_prefill_plain(cfg, q, k, v, lanes)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                                   atol=atol)
+        if dtype == torch.bfloat16:
+            assert torch.equal(out, kv8.attn_prefill(cfg, q, k, v, lanes))
+
+
 def test_bf16_prefill_refuses_misaligned_weights(dev, bf16_params):
     """A projection weight the GEMM's tensor maps cannot read in place (not
     16-byte aligned) is refused before any launch."""
