@@ -31,6 +31,7 @@ _API_NAMES = {
     "bark_reset_statistics",
     "bark_free",
     "bark_model_quantize",
+    "bark_save_voice",
 }
 
 
@@ -40,4 +41,8 @@ def __getattr__(name):
         from bark_tpu_torch.api import context as _ctx
 
         return getattr(_ctx, name)
+    if name in ("VoicePreset", "load_voice_preset", "save_voice_preset"):
+        from bark_tpu_torch.pipeline import voice as _voice
+
+        return getattr(_voice, name)
     raise AttributeError(f"module 'bark_tpu_torch' has no attribute '{name}'")

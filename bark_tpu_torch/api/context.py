@@ -4,9 +4,9 @@ The counterpart of `bark_tpu.api.context` for the fused single-request
 path: `bark_load_model(path, params, seed, device)` -> BarkContext,
 `bark_generate_audio(ctx, text)`, `bark_get_audio_data(_size)`,
 `bark_get_load_time`, `bark_get_eval_time`, `bark_reset_statistics`,
-`bark_free`, `bark_model_quantize`. Text -> tokens -> semantic (K2 + K3)
--> coarse (K2 + K4 per window) -> fine -> EnCodec -> 24 kHz PCM, all on
-`device`.
+`bark_free`, `bark_model_quantize`, `bark_save_voice`. Text -> tokens ->
+semantic (K2 + K3) -> coarse (K2 + K4 per window) -> fine -> EnCodec ->
+24 kHz PCM, all on `device`.
 
 Packed-quantized serving: with `dequantize_on_load=False`, every GPT
 section of the file that is block-quantized in a packable format
@@ -40,13 +40,33 @@ Cold start: `BarkContext.warmup()` builds and loads the kernel library
 and launches every kernel of the context's configuration once, so the
 first request pays no first-use cost (`cli/precompile.py` runs it).
 
-Not ported yet: the stepped path and progress callbacks, streaming,
-long-form, voice presets, the server's batch worker.
+Sampling filters: `top_k` / `top_p` at temp > 0 make the semantic and
+coarse stages sample each token with `ops.sampling.sample` on the device
+and decode it with one launch of the single step (K1, K5, K7,
+K5-batched), as the JAX package leaves its chunk and window kernels for
+single steps (pipeline/semantic.py, pipeline/coarse.py).
+
+The stepped path: with `detailed_stats` or a `progress_callback`,
+`generate_audio` syncs the device at the end of every stage, and a
+callback is called after the semantic stage and, after a sync, after
+every coarse window and fine block, as the JAX package's
+`_generate_stepped` calls it; the programs are the fused path's, so the
+tokens are too. `profile_dir` wraps a request in a `torch.profiler` trace
+written under that directory.
+
+Voice presets (`pipeline.voice`, suno's .npz speaker files): `voice=` on
+`generate_audio` and `voices=` on `generate_audio_batch` feed the
+semantic, coarse and fine histories; `save_voice` keeps the last
+generation as a preset, and `voice.preset_from_audio` makes one from a
+waveform through the EnCodec encoder (`models.encodec.encode_audio`).
+
+Not ported yet: streaming, long-form, the CLIs and the server.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import time
 from typing import Optional
@@ -60,10 +80,11 @@ from bark_tpu_torch.kernels import bdecode as kbdec
 from bark_tpu_torch.models import encodec
 from bark_tpu_torch.models.config import CodecConfig
 from bark_tpu_torch.ops import sampling
-from bark_tpu_torch.params import BarkContextParams, Verbosity
+from bark_tpu_torch.params import BarkContextParams, EncodingStep, Verbosity
 from bark_tpu_torch.pipeline import coarse as coarse_pipe
 from bark_tpu_torch.pipeline import fine as fine_pipe
 from bark_tpu_torch.pipeline import semantic as semantic_pipe
+from bark_tpu_torch.pipeline import voice as voice_mod
 from bark_tpu_torch.text import tokenizer
 
 # codec frames are decoded in multiples of this (as bark_tpu does, where it
@@ -162,23 +183,6 @@ class BarkContext:
     def _finish_init(self, seed: int) -> None:
         self._validate()
         p = self.params
-        if p.top_k or p.top_p:
-            raise NotImplementedError(
-                "top_k/top_p sampling is not ported to bark_tpu_torch yet"
-            )
-        # the reference takes its stepped path for the first two and traces
-        # under the third; the port has only the fused path, which would
-        # ignore them
-        for name, unported in (
-                ("progress_callback", p.progress_callback is not None),
-                ("detailed_stats", p.detailed_stats),
-                ("profile_dir", p.profile_dir)):
-            if unported:
-                raise NotImplementedError(
-                    f"{name} is not ported to bark_tpu_torch yet: it needs "
-                    f"the stepped path (or its profiler trace), which is "
-                    f"not ported"
-                )
         if p.kv_cache_dtype not in ("params", "int8"):
             raise ValueError(f"kv_cache_dtype {p.kv_cache_dtype!r}: want "
                              f"'params' or 'int8'")
@@ -238,34 +242,41 @@ class BarkContext:
                     self.semantic_cfg, temp=p.temp,
                     max_steps=p.n_steps_text_encoder,
                     semantic_vocab_size=p.semantic_vocab_size,
-                    kv_quant=self.kv_quant,
+                    kv_quant=self.kv_quant, top_k=p.top_k, top_p=p.top_p,
                 )
             elif name == "coarse":
                 prog = coarse_pipe.make_coarse_stage_program(
-                    self.coarse_cfg, p,
-                    ctx_size=min(COARSE_CTX_SIZE, self.coarse_cfg.block_size),
-                    kv_quant=self.kv_quant,
-                )
+                    self.coarse_cfg, p, ctx_size=self._ctx_size(),
+                    kv_quant=self.kv_quant)
             else:
                 prog = fine_pipe.make_fine_stage_program(self.fine_cfg, p)
             self._programs[name] = prog
         return self._programs[name]
 
-    def _sync(self) -> None:
-        if self.params.stage_sync and self.device.type == "cuda":
+    def _ctx_size(self) -> int:
+        return min(COARSE_CTX_SIZE, self.coarse_cfg.block_size)
+
+    def _sync(self, force: bool = False) -> None:
+        if (force or self.params.stage_sync) and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------ pipeline
 
-    def generate_audio(self, text: str) -> bool:
+    def generate_audio(self, text: str, voice=None) -> bool:
         """Text -> 24 kHz waveform (bark_generate_audio,
         bark.cpp:2125-2172). Returns True on success; the audio is then
-        available through `get_audio_data`."""
+        available through `get_audio_data`. `voice`: a speaker preset (a
+        suno-format .npz path or a `pipeline.voice.VoicePreset`) whose
+        histories condition the three stages, or None for the reference's
+        empty history. With `detailed_stats` or a `progress_callback` the
+        stepped path runs; with `profile_dir` the request is traced."""
         p = self.params
+        preset = self._resolve_voice(voice)
         self.reset_statistics()
         t_start = time.perf_counter()
         prompt = tokenizer.tokenize_input(
-            self.vocab, text, p, block_size=self.semantic_cfg.block_size
+            self.vocab, text, p, block_size=self.semantic_cfg.block_size,
+            semantic_history=voice_mod.semantic_history_tokens(preset, p),
         )
         self.tokens = np.asarray(prompt, np.int32)
         if p.verbosity >= Verbosity.LOW:
@@ -276,23 +287,80 @@ class BarkContext:
                 f"{len(self.tokens)}, first 8 tokens: {head}",
                 file=sys.stderr,
             )
-        ok = self._generate(p)
+        hist = self._voice_args(preset)
+        if p.profile_dir:
+            with self._trace(p.profile_dir):
+                ok = self._generate(p, *hist)
+        else:
+            ok = self._generate(p, *hist)
         if ok:
             self.stats.t_eval_us += int((time.perf_counter() - t_start) * 1e6)
         return ok
 
-    def _generate(self, p: BarkContextParams) -> bool:
-        dev = self.device
+    def _trace(self, profile_dir: str):
+        """A torch.profiler session over one request (host ops, and the
+        device's kernels on CUDA), written as a Chrome trace
+        (`<host>_<pid>.<ms>.pt.trace.json`) under profile_dir on exit."""
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+
+        os.makedirs(profile_dir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        return profile(activities=acts,
+                       on_trace_ready=tensorboard_trace_handler(profile_dir))
+
+    def _semantic(self, p: BarkContextParams):
+        """The semantic stage of one request: (tokens on the device,
+        count)."""
+        noise = (None if p.temp == 0.0 else self.noise_source(
+            "semantic", (p.n_steps_text_encoder,
+                         self.semantic_cfg.n_out_vocab)))
+        return self._program("semantic")(
+            self.semantic_params,
+            torch.as_tensor(self.tokens, device=self.device), noise,
+            p.min_eos_p,
+        )
+
+    def _coarse_noise(self, count: int, lane=None):
+        """The coarse stage's (n_windows, sws, codebook_size) noise for
+        `count` semantic tokens (None at temp 0), from `noise_source`, or
+        from `lane_noise_source` for a batch lane."""
+        p = self.params
+        if p.temp == 0.0:
+            return None
+        shape = (coarse_pipe.coarse_schedule(count, p)[3],
+                 p.sliding_window_size, p.codebook_size)
+        if lane is None:
+            return self.noise_source("coarse", shape)
+        return self.lane_noise_source("coarse", lane, shape)
+
+    def _generate(self, p: BarkContextParams, sem_hist, coarse_hist,
+                  fine_hist) -> bool:
+        """Each stage one program on the device, nothing read back between
+        its windows or blocks. The stepped path (`detailed_stats` or a
+        `progress_callback`; bark_tpu's `_generate_stepped`) runs the same
+        programs: every stage timed to its end on the device, and the
+        callback after the semantic stage and after every coarse window
+        and fine block, each after a sync."""
+        stepped = p.detailed_stats or p.progress_callback is not None
+
+        def progress(step):
+            if p.progress_callback is None:
+                return None
+
+            def cb(percent):
+                self._sync(force=True)
+                self._progress(step, percent)
+            return cb
+
         # --- semantic: prefill (K2) + chunks (K3)
         t0 = time.perf_counter()
-        max_steps = p.n_steps_text_encoder
-        noise = (None if p.temp == 0.0 else self.noise_source(
-            "semantic", (max_steps, self.semantic_cfg.n_out_vocab)))
-        sem_out, count = self._program("semantic")(
-            self.semantic_params, torch.as_tensor(self.tokens, device=dev),
-            noise, p.min_eos_p,
-        )
-        self._sync()
+        self._progress(EncodingStep.SEMANTIC, 0)
+        sem_out, count = self._semantic(p)
+        self._sync(force=stepped)
+        self._progress(EncodingStep.SEMANTIC, 100)
         self.stats.t_semantic_us += int((time.perf_counter() - t0) * 1e6)
         if count == 0:
             print("bark_generate_audio: no semantic tokens generated",
@@ -301,21 +369,21 @@ class BarkContext:
 
         # --- coarse: per window, prefill (K2) + window (K4)
         t0 = time.perf_counter()
-        _, _, n_steps, n_windows = coarse_pipe.coarse_schedule(count, p)
-        noise = (None if p.temp == 0.0 else self.noise_source(
-            "coarse", (n_windows, p.sliding_window_size, p.codebook_size)))
         codes, n_steps = self._program("coarse")(
-            self.coarse_params, sem_out[:count], noise
+            self.coarse_params, sem_out[:count], self._coarse_noise(count),
+            sem_hist, coarse_hist, progress(EncodingStep.COARSE),
         )
-        self._sync()
+        self._sync(force=stepped)
         self.stats.t_coarse_us += int((time.perf_counter() - t0) * 1e6)
 
         # --- fine: plain PyTorch block refinement
         t0 = time.perf_counter()
         n_frames = n_steps // p.n_coarse_codebooks
-        fine_buf = self._program("fine")(self.fine_params, codes, n_frames,
-                                         self._fine_noise(n_frames))
-        self._sync()
+        fine_buf = self._program("fine")(
+            self.fine_params, codes, n_frames,
+            self._fine_noise(n_frames, n_hist=len(fine_hist)),
+            torch.from_numpy(fine_hist), progress(EncodingStep.FINE))
+        self._sync(force=stepped)
         self.stats.t_fine_us += int((time.perf_counter() - t0) * 1e6)
 
         audio = self._decode_codec(fine_buf, n_frames)
@@ -328,6 +396,29 @@ class BarkContext:
         self.stats.n_sample_fine += int(self.fine_tokens.size)
         return True
 
+    def _progress(self, step: EncodingStep, percent: int) -> None:
+        cb = self.params.progress_callback
+        if cb is not None:
+            cb(self, step, percent, self.params.progress_callback_user_data)
+
+    def _resolve_voice(self, voice):
+        """None | .npz path | VoicePreset -> a validated VoicePreset or
+        None."""
+        if voice is None:
+            return None
+        if isinstance(voice, str):
+            voice = voice_mod.load_voice_preset(voice)
+        voice.validate(self.params)
+        return voice
+
+    def _voice_args(self, preset):
+        """The histories a preset gives the coarse and fine stages (empty
+        for None): (coarse semantic history, offset-carrying coarse
+        history, (n_hist, n_fine) fine rows), numpy int32."""
+        p = self.params
+        sem_hist, coarse_hist = voice_mod.coarse_history(preset, p)
+        return sem_hist, coarse_hist, voice_mod.fine_history(preset, p)
+
     def generate_audio_batch(self, texts, voices=None) -> list:
         """Generate B utterances through one batched pipeline (the JAX
         package's `generate_audio_batch`, its server's batching path):
@@ -336,7 +427,10 @@ class BarkContext:
         fine stage and the codec per lane. Returns one f32 PCM array per
         prompt, in order (empty for a lane that generated no semantic
         token). Adds to the aggregate statistics; keeps no per-utterance
-        tokens.
+        tokens. `voices`: None, or one speaker preset (None, .npz path or
+        VoicePreset) per prompt, each conditioning its own lane. With
+        top-k or top-p the semantic and coarse steps run as single batched
+        steps (K7, K5-batched) in place of K9 and K10.
 
         Randomness: each lane takes the noise of the single-request path,
         drawn stage-major (every lane's semantic noise, then every lane's
@@ -347,7 +441,7 @@ class BarkContext:
         the port has nothing to compile and runs exactly B lanes.
 
         At most `bdecode.MAX_LANES` prompts, dense or packed-quantized
-        stages; voice presets are not ported to this path and raise."""
+        stages."""
         return [lane["audio"] for lane in self._generate_batch(texts, voices)]
 
     def _generate_batch(self, texts, voices=None) -> list:
@@ -363,14 +457,18 @@ class BarkContext:
         if B > kbdec.MAX_LANES:
             raise ValueError(f"generate_audio_batch takes at most "
                              f"{kbdec.MAX_LANES} prompts, got {B}")
-        if voices is not None:
-            raise NotImplementedError("voice presets are not ported yet")
+        if voices is not None and len(voices) != B:
+            raise ValueError(f"voices: want one per prompt ({B}), got "
+                             f"{len(voices)}")
+        presets = [self._resolve_voice(v) for v in voices or [None] * B]
+        hists = [self._voice_args(v) for v in presets]
         dev = self.device
         prompts = torch.as_tensor(np.stack([
             np.asarray(tokenizer.tokenize_input(
-                self.vocab, t, p, block_size=self.semantic_cfg.block_size),
+                self.vocab, t, p, block_size=self.semantic_cfg.block_size,
+                semantic_history=voice_mod.semantic_history_tokens(v, p)),
                 np.int32)
-            for t in texts]), device=dev)
+            for t, v in zip(texts, presets)]), device=dev)
 
         # --- semantic: one batched prefill (K8) + lockstep chunks (K9)
         t0 = time.perf_counter()
@@ -383,6 +481,7 @@ class BarkContext:
         sem_out, counts = semantic_pipe.make_semantic_program_batched(
             self.semantic_cfg, temp=p.temp, max_steps=p.n_steps_text_encoder,
             semantic_vocab_size=p.semantic_vocab_size, kv_quant=self.kv_quant,
+            top_k=p.top_k, top_p=p.top_p,
         )(self.semantic_params, prompts, noise, p.min_eos_p)
         del noise
         self._sync()
@@ -391,28 +490,28 @@ class BarkContext:
 
         # --- coarse: per shared window, K8 + K10 over the running lanes
         t0 = time.perf_counter()
-        noises = None
-        if p.temp != 0.0:
-            noises = [self.lane_noise_source("coarse", b, (
-                coarse_pipe.coarse_schedule(counts[b], p)[3],
-                p.sliding_window_size, p.codebook_size)) for b in live]
+        noises = [self._coarse_noise(counts[b], lane=b) for b in live]
         codes, n_steps = ([], []) if not live else \
             coarse_pipe.make_coarse_stage_program_batched(
-                self.coarse_cfg, p,
-                ctx_size=min(COARSE_CTX_SIZE, self.coarse_cfg.block_size),
+                self.coarse_cfg, p, ctx_size=self._ctx_size(),
                 kv_quant=self.kv_quant,
             )(self.coarse_params, [sem_out[b, :counts[b]] for b in live],
-              noises)
+              noises, [hists[b][0] for b in live],
+              [hists[b][1] for b in live])
         self._sync()
         self.stats.t_coarse_us += int((time.perf_counter() - t0) * 1e6)
 
         # --- fine and codec, per lane, on one dense copy of a qpack
         t0 = time.perf_counter()
         n_frames = [s // p.n_coarse_codebooks for s in n_steps]
-        noises = [self._fine_noise(n, lane=b) for b, n in zip(live, n_frames)]
         fine_params = loader.densify(self.fine_cfg, self.fine_params)
-        fine = [self._program("fine")(fine_params, c, n, z)
-                for c, n, z in zip(codes, n_frames, noises)]
+        fine = []
+        for b, c, n in zip(live, codes, n_frames):
+            fh = hists[b][2]
+            fine.append(self._program("fine")(
+                fine_params, c, n, self._fine_noise(n, lane=b,
+                                                    n_hist=len(fh)),
+                torch.from_numpy(fh)))
         self._sync()
         self.stats.t_fine_us += int((time.perf_counter() - t0) * 1e6)
         empty = np.zeros((0,), np.int32)
@@ -497,14 +596,15 @@ class BarkContext:
             torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
-    def _fine_noise(self, n_frames: int, lane=None):
+    def _fine_noise(self, n_frames: int, lane=None, n_hist: int = 0):
         """The fine stage's (n_loops, n_fine - n_coarse, block_size,
-        codebook_size) noise for n_frames (None at fine_temp 0), from
-        `noise_source`, or from `lane_noise_source` for a batch lane."""
+        codebook_size) noise for n_frames after n_hist history rows (None
+        at fine_temp 0), from `noise_source`, or from `lane_noise_source`
+        for a batch lane."""
         p = self.params
         if p.fine_temp == 0.0:
             return None
-        _, n_loops = fine_pipe.fine_schedule(n_frames,
+        _, n_loops = fine_pipe.fine_schedule(n_hist + n_frames,
                                              self.fine_cfg.block_size)
         shape = (n_loops, p.n_fine_codebooks - p.n_coarse_codebooks,
                  self.fine_cfg.block_size, p.codebook_size)
@@ -541,6 +641,17 @@ class BarkContext:
         return 0 if self.generated_audio is None else int(
             self.generated_audio.size)
 
+    def save_voice(self, path: str) -> None:
+        """Save the last generation's tokens as a suno-format voice preset
+        (.npz), suno's save_as_prompt: pass the file back as `voice=` to
+        keep the speaker."""
+        if self.semantic_tokens.size == 0 or self.fine_tokens.size == 0:
+            raise ValueError(
+                "save_voice: no finished generation in this context")
+        voice_mod.save_voice_preset(path, voice_mod.preset_from_generation(
+            self.semantic_tokens, self.coarse_tokens, self.fine_tokens,
+            self.params))
+
     def get_load_time(self) -> int:
         return self.stats.t_load_us
 
@@ -549,6 +660,20 @@ class BarkContext:
 
     def reset_statistics(self) -> None:
         self.stats = BarkStatistics(t_load_us=self.stats.t_load_us)
+
+    def print_statistics(self) -> None:
+        """Per-stage report, like bark_print_statistics
+        (bark.cpp:176-182)."""
+        s = self.stats
+        for name, t_us, n in (
+            ("semantic", s.t_semantic_us, s.n_sample_semantic),
+            ("coarse", s.t_coarse_us, s.n_sample_coarse),
+            ("fine", s.t_fine_us, s.n_sample_fine),
+        ):
+            per = t_us / 1000.0 / max(n, 1)
+            print(f"bark_tpu_torch: {name:>9} time = {t_us / 1000.0:8.2f} "
+                  f"ms / {n} tokens ({per:.2f} ms per token)",
+                  file=sys.stderr)
 
 
 # ---------------------------------------------------------------- functions
@@ -565,10 +690,15 @@ def bark_load_model(model_path: str,
     return ctx
 
 
-def bark_generate_audio(ctx: BarkContext, text: str,
-                        n_threads: int = 0) -> bool:
+def bark_generate_audio(ctx: BarkContext, text: str, n_threads: int = 0,
+                        voice=None) -> bool:
     del n_threads  # PyTorch and the kernels own threading
-    return ctx.generate_audio(text)
+    return ctx.generate_audio(text, voice=voice)
+
+
+def bark_save_voice(ctx: BarkContext, path: str) -> None:
+    """Keep the context's last generation as a voice preset (.npz)."""
+    ctx.save_voice(path)
 
 
 def bark_get_audio_data(ctx: BarkContext) -> Optional[np.ndarray]:

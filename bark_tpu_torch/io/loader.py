@@ -361,9 +361,10 @@ def _lstm(t, prefix: str):
 
 
 def codec_params_from_section(sec: CodecSection, device) -> Dict:
-    """The codec's decoder params (f32, as the JAX package keeps them) from
-    a parsed CodecSection: `bark_tpu.models.encodec.params_from_section`
-    without the encoder, which the text-to-audio path does not run."""
+    """The codec's params (f32, as the JAX package keeps them) from a
+    parsed CodecSection: `bark_tpu.models.encodec.params_from_section`.
+    The encoder, which only voice presets from audio run, loads when the
+    file holds it."""
     t = sec.tensors
     C0 = sec.hparams.n_filters * 2 ** len(RATIOS)
     embeds = []
@@ -408,12 +409,34 @@ def codec_params_from_section(sec: CodecSection, device) -> Dict:
             "conv_out_w": co_w, "conv_out_b": co_b,
         },
     }
+    if "encoder.model.0.conv.conv.weight" in t:
+        enc_stages = []
+        C = sec.hparams.n_filters
+        for i in range(len(RATIOS)):
+            res_idx = 1 + 3 * i
+            stage = res_unit(f"encoder.model.{res_idx}", C)
+            dw, db = _conv(t, f"encoder.model.{res_idx + 2}.conv.conv",
+                           2 * C, C)
+            stage.update({"down_w": dw, "down_b": db})
+            enc_stages.append(stage)
+            C *= 2
+        ei_w, ei_b = _conv(t, "encoder.model.0.conv.conv",
+                           sec.hparams.n_filters, sec.hparams.in_channels)
+        eo_w, eo_b = _conv(t, "encoder.model.15.conv.conv",
+                           sec.hparams.hidden_dim, C)
+        tree["encoder"] = {
+            "conv_in_w": ei_w, "conv_in_b": ei_b,
+            "stages": enc_stages,
+            "lstm": _lstm(t, "encoder.model.13"),
+            "conv_out_w": eo_w, "conv_out_b": eo_b,
+        }
     return params_from_numpy(tree, torch.float32, device)
 
 
-def codec_shapes(cfg: CodecConfig) -> Dict:
-    """The decoder params tree of shapes (tuples), as
-    `bark_tpu.models.encodec.init_params` lays it out."""
+def codec_shapes(cfg: CodecConfig, with_encoder: bool = False) -> Dict:
+    """The codec params tree of shapes (tuples), as
+    `bark_tpu.models.encodec.init_params` lays it out (with the encoder
+    when `with_encoder`)."""
     def res_unit(dim):
         return {
             "block1_w": (dim // 2, dim, cfg.residual_kernel_size),
@@ -437,7 +460,7 @@ def codec_shapes(cfg: CodecConfig) -> Dict:
          "b_ih": (4 * C0,), "b_hh": (4 * C0,)}
         for _ in range(2)
     ]
-    return {
+    tree = {
         "quantizer": (cfg.n_q_total, cfg.n_bins, cfg.hidden_dim),
         "decoder": {
             "conv_in_w": (C0, cfg.hidden_dim, cfg.kernel_size),
@@ -448,14 +471,34 @@ def codec_shapes(cfg: CodecConfig) -> Dict:
             "conv_out_b": (1,),
         },
     }
+    if with_encoder:
+        C = cfg.n_filters
+        enc_stages = []
+        for r in reversed(RATIOS):
+            stage = res_unit(C)
+            stage.update({"down_w": (2 * C, C, 2 * r), "down_b": (2 * C,)})
+            enc_stages.append(stage)
+            C *= 2
+        tree["encoder"] = {
+            "conv_in_w": (cfg.n_filters, cfg.in_channels, cfg.kernel_size),
+            "conv_in_b": (cfg.n_filters,),
+            "stages": enc_stages,
+            "lstm": [{"w_ih": (4 * C, C), "w_hh": (4 * C, C),
+                      "b_ih": (4 * C,), "b_hh": (4 * C,)}
+                     for _ in range(2)],
+            "conv_out_w": (cfg.hidden_dim, C, cfg.kernel_size),
+            "conv_out_b": (cfg.hidden_dim,),
+        }
+    return tree
 
 
 def codec_init_params_numpy(cfg: CodecConfig, seed: int,
-                            scale: float = 0.05) -> Dict:
+                            scale: float = 0.05,
+                            with_encoder: bool = False) -> Dict:
     """Random f32 codec params, array for array the same draws as
-    `bark_tpu.models.encodec.init_params_host` (no encoder): one
-    RandomState(seed), drawn in JAX's pytree order (dict keys sorted,
-    lists in order)."""
+    `bark_tpu.models.encodec.init_params_host` (with the encoder when
+    `with_encoder`): one RandomState(seed), drawn in JAX's pytree order
+    (dict keys sorted, lists in order)."""
     rng = np.random.RandomState(seed)
 
     def fill(node):
@@ -466,4 +509,4 @@ def codec_init_params_numpy(cfg: CodecConfig, seed: int,
             return [fill(v) for v in node]
         return (rng.randn(*node) * scale).astype(np.float32)
 
-    return fill(codec_shapes(cfg))
+    return fill(codec_shapes(cfg, with_encoder))

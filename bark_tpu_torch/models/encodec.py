@@ -1,7 +1,8 @@
-"""EnCodec 24 kHz decode path (RVQ codebook sum + SEANet decoder) in plain
-PyTorch.
+"""EnCodec 24 kHz in plain PyTorch, f32: the decode path (RVQ codebook sum
++ SEANet decoder) and the compression path (SEANet encoder + greedy RVQ),
+which voice presets from audio run (`pipeline.voice.preset_from_audio`).
 
-The counterpart of the decode half of `bark_tpu.models.encodec`, with its
+The counterpart of `bark_tpu.models.encodec`, with its
 layouts at every public function: activations are (T, C), conv weights
 keep torch's (Cout, Cin, K) and transposed-conv weights (Cin, Cout, K).
 Inside, each op moves to torch's (1, C, T) layout for `F.conv1d`,
@@ -103,6 +104,21 @@ def rvq_decode(codebooks, codes):
     return gathered.sum(dim=1)
 
 
+def rvq_encode(codebooks, latent, n_q: int):
+    """Greedy residual VQ: latent (T, dim) -> codes (T, n_q) int32; each
+    book takes the nearest embedding (squared distance, ties to the lowest
+    index) to what the earlier books left."""
+    residual, codes = latent.float(), []
+    for embed in codebooks[:n_q]:
+        d = ((residual ** 2).sum(dim=1, keepdim=True)
+             - 2.0 * residual @ embed.T
+             + (embed ** 2).sum(dim=1)[None, :])
+        idx = torch.argmin(d, dim=1)
+        residual = residual - embed[idx]
+        codes.append(idx)
+    return torch.stack(codes, dim=1).to(torch.int32)
+
+
 def decoder_forward(params, latent):
     """latent (T, hidden_dim) -> mono PCM (T * 320,) f32."""
     dec = params["decoder"]
@@ -117,6 +133,30 @@ def decoder_forward(params, latent):
     return x[:, 0].float()
 
 
+def encoder_forward(params, audio):
+    """mono PCM (T,) -> latent (T // 320, hidden_dim)."""
+    enc = params["encoder"]
+    x = causal_conv1d(audio[:, None], enc["conv_in_w"], enc["conv_in_b"])
+    for stage, r in zip(enc["stages"], reversed(RATIOS)):
+        x = _residual_unit(x, stage)
+        x = F.elu(x)
+        x = causal_conv1d(x, stage["down_w"], stage["down_b"], stride=r)
+    x = lstm_stack(x, enc["lstm"])
+    x = F.elu(x)
+    return causal_conv1d(x, enc["conv_out_w"], enc["conv_out_b"])
+
+
 def decode_codes(params, codes):
     """codes (T, n_q) int -> PCM (T*320,) f32. The text-to-audio path."""
     return decoder_forward(params, rvq_decode(params["quantizer"], codes))
+
+
+def encode_audio(params, audio, n_q: int):
+    """PCM (T,) f32 -> codes (T // 320, n_q) int32. The compression path;
+    the params need the encoder (`io.loader` loads it when the file has
+    it)."""
+    if "encoder" not in params:
+        raise ValueError("encode_audio: these codec params have no encoder "
+                         "(the model file holds none)")
+    latent = encoder_forward(params, audio.float())
+    return rvq_encode(params["quantizer"], latent, n_q)

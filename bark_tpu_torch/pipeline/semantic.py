@@ -14,6 +14,15 @@ decodes from the qpack (its step loop then runs K5's packed read). The
 host reads the K stop flags once per chunk and appends the tokens before
 the first stop, exactly as the JAX package's chunked loop does; step g
 uses noise row g, as the stepped JAX loop uses key subs[g].
+
+With top-k or top-p filtering at temp > 0 the JAX package leaves its
+chunk kernel for a loop of single steps with the sampler in XLA, and so
+does the port: each token is sampled by `ops.sampling.sample` on the
+device and decoded by one launch of the single step (K1, K5 on a qpack;
+K7 and K5-batched for a batch), and the host reads one stop flag per step.
+The stop step still decodes (its row is never read), at the clamped slot
+min(257 + count - 1, block_size - 1) of the JAX loop. At temp 0 the
+filters do nothing and the chunks run as above.
 """
 
 from __future__ import annotations
@@ -21,23 +30,35 @@ from __future__ import annotations
 import torch
 
 from bark_tpu_torch.io import loader
+from bark_tpu_torch.kernels import _build
+from bark_tpu_torch.kernels import bdecode as kbdec
 from bark_tpu_torch.kernels import bprefill as kbpre
 from bark_tpu_torch.kernels import bsemantic as kbsem
+from bark_tpu_torch.kernels import decode as kdec
 from bark_tpu_torch.kernels import prefill as kpre
 from bark_tpu_torch.kernels import semantic as ksem
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
+from bark_tpu_torch.ops import sampling
 
 PROMPT_ROWS = 257  # merged 513-token prompt: 256 text+history rows + infer
 CHUNK = 16  # steps per K3 call (bark_tpu.kernels.semantic.chunk_size)
 
 
+def filtered(temp: float, top_k: int, top_p: float) -> bool:
+    """Whether a stage samples through the filtered single-step loop."""
+    return temp != 0.0 and bool(top_k or top_p)
+
+
 def make_semantic_program(cfg: GPTConfig, *, temp: float, max_steps: int,
-                          semantic_vocab_size: int, kv_quant: bool = False):
+                          semantic_vocab_size: int, kv_quant: bool = False,
+                          top_k: int = 0, top_p: float = 0.0):
     """fn(params, tokens513 (513,) int tensor, noise (max_steps,
     n_out_vocab) f32 or None at temp 0, min_eos_p) -> (tokens (max_steps,)
     int32 on the params' device, n_generated int). kv_quant: the int8 KV
-    cache (`gpt.init_kv_cache(quant=True)`)."""
+    cache (`gpt.init_kv_cache(quant=True)`). top_k / top_p: the filters
+    (0 turns either off)."""
+    steps = filtered(temp, top_k, top_p)
 
     def run(params, tokens513, noise, min_eos_p: float):
         dtype, device = params["wpe"].dtype, params["wpe"].device
@@ -47,7 +68,20 @@ def make_semantic_program(cfg: GPTConfig, *, temp: float, max_steps: int,
         logits = kpre.prefill_fused(cfg, dense, x_emb, kc, vc, PROMPT_ROWS)
         out = torch.zeros((max_steps,), dtype=torch.int32, device=device)
         count = 0
-        while count < max_steps:
+        while steps and count < max_steps:
+            tok, eos_p = sampling.sample(logits, temp, noise[count], top_k,
+                                         top_p)
+            stop = bool((tok == semantic_vocab_size)
+                        | (eos_p >= min_eos_p))
+            if not stop:
+                out[count] = tok
+                count += 1
+            logits = kdec.decode_step_fused(
+                cfg, params, tok, kc, vc,
+                min(PROMPT_ROWS + count - 1, cfg.block_size - 1))
+            if stop:
+                return out, count
+        while not steps and count < max_steps:
             toks, flags, logits = ksem.semantic_chunk_fused(
                 cfg, params, logits, kc, vc, PROMPT_ROWS, count, noise,
                 min_eos_p, K=CHUNK, temp=temp,
@@ -67,7 +101,8 @@ def make_semantic_program(cfg: GPTConfig, *, temp: float, max_steps: int,
 
 def make_semantic_program_batched(cfg: GPTConfig, *, temp: float,
                                   max_steps: int, semantic_vocab_size: int,
-                                  kv_quant: bool = False):
+                                  kv_quant: bool = False, top_k: int = 0,
+                                  top_p: float = 0.0):
     """The counterpart of `bark_tpu.pipeline.semantic.
     make_semantic_program_batched`: B lanes through one K8 prefill of
     B x 257 rows, then K9 chunks of CHUNK steps in lockstep until every
@@ -83,7 +118,15 @@ def make_semantic_program_batched(cfg: GPTConfig, *, temp: float,
     kernel; its later tokens land past its count and are zeroed. A qpack
     is densified once per call, as in `make_semantic_program`: the prompt
     embedding and K8 read the dense copy, K9 decodes from the qpack (its
-    K7 steps are then K5-batched)."""
+    K7 steps are then K5-batched).
+
+    With the filters (`filtered`), every step samples the B lanes in one
+    `ops.sampling.sample` call and decodes them in one launch of K7's
+    step (K5-batched's on a qpack), as the JAX package's stepped batched
+    loop does: the host reads the B stop flags of each step; a stopped
+    lane keeps stepping in lockstep at its frozen count (its noise row and
+    slot), and its later tokens are discarded."""
+    steps = filtered(temp, top_k, top_p)
 
     def run(params, tokens513, noise, min_eos_p: float):
         dtype, device = params["wpe"].dtype, params["wpe"].device
@@ -94,8 +137,25 @@ def make_semantic_program_batched(cfg: GPTConfig, *, temp: float,
                                     quant=kv_quant)
         logits = kbpre.prefill_fused_batched(cfg, dense, x_emb.contiguous(),
                                              kc, vc, [PROMPT_ROWS] * B)
-        chunks, counts, done, g0 = [], [0] * B, [False] * B, 0
-        while not all(done) and g0 < max_steps:
+        chunks, counts, done, g0 = [], [0] * B, [max_steps == 0] * B, 0
+        lanes = torch.arange(B, device=device)
+        while steps and not all(done):
+            rows = _build.device_ints([min(c, max_steps - 1)
+                                       for c in counts], device)
+            toks, eos_p = sampling.sample(logits, temp, noise[lanes, rows],
+                                          top_k, top_p)
+            stops = ((toks == semantic_vocab_size)
+                     | (eos_p >= min_eos_p)).tolist()
+            chunks.append(toks.to(torch.int32)[:, None])
+            for b in range(B):
+                if not done[b] and not stops[b]:
+                    counts[b] += 1
+                done[b] = done[b] or stops[b] or counts[b] >= max_steps
+            logits = kbdec.decode_step_fused_batched(
+                cfg, params, toks, kc, vc,
+                [min(PROMPT_ROWS + c - 1, cfg.block_size - 1)
+                 for c in counts])
+        while not steps and not all(done) and g0 < max_steps:
             toks, flags, logits = kbsem.semantic_chunk_fused_batched(
                 cfg, params, logits, kc, vc, PROMPT_ROWS, g0, noise,
                 min_eos_p, K=CHUNK, temp=temp,

@@ -70,7 +70,11 @@ Phases, each fatal on failure (exit code 1, and no result lines):
   3. check a small model end to end against the port's plain CPU run with
      the same noise (tokens exact, audio within tolerance), TF32 still off:
      dense weights given as parts, then the same model written to a
-     ggml_weights.bin, quantized to q8_0 and loaded packed;
+     ggml_weights.bin, quantized to q8_0 and loaded packed; then the
+     options (`small_model_options_reference`): top-k/top-p requests
+     (dense, the q8_0 file packed, the int8 cache) and a filtered batch,
+     the stepped path, a voice request and a voiced batch, and the EnCodec
+     encoder of a small codec (latent within 1e-4, codes equal);
   4. answer 3 bark_generate_audio requests on bark-small with random bf16
      weights, different prompts and seeds, at PyTorch's default precision
      settings; check the audio and that every kernel was launched by them,
@@ -100,6 +104,22 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      that no plain version ran,
      and print the throughput and RTF per request beside phase 4c's dense
      numbers;
+  4f. the options of generate_audio and generate_audio_batch on
+     bark-small (`options_phase`): top_k 50 / top_p 0.95 requests at temp
+     0.7 (dense, on the int8 cache, on q4_0 qpacks), each sampled token
+     one launch of the single step (K1, K6 in K1, K5) and no step loop;
+     a filtered batch of 8, each step of its lanes one launch of K7's
+     step; the stepped path with a progress callback (each stage rising
+     to 100, each window one K2 and one K4 launch), bit-equal to the fused
+     request with the same noise; a voice request from
+     `preset_from_generation` of the first request and a batch of 8 with
+     per-lane voices; `preset_from_audio` on its waveform through the
+     encoder on the card and a request with that preset; a profile_dir
+     request in a fresh process, whose trace must hold the request's
+     device kernels. Every sampled step's logits and noise must lie on
+     the card, and no plain version may run; the times print beside the
+     card's name and power limit (the `options` entry of the results
+     line);
   5. the weight-stream probe (`bark_tpu_torch.probes.dma`, D1-D5, the
      port of tools/tpu_dma_probe.py) at 256 MB a pass: D1, D2, D5 and D3
      (G 2, 4) over load method x stage size (8/16/32 KB) x ring (2/3/4,
@@ -179,7 +199,7 @@ P1-P9 at the reference's shapes, seeded inputs and bark-small sizes
 (`lowering_kernel_checks`; data movement bit-equal, P8's rows outside
 its window untouched).
 
-Each path of phases 4, 4b, 4c, 4d, 4e, 5, 5b and 5c is driven with the launch
+Each path of phases 4, 4b, 4c, 4d, 4e, 4f, 5, 5b and 5c is driven with the launch
 counts set to 0 just before it and read just after. A kernel's bound is
 the least time the card could take for the same work: the bytes it must
 move (each input read once, each output written once) at 3.35 TB/s, or
@@ -3010,6 +3030,528 @@ def log_requests(label, results):
             f"{r['audio_s']:.3f} s of audio")
 
 
+# ------------------------------------------------------------ phase 4f
+
+# the filtered requests' sampler on bark-small, and the small model's
+# (whose 16-token semantic vocab and 8-code books a top_k of 50 would not
+# filter)
+FILTERS = dict(top_k=50, top_p=0.95)
+SMALL_FILTERS = dict(top_k=5, top_p=0.8)
+MAX_STEPS = 138  # bench.py's semantic depth
+
+
+@contextlib.contextmanager
+def on_card_only():
+    """Count the sampled steps of `ops.sampling.sample` and fail at once
+    if one's logits or noise lie on the CPU; and count the plain
+    references' calls (`counted_plain_calls`), which run only for CPU
+    tensors: the caller requires none."""
+    from bark_tpu_torch.ops import sampling
+
+    real = sampling.sample
+    seen = {"sampled": 0}
+
+    def sample(logits, temp, noise=None, top_k=0, top_p=0.0):
+        if not logits.is_cuda or (noise is not None and not noise.is_cuda):
+            raise AssertionError("a sampled step's logits or noise lie on "
+                                 "the CPU")
+        seen["sampled"] += 1
+        return real(logits, temp, noise, top_k, top_p)
+
+    sampling.sample = sample
+    try:
+        with counted_plain_calls() as plain:
+            yield seen, plain
+    finally:
+        sampling.sample = real
+
+
+def loop_launches() -> dict:
+    """Launches of the four step loops (K3/K4 dense and packed, K9/K10
+    dense and packed), apart from the steps' own."""
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import decode as kdec
+    from bark_tpu_torch.kernels import qbdecode as kqb
+    from bark_tpu_torch.kernels import qdecode as kq
+
+    return dict(decode=kdec.loop_launches, qdecode=kq.loop_launches,
+                bdecode=kbdec.loop_launches, qbdecode=kqb.loop_launches)
+
+
+def option_run(stages, codec, label: str, seed: int, run, **kw):
+    """Phase 4f: one request or batch (`run(ctx)`) on bark-small at
+    bench.py's depth (138 semantic steps, the EOS-probability stop off,
+    PyTorch's default precision) with the params `kw`, driven with the
+    launch counts set to 0 just before and read just after, no tensor of
+    the sampler on the CPU and no plain version run. Returns (ctx, run's
+    result, counts, loop launches, sampled steps, wall seconds)."""
+    import torch
+
+    import bark_tpu_torch as bt
+    from bark_tpu_torch import kernels
+    from bark_tpu_torch.models.presets import ENCODEC_24KHZ
+
+    ctx = bt.BarkContext.from_parts(
+        vocab_tokens=VOCAB, semantic=stages["semantic"],
+        coarse=stages["coarse"], fine=stages["fine"],
+        codec_cfg=ENCODEC_24KHZ, codec_params=codec,
+        params=bt.BarkContextParams(
+            compute_dtype="bfloat16", n_steps_text_encoder=MAX_STEPS,
+            min_eos_p=2.0, stage_sync=True, **kw),
+        seed=seed, device=torch.device("cuda"))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with on_card_only() as (seen, plain):
+        out = run(ctx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, loops = kernels.launch_counts(), loop_launches()
+    if any(plain.values()):
+        raise AssertionError(f"{label}: a plain version ran: {plain}")
+    log(f"  {label}: {wall:.3f} s, kernel launches {counts}, loops "
+        f"{loops}, sampled steps {seen['sampled']}")
+    return ctx, out, counts, loops, seen["sampled"], wall
+
+
+def request_result(ctx, label: str, wall: float) -> dict:
+    """A single request's audio checked and its times."""
+    import numpy as np
+
+    audio = ctx.get_audio_data()
+    n_frames = ctx.fine_tokens.shape[0]
+    if audio is None or audio.shape != (n_frames * 320,) or \
+            not np.isfinite(audio).all():
+        raise AssertionError(f"{label}: audio "
+                             f"{None if audio is None else audio.shape}")
+    s = ctx.stats
+    return dict(label=label, semantic_tokens=int(ctx.semantic_tokens.size),
+                coarse_steps=int(ctx.coarse_tokens.size), frames=n_frames,
+                audio_s=audio.size / 24000, eval_s=s.t_eval_us / 1e6,
+                wall_s=wall, semantic_s=s.t_semantic_us / 1e6,
+                coarse_s=s.t_coarse_us / 1e6, fine_s=s.t_fine_us / 1e6)
+
+
+def semantic_steps(count: int) -> int:
+    """Steps the semantic loop ran for `count` tokens: a stop step decodes
+    too (the JAX package's loop)."""
+    return count + (count < MAX_STEPS)
+
+
+def expect(label: str, got: dict, want: dict) -> None:
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad:
+        raise AssertionError(f"{label}: launches (got, want) {bad}")
+
+
+def filtered_request(stages, codec, label: str, packed=False, kv8=False):
+    """A filtered request (top_k 50, top_p 0.95, temp 0.7): every sampled
+    token is one launch of the single step (K1, or K5 when `packed`; K6
+    inside it when `kv8`), the prompt and each window one K2, and no step
+    loop runs."""
+    from bark_tpu_torch.pipeline import coarse as coarse_pipe
+
+    ctx, _, counts, loops, sampled, wall = option_run(
+        stages, codec, label, 1,
+        lambda c: c.generate_audio(PROMPTS[0]), temp=0.7,
+        kv_cache_dtype="int8" if kv8 else "params", **FILTERS)
+    count = int(ctx.semantic_tokens.size)
+    n_windows = coarse_pipe.coarse_schedule(count, ctx.params)[3]
+    steps = semantic_steps(count) + n_windows * ctx.params.sliding_window_size
+    step, other = ("qdecode", "decode") if packed else ("decode", "qdecode")
+    want = {step: steps, other: 0, "prefill": 1 + n_windows, "semantic": 0,
+            "window": 0, "bdecode": 0, "qbdecode": 0, "bprefill": 0}
+    if kv8:
+        want["kv8"] = steps + 1 + n_windows
+    expect(label, counts, want)
+    if sampled != steps or any(loops.values()):
+        raise AssertionError(f"{label}: {sampled} sampled steps for {steps} "
+                             f"launches, loops {loops}")
+    r = request_result(ctx, label, wall)
+    r.update(launches=counts, steps=steps)
+    return ctx, r
+
+
+def filtered_batch(stages, codec, B: int):
+    """A filtered batch of B: every step of the B lanes one launch of
+    K7's step (the semantic stage's until the last lane stops, then each
+    shared window's 60), each prompt block and window one K8, no loop."""
+    from bark_tpu_torch.pipeline import coarse as coarse_pipe
+
+    texts = [PROMPTS[b % len(PROMPTS)] for b in range(B)]
+    label = f"filtered batch of {B}"
+    ctx, outs, counts, loops, sampled, wall = option_run(
+        stages, codec, label, 100 + B, lambda c: c._generate_batch(texts),
+        temp=0.7, **FILTERS)
+    lane_counts = [int(o["semantic"].size) for o in outs]
+    n_win = max(coarse_pipe.coarse_schedule(c, ctx.params)[3]
+                for c in lane_counts)
+    steps = max(semantic_steps(c) for c in lane_counts) + 60 * n_win
+    expect(label, counts, {"bdecode": steps, "bprefill": 1 + n_win,
+                           "bsemantic": 0, "bwindow": 0, "qbdecode": 0,
+                           "decode": 0, "qdecode": 0, "prefill": 0})
+    if sampled != steps or any(loops.values()):
+        raise AssertionError(f"{label}: {sampled} sampled steps, loops "
+                             f"{loops}")
+    audio_s = sum(o["audio"].size for o in outs) / 24000
+    return dict(B=B, steps=steps, semantic_tokens=lane_counts,
+                audio_s=audio_s, eval_s=ctx.stats.t_eval_us / 1e6,
+                wall_s=wall, launches=counts)
+
+
+def stepped_request(stages, codec):
+    """The stepped path with a progress callback, beside the fused request
+    with the same seed (so the same noise): tokens bit-equal; each stage's
+    percentages rise to 100; each window one K2 and one launch of the
+    step loop (K4), each semantic chunk one (K3)."""
+    import numpy as np
+
+    from bark_tpu_torch.pipeline import coarse as coarse_pipe
+    from bark_tpu_torch.pipeline import fine as fine_pipe
+
+    fused, _, _, _, _, fused_wall = option_run(
+        stages, codec, "fused request", 2,
+        lambda c: c.generate_audio(PROMPTS[1]))
+    calls = []
+    ctx, _, counts, loops, _, wall = option_run(
+        stages, codec, "stepped request", 2,
+        lambda c: c.generate_audio(PROMPTS[1]),
+        progress_callback=lambda c, step, pc, ud: calls.append(
+            (int(step), pc)))
+    for name in ("semantic_tokens", "coarse_tokens", "fine_tokens"):
+        if not np.array_equal(getattr(ctx, name), getattr(fused, name)):
+            raise AssertionError(f"stepped request: {name} differ from the "
+                                 f"fused request's")
+    if not np.array_equal(ctx.get_audio_data(), fused.get_audio_data()):
+        raise AssertionError("stepped request: audio differs from fused")
+    count = int(ctx.semantic_tokens.size)
+    n_windows = coarse_pipe.coarse_schedule(count, ctx.params)[3]
+    n_blocks = fine_pipe.fine_schedule(ctx.fine_tokens.shape[0], 1024)[1]
+    chunks = -(-semantic_steps(count) // 16)
+    for step, n in ((0, 2), (1, n_windows), (2, n_blocks)):
+        pcs = [pc for s, pc in calls if s == step]
+        if len(pcs) != n or pcs != sorted(pcs) or pcs[-1] != 100:
+            raise AssertionError(f"stepped request: stage {step} progress "
+                                 f"{pcs}, want {n} rising to 100")
+    expect("stepped request", counts, {
+        "semantic": chunks, "window": n_windows, "prefill": 1 + n_windows,
+        "decode": 0, "qdecode": 0})
+    if loops["decode"] != chunks + n_windows:
+        raise AssertionError(f"stepped request: loops {loops}")
+    r = request_result(ctx, "stepped", wall)
+    r.update(launches=counts, progress=calls, fused_wall_s=fused_wall,
+             fused_eval_s=fused.stats.t_eval_us / 1e6)
+    return r
+
+
+def profile_child(trace_dir: str) -> int:
+    """Phase 4f's fresh process: bark-small (random bf16, seed 0), a
+    warm-up request without a profiler (the kernels' first use), then one
+    request with profile_dir=trace_dir, the first torch.profiler session
+    of the process; prints one `profile_child` JSON line with its launches
+    and seconds."""
+    import torch
+
+    import bark_tpu_torch as bt
+    from bark_tpu_torch import kernels
+    from bark_tpu_torch.io import loader
+    from bark_tpu_torch.models.presets import ENCODEC_24KHZ
+
+    dev = torch.device("cuda")
+    stages = bark_small_stages()
+    codec = loader.params_from_numpy(
+        loader.codec_init_params_numpy(ENCODEC_24KHZ, 3), torch.float32, dev)
+    out = {}
+    for pdir in (None, trace_dir):
+        ctx = bt.BarkContext.from_parts(
+            vocab_tokens=VOCAB, semantic=stages["semantic"],
+            coarse=stages["coarse"], fine=stages["fine"],
+            codec_cfg=ENCODEC_24KHZ, codec_params=codec,
+            params=bt.BarkContextParams(
+                compute_dtype="bfloat16", n_steps_text_encoder=MAX_STEPS,
+                min_eos_p=2.0, stage_sync=True, profile_dir=pdir),
+            seed=1, device=dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if not ctx.generate_audio(PROMPTS[0]):
+            raise AssertionError("profiled request produced no audio")
+        out = dict(wall_s=time.perf_counter() - t0,
+                   eval_s=ctx.stats.t_eval_us / 1e6,
+                   launches=kernels.launch_counts())
+    print(json.dumps({"profile_child": out}), flush=True)
+    return 0
+
+
+def profiled_request(smi: str) -> dict:
+    """A profile_dir request in a fresh process (`profile_child`), run
+    once: its trace must hold one device kernel of the step loop (K3, K4)
+    for each chunk and window the request launched, and the prefill GEMMs
+    (K2)."""
+    import shutil
+
+    trace_dir = os.path.join(OUT_DIR, "profile_dir")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    child = json_line(run_child("profile_dir request", [
+        sys.executable, "-c",
+        f"import sys, chip_smoke; sys.exit(chip_smoke.profile_child("
+        f"{trace_dir!r}))"]), "profile_child")
+    names = sorted(os.listdir(trace_dir))
+    if len(names) != 1 or not names[0].endswith(".pt.trace.json"):
+        raise AssertionError(f"profile_dir holds {names}")
+    path = os.path.join(trace_dir, names[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    size = os.path.getsize(path)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    loop = sum(1 for k in kernels if "decode_steps_kernel" in k)
+    gemm = sum(1 for k in kernels if "gemm_tma_kernel" in k)
+    launches = child["launches"]
+    launched = launches["semantic"] + launches["window"]
+    if loop != launched or gemm < launches["prefill"] or not launched:
+        raise AssertionError(f"the profile_dir trace lacks the request's "
+                             f"kernels: {len(kernels)} device kernels, "
+                             f"{loop} of the step loop for {launched} "
+                             f"launched, {gemm} GEMMs for "
+                             f"{launches['prefill']} prefills")
+    log(f"  profile_dir request: trace of {size} bytes, {len(kernels)} "
+        f"device kernels, {loop} of the step loop for {launched} launched, "
+        f"{gemm} prefill GEMMs; eval {child['eval_s']:.3f} s on {smi}")
+    return dict(trace_bytes=size, device_kernels=len(kernels),
+                step_loop_kernels=loop, launched_loops=launched,
+                gemm_kernels=gemm, eval_s=child["eval_s"],
+                wall_s=child["wall_s"], launches=launches)
+
+
+def voice_requests(stages, codec, source_ctx):
+    """A voice request from `preset_from_generation` of `source_ctx`, and
+    a batch of 8 with per-lane voices (that preset on even lanes, none on
+    odd): the histories condition the prompt (its history slots hold the
+    preset's last <= 256 semantic tokens) and re-prime the first coarse
+    window at 257 + the coarse history's rows; each chunk and window is
+    still one loop launch."""
+    from bark_tpu_torch.pipeline import coarse as coarse_pipe
+    from bark_tpu_torch.pipeline import voice
+
+    p = source_ctx.params
+    preset = voice.preset_from_generation(
+        source_ctx.semantic_tokens, source_ctx.coarse_tokens,
+        source_ctx.fine_tokens, p)
+    sem_hist, coarse_hist = voice.coarse_history(preset, p)
+    ctx, _, counts, loops, _, wall = option_run(
+        stages, codec, "voice request", 3,
+        lambda c: c.generate_audio(PROMPTS[2], voice=preset))
+    hist = preset.semantic[-256:]
+    if list(ctx.tokens[256:256 + hist.size]) != list(hist):
+        raise AssertionError("voice request: the prompt's history slots do "
+                             "not hold the preset")
+    count = int(ctx.semantic_tokens.size)
+    n_windows = coarse_pipe.coarse_schedule(count, p)[3]
+    expect("voice request", counts, {
+        "window": n_windows, "prefill": 1 + n_windows, "decode": 0,
+        "semantic": -(-semantic_steps(count) // 16)})
+    r = request_result(ctx, "voice", wall)
+    r.update(launches=counts, semantic_history=int(sem_hist.size),
+             coarse_history=int(coarse_hist.size),
+             first_window_rows=257 + int(coarse_hist.size),
+             fine_history=int(min(preset.fine.shape[1], 512)))
+    texts = [PROMPTS[b % len(PROMPTS)] for b in range(8)]
+    voices = [preset if b % 2 == 0 else None for b in range(8)]
+    bctx, outs, bcounts, bloops, _, bwall = option_run(
+        stages, codec, "voiced batch of 8", 108,
+        lambda c: c._generate_batch(texts, voices=voices))
+    if not all(o["audio"].size for o in outs):
+        raise AssertionError("voiced batch: a lane produced no audio")
+    if min(bcounts[m] for m in ("bprefill", "bsemantic", "bwindow")) <= 0 \
+            or bloops["bdecode"] != bcounts["bsemantic"] + bcounts["bwindow"] \
+            or bcounts["bdecode"] or bcounts["decode"]:
+        raise AssertionError(f"voiced batch: launches {bcounts}, loops "
+                             f"{bloops}")
+    batch = dict(B=8, wall_s=bwall, eval_s=bctx.stats.t_eval_us / 1e6,
+                 audio_s=sum(o["audio"].size for o in outs) / 24000,
+                 launches=bcounts)
+    return preset, r, batch
+
+
+def audio_preset(stages, codec, ctx_audio, p):
+    """`voice.preset_from_audio` on a generated waveform through the
+    EnCodec encoder on the card (random encoder weights from a seed), then
+    a request with that preset (fine history only: no semantic donor)."""
+    import numpy as np
+    import torch
+
+    from bark_tpu_torch.io import loader
+    from bark_tpu_torch.models.presets import ENCODEC_24KHZ
+    from bark_tpu_torch.pipeline import voice
+
+    enc_codec = loader.params_from_numpy(loader.codec_init_params_numpy(
+        ENCODEC_24KHZ, 5, with_encoder=True), torch.float32,
+        torch.device("cuda"))
+    t0 = time.perf_counter()
+    preset = voice.preset_from_audio(enc_codec, ctx_audio, p)
+    encode_s = time.perf_counter() - t0
+    n_frames = -(-ctx_audio.size // 320)
+    if preset.fine.shape != (8, n_frames) or preset.semantic.size or \
+            not ((preset.fine >= 0) & (preset.fine < 1024)).all():
+        raise AssertionError(f"preset_from_audio: fine {preset.fine.shape} "
+                             f"for {n_frames} frames")
+    ctx, _, counts, _, _, wall = option_run(
+        stages, codec, "audio-preset request", 4,
+        lambda c: c.generate_audio(PROMPTS[0], voice=preset))
+    r = request_result(ctx, "audio preset", wall)
+    r.update(encode_s=encode_s, encoded_frames=n_frames,
+             distinct_codes=int(np.unique(preset.fine).size))
+    log(f"  preset_from_audio: {n_frames} frames of {ctx_audio.size / 24000:.2f}"
+        f" s of audio encoded in {encode_s:.3f} s")
+    return r
+
+
+def options_phase(smi: str) -> dict:
+    """Phase 4f: the options of generate_audio and generate_audio_batch
+    on bark-small (random weights from a seed, bench.py's depth): filtered
+    requests (dense, q4_0, the int8 cache), a filtered batch of 8, the
+    stepped path with a progress callback, a profile_dir request in a
+    fresh process, voices single and batched, and a preset from audio."""
+    import torch
+
+    from bark_tpu_torch.io import loader
+    from bark_tpu_torch.models.presets import ENCODEC_24KHZ
+
+    t0 = time.perf_counter()
+    codec = loader.params_from_numpy(
+        loader.codec_init_params_numpy(ENCODEC_24KHZ, 3), torch.float32,
+        torch.device("cuda"))
+    stages = bark_small_stages()
+    # the single steps' first use on these stages (their tile-major weight
+    # copies and plans are made then): not kept
+    filtered_request(stages, codec, "filtered request, dense, first use")
+    filtered_batch(stages, codec, 2)
+    rec = {}
+    source, rec["filtered_dense"] = filtered_request(
+        stages, codec, "filtered request, dense")
+    _, rec["filtered_kv8"] = filtered_request(
+        stages, codec, "filtered request, int8 KV cache", kv8=True)
+    rec["filtered_batch"] = filtered_batch(stages, codec, 8)
+    rec["stepped"] = stepped_request(stages, codec)
+    _, rec["voice"], rec["voice_batch"] = voice_requests(stages, codec,
+                                                         source)
+    rec["audio_preset"] = audio_preset(stages, codec,
+                                       source.get_audio_data(), source.params)
+    del stages
+    torch.cuda.empty_cache()
+    _, rec["filtered_q4_0"] = filtered_request(
+        bark_small_stages("q4_0"), codec, "filtered request, q4_0",
+        packed=True)
+    torch.cuda.empty_cache()
+    rec["profile_dir"] = profiled_request(smi)
+    rec["seconds"] = time.perf_counter() - t0
+    rec["card"] = smi
+    for key in ("filtered_dense", "filtered_kv8", "filtered_q4_0", "stepped",
+                "voice", "audio_preset"):
+        r = rec[key]
+        log(f"  {key}: eval {r['eval_s']:.3f} s = semantic "
+            f"{r['semantic_s']:.3f} + coarse {r['coarse_s']:.3f} + fine "
+            f"{r['fine_s']:.3f} s for {r['audio_s']:.3f} s of audio on {smi}")
+    for key in ("filtered_batch", "voice_batch"):
+        r = rec[key]
+        log(f"  {key}: eval {r['eval_s']:.3f} s for {r['audio_s']:.3f} s of "
+            f"audio in {r['B']} lanes on {smi}")
+    return rec
+
+
+def small_model_options_reference(q8_path: str) -> None:
+    """Phase 3, the options: the small model on the GPU through the
+    kernels and on the CPU through the plain versions, f32, the same
+    noise: filtered requests (dense, the q8_0 file packed, the int8
+    cache), a filtered batch of 3, the stepped path, a voice request and
+    a voiced batch: tokens equal in every stage and lane, audio within
+    1e-3. Then the EnCodec encoder of a small codec: latent within 1e-4,
+    codes equal."""
+    import numpy as np
+    import torch
+
+    import bark_tpu_torch as bt
+    from bark_tpu_torch.io import loader
+    from bark_tpu_torch.models import encodec
+    from bark_tpu_torch.models.config import CodecConfig
+    from bark_tpu_torch.ops import sampling
+    from bark_tpu_torch.pipeline import voice
+
+    texts = ["hello world", "the a", "world hello the a"]
+    preset = None
+
+    def ctx_on(device, packed=False, **kw):
+        params = bt.BarkContextParams(**SMALL_PARAMS, **kw)
+        if packed:
+            return bt.bark_load_model(q8_path, params, seed=0, device=device)
+        return bt.BarkContext.from_parts(**small_model_parts(device),
+                                         params=params, seed=0, device=device)
+
+    def noisy(ctx, device):
+        gen = torch.Generator().manual_seed(11)
+        ctx.noise_source = (lambda stage, shape, g=gen, d=device:
+                            sampling.gumbel(shape, g, "cpu").to(d))
+        ctx.lane_noise_source = (
+            lambda stage, lane, shape, d=device: sampling.gumbel(
+                shape, torch.Generator().manual_seed(
+                    100 * lane + len(stage)), "cpu").to(d))
+        return ctx
+
+    def single(device, voice_=None, packed=False, **kw):
+        ctx = noisy(ctx_on(device, packed, **kw), device)
+        if not ctx.generate_audio("hello world", voice=voice_):
+            raise AssertionError("small model request failed")
+        return [ctx.semantic_tokens, ctx.coarse_tokens, ctx.fine_tokens,
+                ctx.get_audio_data()], ctx
+
+    def batch(device, voices=None, **kw):
+        ctx = noisy(ctx_on(device, **kw), device)
+        return [a for o in ctx._generate_batch(texts, voices) for a in (
+            o["semantic"], o["coarse"], o["fine"], o["audio"])], ctx
+
+    cases = {
+        "filtered": lambda d: single(d, **SMALL_FILTERS),
+        "filtered q8_0 packed": lambda d: single(
+            d, packed=True, dequantize_on_load=False, **SMALL_FILTERS),
+        "filtered int8 KV": lambda d: single(d, kv_cache_dtype="int8",
+                                             **SMALL_FILTERS),
+        "filtered batch of 3": lambda d: batch(d, **SMALL_FILTERS),
+        "stepped": lambda d: single(d, detailed_stats=True),
+        "voice": lambda d: single(d, voice_=preset),
+        "voiced batch of 3": lambda d: batch(d, [preset, None, preset]),
+    }
+    for name, run in cases.items():
+        (cpu, cpu_ctx), (gpu, _) = run("cpu"), run("cuda")
+        if preset is None:
+            preset = voice.preset_from_generation(
+                cpu_ctx.semantic_tokens, cpu_ctx.coarse_tokens,
+                cpu_ctx.fine_tokens, cpu_ctx.params)
+        err = 0.0
+        for i, (a, b) in enumerate(zip(cpu, gpu)):
+            if i % 4 == 3:
+                err = max(err, float(np.abs(a - b).max()))
+            elif not np.array_equal(a, b):
+                raise AssertionError(f"small model, {name}: tokens differ "
+                                     f"CPU vs GPU ({i})")
+        log(f"  small model, {name}: tokens equal in every stage, audio "
+            f"max|err| {err:.3e} (tol 1e-3)")
+        if err > 1e-3:
+            raise AssertionError(f"small model, {name}: audio differs {err}")
+    ccfg = CodecConfig(hidden_dim=16, n_filters=2, n_bins=8, n_q_total=8)
+    tree = loader.codec_init_params_numpy(ccfg, 4, 0.15, with_encoder=True)
+    audio = torch.from_numpy(np.sin(np.arange(320 * 40, dtype=np.float32)
+                                    * 0.05) * 0.5)
+    out = {}
+    for d in ("cpu", "cuda"):
+        params = loader.params_from_numpy(tree, torch.float32, d)
+        out[d] = (encodec.encoder_forward(params, audio.to(d)).cpu(),
+                  encodec.encode_audio(params, audio.to(d), 8).cpu())
+    err = max_err(out["cpu"][0], out["cuda"][0])
+    log(f"  small codec's encoder: latent max|err| {err:.3e} (tol 1e-4), "
+        f"codes equal {bool((out['cpu'][1] == out['cuda'][1]).all())}")
+    if err > 1e-4 or not (out["cpu"][1] == out["cuda"][1]).all():
+        raise AssertionError("the encoder differs CPU vs GPU")
+
+
 # ------------------------------------------------------------ D1-D5
 
 
@@ -3929,6 +4471,10 @@ def main() -> int:
             "(K5-batched), bf16-dtype and int8 caches, GPU vs CPU")
         small_model_batched_reference(packed_path=q8_path)
         small_model_batched_reference(kv8=True, packed_path=q8_path)
+        log("phase 3: small model with the options, GPU kernels vs CPU "
+            "plain: top-k/top-p (dense, q8_0 packed, int8 KV, a batch), the "
+            "stepped path, voices single and batched; the encoder")
+        small_model_options_reference(q8_path)
         for path in (dense_path, q8_path):
             os.unlink(path)
     log(f"phase 4: bark-small, 3 requests (PyTorch defaults: cuDNN TF32 "
@@ -3984,6 +4530,12 @@ def main() -> int:
         r = bark_small_batch(bark_small_stages(fmt), 8, packed=True)
         k5b_launches[(fmt, 8)] = r["launches"]["qbdecode"]
         torch.cuda.empty_cache()
+    log("phase 4f: the options on bark-small: top_k 50 / top_p 0.95 "
+        "requests (dense, int8 KV, q4_0) and a batch of 8, the stepped path "
+        "with a progress callback, voices single and batched, a preset from "
+        "audio, a profile_dir request in a fresh process")
+    options = options_phase(smi)
+    log(f"  phase 4f took {options['seconds']:.1f} s")
     log(f"phase 5: the weight-stream probe D1-D5 at {DMA_MB} MB a pass, "
         f"every load method, stage size and ring, and its yardsticks")
     from bark_tpu_torch.probes import dma
@@ -4050,8 +4602,15 @@ def main() -> int:
             f"{base['rtf_per_request']:.4f} on {smi}")
     batch_launches = {r["B"]: r["launches"] for r in batches}
     kv8_batch_launches = {r["B"]: r["launches"] for r in kv8_batches}
-    kv8_launches = {  # each K6 row's host launches in phase 4d
-        K6_K1: kv8_counts["decode"], K6_K5: kv8_q_counts["qdecode"],
+    # the single steps launch on the filtered paths of phase 4f alone
+    counts = dict(counts, decode=options["filtered_dense"]["launches"][
+        "decode"])
+    k5_launches["q4_0"] = options["filtered_q4_0"]["launches"]["qdecode"]
+    batch_launches[8] = dict(batch_launches[8], bdecode=options[
+        "filtered_batch"]["launches"]["bdecode"])
+    kv8_launches = {  # each K6 row's host launches in phases 4d and 4f
+        K6_K1: options["filtered_kv8"]["launches"]["decode"],
+        K6_K5: kv8_q_counts["qdecode"],
         K6_K2: kv8_counts["prefill"] + kv8_q_counts["prefill"],
         K6_K8: sum(c["bprefill"] for c in kv8_batch_launches.values()),
         **{f"{K6_K7}[B={b}]": c["bdecode"]
@@ -4203,7 +4762,8 @@ def main() -> int:
                           requests_q4_0_kv8=kv8_q_results,
                           batches_kv8=kv8_batches,
                           batches_q4_0=q_batches,
-                          batches_q4_0_kv8=kv8_q_batches, build_s=build_s,
+                          batches_q4_0_kv8=kv8_q_batches, options=options,
+                          build_s=build_s,
                           build=build_record,
                           attention_alone={k: v[:2] for k, v in
                                            checks.times.items()

@@ -10,7 +10,7 @@ their plain versions):
   `generate_audio` given the same noise, including lanes that forced noise
   stops at different semantic steps and a lane that stops at step 0;
 - what the path refuses (packed stages it takes: see
-  tests/test_torch_quant_batched_e2e.py).
+  tests/test_torch_quant_batched_e2e.py; voices: tests/test_torch_voice.py).
 """
 
 import jax
@@ -132,5 +132,3 @@ def test_batch_refuses_what_is_not_ported(weights):
     assert ctx.generate_audio_batch([]) == []
     with pytest.raises(ValueError, match="at most 32"):
         ctx.generate_audio_batch(["hello"] * 33)
-    with pytest.raises(NotImplementedError):
-        ctx.generate_audio_batch(["hello"], voices=["v.npz"])

@@ -233,7 +233,7 @@ def test_bandwidth_needs_the_card():
         dma.bandwidth("stream", torch_bf16(src))
 
 
-# -------------------------------------------- options the port refuses
+# ------------------------------------ options the port refused before
 
 
 @pytest.fixture(scope="module")
@@ -263,12 +263,32 @@ def parts(tmp_path_factory):
     ("detailed_stats", True),
     ("profile_dir", "trace"),
 ])
-def test_context_refuses_the_stepped_path_options(parts, option, value):
+def test_context_refuses_the_stepped_path_options(parts, option, value,
+                                                  tmp_path):
+    """The context refuses none of the stepped path's options any more
+    (bark_tpu refuses none of them): each makes a context whose request
+    gives the tokens of the same request without it. A progress callback
+    hears every stage from 0 (semantic) to 100 (fine); a profile_dir
+    request writes its trace there."""
     fields, stages = parts
-    params = tparams.BarkContextParams(**{**fields, option: value})
-    with pytest.raises(NotImplementedError, match=option):
-        bark_tpu_torch.BarkContext.from_parts(**stages, params=params,
-                                              device="cpu")
-    # the same parts without the option make a context
-    bark_tpu_torch.BarkContext.from_parts(
-        **stages, params=tparams.BarkContextParams(**fields), device="cpu")
+    calls = []
+    if option == "progress_callback":
+        def value(ctx, step, percent, user_data):  # noqa: F811
+            calls.append((int(step), percent))
+    elif option == "profile_dir":
+        value = str(tmp_path / value)
+    runs = []
+    for params in (tparams.BarkContextParams(**{**fields, option: value}),
+                   tparams.BarkContextParams(**fields)):
+        ctx = bark_tpu_torch.BarkContext.from_parts(**stages, params=params,
+                                                    device="cpu")
+        assert ctx.generate_audio("hello world")
+        runs.append(ctx)
+    for name in ("semantic_tokens", "coarse_tokens", "fine_tokens"):
+        np.testing.assert_array_equal(getattr(runs[0], name),
+                                      getattr(runs[1], name), err_msg=name)
+    if option == "progress_callback":
+        assert calls[0] == (0, 0) and calls[-1] == (2, 100)
+        assert {s for s, _ in calls} == {0, 1, 2}
+    if option == "profile_dir":
+        assert any(f.endswith(".pt.trace.json") for f in os.listdir(value))

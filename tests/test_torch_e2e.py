@@ -196,6 +196,3 @@ def test_mismatched_params_fail_fast(weights):
     with pytest.raises(ValueError, match="model/params mismatch"):
         bark_tpu_torch.bark_load_model(weights, tiny_params(
             semantic_vocab_size=10_000), device="cpu")
-    with pytest.raises(NotImplementedError):
-        bark_tpu_torch.bark_load_model(weights, tiny_params(top_k=5),
-                                       device="cpu")

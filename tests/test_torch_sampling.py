@@ -71,7 +71,15 @@ def test_gumbel_noise_statistics():
 
 
 def test_filters_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        tsamp.sample(torch.zeros(4), 0.7, torch.zeros(4), top_k=2)
-    with pytest.raises(NotImplementedError):
-        tsamp.sample(torch.zeros(4), 0.7, torch.zeros(4), top_p=0.9)
+    """The filters are ported now: what raised before samples as bark_tpu
+    does (tests/test_torch_filters.py holds them on many more rows)."""
+    rng = np.random.RandomState(4)
+    logits = (rng.randn(4) * 2).astype(np.float32)
+    key = jax.random.PRNGKey(9)
+    noise = torch.from_numpy(np.array(jax.random.gumbel(key, (4,),
+                                                        jnp.float32)))
+    for kw in (dict(top_k=2), dict(top_p=0.9)):
+        jt, je = jsamp.sample(key, jnp.asarray(logits), 0.7, **kw)
+        tt, te = tsamp.sample(torch.from_numpy(logits), 0.7, noise, **kw)
+        assert int(tt) == int(jt)
+        np.testing.assert_allclose(float(te), float(je), rtol=1e-6)

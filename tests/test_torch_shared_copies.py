@@ -1,9 +1,9 @@
 """The port's own copies of bark_tpu's jax-free host modules (params,
 tokenizer, the ggml reader and writer, the block quantizers, the file
-quantizer) against their originals, on seeded data: equal defaults,
-equal token lists, record-for-record equal model files read by the other
-package's reader, bit-equal quantized blocks and byte-equal quantized
-files."""
+quantizer, the voice presets) against their originals, on seeded data:
+equal defaults, equal token lists, record-for-record equal model files
+read by the other package's reader, bit-equal quantized blocks,
+byte-equal quantized files, and equal histories from the same presets."""
 
 import dataclasses
 
@@ -14,11 +14,13 @@ from bark_tpu import params as jparams
 from bark_tpu.io import ggml as jggml
 from bark_tpu.io import quant as jquant
 from bark_tpu.io import quantize as jquantize
+from bark_tpu.pipeline import voice as jvoice
 from bark_tpu.text import tokenizer as jtok
 from bark_tpu_torch import params as tparams
 from bark_tpu_torch.io import ggml as tggml
 from bark_tpu_torch.io import quant as tquant
 from bark_tpu_torch.io import quantize as tquantize
+from bark_tpu_torch.pipeline import voice as tvoice
 from bark_tpu_torch.text import tokenizer as ttok
 
 from tiny_model import VOCAB, build_tiny_model, tiny_params
@@ -155,3 +157,87 @@ def test_model_quantize_byte_equal(tmp_path, ftype, n_embd):
     assert jquantize.model_quantize(src, jout, ft)
     assert tquantize.model_quantize(src, tout, ft)
     assert open(tout, "rb").read() == open(jout, "rb").read()
+
+
+# seeded presets (semantic, coarse, fine lengths): short, each history at
+# its cap and past it, odd lengths, an audio-only preset (no semantic)
+PRESETS = [(5, 9, 9), (18, 52, 40), (19, 61, 512), (256, 630, 513),
+           (300, 700, 600), (0, 30, 30), (1, 1, 1), (41, 3, 7)]
+
+
+def _preset(mod, n_sem, n_coarse, n_fine, seed):
+    rng = np.random.RandomState(seed)
+    return mod.VoicePreset(
+        semantic=rng.randint(0, 16, n_sem).astype(np.int32),
+        coarse=rng.randint(0, 8, (2, n_coarse)).astype(np.int32),
+        fine=rng.randint(0, 8, (8, n_fine)).astype(np.int32))
+
+
+@pytest.mark.parametrize("sizes", PRESETS, ids=[
+    "-".join(map(str, p)) for p in PRESETS])
+@pytest.mark.parametrize("cap", [60, 630])
+def test_voice_histories_equal(sizes, cap, tmp_path):
+    """Every function of pipeline/voice.py that needs no codec, on the
+    same seeded preset: the prompt's history slots, the trimmed coarse
+    histories, the fine rows, the preset from a generation's buffers, and
+    a file saved by one package loaded by the other."""
+    p = tiny_params(max_coarse_history=cap)
+    j = _preset(jvoice, *sizes, seed=sum(sizes))
+    t = _preset(tvoice, *sizes, seed=sum(sizes))
+    j.validate(p)
+    t.validate(p)
+    np.testing.assert_array_equal(tvoice.semantic_history_tokens(t, p),
+                                  jvoice.semantic_history_tokens(j, p))
+    for a, b in zip(tvoice.coarse_history(t, p), jvoice.coarse_history(j, p)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(tvoice.fine_history(t, p),
+                                  jvoice.fine_history(j, p))
+    for mod in (tvoice, jvoice):
+        assert mod.semantic_history_tokens(None, p) is None
+        assert all(a.size == 0 for a in mod.coarse_history(None, p))
+        assert mod.fine_history(None, p).shape == (0, 8)
+    gen = (t.semantic, t.coarse.T, t.fine.T)
+    for a, b in zip(vars(tvoice.preset_from_generation(*gen, p)).values(),
+                    vars(jvoice.preset_from_generation(*gen, p)).values()):
+        np.testing.assert_array_equal(a, b)
+    tvoice.save_voice_preset(str(tmp_path / "t.npz"), t)
+    jvoice.save_voice_preset(str(tmp_path / "j.npz"), j)
+    for path in ("t.npz", "j.npz"):
+        a = tvoice.load_voice_preset(str(tmp_path / path))
+        b = jvoice.load_voice_preset(str(tmp_path / path))
+        for name in ("semantic", "coarse", "fine"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+
+@pytest.mark.parametrize("fault", ["semantic_range", "semantic_2d",
+                                   "coarse_rows", "fine_rows", "fine_range",
+                                   "not_a_preset"])
+def test_voice_validation_equal(fault, tmp_path):
+    """The two copies refuse the same malformed presets with the same
+    message."""
+    p = tiny_params()
+    arrays = dict(semantic=np.zeros(4, np.int32),
+                  coarse=np.zeros((2, 4), np.int32),
+                  fine=np.zeros((8, 4), np.int32))
+    if fault == "semantic_range":
+        arrays["semantic"][1] = 16
+    elif fault == "semantic_2d":
+        arrays["semantic"] = np.zeros((2, 2), np.int32)
+    elif fault == "coarse_rows":
+        arrays["coarse"] = np.zeros((3, 4), np.int32)
+    elif fault == "fine_rows":
+        arrays["fine"] = np.zeros((7, 4), np.int32)
+    elif fault == "fine_range":
+        arrays["fine"][2, 1] = -1
+    errors = []
+    for mod in (tvoice, jvoice):
+        with pytest.raises(ValueError) as e:
+            if fault == "not_a_preset":
+                path = str(tmp_path / "x.npz")
+                np.savez(path, semantic_prompt=arrays["semantic"])
+                mod.load_voice_preset(path)
+            else:
+                mod.VoicePreset(**arrays).validate(p)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
