@@ -20,9 +20,10 @@ Batched serving: `BarkContext.generate_audio_batch(texts)` runs up to
 and K10 coarse windows, each one launch of the batched decode step K7 in
 a loop with the sampler inside; K7 reads each weight once per step for
 every lane), then the fine stage and the codec
-per lane. Packed stages take the same path: K9 and K10 then decode
+per lane; a larger batch runs as groups of 32, one after another.
+Packed stages take the same path: K9 and K10 then decode
 through the packed batched step (K5-batched), and the prefills and the
-fine stage read a dense copy made once per batch and stage.
+fine stage read a dense copy made once per group and stage.
 
 Randomness: every stage takes its Gumbel noise as a tensor. The context
 draws it on the device from a `torch.Generator` seeded with `seed`, in the
@@ -60,7 +61,20 @@ semantic, coarse and fine histories; `save_voice` keeps the last
 generation as a preset, and `voice.preset_from_audio` makes one from a
 waveform through the EnCodec encoder (`models.encodec.encode_audio`).
 
-Not ported yet: streaming, long-form, the CLIs and the server.
+Streaming and long-form: `generate_audio_stream(text, voice)` yields PCM
+chunks as coarse windows complete (each window one K2 + K4, then one fine
+block over the new frames and a decode of the causal prefix);
+`generate_audio_long` and `generate_audio_stream_long` split a text into
+sentences (`text.longform`) and chain each on the previous one's
+generation as its voice.
+
+The command-line tools and the HTTP server (`bark_tpu_torch.cli`: `main`,
+`quantize`, `voice`, `convert`, `server`, `precompile`) run on the card
+(`--device cuda`, the default) and refuse to start without one; the CPU
+tests pass `--device cpu`, where the kernels' plain versions run. On a
+GPU machine, e.g. `python -m bark_tpu_torch.cli.main -m
+ggml_weights.bin -p "hello" -o out.wav` or `python -m
+bark_tpu_torch.cli.server -m ggml_weights.bin --batch 40`.
 """
 
 from __future__ import annotations
@@ -85,7 +99,7 @@ from bark_tpu_torch.pipeline import coarse as coarse_pipe
 from bark_tpu_torch.pipeline import fine as fine_pipe
 from bark_tpu_torch.pipeline import semantic as semantic_pipe
 from bark_tpu_torch.pipeline import voice as voice_mod
-from bark_tpu_torch.text import tokenizer
+from bark_tpu_torch.text import longform, tokenizer
 
 # codec frames are decoded in multiples of this (as bark_tpu does, where it
 # bounds the compiled programs); the causal decoder makes the right padding
@@ -248,6 +262,12 @@ class BarkContext:
                 prog = coarse_pipe.make_coarse_stage_program(
                     self.coarse_cfg, p, ctx_size=self._ctx_size(),
                     kv_quant=self.kv_quant)
+            elif name == "coarse_windows":
+                prog = coarse_pipe.make_coarse_windows(
+                    self.coarse_cfg, p, ctx_size=self._ctx_size(),
+                    kv_quant=self.kv_quant)
+            elif name == "fine_block":
+                prog = fine_pipe.make_fine_block_program(self.fine_cfg, p)
             else:
                 prog = fine_pipe.make_fine_stage_program(self.fine_cfg, p)
             self._programs[name] = prog
@@ -401,6 +421,181 @@ class BarkContext:
         if cb is not None:
             cb(self, step, percent, self.params.progress_callback_user_data)
 
+    def generate_audio_stream(self, text: str, voice=None):
+        """Text -> 24 kHz PCM in chunks, one as each coarse window
+        completes (bark_tpu's `generate_audio_stream`): the first chunk
+        comes after the semantic stage, one coarse window (K2 + K4), one
+        fine block and a short codec decode. Yields f32 numpy arrays; once
+        the generator is exhausted, `get_audio_data()` returns their
+        concatenation and the tokens and statistics are set as by
+        `generate_audio`. `voice` as for `generate_audio`.
+
+        After each window that ends on a whole frame, the new frames are
+        refined by one fine block over up to block_size final rows of left
+        context (a voice's fine history counts as context and is never
+        emitted), then the whole causal prefix is decoded and only the new
+        samples are emitted: the SEANet decoder is causal, so a sample once
+        emitted is what a decode of the final tokens gives. The coarse
+        tokens are the fused path's; the fine ones differ from it once the
+        utterance spans more than one window (the fused fine stage also
+        sees half a block of future context).
+
+        Randomness, in bark_tpu's order: `noise_source("semantic", ...)`,
+        `noise_source("coarse", (n_windows, sws, codebook_size))` as for
+        `generate_audio`, then one `noise_source("fine", (1, n_fine -
+        n_coarse, block_size, codebook_size))` per refined window, each the
+        next block of the fine stage's noise (bark_tpu splits its fine key
+        once per window, then once per codebook). The coarse stage's dense
+        copy of a qpack is made once per call, and so is the fine stage's."""
+        p = self.params
+        preset = self._resolve_voice(voice)
+        sem_hist, coarse_hist, fine_hist = self._voice_args(preset)
+        self.reset_statistics()
+        t_start = time.perf_counter()
+        self.tokens = np.asarray(tokenizer.tokenize_input(
+            self.vocab, text, p, block_size=self.semantic_cfg.block_size,
+            semantic_history=voice_mod.semantic_history_tokens(preset, p),
+        ), np.int32)
+
+        t0 = time.perf_counter()
+        self._progress(EncodingStep.SEMANTIC, 0)
+        sem_out, count = self._semantic(p)
+        self.semantic_tokens = sem_out[:count].cpu().numpy()
+        self._progress(EncodingStep.SEMANTIC, 100)
+        self.stats.t_semantic_us += int((time.perf_counter() - t0) * 1e6)
+        self.stats.n_sample_semantic += count
+        if count == 0:
+            self.generated_audio = np.zeros((0,), np.float32)
+            return
+
+        dev, n_cc, n_fine = self.device, p.n_coarse_codebooks, \
+            p.n_fine_codebooks
+        cbs, block = p.codebook_size, self.fine_cfg.block_size
+        hop = self.codec_cfg.hop_length
+        n_steps = coarse_pipe.coarse_schedule(count, p)[2]
+        windows = self._program("coarse_windows")(
+            self.coarse_params, sem_out[:count], self._coarse_noise(count),
+            sem_hist, coarse_hist)
+        refine = self._program("fine_block")
+        fine_dense = loader.densify(self.fine_cfg, self.fine_params)
+        n_fh = len(fine_hist)
+        # the final fine rows: the voice's history first (context only),
+        # then every refined frame
+        rows = torch.from_numpy(fine_hist).to(dev)
+        chunks, prev, emitted = [], 0, 0  # emitted: frames yielded
+        t0 = time.perf_counter()
+        for done, codes in windows:
+            self._sync()
+            self.stats.t_coarse_us += int((time.perf_counter() - t0) * 1e6)
+            self.stats.n_sample_coarse += done - prev
+            percent = min(100, 100 * done // n_steps)
+            self._progress(EncodingStep.COARSE, percent)
+            whole, prev = (done - prev) % n_cc == 0, done
+            if not whole:  # only whole frames feed the fine stage and codec
+                t0 = time.perf_counter()
+                continue
+
+            t0 = time.perf_counter()
+            new = codes[len(rows) - n_fh:]
+            n_new = len(new)
+            # the block: up to block - n_new final rows, then the new frames
+            # (their fine columns at the pad id)
+            kept = rows[max(0, len(rows) + n_new - block):]
+            rel = len(kept)
+            buf = torch.full((block, n_fine), cbs, dtype=torch.int32,
+                             device=dev)
+            buf[:rel] = kept
+            buf[rel:rel + n_new, :n_cc] = new
+            noise = None if p.fine_temp == 0.0 else self.noise_source(
+                "fine", (1, n_fine - n_cc, block, cbs))[0]
+            rows = torch.cat([rows, refine(fine_dense, buf, rel,
+                                           noise)[rel:rel + n_new]])
+            self._sync()
+            self.stats.t_fine_us += int((time.perf_counter() - t0) * 1e6)
+            self.stats.n_sample_fine += n_new * n_fine
+            self._progress(EncodingStep.FINE, percent)
+
+            # the causal prefix decode; only the new samples are emitted
+            n_frames = len(rows) - n_fh
+            chunk = self._decode_codec(rows[n_fh:], n_frames)[
+                emitted * hop:].cpu().numpy()
+            chunks.append(chunk)
+            emitted = n_frames
+            yield chunk
+            t0 = time.perf_counter()
+
+        self.coarse_tokens = codes.cpu().numpy()
+        self.fine_tokens = rows[n_fh:].cpu().numpy()
+        self.generated_audio = (np.concatenate(chunks) if chunks
+                                else np.zeros((0,), np.float32))
+        self.stats.t_eval_us += int((time.perf_counter() - t_start) * 1e6)
+
+    def generate_audio_long(self, text: str, voice=None,
+                            silence_s: float = 0.25) -> bool:
+        """Long-form text (bark_tpu's `generate_audio_long`, suno's recipe):
+        the text is split into sentences (`text.longform.split_sentences`),
+        each generated by `generate_audio` with the previous sentence's
+        generation as its voice (`voice.preset_from_generation`), and the
+        pieces joined with `silence_s` of silence between them. `voice`
+        conditions the first sentence. The statistics add up over the
+        sentences; `get_audio_data()` returns the whole text's audio."""
+        pieces = longform.split_sentences(text)
+        if not pieces:
+            return False
+        current = self._resolve_voice(voice)
+        silence = np.zeros((int(silence_s * self.params.sample_rate),),
+                           np.float32)
+        parts, totals = [], BarkStatistics(t_load_us=self.stats.t_load_us)
+        for i, piece in enumerate(pieces):
+            if not self.generate_audio(piece, voice=current):
+                return False
+            parts.append(self.generated_audio)
+            if i < len(pieces) - 1:
+                parts.append(silence)
+                current = self._next_voice()
+            self._add_statistics(totals)
+        self.stats = totals
+        self.generated_audio = np.concatenate(parts)
+        return True
+
+    def generate_audio_stream_long(self, text: str, voice=None,
+                                   silence_s: float = 0.25):
+        """Long-form text streamed (bark_tpu's
+        `generate_audio_stream_long`): sentence-chained as
+        `generate_audio_long`, each sentence streamed by
+        `generate_audio_stream`, the silence between sentences yielded as a
+        chunk of its own. Yields f32 numpy chunks; afterwards
+        `get_audio_data()` returns their concatenation."""
+        pieces = longform.split_sentences(text)
+        current = self._resolve_voice(voice)
+        silence = np.zeros((int(silence_s * self.params.sample_rate),),
+                           np.float32)
+        parts, totals = [], BarkStatistics(t_load_us=self.stats.t_load_us)
+        for i, piece in enumerate(pieces):
+            for chunk in self.generate_audio_stream(piece, voice=current):
+                parts.append(chunk)
+                yield chunk
+            if i < len(pieces) - 1:
+                parts.append(silence)
+                yield silence
+                current = self._next_voice()
+            self._add_statistics(totals)
+        self.stats = totals
+        self.generated_audio = (np.concatenate(parts) if parts
+                                else np.zeros((0,), np.float32))
+
+    def _next_voice(self):
+        """The last generation as the next sentence's voice."""
+        return voice_mod.preset_from_generation(
+            self.semantic_tokens, self.coarse_tokens, self.fine_tokens,
+            self.params)
+
+    def _add_statistics(self, totals: BarkStatistics) -> None:
+        """Add this request's times and counts to `totals`."""
+        for f in ("t_eval_us", "t_semantic_us", "t_coarse_us", "t_fine_us",
+                  "n_sample_semantic", "n_sample_coarse", "n_sample_fine"):
+            setattr(totals, f, getattr(totals, f) + getattr(self.stats, f))
+
     def _resolve_voice(self, voice):
         """None | .npz path | VoicePreset -> a validated VoicePreset or
         None."""
@@ -432,16 +627,19 @@ class BarkContext:
         top-k or top-p the semantic and coarse steps run as single batched
         steps (K7, K5-batched) in place of K9 and K10.
 
-        Randomness: each lane takes the noise of the single-request path,
-        drawn stage-major (every lane's semantic noise, then every lane's
-        coarse noise, then every lane's fine noise) through
-        `lane_noise_source(stage, lane, shape)`, which a test may replace
-        to replay another implementation's noise per lane. The JAX package
-        pads the batch to a power of two, which bounds what it compiles;
-        the port has nothing to compile and runs exactly B lanes.
+        Any number of prompts, dense or packed-quantized stages: the
+        batched kernels take at most `bdecode.MAX_LANES` lanes, so a larger
+        batch runs as groups of that many prompts, one after another, and
+        the outputs are concatenated in order.
 
-        At most `bdecode.MAX_LANES` prompts, dense or packed-quantized
-        stages."""
+        Randomness: each lane takes the noise of the single-request path,
+        drawn stage-major within its group (every lane's semantic noise,
+        then every lane's coarse noise, then every lane's fine noise)
+        through `lane_noise_source(stage, lane, shape)`, `lane` the
+        prompt's index in the whole batch, which a test may replace to
+        replay another implementation's noise per lane. The JAX package
+        pads the batch to a power of two, which bounds what it compiles;
+        the port has nothing to compile and runs exactly B lanes."""
         return [lane["audio"] for lane in self._generate_batch(texts, voices)]
 
     def _generate_batch(self, texts, voices=None) -> list:
@@ -449,18 +647,28 @@ class BarkContext:
         arrays: its semantic tokens, coarse codes (n_frames, n_coarse),
         fine codes (n_frames, n_fine) and audio (all empty for a lane with
         no semantic token)."""
-        p = self.params
         t_start = time.perf_counter()
         B = len(texts)
-        if B == 0:
-            return []
-        if B > kbdec.MAX_LANES:
-            raise ValueError(f"generate_audio_batch takes at most "
-                             f"{kbdec.MAX_LANES} prompts, got {B}")
         if voices is not None and len(voices) != B:
             raise ValueError(f"voices: want one per prompt ({B}), got "
                              f"{len(voices)}")
         presets = [self._resolve_voice(v) for v in voices or [None] * B]
+        outs = []
+        for first in range(0, B, kbdec.MAX_LANES):
+            last = first + kbdec.MAX_LANES
+            outs += self._generate_group(texts[first:last],
+                                         presets[first:last], first)
+        if B:
+            self.stats.t_eval_us += int((time.perf_counter() - t_start)
+                                        * 1e6)
+        return outs
+
+    def _generate_group(self, texts, presets, first: int) -> list:
+        """`_generate_batch` for at most `bdecode.MAX_LANES` prompts, the
+        first of them prompt `first` of the batch (the lane index its
+        noise is drawn for). Adds to the statistics, apart from t_eval."""
+        p = self.params
+        B = len(texts)
         hists = [self._voice_args(v) for v in presets]
         dev = self.device
         prompts = torch.as_tensor(np.stack([
@@ -477,7 +685,8 @@ class BarkContext:
             shape = (p.n_steps_text_encoder, self.semantic_cfg.n_out_vocab)
             noise = torch.empty((B, *shape), dtype=torch.float32, device=dev)
             for b in range(B):
-                noise[b] = self.lane_noise_source("semantic", b, shape)
+                noise[b] = self.lane_noise_source("semantic", first + b,
+                                                  shape)
         sem_out, counts = semantic_pipe.make_semantic_program_batched(
             self.semantic_cfg, temp=p.temp, max_steps=p.n_steps_text_encoder,
             semantic_vocab_size=p.semantic_vocab_size, kv_quant=self.kv_quant,
@@ -490,7 +699,8 @@ class BarkContext:
 
         # --- coarse: per shared window, K8 + K10 over the running lanes
         t0 = time.perf_counter()
-        noises = [self._coarse_noise(counts[b], lane=b) for b in live]
+        noises = [self._coarse_noise(counts[b], lane=first + b)
+                  for b in live]
         codes, n_steps = ([], []) if not live else \
             coarse_pipe.make_coarse_stage_program_batched(
                 self.coarse_cfg, p, ctx_size=self._ctx_size(),
@@ -509,7 +719,7 @@ class BarkContext:
         for b, c, n in zip(live, codes, n_frames):
             fh = hists[b][2]
             fine.append(self._program("fine")(
-                fine_params, c, n, self._fine_noise(n, lane=b,
+                fine_params, c, n, self._fine_noise(n, lane=first + b,
                                                     n_hist=len(fh)),
                 torch.from_numpy(fh)))
         self._sync()
@@ -526,7 +736,6 @@ class BarkContext:
         self.stats.n_sample_semantic += sum(counts)
         self.stats.n_sample_coarse += sum(n_steps)
         self.stats.n_sample_fine += sum(n_frames) * p.n_fine_codebooks
-        self.stats.t_eval_us += int((time.perf_counter() - t_start) * 1e6)
         return outs
 
     def warmup(self) -> float:

@@ -69,6 +69,13 @@ def _build_line(record) -> str:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    from bark_tpu_torch.cli import device_error
+
+    err = device_error(args.device)
+    if err:
+        print(f"precompile: {err}", file=sys.stderr)
+        return 1
+
     import bark_tpu_torch
     from bark_tpu_torch import params as params_mod
     from bark_tpu_torch.kernels import _build

@@ -26,9 +26,12 @@ package's scan of single steps. Nothing is read back inside a window.
 JAX module's integer-exact schedule (that module imports jax);
 tests/test_torch_config.py holds them equal. The stage keeps its window
 loop on the device: the context is rebuilt from device tensors, so
-nothing is read back between windows. The stepped path is the same
-program with a `progress_cb`, called after every window with the JAX
-package's percentage (`bark_tpu.pipeline.coarse.generate_coarse`).
+nothing is read back between windows. That loop is one generator of
+windows (`make_coarse_windows`): the stage program drains it, and the
+stepped path is the same program with a `progress_cb`, called after every
+window with the JAX package's percentage
+(`bark_tpu.pipeline.coarse.generate_coarse`); a stream takes its windows
+one by one (`BarkContext.generate_audio_stream`).
 """
 
 from __future__ import annotations
@@ -181,21 +184,29 @@ def _history(hist, device):
     return hist.to(device=device, dtype=torch.int32)
 
 
-def make_coarse_stage_program(cfg: GPTConfig, bparams: BarkContextParams, *,
-                              ctx_size: int, kv_quant: bool = False):
-    """fn(params, sem (n_sem,) int tensor, noise (n_windows, sws,
-    codebook_size) f32 or None at temp 0, sem_hist=None, coarse_hist=None,
-    progress_cb=None) -> (codes (n_steps // n_cc, n_cc) int32 de-offset,
-    n_steps int). `sem_hist` / `coarse_hist` are a voice preset's trimmed
-    histories (`pipeline.voice.coarse_history`; None or empty: the
-    reference's empty history, bark.cpp:640-651). `progress_cb(percent)`
-    is called after each window is queued, with the share of the n_steps
-    tokens done. kv_quant: the int8 KV cache."""
+def make_coarse_windows(cfg: GPTConfig, bparams: BarkContextParams, *,
+                        ctx_size: int, kv_quant: bool = False):
+    """The coarse stage's window loop, one window at a time.
+
+    fn(params, sem (n_sem,) int tensor, noise (n_windows, sws,
+    codebook_size) f32 or None at temp 0, sem_hist=None, coarse_hist=None)
+    -> a generator over the stage's windows. Each step runs one window on
+    the device (its re-prime, K2, then its steps, K4 or the filtered single
+    steps) and yields `(done, codes)`: `done` the tokens generated so far
+    (at most n_steps), `codes` the (done // n_cc, n_cc) int32 de-offset
+    codes of the whole frames generated so far, a view of the stage's
+    buffer that later windows do not write. Nothing is read back.
+    `sem_hist` / `coarse_hist` are a voice preset's trimmed histories
+    (`pipeline.voice.coarse_history`; None or empty: the reference's empty
+    history, bark.cpp:640-651). A qpack is densified once per call, before
+    the first window. kv_quant: the int8 KV cache.
+
+    `make_coarse_stage_program` drains it; `BarkContext.
+    generate_audio_stream` refines and decodes after each window."""
     win = _Window(cfg, bparams, kv_quant)
     p, sws, hist_cap = bparams, win.sws, win.hist_cap
 
-    def run(params, sem, noise, sem_hist=None, coarse_hist=None,
-            progress_cb=None):
+    def run(params, sem, noise, sem_hist=None, coarse_hist=None):
         device = params["wpe"].device
         n_sem = int(sem.shape[0])
         _, _, n_steps, n_windows = coarse_schedule(n_sem, p)
@@ -215,6 +226,8 @@ def make_coarse_stage_program(cfg: GPTConfig, bparams: BarkContextParams, *,
         out = torch.zeros((hist_cap + n_steps + sws,), dtype=torch.int32,
                           device=device)
         out[:n_ch] = coarse_hist
+        offs = win.svs + torch.arange(2, dtype=torch.int32,
+                                      device=device)[None, :] * win.cbs
         dense = loader.densify(cfg, params)
         wte = dense["wte"][0]
         kc, vc = gpt.init_kv_cache(cfg, wte.dtype, device, quant=kv_quant)
@@ -230,11 +243,32 @@ def make_coarse_stage_program(cfg: GPTConfig, bparams: BarkContextParams, *,
             out[tot:tot + sws] = win.run(
                 params, dense, kc, vc, ctx, win.ctx_len(tot), g,
                 None if noise is None else noise[w])
+            done = min(g + sws, n_steps)
+            yield done, out[n_ch:n_ch + done // 2 * 2].reshape(-1, 2) - offs
+
+    return run
+
+
+def make_coarse_stage_program(cfg: GPTConfig, bparams: BarkContextParams, *,
+                              ctx_size: int, kv_quant: bool = False):
+    """fn(params, sem (n_sem,) int tensor, noise (n_windows, sws,
+    codebook_size) f32 or None at temp 0, sem_hist=None, coarse_hist=None,
+    progress_cb=None) -> (codes (n_steps // n_cc, n_cc) int32 de-offset,
+    n_steps int): every window of `make_coarse_windows`, queued one after
+    another. `progress_cb(percent)` is called after each window is queued,
+    with the share of the n_steps tokens done."""
+    windows = make_coarse_windows(cfg, bparams, ctx_size=ctx_size,
+                                  kv_quant=kv_quant)
+
+    def run(params, sem, noise, sem_hist=None, coarse_hist=None,
+            progress_cb=None):
+        n_steps = coarse_schedule(int(sem.shape[0]), bparams)[2]
+        codes = torch.zeros((0, 2), dtype=torch.int32,
+                            device=params["wpe"].device)
+        for done, codes in windows(params, sem, noise, sem_hist,
+                                   coarse_hist):
             if progress_cb is not None:
-                progress_cb(100 * min(g + sws, n_steps) // n_steps)
-        codes = out[n_ch:n_ch + n_steps].reshape(-1, 2) - win.svs
-        codes = codes - torch.arange(2, dtype=torch.int32,
-                                     device=device)[None, :] * win.cbs
+                progress_cb(100 * done // n_steps)
         return codes, n_steps
 
     return run

@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --k1       # phase 1, then K1's and K5's records
     python3 chip_smoke.py --k7       # phase 1, then the batched step's record
+    python3 chip_smoke.py --streaming  # phase 1, then phase 4g alone
 
 Phases, each fatal on failure (exit code 1, and no result lines):
   1. build the CUDA kernels from bark_tpu_torch/csrc (nvcc, sm_90a, one
@@ -120,6 +121,22 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      the card, and no plain version may run; the times print beside the
      card's name and power limit (the `options` entry of the results
      line);
+  4g. streaming, long-form and the server on bark-small
+     (`streaming_phase`): a `generate_audio_stream` request beside the
+     fused request with the same seed (semantic and coarse tokens equal,
+     one chunk a window, each window one K2 and one K4, the chunks
+     joined within 1% of the peak of one decode of the final tokens;
+     the time to the first chunk and to the last); `generate_audio_long`
+     and `generate_audio_stream_long` of two sentences; the port's HTTP
+     server in this process with `--batch 40` under 40 concurrent
+     requests and one chunked stream request (one batch in groups of 32
+     and 8 lanes, each chunk and window one launch of the batched loop,
+     no fallback to single requests, every reply 200 with audio); the
+     small model's stream in f32 on the GPU against the CPU (tokens
+     equal, chunks within 1e-3); `python -m bark_tpu_torch.cli.main` in
+     a subprocess on the small model's file. Its launches of K2-K4 and
+     K8-K10 add to the kernel rows' (the `streaming` entry of the
+     results line);
   5. the weight-stream probe (`bark_tpu_torch.probes.dma`, D1-D5, the
      port of tools/tpu_dma_probe.py) at 256 MB a pass: D1, D2, D5 and D3
      (G 2, 4) over load method x stage size (8/16/32 KB) x ring (2/3/4,
@@ -3552,6 +3569,407 @@ def small_model_options_reference(q8_path: str) -> None:
         raise AssertionError("the encoder differs CPU vs GPU")
 
 
+# ------------------------------------------------------------ phase 4g
+
+LONG_TEXT = "hello world. this is a speech test."  # two sentences
+SERVER_BATCH = 40  # the server's --batch: groups of 32 and 8 lanes
+# the streamed chunks against one decode of the final tokens, both at
+# PyTorch's defaults (cuDNN TF32 on for the f32 codec, at other lengths):
+# a share of the full decode's peak
+STREAM_AUDIO_RTOL = 1e-2
+
+
+def stream_chunks(ctx, text: str):
+    """(chunks, host seconds to the first chunk, to the last) of one
+    `generate_audio_stream`; each chunk is a host array, so the device
+    has finished it."""
+    t0 = time.perf_counter()
+    chunks, first = [], None
+    for chunk in ctx.generate_audio_stream(text):
+        first = time.perf_counter() - t0 if first is None else first
+        chunks.append(chunk)
+    return chunks, first, time.perf_counter() - t0
+
+
+def single_path_launches(label: str, counts, loops, windows: int,
+                         chunks: int, prompts: int = 1) -> None:
+    """A single-lane run of `prompts` requests went through K2, K3 and K4
+    alone: each window one K2 and one K4, each prompt one K2, each chunk
+    and window one launch of the dense step loop, no single step and no
+    batched kernel."""
+    expect(label, counts, {
+        "prefill": prompts + windows, "window": windows, "semantic": chunks,
+        "decode": 0, "qdecode": 0, "bprefill": 0, "bsemantic": 0,
+        "bwindow": 0, "bdecode": 0})
+    if loops["decode"] != chunks + windows or loops["qdecode"]:
+        raise AssertionError(f"{label}: loops {loops}")
+
+
+def streamed_request(stages, codec, smi: str) -> dict:
+    """Phase 4g: a streamed request on bark-small beside the fused request
+    with the same seed (so the same semantic and coarse noise): the
+    semantic and coarse tokens equal, one chunk a coarse window, each
+    window one K2 and one K4; the chunks joined are the audio and match
+    one decode of the final fine tokens within STREAM_AUDIO_RTOL of its
+    peak. Times the first chunk (TTFA) and the whole stream on the host
+    clock, after a first stream on other seeds (first use of the
+    prefix decodes' lengths: not kept)."""
+    import numpy as np
+    import torch
+
+    from bark_tpu_torch.pipeline import coarse as coarse_pipe
+
+    option_run(stages, codec, "stream, first use", 9,
+               lambda c: stream_chunks(c, PROMPTS[0]))
+    fused, _, _, _, _, fused_wall = option_run(
+        stages, codec, "fused request", 5,
+        lambda c: c.generate_audio(PROMPTS[0]))
+    ctx, (chunks, ttfa, total), counts, loops, _, wall = option_run(
+        stages, codec, "streamed request", 5,
+        lambda c: stream_chunks(c, PROMPTS[0]))
+    for name in ("semantic_tokens", "coarse_tokens"):
+        if not np.array_equal(getattr(ctx, name), getattr(fused, name)):
+            raise AssertionError(f"streamed request: {name} differ from the "
+                                 f"fused request's")
+    count = int(ctx.semantic_tokens.size)
+    windows = coarse_pipe.coarse_schedule(count, ctx.params)[3]
+    single_path_launches("streamed request", counts, loops, windows,
+                         -(-semantic_steps(count) // 16))
+    joined = np.concatenate(chunks)
+    n = ctx.fine_tokens.shape[0]
+    if len(chunks) != windows or joined.shape != (n * 320,) or \
+            not np.array_equal(joined, ctx.get_audio_data()) or \
+            not np.isfinite(joined).all():
+        raise AssertionError(f"streamed request: {len(chunks)} chunks for "
+                             f"{windows} windows, {joined.shape} samples "
+                             f"for {n} frames")
+    whole = ctx._decode_codec(torch.from_numpy(ctx.fine_tokens).cuda(),
+                              n).cpu().numpy()
+    err, peak = float(np.abs(joined - whole).max()), float(
+        np.abs(whole).max())
+    log(f"  streamed request: chunks joined vs one decode of the final "
+        f"tokens max|err| {err:.3e} (tol {STREAM_AUDIO_RTOL} x peak "
+        f"{peak:.3e})")
+    if err > STREAM_AUDIO_RTOL * max(peak, 1.0):
+        raise AssertionError(f"streamed chunks differ from the final decode:"
+                             f" {err}")
+    r = request_result(ctx, "streamed", wall)
+    r.update(ttfa_s=ttfa, stream_s=total, chunks=len(chunks),
+             chunk_samples=[int(c.size) for c in chunks], launches=counts,
+             final_decode_max_abs_err=err, final_decode_peak=peak,
+             fused_eval_s=fused.stats.t_eval_us / 1e6,
+             fused_wall_s=fused_wall)
+    log(f"  streamed request: TTFA {ttfa:.3f} s, stream {total:.3f} s "
+        f"(eval {r['eval_s']:.3f} s), {len(chunks)} chunks for "
+        f"{r['audio_s']:.3f} s of audio; the fused request eval "
+        f"{r['fused_eval_s']:.3f} s on {smi}")
+    return r
+
+
+def long_requests(stages, codec) -> tuple:
+    """Phase 4g: `generate_audio_long` and `generate_audio_stream_long` of
+    LONG_TEXT's two sentences on bark-small: each sentence's windows one
+    K2 and one K4, its chunks one launch of the step loop; the audio the
+    two sentences with 0.25 s of silence between them (streamed: one
+    chunk a window and the silence)."""
+    import numpy as np
+
+    from bark_tpu_torch.pipeline import coarse as coarse_pipe
+
+    out = []
+    for label, run in (
+            ("long-form request", lambda c: c.generate_audio_long(
+                LONG_TEXT)),
+            ("streamed long-form request", lambda c: list(
+                c.generate_audio_stream_long(LONG_TEXT)))):
+        counts_by_sentence = []
+        ctx, got, counts, loops, _, wall = option_run(
+            stages, codec, label, 6, lambda c: run(
+                _keep_sentences(c, counts_by_sentence)))
+        if got is False or len(counts_by_sentence) != 2:
+            raise AssertionError(f"{label}: {got}, sentences "
+                                 f"{counts_by_sentence}")
+        windows = sum(coarse_pipe.coarse_schedule(n, ctx.params)[3]
+                      for n in counts_by_sentence)
+        single_path_launches(label, counts, loops, windows, sum(
+            -(-semantic_steps(n) // 16) for n in counts_by_sentence),
+            prompts=len(counts_by_sentence))
+        audio = ctx.get_audio_data()
+        frames = ctx.stats.n_sample_coarse // 2
+        if audio.shape != (frames * 320 + 6000,) or \
+                not np.isfinite(audio).all() or \
+                audio[:frames * 320].std() == 0:
+            raise AssertionError(f"{label}: audio {audio.shape} for "
+                                 f"{frames} frames")
+        if isinstance(got, list) and (
+                len(got) != windows + 1 or
+                not np.array_equal(np.concatenate(got), audio)):
+            raise AssertionError(f"{label}: {len(got)} chunks for "
+                                 f"{windows} windows and a silence")
+        s = ctx.stats
+        out.append(dict(label=label, sentences=counts_by_sentence,
+                        windows=windows, audio_s=audio.size / 24000,
+                        eval_s=s.t_eval_us / 1e6, wall_s=wall,
+                        semantic_s=s.t_semantic_us / 1e6,
+                        coarse_s=s.t_coarse_us / 1e6,
+                        fine_s=s.t_fine_us / 1e6, launches=counts))
+    return tuple(out)
+
+
+def _keep_sentences(ctx, counts: list):
+    """`ctx`, its generate_audio and generate_audio_stream wrapped to
+    append each sentence's semantic token count to `counts`."""
+    audio, stream = ctx.generate_audio, ctx.generate_audio_stream
+
+    def generate_audio(*a, **kw):
+        ok = audio(*a, **kw)
+        counts.append(int(ctx.semantic_tokens.size))
+        return ok
+
+    def generate_audio_stream(*a, **kw):
+        yield from stream(*a, **kw)
+        counts.append(int(ctx.semantic_tokens.size))
+
+    ctx.generate_audio = generate_audio
+    ctx.generate_audio_stream = generate_audio_stream
+    return ctx
+
+
+def served_requests(stages, codec, smi: str) -> dict:
+    """Phase 4g: the port's HTTP server in this process (`cli.server`'s
+    handler on a free localhost port, `--batch 40`: its BatchWorker and
+    the one generation lock) under SERVER_BATCH concurrent POST /bark and
+    one chunked stream request, driven with the launch counts set to 0
+    just before and read just after: one generate_audio_batch of 40 in
+    groups of 32 and 8 lanes, each group's chunks and windows one launch
+    of the batched loop (K9, K10) after one K8 a window, and no batched
+    single step; the stream's windows K2 + K4. Fails if the worker fell
+    back to single requests or a reply is not 200 with audio."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import bark_tpu_torch as bt
+    from bark_tpu_torch import kernels
+    from bark_tpu_torch.cli import server as srv
+    from bark_tpu_torch.models.presets import ENCODEC_24KHZ
+
+    ctx = bt.BarkContext.from_parts(
+        vocab_tokens=VOCAB, semantic=stages["semantic"],
+        coarse=stages["coarse"], fine=stages["fine"],
+        codec_cfg=ENCODEC_24KHZ, codec_params=codec,
+        params=bt.BarkContextParams(
+            compute_dtype="bfloat16", n_steps_text_encoder=MAX_STEPS,
+            min_eos_p=2.0, stage_sync=True),
+        seed=140, device=torch.device("cuda"))
+    groups, group = [], ctx._generate_group
+
+    def counted_group(texts, presets, first):
+        groups.append(len(texts))
+        return group(texts, presets, first)
+
+    ctx._generate_group = counted_group
+    lock = threading.Lock()
+    # a full batch leaves at once; the window only bounds a short one
+    worker = srv.BatchWorker(ctx, SERVER_BATCH, 60_000.0, lock)
+    httpd = srv.Server(("127.0.0.1", 0),
+                       srv.make_handler(ctx, lock, 1, worker))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/bark"
+    replies = {}
+
+    def post(key, payload):
+        req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type":
+                                              "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=SUBPROCESS_TIMEOUT_S) as r:
+            replies[key] = (r.status, r.read(), time.perf_counter() - t0)
+
+    clients = [threading.Thread(target=post, args=(
+        i, {"text": PROMPTS[i % len(PROMPTS)]})) for i in range(SERVER_BATCH)]
+    clients.append(threading.Thread(target=post, args=(
+        "stream", {"text": PROMPTS[1], "stream": True})))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with counted_plain_calls() as plain:
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=SUBPROCESS_TIMEOUT_S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    counts, loops = kernels.launch_counts(), loop_launches()
+    log(f"  server: {len(replies)} replies in {wall:.3f} s, kernel launches "
+        f"{counts}, loops {loops}, groups {groups}, fallbacks "
+        f"{worker.fallbacks}, plain calls {plain}")
+    if worker.fallbacks or groups != [32, SERVER_BATCH - 32] or \
+            any(plain.values()):
+        raise AssertionError(f"server: fallbacks {worker.fallbacks}, groups "
+                             f"{groups}, plain calls {plain}")
+    samples = []
+    for key in list(range(SERVER_BATCH)) + ["stream"]:
+        status, body, _ = replies.get(key, (None, b"", 0))
+        audio = np.frombuffer(body[46 if key == "stream" else 58:], "<f4")
+        if status != 200 or body[:4] != b"RIFF" or audio.size == 0 or \
+                audio.size % 320 or not np.isfinite(audio).all():
+            raise AssertionError(f"server: reply {key}: status {status}, "
+                                 f"{audio.size} samples")
+        samples.append(audio.size)
+    if (min(counts[m] for m in ("bprefill", "bsemantic", "bwindow",
+                                "prefill", "semantic", "window")) <= 0
+            or loops["bdecode"] != counts["bsemantic"] + counts["bwindow"]
+            or loops["decode"] != counts["semantic"] + counts["window"]
+            or any(counts[m] for m in ("bdecode", "qbdecode", "decode",
+                                       "qdecode"))):
+        raise AssertionError(f"server: launches {counts}, loops {loops}")
+    audio_s = sum(samples[:SERVER_BATCH]) / 24000
+    batch_wall = max(replies[i][2] for i in range(SERVER_BATCH))
+    r = dict(requests=SERVER_BATCH, groups=groups, wall_s=wall,
+             batch_wall_s=batch_wall, audio_s=audio_s,
+             audio_s_per_wall_s=audio_s / batch_wall,
+             stream_wall_s=replies["stream"][2],
+             stream_audio_s=samples[-1] / 24000, launches=counts,
+             loops=loops, fallbacks=worker.fallbacks)
+    log(f"  server: {SERVER_BATCH} /bark requests in groups {groups}: the "
+        f"last reply after {batch_wall:.3f} s, {audio_s:.3f} s of audio "
+        f"({r['audio_s_per_wall_s']:.3f} audio-s per wall-s); the stream "
+        f"request {r['stream_wall_s']:.3f} s; all {wall:.3f} s on {smi}")
+    return r
+
+
+def small_model_stream_reference() -> dict:
+    """Phase 4g, in f32 with TF32 off: the small model streams two coarse
+    windows (sliding_window_size 20) on the GPU through the kernels and on
+    the CPU through the plain versions, with the same noise: tokens equal,
+    chunks of equal lengths within 1e-3; on the GPU each window one K2 and
+    one K4."""
+    import numpy as np
+    import torch
+
+    import bark_tpu_torch as bt
+    from bark_tpu_torch import kernels
+    from bark_tpu_torch.ops import sampling
+
+    runs = {}
+    with full_f32():
+        for device in ("cpu", "cuda"):
+            ctx = bt.BarkContext.from_parts(
+                **small_model_parts(device),
+                params=bt.BarkContextParams(**dict(
+                    SMALL_PARAMS, sliding_window_size=20)),
+                seed=0, device=device)
+            gen = torch.Generator().manual_seed(11)
+            ctx.noise_source = (
+                lambda stage, shape, g=gen, d=device:
+                sampling.gumbel(shape, g, "cpu").to(d))
+            kernels.reset_launches()
+            chunks = list(ctx.generate_audio_stream("hello world"))
+            counts = kernels.launch_counts()
+            if device == "cuda" and (counts["window"] != len(chunks) or
+                                     counts["prefill"] != 1 + len(chunks)):
+                raise AssertionError(f"small model stream: {len(chunks)} "
+                                     f"chunks, launches {counts}")
+            runs[device] = (ctx, chunks)
+    (cpu, cpu_chunks), (gpu, gpu_chunks) = runs["cpu"], runs["cuda"]
+    for name in ("semantic_tokens", "coarse_tokens", "fine_tokens"):
+        if not np.array_equal(getattr(cpu, name), getattr(gpu, name)):
+            raise AssertionError(f"small model stream: {name} differ CPU vs "
+                                 f"GPU")
+    if [c.size for c in cpu_chunks] != [c.size for c in gpu_chunks] or \
+            len(gpu_chunks) != 2:
+        raise AssertionError("small model stream: chunks differ CPU vs GPU")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(cpu_chunks,
+                                                           gpu_chunks))
+    log(f"  small model stream: {len(gpu_chunks)} chunks, tokens equal in "
+        f"every stage CPU vs GPU, chunks max|err| {err:.3e} (tol 1e-3)")
+    if err > 1e-3:
+        raise AssertionError(f"small model stream audio differs: {err}")
+    return dict(chunks=len(gpu_chunks), max_abs_err=err)
+
+
+MAIN_CLI_DRIVER = (
+    "import functools, sys\n"
+    "import bark_tpu_torch.params as params_mod\n"
+    "import chip_smoke\n"
+    "from bark_tpu_torch.cli import main\n"
+    "params_mod.BarkContextParams = functools.partial(\n"
+    "    params_mod.BarkContextParams, **chip_smoke.SMALL_PARAMS)\n"
+    "sys.exit(main.main(sys.argv[1:]))\n")
+
+
+def main_cli_run() -> dict:
+    """Phase 4g: `bark_tpu_torch.cli.main` in a subprocess on the small
+    model's file (its params patched to the small token space), on the
+    card (its default device): exit 0 and a WAV of the request's
+    samples."""
+    import numpy as np
+
+    from bark_tpu_torch.utils.wav import read_wav
+
+    path = os.path.join(OUT_DIR, "small_cli.bin")
+    wav = os.path.join(OUT_DIR, "small_cli.wav")
+    write_small_model(path)
+    t0 = time.perf_counter()
+    run_child("main CLI", [sys.executable, "-c", MAIN_CLI_DRIVER, "-m", path,
+                           "-p", "hello world", "-o", wav, "--dtype",
+                           "float32", "-s", "2"])
+    seconds = time.perf_counter() - t0
+    audio, sr = read_wav(wav)
+    for f in (path, wav):
+        os.unlink(f)
+    if sr != 24000 or audio.shape != (18 * 320,) or \
+            not np.isfinite(audio).all():
+        raise AssertionError(f"main CLI: {audio.shape} samples at {sr} Hz")
+    return dict(seconds=seconds, samples=int(audio.size))
+
+
+def streaming_phase(smi: str) -> dict:
+    """Phase 4g: streaming, long-form and the server on bark-small (random
+    bf16 weights from a seed, bench.py's depth, PyTorch's defaults), the
+    small model's stream GPU vs CPU in f32, and the main CLI in a
+    subprocess."""
+    import torch
+
+    from bark_tpu_torch.io import loader
+    from bark_tpu_torch.models.presets import ENCODEC_24KHZ
+
+    t0 = time.perf_counter()
+    codec = loader.params_from_numpy(
+        loader.codec_init_params_numpy(ENCODEC_24KHZ, 3), torch.float32,
+        torch.device("cuda"))
+    stages = bark_small_stages()
+    rec = dict(stream=streamed_request(stages, codec, smi))
+    rec["long"], rec["stream_long"] = long_requests(stages, codec)
+    rec["server"] = served_requests(stages, codec, smi)
+    del stages
+    torch.cuda.empty_cache()
+    rec["small_model_stream"] = small_model_stream_reference()
+    rec["main_cli"] = main_cli_run()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["card"] = smi
+    # the single-lane kernels' launches of the stream and long-form runs,
+    # and the batched ones of the server's (the kernel table adds them)
+    rec["launches"] = {m: sum(rec[k]["launches"][m] for k in (
+        "stream", "long", "stream_long")) for m in ("prefill", "semantic",
+                                                    "window")}
+    rec["launches"].update({m: rec["server"]["launches"][m] for m in (
+        "bprefill", "bsemantic", "bwindow")})
+    for key in ("long", "stream_long"):
+        r = rec[key]
+        log(f"  {key}: eval {r['eval_s']:.3f} s = semantic "
+            f"{r['semantic_s']:.3f} + coarse {r['coarse_s']:.3f} + fine "
+            f"{r['fine_s']:.3f} s for {r['audio_s']:.3f} s of audio "
+            f"(2 sentences, {r['windows']} windows) on {smi}")
+    return rec
+
+
 # ------------------------------------------------------------ D1-D5
 
 
@@ -4403,6 +4821,10 @@ def main() -> int:
             rec = k7_step_record()
         print(json.dumps({"k7_step": dict(card=smi, **rec)}))
         return 0
+    if sys.argv[1:] == ["--streaming"]:
+        rec = streaming_phase(smi)
+        print(json.dumps({"streaming": rec}))
+        return 0
 
     checks = Checks()
     with full_f32():
@@ -4536,6 +4958,13 @@ def main() -> int:
         "audio, a profile_dir request in a fresh process")
     options = options_phase(smi)
     log(f"  phase 4f took {options['seconds']:.1f} s")
+    log("phase 4g: streaming, long-form and the HTTP server on bark-small "
+        f"(a stream beside the fused request, two sentences long and "
+        f"streamed, {SERVER_BATCH} concurrent requests and a stream through "
+        f"--batch {SERVER_BATCH}); the small model's stream GPU vs CPU; "
+        f"the main CLI")
+    streaming = streaming_phase(smi)
+    log(f"  phase 4g took {streaming['seconds']:.1f} s")
     log(f"phase 5: the weight-stream probe D1-D5 at {DMA_MB} MB a pass, "
         f"every load method, stage size and ring, and its yardsticks")
     from bark_tpu_torch.probes import dma
@@ -4635,6 +5064,8 @@ def main() -> int:
             launches = sum(c[module] for c in batch_launches.values())
         else:
             launches = counts[module]
+        if name not in kv8_launches:  # phase 4g's launches of K2-K4, K8-K10
+            launches += streaming["launches"].get(module, 0)
         log(f"  {name:30s} {ms:9.3f} ms  plain {plain:9.3f} ms  bound "
             f"{bound_ms:7.4f} ms ({bound_by})  launches {launches}  (bf16)")
         row = dict(
@@ -4763,6 +5194,7 @@ def main() -> int:
                           batches_kv8=kv8_batches,
                           batches_q4_0=q_batches,
                           batches_q4_0_kv8=kv8_q_batches, options=options,
+                          streaming=streaming,
                           build_s=build_s,
                           build=build_record,
                           attention_alone={k: v[:2] for k, v in

@@ -9,6 +9,9 @@ their plain versions):
 - within the port: lane b of a batch is exactly a single
   `generate_audio` given the same noise, including lanes that forced noise
   stops at different semantic steps and a lane that stops at step 0;
+- a batch over the batched kernels' lane cap (patched to 2 here) runs as
+  groups of 2 and 1, each lane's tokens bit-equal to bark_tpu's and the
+  statistics added up;
 - what the path refuses (packed stages it takes: see
   tests/test_torch_quant_batched_e2e.py; voices: tests/test_torch_voice.py).
 """
@@ -21,6 +24,8 @@ import torch
 import bark_tpu
 import bark_tpu_torch
 from bark_tpu.io import ggml
+
+from bark_tpu_torch.kernels import bdecode as kbdec
 
 from test_torch_e2e import gumbel_from_key, one_torch_thread
 from tiny_model import build_tiny_model, tiny_params
@@ -127,8 +132,64 @@ def test_lanes_equal_single_requests(weights):
 
 
 def test_batch_refuses_what_is_not_ported(weights):
+    """An empty batch gives an empty list (and no time); nothing else is
+    refused, a batch over 32 prompts included
+    (`test_grouped_batch_tokens_equal_bark_tpu`)."""
     ctx = bark_tpu_torch.bark_load_model(weights, tiny_params(), seed=0,
                                          device="cpu")
     assert ctx.generate_audio_batch([]) == []
-    with pytest.raises(ValueError, match="at most 32"):
-        ctx.generate_audio_batch(["hello"] * 33)
+    assert ctx.stats.t_eval_us == 0
+
+
+@pytest.fixture(scope="module")
+def grouped(both, weights):
+    """bark_tpu's batch of the 3 prompts (padded to 4 lanes) again, now
+    with each lane's tokens (`bark_tpu_batch_lanes`), and the port's batch
+    of them at a lane cap of 2: groups of 2 and 1, each lane's noise
+    replayed by its index in the whole batch."""
+    # that module imports this one's helpers
+    from test_torch_quant_batched_e2e import bark_tpu_batch_lanes
+
+    jctx, _, _, _ = both
+    jctx.rng_key = jax.random.PRNGKey(SEED)
+    jctx.reset_statistics()
+    jaudio, jlanes = bark_tpu_batch_lanes(jctx, PROMPTS)
+    tctx = bark_tpu_torch.bark_load_model(weights, jctx.params, seed=SEED,
+                                          device="cpu")
+    groups, real = [], tctx._generate_group
+
+    def group(texts, presets, first):
+        groups.append((len(texts), first))
+        return real(texts, presets, first)
+
+    tctx._generate_group = group
+    tctx.lane_noise_source = replay_bark_tpu_lane_noise(SEED, len(PROMPTS))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kbdec, "MAX_LANES", 2)
+        tlanes = tctx._generate_batch(PROMPTS)
+    assert groups == [(2, 0), (1, 2)]
+    return jctx, jaudio, jlanes, tctx, tlanes
+
+
+@pytest.mark.parametrize("stage", ["semantic", "coarse", "fine"])
+def test_grouped_batch_tokens_equal_bark_tpu(grouped, stage):
+    """A batch over the lane cap, run as groups, gives each lane bark_tpu's
+    tokens bit for bit."""
+    _, _, jlanes, _, tlanes = grouped
+    assert len(tlanes) == len(jlanes) == len(PROMPTS)
+    for b, (t, j) in enumerate(zip(tlanes, jlanes)):
+        assert t[stage].size > 0
+        np.testing.assert_array_equal(t[stage], j[stage], err_msg=f"lane {b}")
+
+
+def test_grouped_batch_audio_and_statistics_match(grouped):
+    """The groups' audio is bark_tpu's in order, and their statistics add
+    up to bark_tpu's batch's."""
+    jctx, jaudio, _, tctx, tlanes = grouped
+    for j, t in zip(jaudio, tlanes):
+        assert t["audio"].shape == j.shape
+        np.testing.assert_allclose(t["audio"], j, rtol=0, atol=AUDIO_ATOL)
+    for f in ("n_sample_semantic", "n_sample_coarse", "n_sample_fine"):
+        assert getattr(tctx.stats, f) == getattr(jctx.stats, f) > 0, f
+    s = tctx.stats
+    assert s.t_eval_us >= s.t_semantic_us + s.t_coarse_us + s.t_fine_us > 0

@@ -1,9 +1,11 @@
 """The port's own copies of bark_tpu's jax-free host modules (params,
 tokenizer, the ggml reader and writer, the block quantizers, the file
-quantizer, the voice presets) against their originals, on seeded data:
-equal defaults, equal token lists, record-for-record equal model files
-read by the other package's reader, bit-equal quantized blocks,
-byte-equal quantized files, and equal histories from the same presets."""
+quantizer, the voice presets, the sentence splitter, the WAV writer and
+reader, the checkpoint converter) against their originals, on seeded
+data: equal defaults, equal token lists, record-for-record equal model
+files read by the other package's reader, bit-equal quantized blocks,
+byte-equal quantized files, equal histories from the same presets, equal
+sentence lists, byte-equal WAV files and converted model files."""
 
 import dataclasses
 
@@ -11,17 +13,23 @@ import numpy as np
 import pytest
 
 from bark_tpu import params as jparams
+from bark_tpu.io import convert as jconvert
 from bark_tpu.io import ggml as jggml
 from bark_tpu.io import quant as jquant
 from bark_tpu.io import quantize as jquantize
 from bark_tpu.pipeline import voice as jvoice
+from bark_tpu.text import longform as jlongform
 from bark_tpu.text import tokenizer as jtok
+from bark_tpu.utils import wav as jwav
 from bark_tpu_torch import params as tparams
+from bark_tpu_torch.io import convert as tconvert
 from bark_tpu_torch.io import ggml as tggml
 from bark_tpu_torch.io import quant as tquant
 from bark_tpu_torch.io import quantize as tquantize
 from bark_tpu_torch.pipeline import voice as tvoice
+from bark_tpu_torch.text import longform as tlongform
 from bark_tpu_torch.text import tokenizer as ttok
+from bark_tpu_torch.utils import wav as twav
 
 from tiny_model import VOCAB, build_tiny_model, tiny_params
 
@@ -241,3 +249,113 @@ def test_voice_validation_equal(fault, tmp_path):
                 mod.VoicePreset(**arrays).validate(p)
         errors.append(str(e.value))
     assert errors[0] == errors[1]
+
+
+LONG_TEXTS = [
+    "Hello world. How are you? Fine!",
+    "  one sentence without an ender  ",
+    "a" * 500,
+    "x, " * 120 + "end.",
+    "Semi; colon: and, commas " * 12,
+    "",
+    "Wait... what?!  Yes.\nNew line. Été ici.",
+]
+
+
+@pytest.mark.parametrize("text", LONG_TEXTS, ids=range(len(LONG_TEXTS)))
+@pytest.mark.parametrize("max_chars", [220, 40])
+def test_split_sentences_equal(text, max_chars):
+    assert (tlongform.split_sentences(text, max_chars)
+            == jlongform.split_sentences(text, max_chars))
+
+
+@pytest.mark.parametrize("n", [0, 1, 4801])
+def test_wav_equal(n, tmp_path):
+    """The WAV writers give the same bytes, in memory and on disk, the
+    stream headers too, and each reader reads the other's file."""
+    audio = np.random.default_rng(n).normal(0, 0.3, n).astype(np.float32)
+    assert twav.wav_bytes(audio, 24000) == jwav.wav_bytes(audio, 24000)
+    assert twav.wav_stream_header(16000) == jwav.wav_stream_header(16000)
+    paths = [str(tmp_path / "t.wav"), str(tmp_path / "j.wav")]
+    twav.write_wav(paths[0], audio)
+    jwav.write_wav(paths[1], audio)
+    assert open(paths[0], "rb").read() == open(paths[1], "rb").read()
+    for path in paths:
+        (ta, tsr), (ja, jsr) = twav.read_wav(path), jwav.read_wav(path)
+        assert tsr == jsr == 24000
+        np.testing.assert_array_equal(ta, ja)
+        np.testing.assert_array_equal(ta, audio)
+
+
+def test_read_wav_int16_stereo_equal(tmp_path):
+    import struct
+
+    pcm = (np.arange(-40, 40, dtype=np.int16) * 300).reshape(-1, 2)
+    data = pcm.tobytes()
+    path = str(tmp_path / "s.wav")
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE")
+        f.write(b"fmt " + struct.pack("<IHHIIHH", 16, 1, 2, 8000, 32000, 4,
+                                      16))
+        f.write(b"data" + struct.pack("<I", len(data)) + data)
+    (ta, tsr), (ja, jsr) = twav.read_wav(path), jwav.read_wav(path)
+    assert tsr == jsr == 8000 and ta.shape == (40,)
+    np.testing.assert_array_equal(ta, ja)
+
+
+def hf_snapshot(d):
+    """A synthetic HF suno/bark snapshot (pytorch_model.bin, config.json,
+    vocab.txt) in directory `d`, at the tiny model's sizes, built with
+    tests/test_convert.py's state dicts."""
+    import json
+    import pathlib
+
+    import torch
+
+    import tiny_model as tm
+    from test_convert import _codec_state, _gpt_state
+
+    d = pathlib.Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(7)
+    shapes = dict(
+        semantic=(320, tm.SEMANTIC_INFER + 1, tm.SEMANTIC_VOCAB),
+        coarse_acoustics=(384, tm.COARSE_INFER + 1,
+                          tm.SEMANTIC_VOCAB + 2 * tm.CODEBOOK),
+        fine_acoustics=(64, tm.CODEBOOK + 1, tm.CODEBOOK + 1))
+    state, config = {}, {}
+    for prefix, (block, n_in, n_out) in shapes.items():
+        fine = prefix == "fine_acoustics"
+        state.update(_gpt_state(prefix, rng, n_layer=2, n_embd=32,
+                                block=block, n_in=n_in, n_out=n_out,
+                                ln_bias=fine, n_wtes=8 if fine else 1,
+                                n_heads_lm=7 if fine else 1))
+        config[f"{prefix}_config"] = dict(
+            num_layers=2, num_heads=2, hidden_size=32, block_size=block,
+            bias=False, input_vocab_size=n_in, output_vocab_size=n_out,
+            **(dict(n_codes_total=8, n_codes_given=1) if fine else {}))
+    state.update(_codec_state(rng))
+    config["codec_config"] = dict(
+        audio_channels=1, hidden_size=16, num_filters=2, kernel_size=7,
+        residual_kernel_size=3, codebook_size=tm.CODEBOOK,
+        sampling_rate=24000)
+    torch.save(state, d / "pytorch_model.bin")
+    (d / "config.json").write_text(json.dumps(config))
+    (d / "vocab.txt").write_text("".join(t + "\n" for t in tm.VOCAB))
+    return d
+
+
+@pytest.mark.parametrize("use_f16", [False, True])
+def test_convert_byte_equal(tmp_path, use_f16):
+    """Both converters write the same bytes from one HF snapshot; the
+    weight-norm fold is the same function."""
+    snap = hf_snapshot(tmp_path / "hf")
+    paths = [str(tmp_path / "t.bin"), str(tmp_path / "j.bin")]
+    tconvert.convert(str(snap), paths[0], use_f16=use_f16)
+    jconvert.convert(str(snap), paths[1], use_f16=use_f16)
+    assert open(paths[0], "rb").read() == open(paths[1], "rb").read()
+    rng = np.random.default_rng(1)
+    v = rng.normal(size=(6, 4, 5)).astype(np.float32)
+    g = np.abs(rng.normal(size=(6, 1, 1))).astype(np.float32) + 0.1
+    np.testing.assert_array_equal(tconvert.weight_norm_fold(v, g),
+                                  jconvert.weight_norm_fold(v, g))
