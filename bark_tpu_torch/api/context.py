@@ -68,6 +68,13 @@ block over the new frames and a decode of the causal prefix);
 sentences (`text.longform`) and chain each on the previous one's
 generation as its voice.
 
+Multi-GPU serving (`bark_tpu_torch.parallel.sharding`): on a context
+that `shard_context_dp` or `shard_context` placed on a mesh of ranks,
+`generate_audio_batch` runs this rank's slice of each group's lanes
+(`_generate_group`), the batched stage programs on `self._forward` (the
+kernels, or the tensor-parallel forward), and every rank returns every
+lane.
+
 The command-line tools and the HTTP server (`bark_tpu_torch.cli`: `main`,
 `quantize`, `voice`, `convert`, `server`, `precompile`) run on the card
 (`--device cuda`, the default) and refuse to start without one; the CPU
@@ -97,6 +104,7 @@ from bark_tpu_torch.ops import sampling
 from bark_tpu_torch.params import BarkContextParams, EncodingStep, Verbosity
 from bark_tpu_torch.pipeline import coarse as coarse_pipe
 from bark_tpu_torch.pipeline import fine as fine_pipe
+from bark_tpu_torch.pipeline.forward import KERNELS
 from bark_tpu_torch.pipeline import semantic as semantic_pipe
 from bark_tpu_torch.pipeline import voice as voice_mod
 from bark_tpu_torch.text import longform, tokenizer
@@ -212,6 +220,11 @@ class BarkContext:
         self.fine_tokens = np.zeros((0, 0), np.int32)
         self.generated_audio: Optional[np.ndarray] = None
         self._programs = {}
+        # set by parallel.sharding.shard_context_dp and shard_context: the
+        # mesh whose dp axis splits a batch's lanes, and the forward the
+        # batched stage programs run
+        self._dp_mesh = None
+        self._forward = KERNELS
 
     def _validate(self) -> None:
         """Fail fast when the generation params do not fit the model's
@@ -267,14 +280,25 @@ class BarkContext:
                     self.coarse_cfg, p, ctx_size=self._ctx_size(),
                     kv_quant=self.kv_quant)
             elif name == "fine_block":
-                prog = fine_pipe.make_fine_block_program(self.fine_cfg, p)
+                prog = fine_pipe.make_fine_block_program(
+                    self.fine_cfg, p, forward=self._forward)
             else:
-                prog = fine_pipe.make_fine_stage_program(self.fine_cfg, p)
+                prog = fine_pipe.make_fine_stage_program(
+                    self.fine_cfg, p, forward=self._forward)
             self._programs[name] = prog
         return self._programs[name]
 
     def _ctx_size(self) -> int:
         return min(COARSE_CTX_SIZE, self.coarse_cfg.block_size)
+
+    def _single_request(self) -> None:
+        """Refuse a single request on a tensor-parallel context: its
+        stages hold this rank's shards, which only the batched programs
+        run (as `generate_audio_batch`)."""
+        if self._forward is not KERNELS:
+            raise ValueError(
+                f"a {self._forward.name} context serves "
+                f"generate_audio_batch; a single request is a batch of one")
 
     def _sync(self, force: bool = False) -> None:
         if (force or self.params.stage_sync) and self.device.type == "cuda":
@@ -290,6 +314,7 @@ class BarkContext:
         histories condition the three stages, or None for the reference's
         empty history. With `detailed_stats` or a `progress_callback` the
         stepped path runs; with `profile_dir` the request is traced."""
+        self._single_request()
         p = self.params
         preset = self._resolve_voice(voice)
         self.reset_statistics()
@@ -447,6 +472,7 @@ class BarkContext:
         next block of the fine stage's noise (bark_tpu splits its fine key
         once per window, then once per codebook). The coarse stage's dense
         copy of a qpack is made once per call, and so is the fine stage's."""
+        self._single_request()
         p = self.params
         preset = self._resolve_voice(voice)
         sem_hist, coarse_hist, fine_hist = self._voice_args(preset)
@@ -666,9 +692,22 @@ class BarkContext:
     def _generate_group(self, texts, presets, first: int) -> list:
         """`_generate_batch` for at most `bdecode.MAX_LANES` prompts, the
         first of them prompt `first` of the batch (the lane index its
-        noise is drawn for). Adds to the statistics, apart from t_eval."""
+        noise is drawn for). Adds to the statistics, apart from t_eval.
+
+        On a data-parallel context (`parallel.sharding.shard_context_dp`,
+        `shard_context`) this rank runs its contiguous slice [lo, hi) of
+        the group's lanes (`Mesh.lanes`) and the ranks go through the
+        stages in lockstep: every rank draws every lane's noise in the
+        unsharded order and keeps its own lanes' (a lane's coarse and fine
+        noise shapes follow from the semantic counts of every lane, which
+        the ranks gather), and at the end every rank gathers every lane,
+        so each lane is the unsharded group's under the same noise
+        source."""
         p = self.params
         B = len(texts)
+        mesh = self._dp_mesh
+        lo, hi = (0, B) if mesh is None else mesh.lanes(B)
+        mine = range(lo, hi)
         hists = [self._voice_args(v) for v in presets]
         dev = self.device
         prompts = torch.as_tensor(np.stack([
@@ -676,63 +715,83 @@ class BarkContext:
                 self.vocab, t, p, block_size=self.semantic_cfg.block_size,
                 semantic_history=voice_mod.semantic_history_tokens(v, p)),
                 np.int32)
-            for t, v in zip(texts, presets)]), device=dev)
+            for t, v in zip(texts[lo:hi], presets[lo:hi])]),
+            device=dev) if mine else None
 
         # --- semantic: one batched prefill (K8) + lockstep chunks (K9)
         t0 = time.perf_counter()
         noise = None
         if p.temp != 0.0:
             shape = (p.n_steps_text_encoder, self.semantic_cfg.n_out_vocab)
-            noise = torch.empty((B, *shape), dtype=torch.float32, device=dev)
+            noise = torch.empty((len(mine), *shape), dtype=torch.float32,
+                                device=dev)
             for b in range(B):
-                noise[b] = self.lane_noise_source("semantic", first + b,
-                                                  shape)
-        sem_out, counts = semantic_pipe.make_semantic_program_batched(
-            self.semantic_cfg, temp=p.temp, max_steps=p.n_steps_text_encoder,
-            semantic_vocab_size=p.semantic_vocab_size, kv_quant=self.kv_quant,
-            top_k=p.top_k, top_p=p.top_p,
-        )(self.semantic_params, prompts, noise, p.min_eos_p)
+                lane = self.lane_noise_source("semantic", first + b, shape)
+                if b in mine:
+                    noise[b - lo] = lane
+        sem_out, counts = None, []
+        if mine:
+            sem_out, counts = semantic_pipe.make_semantic_program_batched(
+                self.semantic_cfg, temp=p.temp,
+                max_steps=p.n_steps_text_encoder,
+                semantic_vocab_size=p.semantic_vocab_size,
+                kv_quant=self.kv_quant, top_k=p.top_k, top_p=p.top_p,
+                forward=self._forward,
+            )(self.semantic_params, prompts, noise, p.min_eos_p)
         del noise
         self._sync()
         self.stats.t_semantic_us += int((time.perf_counter() - t0) * 1e6)
+        if mesh is not None:
+            counts = mesh.gather_lanes(counts)
         live = [b for b in range(B) if counts[b] > 0]
+        n_steps = [coarse_pipe.coarse_schedule(counts[b], p)[2]
+                   for b in live]
 
         # --- coarse: per shared window, K8 + K10 over the running lanes
         t0 = time.perf_counter()
         noises = [self._coarse_noise(counts[b], lane=first + b)
                   for b in live]
-        codes, n_steps = ([], []) if not live else \
-            coarse_pipe.make_coarse_stage_program_batched(
+        ours = [i for i, b in enumerate(live) if b in mine]
+        codes = {}  # by index in `live`
+        if ours:
+            coarse = coarse_pipe.make_coarse_stage_program_batched(
                 self.coarse_cfg, p, ctx_size=self._ctx_size(),
-                kv_quant=self.kv_quant,
-            )(self.coarse_params, [sem_out[b, :counts[b]] for b in live],
-              noises, [hists[b][0] for b in live],
-              [hists[b][1] for b in live])
+                kv_quant=self.kv_quant, forward=self._forward)
+            codes = dict(zip(ours, coarse(
+                self.coarse_params,
+                [sem_out[live[i] - lo, :counts[live[i]]] for i in ours],
+                [noises[i] for i in ours], [hists[live[i]][0] for i in ours],
+                [hists[live[i]][1] for i in ours])[0]))
+        del noises
         self._sync()
         self.stats.t_coarse_us += int((time.perf_counter() - t0) * 1e6)
 
         # --- fine and codec, per lane, on one dense copy of a qpack
         t0 = time.perf_counter()
         n_frames = [s // p.n_coarse_codebooks for s in n_steps]
-        fine_params = loader.densify(self.fine_cfg, self.fine_params)
-        fine = []
-        for b, c, n in zip(live, codes, n_frames):
+        fine_params = self._forward.weights(self.fine_cfg,
+                                            self.fine_params)[0]
+        fine = {}
+        for i, (b, n) in enumerate(zip(live, n_frames)):
             fh = hists[b][2]
-            fine.append(self._program("fine")(
-                fine_params, c, n, self._fine_noise(n, lane=first + b,
-                                                    n_hist=len(fh)),
-                torch.from_numpy(fh)))
+            noise = self._fine_noise(n, lane=first + b, n_hist=len(fh))
+            if i in codes:
+                fine[i] = self._program("fine")(
+                    fine_params, codes[i], n, noise, torch.from_numpy(fh))
         self._sync()
         self.stats.t_fine_us += int((time.perf_counter() - t0) * 1e6)
         empty = np.zeros((0,), np.int32)
         outs = [dict(semantic=empty, coarse=empty.reshape(0, 0),
                      fine=empty.reshape(0, 0),
-                     audio=np.zeros((0,), np.float32)) for _ in range(B)]
-        for i, (b, buf, n) in enumerate(zip(live, fine, n_frames)):
-            outs[b] = dict(
-                semantic=sem_out[b, :counts[b]].cpu().numpy(),
+                     audio=np.zeros((0,), np.float32)) for _ in mine]
+        for i, buf in fine.items():
+            b, n = live[i], n_frames[i]
+            outs[b - lo] = dict(
+                semantic=sem_out[b - lo, :counts[b]].cpu().numpy(),
                 coarse=codes[i].cpu().numpy(), fine=buf[:n].cpu().numpy(),
                 audio=self._decode_codec(buf, n).cpu().numpy())
+        if mesh is not None:
+            outs = mesh.gather_lanes(outs)
         self.stats.n_sample_semantic += sum(counts)
         self.stats.n_sample_coarse += sum(n_steps)
         self.stats.n_sample_fine += sum(n_frames) * p.n_fine_codebooks
@@ -758,6 +817,7 @@ class BarkContext:
         load too), and the semantic chunk stops at once (min_eos_p 0). It
         leaves the statistics, tokens and audio as they were. On the CPU
         it runs the plain programs the same way."""
+        self._single_request()
         p, dev = self.params, self.device
         t0 = time.perf_counter()
         if dev.type == "cuda":

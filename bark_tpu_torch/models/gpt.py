@@ -98,14 +98,17 @@ def kv_device(cache) -> torch.device:
     return (cache["q"] if isinstance(cache, dict) else cache).device
 
 
-def quantize_kv_rows(x):
+def quantize_kv_rows(x, amax=None):
     """Per-row symmetric int8 quantization of (..., D) rows -> (int8 of the
     same shape, f32 scales (...)), with dequant = q * s[..., None]: s =
     amax|x| / 127, q = clip(round_half_even(x / s), -127, 127), a zero row
     has scale 0. The divisions are true divisions by tensors (PyTorch's
-    CUDA division by a Python scalar multiplies by its reciprocal)."""
+    CUDA division by a Python scalar multiplies by its reciprocal).
+    `amax`: the rows' amax when x holds only part of each row (a
+    tensor-parallel rank's heads), else None."""
     x32 = x.float()
-    amax = x32.abs().amax(dim=-1)
+    if amax is None:
+        amax = x32.abs().amax(dim=-1)
     s = amax / torch.full_like(amax, 127.0)
     one = torch.ones_like(s)
     inv = torch.where(s > 0, one / torch.where(s == 0, one, s),

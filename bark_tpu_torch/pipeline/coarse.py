@@ -43,9 +43,6 @@ import numpy as np
 import torch
 
 from bark_tpu_torch.kernels import _build
-from bark_tpu_torch.kernels import bdecode as kbdec
-from bark_tpu_torch.kernels import bprefill as kbpre
-from bark_tpu_torch.kernels import bwindow as kbwin
 from bark_tpu_torch.kernels import decode as kdec
 from bark_tpu_torch.kernels import prefill as kpre
 from bark_tpu_torch.kernels import window as kwin
@@ -54,6 +51,7 @@ from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 from bark_tpu_torch.ops import sampling
 from bark_tpu_torch.params import BarkContextParams
+from bark_tpu_torch.pipeline.forward import KERNELS
 from bark_tpu_torch.pipeline.semantic import filtered
 
 # 256 semantic slots + 1 infer token + up to max_coarse_history coarse tokens
@@ -97,10 +95,12 @@ class _Window:
     """What every window of a coarse stage shares: the schedule's
     constants and the window itself (re-prime + steps)."""
 
-    def __init__(self, cfg: GPTConfig, p: BarkContextParams, kv_quant: bool):
+    def __init__(self, cfg: GPTConfig, p: BarkContextParams, kv_quant: bool,
+                 forward=KERNELS):
         if p.n_coarse_codebooks != 2:
             raise ValueError("the coarse window samples exactly 2 codebooks")
         self.cfg, self.p, self.kv_quant = cfg, p, kv_quant
+        self.forward = forward
         self.num, self.den = stc_fraction(p)
         self.sws, self.hist_cap = p.sliding_window_size, p.max_coarse_history
         self.max_sem_hist = max(1, self.hist_cap * self.den // self.num)
@@ -148,18 +148,15 @@ class _Window:
     def run_batched(self, params, dense, ctx, ctx_lens, g: int, noise):
         """One window of Ba lanes: K8 over the (Ba, ctx_size) contexts at
         their own lengths, then K10 (or the filtered batched steps) from
-        each lane's ctx_len. `noise`: (sws, Ba, cbs) or None at temp 0.
-        Returns the (Ba, sws) i32 offset-carrying tokens."""
-        cfg, p, sws = self.cfg, self.p, self.sws
-        wte = dense["wte"][0]
-        Ba = len(ctx_lens)
-        kc, vc = gpt.init_kv_cache(cfg, wte.dtype, wte.device, batch=Ba,
-                                   quant=self.kv_quant)
-        logits = kbpre.prefill_fused_batched(
-            cfg, dense, wte[ctx.long()], kc, vc, ctx_lens,
-            lm_window=self.lm_window)
+        each lane's ctx_len, through `self.forward`. `noise`: (sws, Ba,
+        cbs) or None at temp 0. Returns the (Ba, sws) i32 offset-carrying
+        tokens."""
+        cfg, p, sws, fwd = self.cfg, self.p, self.sws, self.forward
+        kc, vc = fwd.kv_cache(cfg, dense, len(ctx_lens), self.kv_quant)
+        logits = fwd.prefill(cfg, dense, fwd.embed(cfg, dense, ctx), kc, vc,
+                             ctx_lens, lm_window=self.lm_window)
         if not self.steps:
-            return kbwin.coarse_window_fused_batched(
+            return fwd.window(
                 cfg, params, logits, kc, vc, ctx_lens, g, noise, sws=sws,
                 temp=p.temp, semantic_vocab_size=self.svs,
                 codebook_size=self.cbs, lm_window=self.lm_window)
@@ -169,7 +166,7 @@ class _Window:
             rel, _ = sampling.sample(logits[:, base:base + self.cbs],
                                      p.temp, noise[j], p.top_k, p.top_p)
             toks.append(rel + base)
-            logits = kbdec.decode_step_fused_batched(
+            logits = fwd.step(
                 cfg, params, toks[-1], kc, vc, [n + j for n in ctx_lens],
                 lm_window=self.lm_window)
         return torch.stack(toks, dim=1).to(torch.int32)
@@ -276,7 +273,8 @@ def make_coarse_stage_program(cfg: GPTConfig, bparams: BarkContextParams, *,
 
 def make_coarse_stage_program_batched(cfg: GPTConfig,
                                       bparams: BarkContextParams, *,
-                                      ctx_size: int, kv_quant: bool = False):
+                                      ctx_size: int, kv_quant: bool = False,
+                                      forward=KERNELS):
     """The counterpart of `bark_tpu.pipeline.coarse.
     make_coarse_stage_program_batched`: the lanes share the window
     counter, and each window is one K8 prefill of the running lanes'
@@ -297,8 +295,10 @@ def make_coarse_stage_program_batched(cfg: GPTConfig,
     them), and the contexts' lengths differ when the coarse histories do.
     A qpack is densified once per call, not per window: the contexts'
     embedding and K8 read the dense copy, K10 decodes from the qpack
-    (K5-batched). kv_quant: the int8 KV cache."""
-    win = _Window(cfg, bparams, kv_quant)
+    (K5-batched). kv_quant: the int8 KV cache. `forward`: what runs the
+    prefills, the windows and the steps (`pipeline.forward`; the kernels
+    above by default)."""
+    win = _Window(cfg, bparams, kv_quant, forward)
     p, sws, hist_cap = bparams, win.sws, win.hist_cap
 
     def run(params, sems, noises, sem_hists=None, coarse_hists=None):
@@ -331,7 +331,7 @@ def make_coarse_stage_program_batched(cfg: GPTConfig,
         sem_cols = torch.arange(CTX_SEMANTIC, device=device)[None, :]
         hist_cols = torch.arange(hist_cap, device=device)[None, :]
         win_cols = torch.arange(sws, device=device)[None, :]
-        dense = loader.densify(cfg, params)
+        dense, params = forward.weights(cfg, params)
         for w in range(-(-steps[0] // sws)):
             g = w * sws  # tokens generated so far, by every running lane
             Ba = sum(1 for s in steps if g < s)

@@ -26,11 +26,10 @@ from __future__ import annotations
 
 import torch
 
-from bark_tpu_torch.io import loader
-from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 from bark_tpu_torch.ops import sampling
 from bark_tpu_torch.params import BarkContextParams
+from bark_tpu_torch.pipeline.forward import KERNELS
 
 
 def fine_schedule(n_frames: int, block: int):
@@ -40,12 +39,14 @@ def fine_schedule(n_frames: int, block: int):
     return padded_len, max(0, -(-(padded_len - block) // hop)) + 1
 
 
-def make_fine_block_program(cfg: GPTConfig, bparams: BarkContextParams):
+def make_fine_block_program(cfg: GPTConfig, bparams: BarkContextParams,
+                            forward=KERNELS):
     """fn(params (dense), buf (block, n_fine) int tensor, rel_start, noise
     (n_fine - n_coarse, block, codebook_size) f32 or None at fine_temp 0)
     -> the refined block: codebook by codebook, every position sampled and
     the positions from rel_start on kept (`bark_tpu.pipeline.fine.
-    make_fine_block_program`)."""
+    make_fine_block_program`). Each forward is `forward.fine`
+    (`pipeline.forward`; `gpt.fine_forward` by default)."""
     block = cfg.block_size
     n_coarse, n_fine = bparams.n_coarse_codebooks, bparams.n_fine_codebooks
     cbs, fine_temp = bparams.codebook_size, bparams.fine_temp
@@ -54,7 +55,7 @@ def make_fine_block_program(cfg: GPTConfig, bparams: BarkContextParams):
         keep = torch.arange(block, device=buf.device) >= rel_start
         buf = buf.clone()
         for i, nn in enumerate(range(n_coarse, n_fine)):
-            logits = gpt.fine_forward(cfg, params, buf, nn)
+            logits = forward.fine(cfg, params, buf, nn)
             toks = sampling.sample_rows(
                 logits[:, :cbs], fine_temp,
                 None if fine_temp == 0.0 else noise[i],
@@ -65,22 +66,24 @@ def make_fine_block_program(cfg: GPTConfig, bparams: BarkContextParams):
     return run
 
 
-def make_fine_stage_program(cfg: GPTConfig, bparams: BarkContextParams):
+def make_fine_stage_program(cfg: GPTConfig, bparams: BarkContextParams,
+                            forward=KERNELS):
     """fn(params, codes (>= n_frames, n_coarse) int tensor, n_frames,
     noise (n_loops, n_fine - n_coarse, block_size, codebook_size) f32 or
     None at fine_temp 0, fine_hist=None: (n_hist <= 512, n_fine) history
     rows, progress_cb=None) -> (padded_len - n_hist, n_fine) int32; rows
     [:n_frames] are the result. n_loops is `fine_schedule(n_hist +
     n_frames, block)`'s. `progress_cb(percent)` is called after each block
-    is queued, with the share of the blocks done."""
+    is queued, with the share of the blocks done. `forward`: as for
+    `make_fine_block_program`; its `weights` makes the dense copy."""
     block = cfg.block_size
     hop = block // 2
     n_coarse, n_fine = bparams.n_coarse_codebooks, bparams.n_fine_codebooks
-    refine = make_fine_block_program(cfg, bparams)
+    refine = make_fine_block_program(cfg, bparams, forward)
 
     def run(params, codes, n_frames: int, noise, fine_hist=None,
             progress_cb=None):
-        params = loader.densify(cfg, params)
+        params = forward.weights(cfg, params)[0]
         device = params["wpe"].device
         n_hist = 0 if fine_hist is None else int(fine_hist.shape[0])
         padded_len, n_loops = fine_schedule(n_hist + n_frames, block)

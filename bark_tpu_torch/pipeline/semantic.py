@@ -31,15 +31,13 @@ import torch
 
 from bark_tpu_torch.io import loader
 from bark_tpu_torch.kernels import _build
-from bark_tpu_torch.kernels import bdecode as kbdec
-from bark_tpu_torch.kernels import bprefill as kbpre
-from bark_tpu_torch.kernels import bsemantic as kbsem
 from bark_tpu_torch.kernels import decode as kdec
 from bark_tpu_torch.kernels import prefill as kpre
 from bark_tpu_torch.kernels import semantic as ksem
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
 from bark_tpu_torch.ops import sampling
+from bark_tpu_torch.pipeline.forward import KERNELS
 
 PROMPT_ROWS = 257  # merged 513-token prompt: 256 text+history rows + infer
 CHUNK = 16  # steps per K3 call (bark_tpu.kernels.semantic.chunk_size)
@@ -102,7 +100,7 @@ def make_semantic_program(cfg: GPTConfig, *, temp: float, max_steps: int,
 def make_semantic_program_batched(cfg: GPTConfig, *, temp: float,
                                   max_steps: int, semantic_vocab_size: int,
                                   kv_quant: bool = False, top_k: int = 0,
-                                  top_p: float = 0.0):
+                                  top_p: float = 0.0, forward=KERNELS):
     """The counterpart of `bark_tpu.pipeline.semantic.
     make_semantic_program_batched`: B lanes through one K8 prefill of
     B x 257 rows, then K9 chunks of CHUNK steps in lockstep until every
@@ -125,18 +123,20 @@ def make_semantic_program_batched(cfg: GPTConfig, *, temp: float,
     step (K5-batched's on a qpack), as the JAX package's stepped batched
     loop does: the host reads the B stop flags of each step; a stopped
     lane keeps stepping in lockstep at its frozen count (its noise row and
-    slot), and its later tokens are discarded."""
+    slot), and its later tokens are discarded.
+
+    `forward`: what runs the prefill, the chunks and the steps
+    (`pipeline.forward`; the kernels above by default)."""
     steps = filtered(temp, top_k, top_p)
 
     def run(params, tokens513, noise, min_eos_p: float):
-        dtype, device = params["wpe"].dtype, params["wpe"].device
+        device = params["wpe"].device
         B = tokens513.shape[0]
-        dense = loader.densify(cfg, params)
-        x_emb = gpt.embed_prompt_merged(cfg, dense, tokens513)
-        kc, vc = gpt.init_kv_cache(cfg, dtype, device, batch=B,
-                                    quant=kv_quant)
-        logits = kbpre.prefill_fused_batched(cfg, dense, x_emb.contiguous(),
-                                             kc, vc, [PROMPT_ROWS] * B)
+        dense, params = forward.weights(cfg, params)
+        x_emb = forward.embed_prompt(cfg, dense, tokens513)
+        kc, vc = forward.kv_cache(cfg, dense, B, kv_quant)
+        logits = forward.prefill(cfg, dense, x_emb.contiguous(), kc, vc,
+                                 [PROMPT_ROWS] * B)
         chunks, counts, done, g0 = [], [0] * B, [max_steps == 0] * B, 0
         lanes = torch.arange(B, device=device)
         while steps and not all(done):
@@ -151,12 +151,12 @@ def make_semantic_program_batched(cfg: GPTConfig, *, temp: float,
                 if not done[b] and not stops[b]:
                     counts[b] += 1
                 done[b] = done[b] or stops[b] or counts[b] >= max_steps
-            logits = kbdec.decode_step_fused_batched(
+            logits = forward.step(
                 cfg, params, toks, kc, vc,
                 [min(PROMPT_ROWS + c - 1, cfg.block_size - 1)
                  for c in counts])
         while not steps and not all(done) and g0 < max_steps:
-            toks, flags, logits = kbsem.semantic_chunk_fused_batched(
+            toks, flags, logits = forward.chunk(
                 cfg, params, logits, kc, vc, PROMPT_ROWS, g0, noise,
                 min_eos_p, K=CHUNK, temp=temp,
                 semantic_vocab_size=semantic_vocab_size,

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k1       # phase 1, then K1's and K5's records
     python3 chip_smoke.py --k7       # phase 1, then the batched step's record
     python3 chip_smoke.py --streaming  # phase 1, then phase 4g alone
+    python3 chip_smoke.py --multigpu   # phase 1, then phase 4h alone
 
 Phases, each fatal on failure (exit code 1, and no result lines):
   1. build the CUDA kernels from bark_tpu_torch/csrc (nvcc, sm_90a, one
@@ -137,6 +138,22 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      a subprocess on the small model's file. Its launches of K2-K4 and
      K8-K10 add to the kernel rows' (the `streaming` entry of the
      results line);
+  4h. multi-GPU serving (`bark_tpu_torch.parallel`, `multigpu_phase`) on
+     the one card: (a) a world of 1 on NCCL in this process, bark-small
+     bf16, batches of 8: through `shard_context_dp` (K8-K10 alone, no
+     plain version, every lane bit-equal to this process's unsharded
+     batch under the same default noise), the same on q4_0 qpacks
+     (K5-batched's read), and through `shard_context` at tp 1 (no kernel,
+     no plain version; its token agreement with the kernel path), each
+     timed beside phase 4c's batch of 8; (b) 2 ranks on cuda:0 over gloo
+     (`launch.spawn`, `multigpu_rank`): the small model in f32 at dp 2
+     and at tp 2 (dense and int8 cache) token-equal to the unsharded batch
+     on the card, the tp 2 step factories' logits within 2e-5 of the
+     single-device step, and bark-small bf16 at dp 2 over 8 lanes, each
+     rank's 4 lanes bit-equal to an unsharded batch of those 4 at B 4;
+     (c) `python -m bark_tpu_torch.parallel.dryrun 2 --device cuda` in a
+     subprocess. Its K8-K10 launches add to the kernel rows' (the
+     `multigpu` entry of the results line);
   5. the weight-stream probe (`bark_tpu_torch.probes.dma`, D1-D5, the
      port of tools/tpu_dma_probe.py) at 256 MB a pass: D1, D2, D5 and D3
      (G 2, 4) over load method x stage size (8/16/32 KB) x ring (2/3/4,
@@ -216,7 +233,7 @@ P1-P9 at the reference's shapes, seeded inputs and bark-small sizes
 (`lowering_kernel_checks`; data movement bit-equal, P8's rows outside
 its window untouched).
 
-Each path of phases 4, 4b, 4c, 4d, 4e, 4f, 5, 5b and 5c is driven with the launch
+Each path of phases 4, 4b, 4c, 4d, 4e, 4f, 4h, 5, 5b and 5c is driven with the launch
 counts set to 0 just before it and read just after. A kernel's bound is
 the least time the card could take for the same work: the bytes it must
 move (each input read once, each output written once) at 3.35 TB/s, or
@@ -3970,6 +3987,319 @@ def streaming_phase(smi: str) -> dict:
     return rec
 
 
+# ------------------------------------------------------------ phase 4h
+
+MG_B = 8  # phase 4h's batches, beside phase 4c's batch of 8
+MG_SMALL_TEXTS = ["hello world", "the a", "world hello the a", "a the hello"]
+
+
+def lane_noise(device, shift: int = 0):
+    """A lane-keyed `lane_noise_source`: each (stage, lane) draws from a
+    generator of its own seed, so a lane's noise is the same in any batch
+    (lane b of this source is lane b + shift of a larger batch)."""
+    import torch
+
+    from bark_tpu_torch.ops import sampling
+
+    def source(stage, lane, shape):
+        gen = torch.Generator(device=device).manual_seed(
+            1000 * (lane + shift) + len(stage))
+        return sampling.gumbel(shape, gen, device)
+
+    return source
+
+
+def bark_small_context(stages, seed: int):
+    """A bark-small BarkContext on the card (`bark_small_batch`'s:
+    bench.py's 138 semantic steps, no EOS stop, stage_sync)."""
+    import torch
+
+    import bark_tpu_torch as bt
+    from bark_tpu_torch.io import loader
+    from bark_tpu_torch.models.presets import ENCODEC_24KHZ
+
+    dev = torch.device("cuda")
+    return bt.BarkContext.from_parts(
+        vocab_tokens=VOCAB, semantic=stages["semantic"],
+        coarse=stages["coarse"], fine=stages["fine"],
+        codec_cfg=ENCODEC_24KHZ,
+        codec_params=loader.params_from_numpy(
+            loader.codec_init_params_numpy(ENCODEC_24KHZ, 3), torch.float32,
+            dev),
+        params=bt.BarkContextParams(
+            compute_dtype="bfloat16", n_steps_text_encoder=MAX_STEPS,
+            min_eos_p=2.0, stage_sync=True),
+        seed=seed, device=dev)
+
+
+def same_lanes(label: str, got, want, keys=("semantic", "coarse", "fine",
+                                             "audio")) -> None:
+    """Every lane's `keys` bit-equal, and every lane with audio."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} lanes, want {len(want)}")
+    for b, (g, w) in enumerate(zip(got, want)):
+        for key in keys:
+            if not np.array_equal(g[key], w[key]):
+                raise AssertionError(f"{label}, lane {b}: {key} differs")
+        if g["audio"].size == 0 or not np.isfinite(g["audio"]).all():
+            raise AssertionError(f"{label}, lane {b}: no audio")
+
+
+def token_agreement(got, want) -> dict:
+    """Per stage, the share of token positions equal in got and want over
+    every lane (a position either one lacks counts as unequal)."""
+    import numpy as np
+
+    rates = {}
+    for key in ("semantic", "coarse", "fine"):
+        same = total = 0
+        for g, w in zip(got, want):
+            g, w = g[key].reshape(-1), w[key].reshape(-1)
+            n = min(g.size, w.size)
+            same += int((g[:n] == w[:n]).sum())
+            total += max(g.size, w.size)
+        rates[key] = same / max(total, 1)
+    return rates
+
+
+def mg_batch(ctx, texts):
+    """(lanes, record) of one `_generate_batch` with the launch counts set
+    to 0 just before and read just after, and the plain references
+    counted."""
+    import torch
+
+    from bark_tpu_torch import kernels
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with counted_plain_calls() as plain:
+        lanes = ctx._generate_batch(texts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = ctx.stats
+    audio_s = sum(lane["audio"].size for lane in lanes) / 24000
+    return lanes, dict(
+        wall_s=wall, eval_s=s.t_eval_us / 1e6, audio_s=audio_s,
+        audio_s_per_wall_s=audio_s / (s.t_eval_us / 1e6),
+        semantic_s=s.t_semantic_us / 1e6, coarse_s=s.t_coarse_us / 1e6,
+        fine_s=s.t_fine_us / 1e6, launches=kernels.launch_counts(),
+        loop=lane_counts(), loop_packed=lane_counts(packed=True),
+        plain=dict(plain))
+
+
+def check_dp_kernels(label: str, rec: dict, packed: bool) -> None:
+    """A dp batch ran K8-K10 alone (each chunk and window one launch of
+    the batched loop on the dense or packed read) and no plain version."""
+    c, plain = rec["launches"], rec["plain"]
+    loop = rec["loop_packed" if packed else "loop"]
+    if (min(c[m] for m in ("bprefill", "bsemantic", "bwindow")) <= 0
+            or tuple(loop) != (c["bsemantic"] + c["bwindow"], 0)
+            or any(c[m] for m in ("decode", "qdecode", "prefill",
+                                  "semantic", "window"))
+            or any(plain.values())):
+        raise AssertionError(f"{label} did not run on K8-K10 alone: {c}, "
+                             f"loop {loop}, plain calls {plain}")
+
+
+def multigpu_world1(smi: str) -> dict:
+    """Phase 4h (a): a world of 1 on NCCL in this process, bark-small at
+    full width in bf16: a batch of 8 through `shard_context_dp` (K8-K10,
+    no plain version, every lane bit-equal to this process's unsharded
+    batch of 8 under the same default noise), the same on q4_0 qpacks
+    (K5-batched's read), and through `shard_context` at tp 1 (the
+    tensor-parallel forward: no kernel, no plain version; its token
+    agreement with the kernel path in bf16)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bark_tpu_torch.parallel import launch, sharding
+
+    texts = [PROMPTS[b % len(PROMPTS)] for b in range(MG_B)]
+    rec = {}
+    with launch.process_group(1, 0, "cuda"):
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)
+        if dist.get_backend() != "nccl" or one.item() != 1.0:
+            raise AssertionError(f"world 1: backend {dist.get_backend()}, "
+                                 f"all_reduce {one.item()}")
+        for fmt in (None, "q4_0"):
+            tag = fmt or "dense"
+            stages = bark_small_stages(fmt)
+            bark_small_context(stages, 200)._generate_batch(texts[:2])
+            base, rec[f"unsharded_{tag}"] = mg_batch(
+                bark_small_context(stages, 108), texts)
+            dp, rec[f"dp_{tag}"] = mg_batch(sharding.shard_context_dp(
+                bark_small_context(stages, 108), sharding.make_dp_mesh()),
+                texts)
+            check_dp_kernels(f"world 1, dp, {tag}", rec[f"dp_{tag}"],
+                             packed=fmt is not None)
+            same_lanes(f"world 1, dp, {tag}", dp, base)
+            if fmt is None:
+                tpl, r = mg_batch(sharding.shard_context(
+                    bark_small_context(stages, 108),
+                    sharding.make_mesh(1)), texts)
+                if any(r["launches"].values()) or any(r["plain"].values()):
+                    raise AssertionError(f"world 1, tp 1: kernels "
+                                         f"{r['launches']}, plain calls "
+                                         f"{r['plain']}")
+                for b, lane in enumerate(tpl):
+                    a = lane["audio"]
+                    if a.size == 0 or a.size % 320 or \
+                            not np.isfinite(a).all():
+                        raise AssertionError(f"world 1, tp 1, lane {b}: "
+                                             f"audio {a.shape}")
+                r["token_agreement"] = token_agreement(tpl, base)
+                rec["tp1_dense"] = r
+            del stages
+            torch.cuda.empty_cache()
+    for key, r in rec.items():
+        log(f"  world 1 {key:16s}: eval {r['eval_s']:.3f} s = semantic "
+            f"{r['semantic_s']:.3f} + coarse {r['coarse_s']:.3f} + fine "
+            f"{r['fine_s']:.3f} s; {r['audio_s_per_wall_s']:.3f} audio-s "
+            f"per wall-s; launches {r['launches']}"
+            + (f"; tokens equal to the kernel path "
+               f"{r['token_agreement']}" if "token_agreement" in r else "")
+            + f" on {smi}")
+    return rec
+
+
+def multigpu_rank(device, spec) -> dict:
+    """Phase 4h (b): one of 2 ranks on one card (gloo, `launch.spawn`).
+    The small model in f32 with TF32 off, lane-keyed noise: dp 2 and tp 2
+    (dense and the int8 cache) give the tokens of the unsharded batch on
+    this card; the tp 2 step factories' logits within 2e-5 of the plain
+    single-device step. Then bark-small bf16 at dp 2 over 8 lanes: this
+    rank's 4 lanes bit-equal to an unsharded batch of those 4 lanes at B 4
+    with their noise."""
+    import numpy as np
+    import torch
+
+    import bark_tpu_torch as bt
+    from bark_tpu_torch.models import gpt
+    from bark_tpu_torch.parallel import sharding
+
+    out = dict(errors={})
+    with full_f32():
+        for kv8 in (False, True):
+            def small():
+                ctx = bt.BarkContext.from_parts(
+                    **small_model_parts(device), params=bt.BarkContextParams(
+                        **SMALL_PARAMS,
+                        kv_cache_dtype="int8" if kv8 else "params"),
+                    seed=0, device=device)
+                ctx.lane_noise_source = lane_noise(device)
+                return ctx
+
+            want = small()._generate_batch(MG_SMALL_TEXTS)
+            for mode in (("dp", "tp") if not kv8 else ("tp",)):
+                ctx = small()
+                if mode == "dp":
+                    sharding.shard_context_dp(ctx, sharding.make_dp_mesh())
+                else:
+                    sharding.shard_context(ctx, sharding.make_mesh(2, dp=1))
+                label = f"small model {mode} 2{' int8' if kv8 else ''}"
+                got = ctx._generate_batch(MG_SMALL_TEXTS)
+                same_lanes(label, got, want, ("semantic", "coarse", "fine"))
+                out["errors"][label] = max(
+                    float(np.abs(g["audio"] - w["audio"]).max())
+                    for g, w in zip(got, want))
+        cfg, params = small_model_parts(device)["semantic"]
+        mesh = sharding.make_mesh(2, dp=1)
+        shard = sharding.shard_gpt_params(mesh, cfg, params)
+        toks = torch.arange(2 * 257, device=device).reshape(2, 257) % 181
+        x_emb = params["wte"][0][toks]
+        kc, vc = sharding.init_kv_cache(cfg, mesh, 2, torch.float32, device)
+        pre, kc, vc = sharding.make_batched_prefill(cfg, mesh)(
+            shard, x_emb, kc, vc, [257, 257])
+        step, _, _ = sharding.make_batched_decode_step(cfg, mesh)(
+            shard, torch.tensor([3, 7], device=device), kc, vc, 257)
+        err = 0.0
+        for b, tok in enumerate((3, 7)):
+            k1, v1 = gpt.init_kv_cache(cfg, torch.float32, device)
+            ref = gpt.prefill(cfg, params, x_emb[b], k1, v1, 257)
+            err = max(err, float((pre[b] - ref).abs().max()))
+            ref = gpt.decode_step(cfg, params, tok, k1, v1, 257)
+            err = max(err, float((step[b] - ref).abs().max()))
+        out["errors"]["tp 2 step factories' logits"] = err
+        if err > 2e-5:
+            raise AssertionError(f"tp 2 step factories: logits {err} from "
+                                 f"the single-device step")
+    texts = [PROMPTS[b % len(PROMPTS)] for b in range(MG_B)]
+    stages = bark_small_stages()
+    ctx = sharding.shard_context_dp(bark_small_context(stages, 300),
+                                    sharding.make_dp_mesh())
+    ctx.lane_noise_source = lane_noise(device)
+    lanes, out["dp2"] = mg_batch(ctx, texts)
+    lo, hi = ctx._dp_mesh.lanes(MG_B)
+    solo = bark_small_context(stages, 300)
+    solo.lane_noise_source = lane_noise(device, shift=lo)
+    mine, out["solo"] = mg_batch(solo, texts[lo:hi])
+    same_lanes(f"bark-small dp 2, rank lanes {lo}-{hi - 1}", lanes[lo:hi],
+               mine)
+    out.update(lanes=(lo, hi), rank=ctx._dp_mesh.coord[0])
+    return out
+
+
+def multigpu_world2(smi: str) -> dict:
+    """Phase 4h (b): `multigpu_rank` on 2 ranks on cuda:0 over gloo."""
+    from bark_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    ranks = launch.spawn(multigpu_rank, 2, "cuda:0", None, timeout_s=900)
+    rec = dict(seconds=time.perf_counter() - t0, ranks=ranks)
+    for r in ranks:
+        log(f"  world 2 rank {r['rank']}: lanes {r['lanes']}, dp 2 eval "
+            f"{r['dp2']['eval_s']:.3f} s (its 4 lanes alone at B 4: "
+            f"{r['solo']['eval_s']:.3f} s), bit-equal; small model "
+            f"{ {k: f'{v:.2e}' for k, v in r['errors'].items()} } on {smi}")
+    return rec
+
+
+def multigpu_dryrun() -> dict:
+    """Phase 4h (c): `python -m bark_tpu_torch.parallel.dryrun 2 --device
+    cuda` in a subprocess must exit 0."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "bark_tpu_torch.parallel.dryrun", "2",
+         "--device", "cuda"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    if out.returncode != 0 or "dryrun(2) OK" not in out.stdout:
+        raise AssertionError(f"the dry run exited {out.returncode}: "
+                             f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+    return dict(seconds=time.perf_counter() - t0,
+                stdout=out.stdout.strip().splitlines())
+
+
+def multigpu_phase(smi: str, batch8=None) -> dict:
+    """Phase 4h: multi-GPU serving (`bark_tpu_torch.parallel`) on the one
+    card: (a) a world of 1 on NCCL, (b) a world of 2 on one card over
+    gloo, (c) the dry run. Its K8-K10 launches add to the kernel rows'
+    (the `multigpu` entry of the results line). `batch8`: phase 4c's
+    batch of 8, for the times beside it."""
+    t0 = time.perf_counter()
+    rec = dict(world1=multigpu_world1(smi))
+    rec["world2"] = multigpu_world2(smi)
+    rec["dryrun"] = multigpu_dryrun()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["card"] = smi
+    runs = [rec["world1"]["dp_dense"], rec["world1"]["dp_q4_0"]] + [
+        r["dp2"] for r in rec["world2"]["ranks"]]
+    rec["launches"] = {m: sum(r["launches"][m] for r in runs)
+                       for m in ("bprefill", "bsemantic", "bwindow")}
+    if batch8 is not None:
+        w1 = rec["world1"]
+        log(f"  batch of {MG_B}, eval s: phase 4c {batch8['eval_s']:.3f}; "
+            f"unsharded {w1['unsharded_dense']['eval_s']:.3f}, dp 1 "
+            f"{w1['dp_dense']['eval_s']:.3f}, tp 1 "
+            f"{w1['tp1_dense']['eval_s']:.3f}; q4_0 unsharded "
+            f"{w1['unsharded_q4_0']['eval_s']:.3f}, dp 1 "
+            f"{w1['dp_q4_0']['eval_s']:.3f} on {smi}")
+    return rec
+
+
 # ------------------------------------------------------------ D1-D5
 
 
@@ -4825,6 +5155,10 @@ def main() -> int:
         rec = streaming_phase(smi)
         print(json.dumps({"streaming": rec}))
         return 0
+    if sys.argv[1:] == ["--multigpu"]:
+        rec = multigpu_phase(smi)
+        print(json.dumps({"multigpu": rec}))
+        return 0
 
     checks = Checks()
     with full_f32():
@@ -4965,6 +5299,13 @@ def main() -> int:
         f"the main CLI")
     streaming = streaming_phase(smi)
     log(f"  phase 4g took {streaming['seconds']:.1f} s")
+    log(f"phase 4h: multi-GPU serving on the one card: a world of 1 on "
+        f"NCCL (bark-small, batches of {MG_B}: dp dense and q4_0, tp 1), "
+        f"a world of 2 on cuda:0 over gloo (the small model dp 2 / tp 2, "
+        f"bark-small dp 2), the dry run")
+    multigpu = multigpu_phase(smi, next(r for r in batches
+                                        if r["B"] == MG_B))
+    log(f"  phase 4h took {multigpu['seconds']:.1f} s")
     log(f"phase 5: the weight-stream probe D1-D5 at {DMA_MB} MB a pass, "
         f"every load method, stage size and ring, and its yardsticks")
     from bark_tpu_torch.probes import dma
@@ -5064,8 +5405,9 @@ def main() -> int:
             launches = sum(c[module] for c in batch_launches.values())
         else:
             launches = counts[module]
-        if name not in kv8_launches:  # phase 4g's launches of K2-K4, K8-K10
+        if name not in kv8_launches:  # phases 4g-4h's of K2-K4, K8-K10
             launches += streaming["launches"].get(module, 0)
+            launches += multigpu["launches"].get(module, 0)
         log(f"  {name:30s} {ms:9.3f} ms  plain {plain:9.3f} ms  bound "
             f"{bound_ms:7.4f} ms ({bound_by})  launches {launches}  (bf16)")
         row = dict(
@@ -5194,7 +5536,7 @@ def main() -> int:
                           batches_kv8=kv8_batches,
                           batches_q4_0=q_batches,
                           batches_q4_0_kv8=kv8_q_batches, options=options,
-                          streaming=streaming,
+                          streaming=streaming, multigpu=multigpu,
                           build_s=build_s,
                           build=build_record,
                           attention_alone={k: v[:2] for k, v in

@@ -1998,6 +1998,38 @@ def test_warmup_launches_the_kernels_and_leaves_the_generator(dev):
         assert (getattr(ctx, attr) == getattr(fresh, attr)).all()
 
 
+def test_world_of_one_on_nccl_serves_batches(dev):
+    """A world of 1 on NCCL in this process: `shard_context_dp` serves a
+    batch of 3 through K8-K10 (no other kernel, no plain version), each
+    lane bit-equal to the unsharded batch's under the same default noise;
+    `shard_context` at tp 1 launches no kernel and gives the same tokens
+    (f32, TF32 off)."""
+    from bark_tpu_torch.parallel import launch, sharding
+
+    texts = ["hello world", "the a", "world hello world"]
+    base = _small_context(dev, seed=5)._generate_batch(texts)
+    with launch.process_group(1, 0, "cuda"):
+        dp = sharding.shard_context_dp(_small_context(dev, seed=5),
+                                       sharding.make_dp_mesh())
+        kernels.reset_launches()
+        lanes = dp._generate_batch(texts)
+        counts = kernels.launch_counts()
+        tpc = sharding.shard_context(_small_context(dev, seed=5),
+                                     sharding.make_mesh(1))
+        kernels.reset_launches()
+        tp_lanes = tpc._generate_batch(texts)
+        tp_counts = kernels.launch_counts()
+    assert all(counts[m] > 0 for m in ("bprefill", "bsemantic", "bwindow"))
+    assert not any(counts[m] for m in ("decode", "qdecode", "prefill",
+                                       "semantic", "window")), counts
+    assert not any(tp_counts.values()), tp_counts
+    for got, tpl, want in zip(lanes, tp_lanes, base):
+        for key in ("semantic", "coarse", "fine", "audio"):
+            assert (got[key] == want[key]).all(), key
+        for key in ("semantic", "coarse", "fine"):
+            assert (tpl[key] == want[key]).all(), key
+
+
 # ------------------------------------------------------------ P1-P9
 
 

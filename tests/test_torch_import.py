@@ -90,6 +90,27 @@ def test_cpu_api_imports_neither_jax_nor_bark_tpu(tmp_path):
     assert out.stdout.strip().endswith("ok")
 
 
+PARALLEL = r"""
+import sys
+import bark_tpu_torch.parallel
+from bark_tpu_torch.parallel import dryrun, launch, ranks, sharding, tp
+assert not foreign(), foreign()
+print("ok")
+"""
+
+
+def test_parallel_imports_neither_jax_nor_bark_tpu():
+    """The multi-GPU package, which a spawned rank imports, in a fresh
+    interpreter."""
+    out = subprocess.run(
+        [sys.executable, "-c", FOREIGN + PARALLEL], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_no_source_line_imports_bark_tpu():
     pattern = re.compile(r"^\s*(from|import)\s+bark_tpu(\.|\s|,|$)")
     files = glob.glob(os.path.join(ROOT, "bark_tpu_torch", "**", "*.py"),
