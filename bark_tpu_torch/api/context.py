@@ -19,8 +19,9 @@ Batched serving: `BarkContext.generate_audio_batch(texts)` runs up to
 32 prompts through one batched pipeline (K8 prefills, K9 semantic chunks
 and K10 coarse windows, each one launch of the batched decode step K7 in
 a loop with the sampler inside; K7 reads each weight once per step for
-every lane), then the fine stage and the codec
-per lane; a larger batch runs as groups of 32, one after another.
+every lane), then the fine stage with each block's forwards batched over
+the lanes and the codec with each group of lanes of one decode length
+batched; a larger batch runs as groups of 32, one after another.
 Packed stages take the same path: K9 and K10 then decode
 through the packed batched step (K5-batched), and the prefills and the
 fine stage read a dense copy made once per group and stage.
@@ -425,9 +426,9 @@ class BarkContext:
         t0 = time.perf_counter()
         n_frames = n_steps // p.n_coarse_codebooks
         fine_buf = self._program("fine")(
-            self.fine_params, codes, n_frames,
-            self._fine_noise(n_frames, n_hist=len(fine_hist)),
-            torch.from_numpy(fine_hist), progress(EncodingStep.FINE))
+            self.fine_params, [codes], [n_frames],
+            [self._fine_noise(n_frames, n_hist=len(fine_hist))],
+            [torch.from_numpy(fine_hist)], progress(EncodingStep.FINE))[0]
         self._sync(force=stepped)
         self.stats.t_fine_us += int((time.perf_counter() - t0) * 1e6)
 
@@ -534,8 +535,9 @@ class BarkContext:
             buf[rel:rel + n_new, :n_cc] = new
             noise = None if p.fine_temp == 0.0 else self.noise_source(
                 "fine", (1, n_fine - n_cc, block, cbs))[0]
-            rows = torch.cat([rows, refine(fine_dense, buf, rel,
-                                           noise)[rel:rel + n_new]])
+            rows = torch.cat([rows, refine(
+                fine_dense, buf[None], [rel],
+                None if noise is None else [noise])[0, rel:rel + n_new]])
             self._sync()
             self.stats.t_fine_us += int((time.perf_counter() - t0) * 1e6)
             self.stats.n_sample_fine += n_new * n_fine
@@ -644,8 +646,11 @@ class BarkContext:
         """Generate B utterances through one batched pipeline (the JAX
         package's `generate_audio_batch`, its server's batching path):
         one K8 prefill and K9 chunks for every lane's semantic stage, one
-        K8 prefill and one K10 window per shared coarse window, then the
-        fine stage and the codec per lane. Returns one f32 PCM array per
+        K8 prefill and one K10 window per shared coarse window, then one
+        fine stage program over every lane (each block's forwards once for
+        the lanes still refining) and one codec decode for each group of
+        lanes of one decode length (`_decode_codecs`), as the JAX package
+        runs its vmapped fine and codec programs. Returns one f32 PCM array per
         prompt, in order (empty for a lane that generated no semantic
         token). Adds to the aggregate statistics; keeps no per-utterance
         tokens. `voices`: None, or one speaker preset (None, .npz path or
@@ -766,20 +771,26 @@ class BarkContext:
         self._sync()
         self.stats.t_coarse_us += int((time.perf_counter() - t0) * 1e6)
 
-        # --- fine and codec, per lane, on one dense copy of a qpack
+        # --- fine: every lane's noise in the unsharded order, then one
+        # stage program over this rank's lanes (one dense copy of a qpack)
         t0 = time.perf_counter()
         n_frames = [s // p.n_coarse_codebooks for s in n_steps]
-        fine_params = self._forward.weights(self.fine_cfg,
-                                            self.fine_params)[0]
+        noises = [self._fine_noise(n, lane=first + b,
+                                   n_hist=len(hists[b][2]))
+                  for b, n in zip(live, n_frames)]
         fine = {}
-        for i, (b, n) in enumerate(zip(live, n_frames)):
-            fh = hists[b][2]
-            noise = self._fine_noise(n, lane=first + b, n_hist=len(fh))
-            if i in codes:
-                fine[i] = self._program("fine")(
-                    fine_params, codes[i], n, noise, torch.from_numpy(fh))
+        if ours:
+            fine = dict(zip(ours, self._program("fine")(
+                self.fine_params, [codes[i] for i in ours],
+                [n_frames[i] for i in ours], [noises[i] for i in ours],
+                [torch.from_numpy(hists[live[i]][2]) for i in ours])))
+        del noises
         self._sync()
         self.stats.t_fine_us += int((time.perf_counter() - t0) * 1e6)
+
+        # --- codec: one decode a group of lanes of one decode length
+        audio = dict(zip(ours, self._decode_codecs(
+            [fine[i] for i in ours], [n_frames[i] for i in ours])))
         empty = np.zeros((0,), np.int32)
         outs = [dict(semantic=empty, coarse=empty.reshape(0, 0),
                      fine=empty.reshape(0, 0),
@@ -789,7 +800,7 @@ class BarkContext:
             outs[b - lo] = dict(
                 semantic=sem_out[b - lo, :counts[b]].cpu().numpy(),
                 coarse=codes[i].cpu().numpy(), fine=buf[:n].cpu().numpy(),
-                audio=self._decode_codec(buf, n).cpu().numpy())
+                audio=audio[i].cpu().numpy())
         if mesh is not None:
             outs = mesh.gather_lanes(outs)
         self.stats.n_sample_semantic += sum(counts)
@@ -849,9 +860,9 @@ class BarkContext:
         n_frames = n_steps // n_cc
         n_loops = fine_pipe.fine_schedule(n_frames,
                                           self.fine_cfg.block_size)[1]
-        self._program("fine")(self.fine_params, codes, n_frames, noise(
+        self._program("fine")(self.fine_params, [codes], [n_frames], [noise(
             p.fine_temp, n_loops, p.n_fine_codebooks - n_cc,
-            self.fine_cfg.block_size, p.codebook_size))
+            self.fine_cfg.block_size, p.codebook_size)])
         max_frames = coarse_pipe.max_coarse_steps(
             p.n_steps_text_encoder, p) // n_cc
         for padded in range(CODEC_FRAME_CHUNK, -(-max_frames //
@@ -883,23 +894,47 @@ class BarkContext:
 
     def _decode_codec(self, fine_buf, n_frames: int):
         """RVQ decode + SEANet synthesis of the first n_frames rows
-        (bark.cpp:2146-2167) -> (n_frames * hop,) f32 PCM on the device.
-        Frames are padded to a multiple of CODEC_FRAME_CHUNK only when
-        n_frames >= kernel_size, as bark_tpu does: shorter inputs would
-        reflect the pad rows into the first conv's left padding. Pad rows
-        hold the pad id, which `encodec.rvq_decode` maps to a zero latent."""
+        (bark.cpp:2146-2167) -> (n_frames * hop,) f32 PCM on the device:
+        `_decode_codecs` of one lane."""
+        return self._decode_codecs([fine_buf], [n_frames])[0]
+
+    def _codec_frames(self, n_frames: int) -> int:
+        """The frames a lane of n_frames is decoded at: a multiple of
+        CODEC_FRAME_CHUNK when n_frames >= kernel_size, as bark_tpu pads
+        them; else n_frames itself (at least 1), since shorter inputs
+        would reflect the pad rows into the first conv's left padding."""
+        if n_frames >= self.codec_cfg.kernel_size:
+            return max(CODEC_FRAME_CHUNK,
+                       -(-n_frames // CODEC_FRAME_CHUNK) * CODEC_FRAME_CHUNK)
+        return max(n_frames, 1)
+
+    def _decode_codecs(self, fine_bufs, n_frames) -> list:
+        """Each lane's RVQ decode + SEANet synthesis of its first
+        n_frames rows -> (n_frames * hop,) f32 PCM on the device, a lane.
+        The lanes are grouped by `_codec_frames`, and each group is one
+        `encodec.decode_codes` call over its lanes (a group of one: the
+        lane's (T, n_q) codes). bark_tpu pads every lane to the longest
+        lane's bucket; the decoder is causal, so a lane's kept samples are
+        the same at its own bucket, where it also gives a single
+        request's bits. Pad rows hold the pad id, which
+        `encodec.rvq_decode` maps to a zero latent."""
         cfg, p = self.codec_cfg, self.params
         n_q = cfg.n_q_for_bandwidth(p.target_bandwidth)
-        if n_frames >= cfg.kernel_size:
-            padded = max(CODEC_FRAME_CHUNK,
-                         -(-n_frames // CODEC_FRAME_CHUNK) * CODEC_FRAME_CHUNK)
-        else:
-            padded = max(n_frames, 1)
-        codes = torch.full((padded, n_q), cfg.n_bins, dtype=torch.int32,
-                           device=self.device)
-        codes[:n_frames] = fine_buf[:n_frames, :n_q]
-        audio = encodec.decode_codes(self.codec_params, codes)
-        return audio[: n_frames * cfg.hop_length]
+        groups = {}
+        for j, n in enumerate(n_frames):
+            groups.setdefault(self._codec_frames(n), []).append(j)
+        out = [None] * len(fine_bufs)
+        for padded, lanes in groups.items():
+            codes = torch.full((len(lanes), padded, n_q), cfg.n_bins,
+                               dtype=torch.int32, device=self.device)
+            for g, j in enumerate(lanes):
+                codes[g, :n_frames[j]] = fine_bufs[j][:n_frames[j], :n_q]
+            audio = encodec.decode_codes(
+                self.codec_params, codes[0] if len(lanes) == 1 else codes)
+            audio = audio.reshape(len(lanes), -1)
+            for g, j in enumerate(lanes):
+                out[j] = audio[g, :n_frames[j] * cfg.hop_length]
+        return out
 
     # ------------------------------------------------------------ getters
 

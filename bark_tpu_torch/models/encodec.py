@@ -5,8 +5,12 @@ which voice presets from audio run (`pipeline.voice.preset_from_audio`).
 The counterpart of `bark_tpu.models.encodec`, with its
 layouts at every public function: activations are (T, C), conv weights
 keep torch's (Cout, Cin, K) and transposed-conv weights (Cin, Cout, K).
-Inside, each op moves to torch's (1, C, T) layout for `F.conv1d`,
-`F.conv_transpose1d` and `torch.lstm` (the JAX package leaves this stage to
+The decode path's functions also take a leading lane dimension, (B, T, C)
+codes or activations, each lane computed as alone (the JAX package's
+`jax.vmap` of `decode_codes`; on the CPU `decoder_forward` runs them
+one at a time). Inside, the ops run in torch's (B, C, T) layout for
+`F.conv1d`, `F.conv_transpose1d` and `torch.lstm` (batch B), a single
+lane as a batch of one (the JAX package leaves this stage to
 XLA, so it has no kernel to port). All convolutions are causal: reflect
 padding of `k_eff - stride` on the left, and transposed convs trim
 `k - stride` on the right.
@@ -23,85 +27,117 @@ import torch.nn.functional as F
 from bark_tpu_torch.models.config import RATIOS
 
 
-def _pad1d_reflect(x, pad_left: int, pad_right: int):
-    """Reflect padding over the time axis of (T, C); a signal shorter than
-    the largest pad is zero-extended first so the reflection is defined,
-    and the extension is trimmed afterwards."""
-    T = x.shape[0]
+def _bct(x):
+    """([B,] T, C) -> ((B, C, T) view, whether x had no lane dimension)."""
+    one = x.dim() == 2
+    return (x[None] if one else x).transpose(1, 2), one
+
+
+def _tc(y, one: bool):
+    """(B, C, T) -> ([B,] T, C), the inverse of `_bct`."""
+    y = y.transpose(1, 2)
+    return y[0] if one else y
+
+
+def _pad_reflect(x, pad_left: int, pad_right: int):
+    """Reflect padding over the time axis of (B, C, T); a signal shorter
+    than the largest pad is zero-extended first so the reflection is
+    defined, and the extension is trimmed afterwards."""
+    T = x.shape[-1]
     max_pad = max(pad_left, pad_right)
     extra = max_pad - T + 1 if T <= max_pad else 0
     if extra:
-        x = F.pad(x, (0, 0, 0, extra))
-    y = F.pad(x.T[None], (pad_left, pad_right), mode="reflect")[0].T
-    return y[: y.shape[0] - extra] if extra else y
+        x = F.pad(x, (0, extra))
+    y = F.pad(x, (pad_left, pad_right), mode="reflect")
+    return y[..., : y.shape[-1] - extra] if extra else y
 
 
-def causal_conv1d(x, w, b, stride: int = 1, dilation: int = 1):
-    """x: (T, Cin); w: (Cout, Cin, K) -> (T', Cout)."""
+def _conv(x, w, b, stride: int = 1, dilation: int = 1):
+    """Causal conv of (B, Cin, T) -> (B, Cout, T')."""
     k = w.shape[2]
     k_eff = (k - 1) * dilation + 1
     pad_total = k_eff - stride
-    T = x.shape[0]
+    T = x.shape[-1]
     n_frames = -(-(T - k_eff + pad_total) // stride)  # ceil
     ideal = n_frames * stride + k_eff - pad_total
-    x = _pad1d_reflect(x, pad_total, max(ideal - T, 0))
-    out = F.conv1d(x.T[None], w, b, stride=stride, dilation=dilation)
-    return out[0].T
+    x = _pad_reflect(x, pad_total, max(ideal - T, 0))
+    return F.conv1d(x, w, b, stride=stride, dilation=dilation)
 
 
-def causal_conv_transpose1d(x, w, b, stride: int):
-    """x: (T, Cin); w: (Cin, Cout, K) -> (T*stride, Cout)."""
+def _conv_tr(x, w, b, stride: int):
+    """Causal transposed conv of (B, Cin, T) -> (B, Cout, T*stride)."""
     k = w.shape[2]
-    out = F.conv_transpose1d(x.T[None], w, b, stride=stride)[0].T
+    out = F.conv_transpose1d(x, w, b, stride=stride)
     trim = k - stride
-    return out[: out.shape[0] - trim] if trim > 0 else out
+    return out[..., : out.shape[-1] - trim] if trim > 0 else out
 
 
-def lstm_stack(x, layers: List[Dict]):
-    """Multi-layer LSTM over (T, C) (gates i, f, g, o; b_ih + b_hh) plus
-    EnCodec's skip connection."""
+def _lstm(x, layers: List[Dict]):
+    """Multi-layer LSTM over (B, C, T), the lanes as torch.lstm's batch
+    (gates i, f, g, o; b_ih + b_hh), plus EnCodec's skip connection."""
     flat = []
     for lp in layers:
         flat += [lp["w_ih"].float(), lp["w_hh"].float(),
                  lp["b_ih"].float(), lp["b_hh"].float()]
     H = layers[0]["w_hh"].shape[1]
-    h0 = torch.zeros((len(layers), 1, H), device=x.device)
+    xt = x.float().transpose(1, 2)  # (B, T, C)
+    h0 = torch.zeros((len(layers), xt.shape[0], H), device=x.device)
     with warnings.catch_warnings():
         # cuDNN copies the separate weight tensors into one buffer per call
         # (a few MB, once per utterance) and warns about it
         warnings.filterwarnings("ignore", message="RNN module weights")
         y, _, _ = torch.lstm(
-            x.float()[None], (h0, h0), flat, True, len(layers), 0.0, False,
-            False, True,
+            xt, (h0, h0), flat, True, len(layers), 0.0, False, False, True,
         )
-    return (y[0] + x.float()).to(x.dtype)
+    return (y + xt).to(x.dtype).transpose(1, 2)
+
+
+def causal_conv1d(x, w, b, stride: int = 1, dilation: int = 1):
+    """x: ([B,] T, Cin); w: (Cout, Cin, K) -> ([B,] T', Cout)."""
+    x, one = _bct(x)
+    return _tc(_conv(x, w, b, stride, dilation), one)
+
+
+def causal_conv_transpose1d(x, w, b, stride: int):
+    """x: ([B,] T, Cin); w: (Cin, Cout, K) -> ([B,] T*stride, Cout)."""
+    x, one = _bct(x)
+    return _tc(_conv_tr(x, w, b, stride), one)
+
+
+def lstm_stack(x, layers: List[Dict]):
+    """Multi-layer LSTM over ([B,] T, C) (gates i, f, g, o; b_ih + b_hh)
+    plus EnCodec's skip connection."""
+    x, one = _bct(x)
+    return _tc(_lstm(x, layers), one)
 
 
 def _residual_unit(x, p):
+    """SEANet's residual unit on (B, C, T)."""
     y = F.elu(x)
-    y = causal_conv1d(y, p["block1_w"], p["block1_b"])
+    y = _conv(y, p["block1_w"], p["block1_b"])
     y = F.elu(y)
-    y = causal_conv1d(y, p["block3_w"], p["block3_b"])
-    return causal_conv1d(x, p["shortcut_w"], p["shortcut_b"]) + y
+    y = _conv(y, p["block3_w"], p["block3_b"])
+    return _conv(x, p["shortcut_w"], p["shortcut_b"]) + y
 
 
 def rvq_decode(codebooks, codes):
-    """codebooks: (n_q_total, n_bins, dim); codes: (T, n_q) -> (T, dim).
+    """codebooks: (n_q_total, n_bins, dim); codes: ([B,] T, n_q) ->
+    ([B,] T, dim).
 
     Codes outside [0, n_bins) select a zero row: the fused fine buffer's
     rows past the last frame hold the pad id n_bins, which `jnp.take`
     fills and a torch index would refuse (a device-side assert on CUDA).
     Those rows only reach audio past the last frame, which the causal
     decoder never mixes into earlier samples and callers discard."""
-    n_q = codes.shape[1]
+    n_q = codes.shape[-1]
     n_bins = codebooks.shape[1]
     c = codes.long()
-    valid = (c >= 0) & (c < n_bins)  # (T, n_q)
+    valid = (c >= 0) & (c < n_bins)  # ([B,] T, n_q)
     books = codebooks[:n_q]  # (n_q, n_bins, dim)
     idx = torch.where(valid, c, torch.zeros_like(c))
-    gathered = books[torch.arange(n_q, device=c.device)[None, :], idx]
+    gathered = books[torch.arange(n_q, device=c.device), idx]
     gathered = gathered * valid[..., None].to(gathered.dtype)
-    return gathered.sum(dim=1)
+    return gathered.sum(dim=-2)
 
 
 def rvq_encode(codebooks, latent, n_q: int):
@@ -120,34 +156,49 @@ def rvq_encode(codebooks, latent, n_q: int):
 
 
 def decoder_forward(params, latent):
-    """latent (T, hidden_dim) -> mono PCM (T * 320,) f32."""
-    dec = params["decoder"]
-    x = causal_conv1d(latent, dec["conv_in_w"], dec["conv_in_b"])
-    x = lstm_stack(x, dec["lstm"])
+    """latent ([B,] T, hidden_dim) -> mono PCM ([B,] T * 320) f32. On a
+    CUDA tensor the B lanes run as one batch (cuDNN's convolutions and
+    LSTM). On the CPU each lane runs as a batch of one, so that its bits
+    are a single lane's: oneDNN picks its convolution by the batch size,
+    and MKL runs the LSTM's recurrent product of one lane as a GEMV and of
+    several as a GEMM, and each rounds differently."""
+    if latent.dim() == 3 and latent.device.type == "cpu":
+        return torch.stack([decoder_forward(params, lane) for lane in latent])
+    x, one = _bct(latent)
+    pcm = _decode(params["decoder"], x)
+    return pcm[0] if one else pcm
+
+
+def _decode(dec, x):
+    """The SEANet decoder on a (B, hidden_dim, T) latent -> (B, T * 320)
+    f32."""
+    x = _conv(x, dec["conv_in_w"], dec["conv_in_b"])
+    x = _lstm(x, dec["lstm"])
     for stage, r in zip(dec["stages"], RATIOS):
         x = F.elu(x)
-        x = causal_conv_transpose1d(x, stage["convtr_w"], stage["convtr_b"], r)
+        x = _conv_tr(x, stage["convtr_w"], stage["convtr_b"], r)
         x = _residual_unit(x, stage)
     x = F.elu(x)
-    x = causal_conv1d(x, dec["conv_out_w"], dec["conv_out_b"])
+    x = _conv(x, dec["conv_out_w"], dec["conv_out_b"])
     return x[:, 0].float()
 
 
 def encoder_forward(params, audio):
     """mono PCM (T,) -> latent (T // 320, hidden_dim)."""
     enc = params["encoder"]
-    x = causal_conv1d(audio[:, None], enc["conv_in_w"], enc["conv_in_b"])
+    x = _conv(audio[None, None], enc["conv_in_w"], enc["conv_in_b"])
     for stage, r in zip(enc["stages"], reversed(RATIOS)):
         x = _residual_unit(x, stage)
         x = F.elu(x)
-        x = causal_conv1d(x, stage["down_w"], stage["down_b"], stride=r)
-    x = lstm_stack(x, enc["lstm"])
+        x = _conv(x, stage["down_w"], stage["down_b"], stride=r)
+    x = _lstm(x, enc["lstm"])
     x = F.elu(x)
-    return causal_conv1d(x, enc["conv_out_w"], enc["conv_out_b"])
+    return _tc(_conv(x, enc["conv_out_w"], enc["conv_out_b"]), True)
 
 
 def decode_codes(params, codes):
-    """codes (T, n_q) int -> PCM (T*320,) f32. The text-to-audio path."""
+    """codes ([B,] T, n_q) int -> PCM ([B,] T*320) f32. The text-to-audio
+    path; B lanes of one length decode as one batch."""
     return decoder_forward(params, rvq_decode(params["quantizer"], codes))
 
 

@@ -201,17 +201,20 @@ def gelu(x):
 
 
 def _attention(q, k_all, v_all, mask, cfg: GPTConfig):
-    """q: (T, D); k_all/v_all: (S, D); mask: (T, S) bool -> (T, D)."""
+    """q: ([B,] T, D); k_all/v_all: ([B,] S, D); mask: (T, S) bool ->
+    ([B,] T, D). A leading lane dimension B runs every lane's attention
+    as one einsum (the fine stage's lanes)."""
     H, hd = cfg.n_head, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
-    qh = q.reshape(q.shape[0], H, hd).float()
-    kh = k_all.reshape(k_all.shape[0], H, hd).float()
-    vh = v_all.reshape(v_all.shape[0], H, hd)
-    scores = torch.einsum("thd,shd->hts", qh, kh) * scale
-    scores = scores.masked_fill(~mask[None, :, :], -1e9)
+    qh = q.reshape(*q.shape[:-1], H, hd).float()
+    kh = k_all.reshape(*k_all.shape[:-1], H, hd).float()
+    vh = v_all.reshape(*v_all.shape[:-1], H, hd)
+    scores = torch.einsum("...thd,...shd->...hts", qh, kh) * scale
+    scores = scores.masked_fill(~mask, -1e9)
     att = torch.softmax(scores, dim=-1)
-    out = torch.einsum("hts,shd->thd", att.to(vh.dtype).float(), vh.float())
-    return out.to(q.dtype).reshape(out.shape[0], cfg.n_embd)
+    out = torch.einsum("...hts,...shd->...thd", att.to(vh.dtype).float(),
+                       vh.float())
+    return out.to(q.dtype).reshape(*out.shape[:-2], cfg.n_embd)
 
 
 def _attention_int8(cfg: GPTConfig, q, k_cache, v_cache, mask):
@@ -241,14 +244,15 @@ def _layer(params: Params, l: int):
 
 
 def _block(cfg: GPTConfig, x, layer, k_cache, v_cache, n_past, mask):
-    """One pre-LN block. x: (T, D); k_cache/v_cache: (S, D) views (or
-    int8 layer caches) written in place at rows [n_past, n_past+T), or None
-    for the cache-free fine stage."""
+    """One pre-LN block. x: (T, D), or (B, T, D) for B lanes of the
+    cache-free fine stage; k_cache/v_cache: (S, D) views (or int8 layer
+    caches) written in place at rows [n_past, n_past+T), or None for the
+    fine stage."""
     D = cfg.n_embd
     dt = x.dtype
     h = layer_norm(x, layer["ln1_g"], layer["ln1_b"])
     qkv = _proj(h, layer, "qkv").to(dt) + layer["qkv_b"]
-    q, k, v = qkv[:, :D], qkv[:, D : 2 * D], qkv[:, 2 * D :]
+    q, k, v = qkv[..., :D], qkv[..., D : 2 * D], qkv[..., 2 * D :]
     if k_cache is not None:
         _kv_update(k_cache, k, n_past)
         _kv_update(v_cache, v, n_past)
@@ -267,7 +271,8 @@ def _block(cfg: GPTConfig, x, layer, k_cache, v_cache, n_past, mask):
 def transformer(cfg: GPTConfig, params: Params, x, k_caches, v_caches,
                 n_past: int, mask):
     """All layers, then ln_f. Caches (L, S, D), int8 caches, or None;
-    returns hidden (T, D)."""
+    returns hidden (T, D), or (B, T, D) for the fine stage's (B, T, D)
+    lanes (no caches)."""
     for l in range(cfg.n_layer):
         kc = None if k_caches is None else kv_view(k_caches, l)
         vc = None if v_caches is None else kv_view(v_caches, l)
@@ -325,16 +330,18 @@ def decode_step(cfg: GPTConfig, params: Params, token, k_caches, v_caches,
 
 
 def fine_forward(cfg: GPTConfig, params: Params, tokens, codebook_idx: int):
-    """Non-causal fine-stage forward. tokens: (T, n_channels) int; the
-    embedding sums wtes[0..codebook_idx] over channels 0..codebook_idx and
-    the head for `codebook_idx - n_codes_given` is applied to every
-    position. Returns (T, n_out_vocab) f32."""
-    T = tokens.shape[0]
+    """Non-causal fine-stage forward. tokens: (T, n_channels) int, or
+    (B, T, n_channels) for B lanes, each computed as alone (the JAX
+    package's `jax.vmap` of this function); the embedding sums
+    wtes[0..codebook_idx] over channels 0..codebook_idx and the head for
+    `codebook_idx - n_codes_given` is applied to every position. Returns
+    (T, n_out_vocab), or (B, T, n_out_vocab), f32."""
+    T = tokens.shape[-2]
     wte = params["wte"]
     t = tokens.long()
     embs = torch.stack(
-        [wte[c][t[:, c]] for c in range(codebook_idx + 1)]
-    )  # (cb+1, T, D)
+        [wte[c][t[..., c]] for c in range(codebook_idx + 1)]
+    )  # (cb+1, [B,] T, D)
     x = embs.sum(dim=0).to(wte.dtype) + params["wpe"][:T]
     mask = torch.ones((T, T), dtype=torch.bool, device=x.device)
     hidden = transformer(cfg, params, x, None, None, 0, mask)

@@ -94,8 +94,8 @@ def sample(logits, temp: float, noise=None, top_k: int = 0,
 
 
 def sample_rows(logits, temp: float, noise=None):
-    """Independent per-row samples of (N, V) logits -> (N,) int64; `noise`
-    is (N, V) f32, unused at temp 0."""
+    """Independent per-row samples of (..., V) logits -> (...) int64;
+    `noise` is f32 of the logits' shape, unused at temp 0."""
     logits = logits.float()
     if temp == 0.0:
         return torch.argmax(logits, dim=-1)

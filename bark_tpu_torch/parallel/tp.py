@@ -302,13 +302,14 @@ class TensorParallelForward:
         return torch.stack(toks, 1).to(torch.int32)
 
     def fine(self, cfg, params, tokens, codebook_idx: int):
-        """`gpt.fine_forward` (non-causal, no cache) on the shards."""
-        T, t, wte = tokens.shape[0], tokens.long(), params["wte"]
-        embs = torch.stack([wte[c][t[:, c]] for c in range(codebook_idx + 1)])
+        """`gpt.fine_forward` (non-causal, no cache) on the shards, over
+        (B, T, C) lanes."""
+        T, t, wte = tokens.shape[1], tokens.long(), params["wte"]
+        embs = torch.stack([wte[c][t[..., c]]
+                            for c in range(codebook_idx + 1)])
         x = (self._cols(embs.sum(dim=0).to(wte.dtype), cfg.n_embd)
              + self._cols(params["wpe"][:T], cfg.n_embd))
         mask = torch.ones((1, T, T), dtype=torch.bool, device=x.device)
-        hidden = self._transformer(cfg, params, x[None], None, None, None,
-                                   mask)[0]
+        hidden = self._transformer(cfg, params, x, None, None, None, mask)
         return self._logits(cfg, params, hidden,
                             head=codebook_idx - cfg.n_codes_given)

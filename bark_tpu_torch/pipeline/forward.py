@@ -21,7 +21,8 @@ orchestration and call only these methods:
   `bdecode.decode_step_fused_batched`,
   `bsemantic.semantic_chunk_fused_batched`,
   `bwindow.coarse_window_fused_batched`);
-- `fine(cfg, params, tokens, codebook_idx)`: `gpt.fine_forward`'s.
+- `fine(cfg, params, tokens, codebook_idx)`: `gpt.fine_forward`'s, on
+  (B, T, C) lanes (the fine stage's batch).
 """
 
 from __future__ import annotations

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --k7       # phase 1, then the batched step's record
     python3 chip_smoke.py --streaming  # phase 1, then phase 4g alone
     python3 chip_smoke.py --multigpu   # phase 1, then phase 4h alone
+    python3 chip_smoke.py --fine-batch # phase 1, then phase 4i alone
 
 Phases, each fatal on failure (exit code 1, and no result lines):
   1. build the CUDA kernels from bark_tpu_torch/csrc (nvcc, sm_90a, one
@@ -154,6 +155,22 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      (c) `python -m bark_tpu_torch.parallel.dryrun 2 --device cuda` in a
      subprocess. Its K8-K10 launches add to the kernel rows' (the
      `multigpu` entry of the results line);
+  4i. the batched fine stage and codec (`fine_batch_phase`) on bark-small
+     bf16: dense batches of 8 and 32 and a q4_0 batch of 8, each with
+     its fine forwards and codec calls counted (n_fine - n_coarse
+     forwards a block of the longest lane, the first over every lane; one
+     codec call a decode length: it fails if a per-lane loop is left),
+     K8-K10 alone and no plain version; its fine and codec seconds beside
+     the lane-by-lane stage's (quoted from PERF.md), the fine stage again
+     over the same lanes (seconds, peak memory, the same codes), and in
+     the dense batches each lane alone
+     through the same program (the share of equal fine codes); the fine
+     stage's torch.profiler split at B 1 and 32 in a fresh process
+     (`probes/fine_profile.py`: products, attention, sampling, other,
+     gaps, the device-busy share); with `--fine-batch` also the small
+     model's f32 batch on the card against the CPU (phase 3 runs it in
+     the full smoke). Its K8-K10 launches add to the kernel rows' (the
+     `fine_batch` entry of the results line);
   5. the weight-stream probe (`bark_tpu_torch.probes.dma`, D1-D5, the
      port of tools/tpu_dma_probe.py) at 256 MB a pass: D1, D2, D5 and D3
      (G 2, 4) over load method x stage size (8/16/32 KB) x ring (2/3/4,
@@ -233,8 +250,9 @@ P1-P9 at the reference's shapes, seeded inputs and bark-small sizes
 (`lowering_kernel_checks`; data movement bit-equal, P8's rows outside
 its window untouched).
 
-Each path of phases 4, 4b, 4c, 4d, 4e, 4f, 4h, 5, 5b and 5c is driven with the launch
-counts set to 0 just before it and read just after. A kernel's bound is
+Each path of phases 4, 4b, 4c, 4d, 4e, 4f, 4h, 4i, 5, 5b and 5c is
+driven with the launch counts set to 0 just before it and read just
+after. A kernel's bound is
 the least time the card could take for the same work: the bytes it must
 move (each input read once, each output written once) at 3.35 TB/s, or
 its operations at the peak rate of its dtype, whichever is larger; an
@@ -4300,6 +4318,201 @@ def multigpu_phase(smi: str, batch8=None) -> dict:
     return rec
 
 
+# ------------------------------------------------------------ phase 4i
+
+FB_BATCHES = (8, 32)  # phase 4i's dense bf16 batches; q4_0 at the first
+# the last smoke of the lane-by-lane fine stage (PERF.md; NVIDIA H100 80GB
+# HBM3, 700.00 W): a dense batch's eval seconds and the fine stage's share
+# of them
+FB_LANE_BY_LANE = {8: (1.382, "65-68%"), 32: (4.490, "75%")}
+
+
+def counting_forward():
+    """The kernels' forward (`pipeline.forward.KernelForward`) recording
+    the lanes of each `fine` call."""
+    from bark_tpu_torch.pipeline import forward
+
+    class Counting(forward.KernelForward):
+        def __init__(self):
+            self.fine_lanes = []
+
+        def fine(self, cfg, params, tokens, codebook_idx: int):
+            self.fine_lanes.append(
+                int(tokens.shape[0]) if tokens.dim() == 3 else 1)
+            return super().fine(cfg, params, tokens, codebook_idx)
+
+    return Counting()
+
+
+@contextlib.contextmanager
+def counted_codec():
+    """Record the lanes of each `encodec.decode_codes` call."""
+    from bark_tpu_torch.models import encodec
+
+    calls, decode = [], encodec.decode_codes
+
+    def counting(params, codes):
+        calls.append(int(codes.shape[0]) if codes.dim() == 3 else 1)
+        return decode(params, codes)
+
+    encodec.decode_codes = counting
+    try:
+        yield calls
+    finally:
+        encodec.decode_codes = decode
+
+
+def fine_batch_run(stages, B: int, packed: bool = False,
+                   agree: bool = True) -> dict:
+    """Phase 4i: one `_generate_batch` of B prompts on bark-small
+    (`bark_small_context`, the lane-keyed noise of `lane_noise`), driven
+    with the launch counts set to 0 just before and read just after, its
+    fine forwards and codec calls counted. Its fine stage must be n_fine -
+    n_coarse forwards a block of the longest lane, each over the lanes
+    still refining (the first over all B), and its codec one call a
+    decode length (`BarkContext._codec_frames`): no per-lane loop left.
+    K8-K10 alone must have run the semantic and coarse stages (each chunk
+    and window one launch of the batched loop), and no plain version.
+    Then the fine stage program again over the same lanes and noise: its
+    seconds, its peak memory over what was allocated before it, and
+    whether it gave the batch's codes; with `agree`, each lane alone
+    through the same program, and the share of fine codes equal to the
+    batch's."""
+    import numpy as np
+    import torch
+
+    from bark_tpu_torch import kernels
+    from bark_tpu_torch.pipeline import fine as fine_pipe
+
+    dev = torch.device("cuda")
+    ctx = bark_small_context(stages, seed=200 + B)
+    ctx.lane_noise_source = noise = lane_noise(dev)
+    ctx._forward = fwd = counting_forward()
+    texts = [PROMPTS[b % len(PROMPTS)] for b in range(B)]
+    label = f"{'q4_0 ' if packed else ''}batch of {B}"
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with counted_plain_calls() as plain, counted_codec() as codec_calls:
+        lanes = ctx._generate_batch(texts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, loop = kernels.launch_counts(), lane_counts(packed=packed)
+    check_dp_kernels(label, dict(launches=counts, plain=dict(plain),
+                                 loop=loop, loop_packed=loop), packed)
+    p, block = ctx.params, ctx.fine_cfg.block_size
+    n_books = p.n_fine_codebooks - p.n_coarse_codebooks
+    frames = [lane["fine"].shape[0] for lane in lanes]
+    blocks = [fine_pipe.fine_schedule(n, block)[1] for n in frames]
+    want = [sum(b > n for b in blocks) for n in range(max(blocks))
+            for _ in range(n_books)]
+    groups = {}
+    for n in frames:
+        groups[ctx._codec_frames(n)] = groups.get(ctx._codec_frames(n),
+                                                  0) + 1
+    log(f"  {label}: fine forwards over {fwd.fine_lanes} lanes, codec "
+        f"calls over {codec_calls} lanes ({len(set(frames))} lengths, "
+        f"{max(blocks)} blocks)")
+    if fwd.fine_lanes != want or sorted(codec_calls) != sorted(
+            groups.values()):
+        raise AssertionError(
+            f"{label}: a per-lane loop is left: fine forwards over "
+            f"{fwd.fine_lanes} lanes (want {want}), codec calls over "
+            f"{codec_calls} lanes (want {sorted(groups.values())})")
+    for b, lane in enumerate(lanes):
+        a = lane["audio"]
+        if a.size != frames[b] * 320 or not np.isfinite(a).all():
+            raise AssertionError(f"{label}, lane {b}: audio {a.shape}")
+    s = ctx.stats
+    eval_s = s.t_eval_us / 1e6
+    audio_s = sum(lane["audio"].size for lane in lanes) / 24000
+    rec = dict(
+        B=B, frames=sorted(set(frames)), blocks=max(blocks),
+        fine_forwards=len(fwd.fine_lanes), fine_forward_lanes=want[0],
+        codec_calls=codec_calls, wall_s=wall, eval_s=eval_s,
+        audio_s=audio_s, audio_s_per_wall_s=audio_s / eval_s,
+        semantic_s=s.t_semantic_us / 1e6, coarse_s=s.t_coarse_us / 1e6,
+        fine_s=s.t_fine_us / 1e6,
+        codec_s=(s.t_eval_us - s.t_semantic_us - s.t_coarse_us
+                 - s.t_fine_us) / 1e6,
+        launches=counts)
+    rec["fine_share"] = rec["fine_s"] / eval_s
+    prog = ctx._program("fine")
+    codes = [torch.from_numpy(lane["coarse"]).to(dev) for lane in lanes]
+    noises = [noise("fine", b, (nl, n_books, block, p.codebook_size))
+              for b, nl in enumerate(blocks)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = prog(ctx.fine_params, codes, frames, noises)
+    torch.cuda.synchronize()
+    rec["stage_alone_s"] = time.perf_counter() - t0
+    rec["stage_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    rec["stage_peak_total_bytes"] = torch.cuda.max_memory_allocated()
+    rec["stage_again_equal"] = all(
+        np.array_equal(a[:n].cpu().numpy(), lane["fine"])
+        for a, n, lane in zip(again, frames, lanes))
+    del again
+    if agree:
+        equal = total = 0
+        for b, lane in enumerate(lanes):
+            alone = prog(ctx.fine_params, [codes[b]], [frames[b]],
+                         [noises[b]])[0][:frames[b]].cpu().numpy()
+            equal += int((alone == lane["fine"]).sum())
+            total += alone.size
+        rec["agreement_alone"] = equal / total
+    log(f"  {label}: eval {eval_s:.6f} s ({rec['audio_s_per_wall_s']:.6f} "
+        f"audio-s per wall-s): fine {rec['fine_s']:.6f} s "
+        f"({100 * rec['fine_share']:.1f}%), codec {rec['codec_s']:.6f} s; "
+        f"the stage again {rec['stage_alone_s']:.6f} s, peak +"
+        f"{rec['stage_peak_bytes'] / 2**30:.3f} GiB (total "
+        f"{rec['stage_peak_total_bytes'] / 2**30:.3f} GiB), same codes "
+        f"{rec['stage_again_equal']}"
+        + (f"; lanes alone agree {rec['agreement_alone']:.6f}"
+           if agree else ""))
+    return rec
+
+
+def fine_batch_phase(smi: str, alone: bool = False) -> dict:
+    """Phase 4i: the batched fine stage and codec on bark-small bf16
+    (`fine_batch_run`): dense batches of FB_BATCHES (each lane's codes
+    also against the lane alone), a q4_0 batch of 8; then the fine stage's
+    torch.profiler split at B 1 and 32 in a fresh process
+    (`probes/fine_profile.py`, `probe_record`); `alone` (the
+    `--fine-batch` run): also the small model's f32 batch on the card
+    against the CPU (`small_model_batched_reference`, which phase 3 runs
+    in the full smoke). Its K8-K10 launches add to the kernel rows' (the
+    `fine_batch` entry of the results line)."""
+    import torch
+
+    t0 = time.perf_counter()
+    rec = dict(card=smi)
+    stages = bark_small_stages()
+    bark_small_batch(stages, 2)  # first use of these weights: not kept
+    for B in FB_BATCHES:
+        rec[f"dense_B{B}"] = fine_batch_run(stages, B)
+        earlier_eval, earlier_share = FB_LANE_BY_LANE[B]
+        r = rec[f"dense_B{B}"]
+        log(f"  dense batch of {B}: fine {r['fine_s']:.6f} s and codec "
+            f"{r['codec_s']:.6f} s of eval {r['eval_s']:.6f} s; lane by "
+            f"lane (quoted from PERF.md): eval {earlier_eval} s, the fine "
+            f"stage {earlier_share} of it, on {smi}")
+    del stages
+    torch.cuda.empty_cache()
+    rec["q4_0_B8"] = fine_batch_run(bark_small_stages("q4_0"), 8,
+                                    packed=True, agree=False)
+    torch.cuda.empty_cache()
+    rec["profile"] = probe_record("fine_profile")
+    if alone:
+        with full_f32():
+            small_model_batched_reference()
+    runs = [rec[f"dense_B{B}"] for B in FB_BATCHES] + [rec["q4_0_B8"]]
+    rec["launches"] = {m: sum(r["launches"][m] for r in runs)
+                       for m in ("bprefill", "bsemantic", "bwindow")}
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 # ------------------------------------------------------------ D1-D5
 
 
@@ -5159,6 +5372,11 @@ def main() -> int:
         rec = multigpu_phase(smi)
         print(json.dumps({"multigpu": rec}))
         return 0
+    if sys.argv[1:] == ["--fine-batch"]:
+        rec = fine_batch_phase(smi, alone=True)
+        log(f"  phase 4i took {rec['seconds']:.1f} s")
+        print(json.dumps({"fine_batch": rec}))
+        return 0
 
     checks = Checks()
     with full_f32():
@@ -5306,6 +5524,12 @@ def main() -> int:
     multigpu = multigpu_phase(smi, next(r for r in batches
                                         if r["B"] == MG_B))
     log(f"  phase 4h took {multigpu['seconds']:.1f} s")
+    log(f"phase 4i: the batched fine stage and codec on bark-small: dense "
+        f"batches of {FB_BATCHES} and q4_0 of 8 (fine forwards and codec "
+        f"calls counted, lanes against lanes alone), the fine stage's "
+        f"profile at B 1 and 32 in a fresh process")
+    fine_batch = fine_batch_phase(smi)
+    log(f"  phase 4i took {fine_batch['seconds']:.1f} s")
     log(f"phase 5: the weight-stream probe D1-D5 at {DMA_MB} MB a pass, "
         f"every load method, stage size and ring, and its yardsticks")
     from bark_tpu_torch.probes import dma
@@ -5405,9 +5629,10 @@ def main() -> int:
             launches = sum(c[module] for c in batch_launches.values())
         else:
             launches = counts[module]
-        if name not in kv8_launches:  # phases 4g-4h's of K2-K4, K8-K10
+        if name not in kv8_launches:  # phases 4g-4i's of K2-K4, K8-K10
             launches += streaming["launches"].get(module, 0)
             launches += multigpu["launches"].get(module, 0)
+            launches += fine_batch["launches"].get(module, 0)
         log(f"  {name:30s} {ms:9.3f} ms  plain {plain:9.3f} ms  bound "
             f"{bound_ms:7.4f} ms ({bound_by})  launches {launches}  (bf16)")
         row = dict(
@@ -5537,6 +5762,7 @@ def main() -> int:
                           batches_q4_0=q_batches,
                           batches_q4_0_kv8=kv8_q_batches, options=options,
                           streaming=streaming, multigpu=multigpu,
+                          fine_batch=fine_batch,
                           build_s=build_s,
                           build=build_record,
                           attention_alone={k: v[:2] for k, v in
