@@ -97,19 +97,20 @@ def check_lanes(cfg: GPTConfig, params, B: int, lm_window=None):
     (`decode.check_step`'s shapes and qpack forms, B lanes outside
     [1, MAX_LANES], more than 512 (head, lane) units, lm_window outside
     the vocab)."""
-    D = cfg.n_embd
-    if D % kdec.PLAN_TILE or D != cfg.n_head * kdec.HEAD_DIM:
-        raise ValueError(f"the decode kernels take width % "
-                         f"{kdec.PLAN_TILE} == 0 and head dim "
-                         f"{kdec.HEAD_DIM}, got n_embd {D}, n_head "
-                         f"{cfg.n_head}")
-    if cfg.block_size > 1024:
-        raise ValueError(f"the decode kernels take <= 1024 cache slots, got "
-                         f"{cfg.block_size}")
     if not 1 <= B <= MAX_LANES or cfg.n_head * B > kdec.MAX_UNITS:
         raise ValueError(f"the batched step takes 1 to {MAX_LANES} lanes "
                          f"and at most {kdec.MAX_UNITS} (head, lane) units, "
                          f"got {B} lanes of {cfg.n_head} heads")
+    D = cfg.n_embd
+    if (D % kdec.PLAN_TILE or D > kdec.MAX_WIDTH
+            or D != cfg.n_head * kdec.HEAD_DIM):
+        raise ValueError(f"the decode kernels take width % "
+                         f"{kdec.PLAN_TILE} == 0 and <= {kdec.MAX_WIDTH}, "
+                         f"and head dim {kdec.HEAD_DIM}, got n_embd {D}, "
+                         f"n_head {cfg.n_head}")
+    if cfg.block_size > 1024:
+        raise ValueError(f"the decode kernels take <= 1024 cache slots, got "
+                         f"{cfg.block_size}")
     V = cfg.n_out_vocab
     lo, hi = lm_window if lm_window is not None else (0, V)
     if not 0 <= lo <= hi <= V:

@@ -78,6 +78,8 @@ PLAN_ROWS = 8     # K ranges start on, and span, multiples of these rows
 QBLOCK = 32       # ... of these rows in a packed plan: whole quant blocks
 PLAN_HDR = 24     # ints of the table's header
 PLAN_MAX = 8192   # ints of a table the kernel holds in shared memory
+MAX_WIDTH = 1024  # columns of a row the steps hold (csrc/decode.cu VPT x
+                  # PS_THREADS; csrc/lane.cuh MAX_TILES x TILE)
 PHASES = ("qkv", "proj", "fc", "out")
 PHASE_NAMES = ("ln1_qkv", "attention_proj", "ln2_fc", "out")  # their work
 # The header's slots, as csrc/decode.cu's `PL_*` enum names them (keep the
@@ -256,10 +258,11 @@ def step_plan(cfg: GPTConfig, n_blocks: int, lm_window=None,
     near-equal runs of tiles (an item writes its logits, so nothing is
     folded)."""
     D, H = cfg.n_embd, cfg.n_head
-    if D % PLAN_TILE or D != H * HEAD_DIM or n_blocks < 1:
-        raise ValueError(f"step_plan takes width % {PLAN_TILE} == 0, head "
-                         f"dim {HEAD_DIM} and >= 1 block, got {cfg}, "
-                         f"{n_blocks} blocks")
+    if (D % PLAN_TILE or D > MAX_WIDTH or D != H * HEAD_DIM
+            or n_blocks < 1):
+        raise ValueError(f"step_plan takes width % {PLAN_TILE} == 0 and <= "
+                         f"{MAX_WIDTH}, head dim {HEAD_DIM} and >= 1 block, "
+                         f"got {cfg}, {n_blocks} blocks")
     lo, hi = lm_window if lm_window is not None else (0, cfg.n_out_vocab)
     if not 0 <= lo <= hi <= cfg.n_out_vocab:
         raise ValueError(f"lm_window {lm_window} outside "
@@ -405,10 +408,11 @@ def lane_plan(cfg: GPTConfig, n_blocks: int, n_lanes: int, lm_window=None,
     a width not a multiple of 64, head dim != 64, no block, lanes outside
     [1, 32], more than 512 units, a window outside the vocab."""
     D, H = cfg.n_embd, cfg.n_head
-    if D % PLAN_TILE or D != H * HEAD_DIM or n_blocks < 1:
-        raise ValueError(f"lane_plan takes width % {PLAN_TILE} == 0, head "
-                         f"dim {HEAD_DIM} and >= 1 block, got {cfg}, "
-                         f"{n_blocks} blocks")
+    if (D % PLAN_TILE or D > MAX_WIDTH or D != H * HEAD_DIM
+            or n_blocks < 1):
+        raise ValueError(f"lane_plan takes width % {PLAN_TILE} == 0 and <= "
+                         f"{MAX_WIDTH}, head dim {HEAD_DIM} and >= 1 block, "
+                         f"got {cfg}, {n_blocks} blocks")
     if not 1 <= n_lanes <= MAX_LANES or H * n_lanes > MAX_UNITS:
         raise ValueError(f"lane_plan takes 1 to {MAX_LANES} lanes and at "
                          f"most {MAX_UNITS} (head, lane) units, got "
@@ -468,17 +472,18 @@ def lane_work_floats(cfg: GPTConfig, plan: LanePlan) -> int:
 def check_step(cfg: GPTConfig, params, k_cache, v_cache, n_past: int,
                lm_window=None):
     """Raise ValueError for what the step's kernels do not take: head
-    dim != 64, width not a multiple of 64, more than 1024 cache slots,
+    dim != 64, width not a multiple of 64 or over MAX_WIDTH, more than
+    1024 cache slots,
     n_past outside the cache, lm_window outside the vocab, caches that
     are not the stage's (dense in the params dtype, or both int8 with
     their row scales), or a qpack in a form the packed read does not take
     (scales neither f16 nor f32, no single transposed LM head). Returns
     the caches' pointers (`_build.check_kv`)."""
     D = cfg.n_embd
-    if D % PLAN_TILE or D != cfg.n_head * HEAD_DIM:
+    if D % PLAN_TILE or D > MAX_WIDTH or D != cfg.n_head * HEAD_DIM:
         raise ValueError(f"the decode kernels take width % {PLAN_TILE} == 0 "
-                         f"and head dim {HEAD_DIM}, got n_embd {D}, n_head "
-                         f"{cfg.n_head}")
+                         f"and <= {MAX_WIDTH}, and head dim {HEAD_DIM}, got "
+                         f"n_embd {D}, n_head {cfg.n_head}")
     if cfg.block_size > 1024:
         raise ValueError(f"the decode kernels take <= 1024 cache slots, got "
                          f"{cfg.block_size}")

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --streaming  # phase 1, then phase 4g alone
     python3 chip_smoke.py --multigpu   # phase 1, then phase 4h alone
     python3 chip_smoke.py --fine-batch # phase 1, then phase 4i alone
+    python3 chip_smoke.py --large      # phase 1, then phase 4j alone
 
 Phases, each fatal on failure (exit code 1, and no result lines):
   1. build the CUDA kernels from bark_tpu_torch/csrc (nvcc, sm_90a, one
@@ -14,18 +15,21 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      them, logging the build record (objects compiled with their seconds,
      the link, the load);
   2. compare each kernel K1-K4 with its plain PyTorch version at bark-small
-     shapes, in bf16 and in f32 (TF32 off), each error beside its
-     tolerance; then K5 (the packed decode step: the same persistent
-     kernel on its packed weight read) the same way on random qpacks of
+     shapes, in bf16 and in f32 (TF32 off; the f32 pass at F32_LAYERS of
+     bark-small's 12 layers), each error beside its tolerance; then K5
+     (the packed decode step: the same persistent kernel on its packed
+     weight read) the same way on random qpacks of
      five formats (q8_0, q4_0, q5_0: f16 scales; q4_1: f16 scales and
      mins; q4_k: f32 scales and mins), also on the int8 cache, and K3/K4
      over a q8_0 qpack; time each against its plain version. K3 and K4,
      one launch of K1's step loop a call and none of K1's step, also give
-     in f32 the bits of K1's steps launched one by one on their tokens
-     (a chunk whose slots reach the clamp, and both window parities among
-     them), and in bf16 two runs the same bits. K1 and K5,
-     each one cooperative launch a step, must give the same bits twice,
-     run one device kernel a call (torch.profiler, bf16 and int8 caches),
+     in f32 the bits of K1's steps launched one by one on their tokens,
+     each token the plain sampler's on its step's logits
+     (`loop_steps_check`; a chunk whose slots reach the clamp, and both
+     window parities among them), and in bf16 two runs the same bits.
+     K1 and K5, each one cooperative launch a step, must give the same
+     bits twice, run one device kernel a call (torch.profiler, bf16 and
+     int8 caches),
      and are timed at n_past 0/300/1023 (and the coarse window at 887)
      beside their bounds and the 62-launch chains' 0.526 / 0.474 ms, with
      their grid, barriers and the per-phase µs of stamped steps (the
@@ -100,13 +104,12 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      throughput beside phases 4-4c's bf16-cache numbers;
   4e. batched requests on bark-small q4_0 qpacks (`generate_audio_batch`
      of 1, 8 and 32 prompts with the bf16 cache, 8 and 32 with the int8
-     cache), then one batch of 8 each in q8_0, q4_1 and q4_k; check that
-     every semantic chunk and coarse window was one launch of the batched
-     step loop on the packed read, that the dense loop, K7's and
-     K5-batched's own step and the single-lane K1/K5 did not launch and
-     that no plain version ran,
-     and print the throughput and RTF per request beside phase 4c's dense
-     numbers;
+     cache), then one batch of 8 each in q8_0, q4_1, q4_k and q5_0;
+     check that every semantic chunk and coarse window was one launch of
+     the batched step loop on the packed read, that the dense loop, K7's
+     and K5-batched's own step and the single-lane K1/K5 did not launch
+     and that no plain version ran, and print the throughput and RTF per
+     request beside phase 4c's dense numbers;
   4f. the options of generate_audio and generate_audio_batch on
      bark-small (`options_phase`): top_k 50 / top_p 0.95 requests at temp
      0.7 (dense, on the int8 cache, on q4_0 qpacks), each sampled token
@@ -171,6 +174,24 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      model's f32 batch on the card against the CPU (phase 3 runs it in
      the full smoke). Its K8-K10 launches add to the kernel rows' (the
      `fine_batch` entry of the results line);
+  4j. bark-large (24 layers, 16 heads, width 1024; `large_phase`), the
+     port's counterpart of tools/tpu_check.py --large, on random weights
+     from a seed: its kernels against their plain versions in f32 (TF32
+     off) and bf16 (`large_kernel_checks`: K1 at n_past 0/300/1023 and
+     the coarse step at 887, K2 at T 257/887/1024, K5 q8_0 and q4_0, K6
+     in K1 and K2, K7 at B 1/8/32 (512 (head, lane) units at 32),
+     K5-batched q8_0 at B 8, K6 in K7 at B 32, K8 over 8 lanes of 257-887
+     and of 887 rows; in f32 K3 (16 steps, and at the clamp), K4 (60
+     steps, both parities), K9 (8 x 16) and K10 (32 x 60) bit-equal to
+     their own steps launched one by one, each token the plain sampler's,
+     and K3 and K4 on the int8 cache token-equal to their plain versions;
+     in bf16 the loops once beside their plain versions), ten of them
+     timed in bf16 beside their bounds (the `kernels` line's
+     "bark-large" rows); then bench.py's workload: 3 dense requests, 1 on
+     the int8 cache, 1 on q8_0 qpacks and a batch of 8, each chunk and
+     window one launch of its step loop and no plain version run; its
+     RTFs, stage seconds, audio-s per wall-s and peak memory (the `large`
+     entry of the results line);
   5. the weight-stream probe (`bark_tpu_torch.probes.dma`, D1-D5, the
      port of tools/tpu_dma_probe.py) at 256 MB a pass: D1, D2, D5 and D3
      (G 2, 4) over load method x stage size (8/16/32 KB) x ring (2/3/4,
@@ -194,7 +215,8 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      rebuild that one object and link; bark-small (random bf16) in two fresh
      processes, one calling `warmup()` before its two requests and one
      not, their tokens equal; the precompile CLI on the small model's
-     files (dense, q8_0 packed, --batch 8); printed as one `cache_probe`
+     files (dense, q8_0 packed, --batch 8; three processes at once);
+     printed as one `cache_probe`
      JSON line;
   5c. the lowering probe (`bark_tpu_torch.probes.lowering`, P1-P9, the
      port of tools/tpu_mosaic_probe.py): its CLI in this process, whose
@@ -219,11 +241,11 @@ n_past 0/300/1023; K8 over 3, 8 and 32 lanes with n_valid 257 to 887; K9
 over 16 steps of 1, 3, 8 and 32 lanes, a chunk reaching the clamp; K10
 over 60 steps of 1, 3 (both parities) and 8 lanes and 12 of 32; in f32
 K9/K10 also bit-equal to K7's steps launched one by one on their tokens,
-in bf16 two runs bit-equal), and phase 3 the small model's batched
-generation on the
-GPU against the CPU (tokens equal). For K5-batched (K7's step on packed
+each token the plain sampler's, in bf16 two runs bit-equal), and phase
+3 the small model's batched generation on the GPU against the CPU
+(tokens equal). For K5-batched (K7's step on packed
 weights) phase 2 holds the step against its plain version on random
-qpacks of the four formats at B 1/3/8/32 (n_past 0/300/1023; full head
+qpacks of the five formats at B 1/3/8/32 (n_past 0/300/1023; full head
 and coarse window), K9 (8 lanes x 16 steps) and K10 (8 and 32 lanes x 60
 steps) over a q4_0 qpack in f32 (tokens and flags equal), and the q4_0 step on
 int8 caches at B 8 and 32; phase 3 runs the small model's q8_0 file
@@ -250,7 +272,7 @@ P1-P9 at the reference's shapes, seeded inputs and bark-small sizes
 (`lowering_kernel_checks`; data movement bit-equal, P8's rows outside
 its window untouched).
 
-Each path of phases 4, 4b, 4c, 4d, 4e, 4f, 4h, 4i, 5, 5b and 5c is
+Each path of phases 4, 4b, 4c, 4d, 4e, 4f, 4h, 4i, 4j, 5, 5b and 5c is
 driven with the launch counts set to 0 just before it and read just
 after. A kernel's bound is
 the least time the card could take for the same work: the bytes it must
@@ -264,6 +286,7 @@ exits non-zero without a GPU, and when run outside a checkout.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -309,7 +332,7 @@ QFORMATS = {
     "q5_0": (-16, 15, "float16", False),
 }
 K5 = "qdecode_step_fused"
-K5B_FORMATS = ("q8_0", "q4_0", "q4_1", "q4_k")  # the formats K5-batched is held in
+K5B_FORMATS = ("q8_0", "q4_0", "q4_1", "q4_k", "q5_0")  # K5-batched's formats
 
 K7 = "decode_step_fused_batched"
 BATCHES = (1, 8, 32)  # phase 4c's batch sizes, and K7's timed ones
@@ -368,7 +391,7 @@ KERNELS.update({  # K6a in K1, K5, K7; K6b + K6c in K2, K8
 # batch of 8 each in phase 4e), q4_0 also at B = 1 and 32
 K5B = "qdecode_step_fused_batched"
 K5B_ROWS = (("q8_0", 8), ("q4_0", 1), ("q4_0", 8), ("q4_0", 32),
-            ("q4_1", 8), ("q4_k", 8))
+            ("q4_1", 8), ("q4_k", 8), ("q5_0", 8))
 KERNELS.update({
     f"{K5B}[{fmt},B={b}]": ("bark_tpu_torch/csrc/bdecode.cu",
                             "bark_tpu/kernels/decode.py:2043", "qbdecode")
@@ -570,6 +593,29 @@ def random_stage_params(cfg, gen, dtype):
     return p
 
 
+# Phase 2's f32 pass (untimed: each kernel exact against its plain
+# version) runs bark-small's widths at F32_LAYERS of its 12 layers: its
+# plain versions' runs would keep the smoke past its time limit at full
+# depth. The bf16 pass, which is timed, runs all 12, and phase 4j holds
+# bark-large's 24 layers in f32.
+F32_LAYERS = 4
+
+
+def phase2_cfgs(dtype):
+    """bark-small's semantic and coarse configs for phase 2's pass in
+    `dtype`: all 12 layers in bf16, F32_LAYERS in f32."""
+    import dataclasses
+
+    import torch
+
+    from bark_tpu_torch.models.presets import BARK_SMALL
+
+    cfgs = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+    if dtype == torch.float32:
+        return tuple(dataclasses.replace(c, n_layer=F32_LAYERS) for c in cfgs)
+    return cfgs
+
+
 def kernel_checks(checks: Checks, dtype, timed: bool):
     """Phase 2 for one dtype: K1-K4 against their plain versions on
     bark-small shapes and random weights."""
@@ -580,13 +626,12 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
     from bark_tpu_torch.kernels import semantic as ksem
     from bark_tpu_torch.kernels import window as kwin
     from bark_tpu_torch.models import gpt
-    from bark_tpu_torch.models.presets import BARK_SMALL
     from bark_tpu_torch.ops import sampling
 
     dev = torch.device("cuda")
     name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
     gen = torch.Generator(device=dev).manual_seed(7)
-    sem_cfg, coarse_cfg = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+    sem_cfg, coarse_cfg = phase2_cfgs(dtype)
     svs, cbs = 10000, 1024
     lmw = (svs, svs + 2 * cbs)
 
@@ -708,10 +753,13 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
                                                        else ""),
                           max_err(lg, rlg))
         if dtype == torch.float32:
-            k1_chain(f"K3 {name} {tag}", sem_cfg, sem_p, logits0, kc3, vc3,
-                     kc, vc, toks, lg, [min(257 + count0 + j,
-                                            sem_cfg.block_size - 1)
-                                        for j in range(K)], None)
+            sample = ksem.chunk_loop(sem_cfg, 257, count0, 0.7, svs, 2.0)[2]
+            loop_steps_check(
+                f"K3 {name} {tag}", sem_cfg, sem_p, logits0, kc3, vc3, kc,
+                vc, toks, flags, lg, [min(257 + count0 + j,
+                                          sem_cfg.block_size - 1)
+                                      for j in range(K)], None, sample,
+                lambda j: noise[sample.noise_row(j, 32)][None])
         elif K == 16:
             k, v = kc0.clone(), vc0.clone()
             again = ksem.semantic_chunk_fused(sem_cfg, sem_p, logits0, k, v,
@@ -764,9 +812,12 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
                           max(max_err(kc[:, rows], kc2[:, rows]),
                               max_err(vc[:, rows], vc2[:, rows])))
         if dtype == torch.float32:
-            k1_chain(f"K4 {name} {tag}", coarse_cfg, coarse_p, logits0, kc3,
-                     vc3, kc, vc, toks, None, [887 + j for j in range(sws)],
-                     lmw)
+            sample = kwin.window_loop(coarse_cfg, 887, step0, 0.7, svs,
+                                      cbs)[2]
+            loop_steps_check(
+                f"K4 {name} {tag}", coarse_cfg, coarse_p, logits0, kc3, vc3,
+                kc, vc, toks, None, None, [887 + j for j in range(sws)], lmw,
+                sample, lambda j: noise[j][None])
         elif sws == 60:
             k, v = kc0.clone(), vc0.clone()
             again = kwin.coarse_window_fused(coarse_cfg, coarse_p, logits0, k,
@@ -782,27 +833,6 @@ def kernel_checks(checks: Checks, dtype, timed: bool):
         nb, fl = decode_cost(coarse_cfg, coarse_p, 887, lmw, steps=60)
         checks.times["coarse_window_fused"] = (ms, plain,
                                                (nb + 60 * cbs * 4, fl))
-
-
-def k1_chain(what, cfg, p, logits0, k, v, kc, vc, toks, logits, slots,
-             lm_window):
-    """Fail unless K1's steps, one launch each on the step loop's tokens at
-    its slots, from the caches (k, v) the loop started from, give the
-    loop's caches (kc, vc) and, for K3, its logits bit for bit: the loop
-    runs K1's step and arithmetic, one launch a chunk or window."""
-    import torch
-
-    from bark_tpu_torch.kernels import decode as kdec
-
-    buf = logits0.clone()
-    for j, tok in enumerate(toks.tolist()):
-        kdec.decode_step_fused(cfg, p, tok, k, v, slots[j],
-                               lm_window=lm_window, out=buf)
-    if not (torch.equal(k, kc) and torch.equal(v, vc)
-            and (logits is None or torch.equal(buf, logits))):
-        raise AssertionError(f"{what}: the step loop differs from K1's steps "
-                             f"on its tokens")
-    log(f"  {what}: bit-equal to {len(slots)} K1 launches on its tokens")
 
 
 def probe_record(script: str, *flags: str) -> dict:
@@ -939,32 +969,6 @@ def lane_counts(before=None, packed: bool = False) -> tuple:
         a - b for a, b in zip(now, before))
 
 
-def k7_chain(what, cfg, p, logits0, k, v, kc, vc, toks, logits, slots,
-             lm_window):
-    """Fail unless K7's (K5-batched's) steps, one launch each on the batched
-    loop's (B, steps) tokens at its (steps, B) slots, from the caches (k,
-    v) the loop started from, give the loop's caches (kc, vc, dense or
-    int8) and, for K9, its logits bit for bit: the loop runs K7's step and
-    arithmetic, one launch a chunk or window."""
-    import torch
-
-    from bark_tpu_torch.kernels import _build
-    from bark_tpu_torch.kernels import bdecode as kbdec
-
-    buf = logits0.clone()
-    steps = toks.t().contiguous()
-    for j, row in enumerate(slots):
-        kbdec.decode_step_fused_batched(
-            cfg, p, steps[j], k, v, _build.device_ints(row, buf.device),
-            lm_window=lm_window, out=buf)
-    flat = [[t for x in pair for t in (x.values() if isinstance(x, dict)
-                                       else [x])] for pair in ((k, v),
-                                                               (kc, vc))]
-    if not (all(torch.equal(a, b) for a, b in zip(*flat))
-            and (logits is None or torch.equal(buf, logits))):
-        raise AssertionError(f"{what}: the batched loop differs from K7's "
-                             f"steps on its tokens")
-    log(f"  {what}: bit-equal to {len(slots)} K7 launches on its tokens")
 K5_EARLIER_MS = 0.474  # K5 q4_0's 62-launch chain, the same (PERF.md, H100)
 
 
@@ -1317,13 +1321,12 @@ def qkernel_checks(checks: Checks, dtype, timed: bool):
     from bark_tpu_torch.kernels import semantic as ksem
     from bark_tpu_torch.kernels import window as kwin
     from bark_tpu_torch.models import gpt
-    from bark_tpu_torch.models.presets import BARK_SMALL
     from bark_tpu_torch.ops import sampling
 
     dev = torch.device("cuda")
     name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
     gen = torch.Generator(device=dev).manual_seed(17)
-    sem_cfg, coarse_cfg = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+    sem_cfg, coarse_cfg = phase2_cfgs(dtype)
     svs, cbs = 10000, 1024
     lmw = (svs, svs + 2 * cbs)
 
@@ -1540,13 +1543,12 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
     from bark_tpu_torch.kernels import bsemantic as kbsem
     from bark_tpu_torch.kernels import bwindow as kbwin
     from bark_tpu_torch.models import gpt
-    from bark_tpu_torch.models.presets import BARK_SMALL
     from bark_tpu_torch.ops import sampling
 
     dev = torch.device("cuda")
     name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
     gen = torch.Generator(device=dev).manual_seed(27)
-    sem_cfg, coarse_cfg = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+    sem_cfg, coarse_cfg = phase2_cfgs(dtype)
     svs, cbs = 10000, 1024
     lmw = (svs, svs + 2 * cbs)
     sem_p = random_stage_params(sem_cfg, gen, dtype)
@@ -1698,9 +1700,12 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
                               + (" (clamp)" if count0 > 3 else ""),
                               max_err(lg, rlg))
             if f32:
-                k7_chain(f"K9 {name} {tag}", sem_cfg, sem_p, logits0,
-                         kc0.clone(), vc0.clone(), kc, vc, toks, lg,
-                         slots[:K], None)
+                sample = kbsem.chunk_lane_loop(sem_cfg, 257, count0, K, 0.7,
+                                               svs, 2.0, B)[1]
+                loop_steps_check(
+                    f"K9 {name} {tag}", sem_cfg, sem_p, logits0, kc0.clone(),
+                    vc0.clone(), kc, vc, toks, flags, lg, slots[:K], None,
+                    sample, lambda j: noise[:, sample.noise_row(j, 32)])
             elif K == 16 and B == 8:
                 k, v = kc0.clone(), vc0.clone()
                 again = kbsem.semantic_chunk_fused_batched(
@@ -1777,9 +1782,13 @@ def batched_kernel_checks(checks: Checks, dtype, timed: bool):
                                               vc2[:, b, c:c + sws]))
                                   for b, c in enumerate(ctx_len)))
             if f32:
-                k7_chain(f"K10 {name} {tag}", coarse_cfg, coarse_p, logits0,
-                         kc0.clone(), vc0.clone(), kc, vc, toks, None,
-                         [[c + j for c in ctx_len] for j in range(sws)], lmw)
+                sample = kbwin.window_lane_loop(ctx_len, step0, sws, 0.7, svs,
+                                                cbs)[1]
+                loop_steps_check(
+                    f"K10 {name} {tag}", coarse_cfg, coarse_p, logits0,
+                    kc0.clone(), vc0.clone(), kc, vc, toks, None, None,
+                    [[c + j for c in ctx_len] for j in range(sws)], lmw,
+                    sample, lambda j: noise[j])
             elif sws == steps and B == 8:
                 k, v = kc0.clone(), vc0.clone()
                 again = kbwin.coarse_window_fused_batched(
@@ -1822,13 +1831,12 @@ def qbatched_kernel_checks(checks: Checks, dtype, timed: bool):
     from bark_tpu_torch.kernels import bwindow as kbwin
     from bark_tpu_torch.kernels import qbdecode as kqb
     from bark_tpu_torch.models import gpt
-    from bark_tpu_torch.models.presets import BARK_SMALL
     from bark_tpu_torch.ops import sampling
 
     dev = torch.device("cuda")
     name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
     gen = torch.Generator(device=dev).manual_seed(47)
-    sem_cfg, coarse_cfg = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+    sem_cfg, coarse_cfg = phase2_cfgs(dtype)
     svs, cbs = 10000, 1024
     lmw = (svs, svs + 2 * cbs)
 
@@ -1918,9 +1926,12 @@ def qbatched_kernel_checks(checks: Checks, dtype, timed: bool):
                 raise AssertionError("K9 over q4_0: tokens/flags differ")
             checks.record(kname, name, "K9 logits, 8 lanes x 16 steps",
                           max_err(got[2], want[2]))
-            k7_chain("K9 over q4_0", sem_cfg, sem_q, logits0, kc3, vc3, kc,
-                     vc, got[0], got[2], [[260 + j] * B for j in range(16)],
-                     None)
+            sample = kbsem.chunk_lane_loop(sem_cfg, 257, 3, 16, 0.7, svs,
+                                           2.0, B)[1]
+            loop_steps_check(
+                "K9 over q4_0", sem_cfg, sem_q, logits0, kc3, vc3, kc, vc,
+                got[0], got[1], got[2], [[260 + j] * B for j in range(16)],
+                None, sample, lambda j: noise[:, sample.noise_row(j, 32)])
             del kc, vc, kc2, vc2, kc3, vc3
             for B, sws in ((8, 60), (32, 60)):
                 ctx_len = [(887, 700, 500, 257)[b % 4] for b in range(B)]
@@ -1939,9 +1950,13 @@ def qbatched_kernel_checks(checks: Checks, dtype, timed: bool):
                 if lane_counts(before, packed=True) != (1, 0):
                     raise AssertionError(f"K10 over q4_0, {B} lanes: not one "
                                          f"launch of the packed batched loop")
-                k7_chain(f"K10 over q4_0, {B} lanes", coarse_cfg, coarse_q,
-                         logits0, kc3, vc3, kc, vc, toks, None,
-                         [[c + j for c in ctx_len] for j in range(sws)], lmw)
+                sample = kbwin.window_lane_loop(ctx_len, 1, sws, 0.7, svs,
+                                                cbs)[1]
+                loop_steps_check(
+                    f"K10 over q4_0, {B} lanes", coarse_cfg, coarse_q,
+                    logits0, kc3, vc3, kc, vc, toks, None, None,
+                    [[c + j for c in ctx_len] for j in range(sws)], lmw,
+                    sample, lambda j: noise[j])
                 rtoks = kbwin.coarse_window_batched_plain(
                     coarse_cfg, coarse_q, logits0, kc2, vc2, ctx_len, 1,
                     noise, **kw)
@@ -2322,13 +2337,12 @@ def kv8_kernel_checks(checks: Checks, dtype, timed: bool):
     from bark_tpu_torch.kernels import semantic as ksem
     from bark_tpu_torch.kernels import window as kwin
     from bark_tpu_torch.models import gpt
-    from bark_tpu_torch.models.presets import BARK_SMALL
     from bark_tpu_torch.ops import sampling
 
     dev = torch.device("cuda")
     name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
     gen = torch.Generator(device=dev).manual_seed(37)
-    sem_cfg, coarse_cfg = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+    sem_cfg, coarse_cfg = phase2_cfgs(dtype)
     svs, cbs = 10000, 1024
     lmw = (svs, svs + 2 * cbs)
     k6a_alone_checks(checks, dtype, timed)
@@ -2851,23 +2865,28 @@ VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "hello", "world", "this", "is",
          "a", "benchmark", "of", "the", "bark", "pipeline", "speech", "test"]
 
 
-def bark_small_stages(fmt=None):
-    """bark-small's three stages at full width on the card, from a seed:
-    random bf16 weights, or with `fmt` random qpacks of that format (bf16
-    dense leaves)."""
+def bark_stages(fmt=None, model: str = "small"):
+    """The three stages of bark-small (`model` "large": of bark-large) at
+    full width on the card, from a seed: random bf16 weights, or with
+    `fmt` random qpacks of that format (bf16 dense leaves)."""
     import torch
 
     from bark_tpu_torch.models import gpt
-    from bark_tpu_torch.models.presets import BARK_SMALL
+    from bark_tpu_torch.models import presets
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    preset = {"small": presets.BARK_SMALL, "large": presets.BARK_LARGE}[model]
     return {
         name: (cfg, gpt.init_params(cfg, gen, torch.bfloat16, dev)
                if fmt is None else
                random_qpack(cfg, fmt, torch.bfloat16, gen, dev))
-        for name, cfg in BARK_SMALL.items()
+        for name, cfg in preset.items()
     }
+
+
+# the name the probes call, on this checkout or another (`--tree`)
+bark_small_stages = bark_stages
 
 
 def bark_small_requests(stages, n: int, label: str, need,
@@ -4513,6 +4532,655 @@ def fine_batch_phase(smi: str, alone: bool = False) -> dict:
     return rec
 
 
+# ------------------------------------------------------------ phase 4j
+
+LARGE = "bark-large"
+# the bark-large rows of the `kernels` line: (the KERNELS entry each is,
+# its launch-count module); each timed in bf16 by `large_kernel_checks`
+LARGE_ROWS = (("decode_step_fused", "decode"), ("prefill_fused", "prefill"),
+              ("semantic_chunk_fused", "semantic"),
+              ("coarse_window_fused", "window"), (f"{K5}[q4_0]", "qdecode"),
+              (f"{K7}[B=8]", "bdecode"), (f"{K7}[B=32]", "bdecode"),
+              ("prefill_fused_batched", "bprefill"),
+              ("semantic_chunk_fused_batched", "bsemantic"),
+              ("coarse_window_fused_batched", "bwindow"))
+
+
+def loop_steps_check(what, cfg, p, logits0, k, v, kc, vc, toks, flags,
+                     logits, slots, lm_window, sample, noise_row):
+    """Fail unless a step loop is its own step launched once a step, with
+    the plain sampler: from the caches (k, v, dense or int8) the loop
+    began with, K1's (K5's) step on the loop's tokens at its slots, or
+    K7's (K5-batched's) when `slots` holds a row of the lanes' slots a
+    step, must give the loop's caches (kc, vc) and, for K3/K9, its logits
+    bit for bit; and each step's tokens must be `ops.sampling.sample`'s
+    on the logits before it (the step's window of the LoopSample
+    `sample`, its temp, the noise rows `noise_row(j)`: (B, >= the
+    window)), for K3/K9 its flags the stop test's. toks and flags:
+    (steps,) of one lane or (B, steps)."""
+    import torch
+
+    from bark_tpu_torch.kernels import _build
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import decode as kdec
+    from bark_tpu_torch.ops import sampling
+
+    lanes = isinstance(slots[0], list)
+    toks = toks.reshape(-1, toks.shape[-1])
+    buf, want_toks, want_flags = logits0, [], []
+    for j, slot in enumerate(slots):
+        rows = buf.reshape(-1, buf.shape[-1])
+        base, n = sample.window(j, rows.shape[-1])
+        tok, eos_p = sampling.sample(rows[:, base:base + n], sample.temp,
+                                     noise_row(j)[:, :n])
+        want_toks.append(base + tok)
+        want_flags.append((base + tok == sample.stop_token)
+                          | (eos_p >= sample.min_eos_p))
+        if lanes:
+            buf = kbdec.decode_step_fused_batched(
+                cfg, p, toks[:, j].contiguous(), k, v,
+                _build.device_ints(slot, buf.device), lm_window=lm_window)
+        else:
+            buf = kdec.decode_step_fused(cfg, p, toks[0, j], k, v, slot,
+                                         lm_window=lm_window)
+    sampled = torch.equal(torch.stack(want_toks, 1), toks.long()) and (
+        flags is None or torch.equal(torch.stack(want_flags, 1),
+                                     flags.reshape(toks.shape).bool()))
+    flat = [[t for x in pair for t in (x.values() if isinstance(x, dict)
+                                       else [x])] for pair in ((k, v),
+                                                               (kc, vc))]
+    same = (all(torch.equal(a, b) for a, b in zip(*flat))
+            and (logits is None or torch.equal(buf, logits)))
+    if not (sampled and same):
+        raise AssertionError(f"{what}: tokens are the plain sampler's "
+                             f"{sampled}, bit-equal to the steps {same}")
+    log(f"  {what}: each token the plain sampler's, bit-equal to "
+        f"{len(slots)} launches of its step on its tokens")
+
+def large_kernel_checks(checks: Checks, dtype, timed: bool):
+    """Phase 4j's kernels for one dtype at bark-large's shapes (24 layers,
+    16 heads, width 1024), random weights: K1 at n_past 0/300/1023 and the
+    coarse step at 887 on the LM window; K2 at T 257, 887 (LM window) and
+    the whole 1024-row context; K5 on q8_0 and q4_0 qpacks; K6 in K1 and
+    K2; K7 at B 1/8/32 (32 lanes: 512 (head, lane) units, one a thread),
+    K5-batched q8_0 at B 8, K6 in K7 at B 32; K8 over 8 lanes of 257-887
+    rows and of 887; each against its plain version. The step loops: in
+    f32 K3 (16 steps after 257 rows, and a chunk reaching the clamp), K4
+    (60 steps at 887, both parities), K9 (8 lanes x 16) and K10 (32 lanes
+    x 60) held to their own steps and the plain sampler
+    (`loop_steps_check`), K3 and K4 on the int8 cache token-equal to
+    their plain versions; in bf16 K3, K4, K9 and K10 (8 lanes x 60) once
+    beside their plain versions: the first step's tokens and K/V rows held.
+    Timed in bf16 (`LARGE_ROWS`), each on inputs checked first."""
+    import torch
+
+    from bark_tpu_torch.kernels import _build
+    from bark_tpu_torch.kernels import bdecode as kbdec
+    from bark_tpu_torch.kernels import bprefill as kbpre
+    from bark_tpu_torch.kernels import bsemantic as kbsem
+    from bark_tpu_torch.kernels import bwindow as kbwin
+    from bark_tpu_torch.kernels import decode as kdec
+    from bark_tpu_torch.kernels import prefill as kpre
+    from bark_tpu_torch.kernels import qbdecode as kqb
+    from bark_tpu_torch.kernels import qdecode as kq
+    from bark_tpu_torch.kernels import semantic as ksem
+    from bark_tpu_torch.kernels import window as kwin
+    from bark_tpu_torch.models import gpt
+    from bark_tpu_torch.models.presets import BARK_LARGE
+    from bark_tpu_torch.ops import sampling
+
+    dev = torch.device("cuda")
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    f32 = dtype == torch.float32
+    gen = torch.Generator(device=dev).manual_seed(57)
+    sem_cfg, coarse_cfg = BARK_LARGE["semantic"], BARK_LARGE["coarse"]
+    svs, cbs = 10000, 1024
+    lmw = (svs, svs + 2 * cbs)
+    sem_p = random_stage_params(sem_cfg, gen, dtype)
+    coarse_p = random_stage_params(coarse_cfg, gen, dtype)
+
+    def rows_err(kc, kc2, vc, vc2, idx):
+        return max(max_err(kc[idx], kc2[idx]), max_err(vc[idx], vc2[idx]))
+
+    # K1 (and K5 on q8_0 and q4_0 qpacks, K6 in K1 on an int8 cache): one
+    # step and its cache row of every layer
+    sem_q = {fmt: random_qpack(sem_cfg, fmt, dtype, gen, dev)
+             for fmt in ("q8_0", "q4_0")}
+    for kname, cfg, p, n_past, win in (
+            ("decode_step_fused", sem_cfg, sem_p, 0, None),
+            ("decode_step_fused", sem_cfg, sem_p, 300, None),
+            ("decode_step_fused", sem_cfg, sem_p, 1023, None),
+            ("decode_step_fused", coarse_cfg, coarse_p, 887, lmw),
+            (f"{K5}[q8_0]", sem_cfg, sem_q["q8_0"], 300, None),
+            (f"{K5}[q4_0]", sem_cfg, sem_q["q4_0"], 300, None),
+            (K6_K1, sem_cfg, sem_p, 300, None)):
+        kv = kname == K6_K1
+        if kv:
+            kc, vc = kv8_cache(cfg, n_past, gen)
+            kc2, vc2 = kv8_clone(kc), kv8_clone(vc)
+        else:
+            kc, vc = filled_cache(cfg, n_past, dtype, gen)
+            kc2, vc2 = kc.clone(), vc.clone()
+        before = (kdec.launches, kq.launches)
+        out = kdec.decode_step_fused(cfg, p, 1234, kc, vc, n_past,
+                                     lm_window=win)
+        packed = kname.startswith(K5)
+        if (kdec.launches - before[0], kq.launches - before[1]) != (
+                (0, 1) if packed else (1, 0)):
+            raise AssertionError(f"{kname}: not one launch of its step")
+        ref = kdec.decode_step_plain(cfg, p, 1234, kc2, vc2, n_past, win)
+        tag = f"n_past {n_past}" + (" lm_window" if win else "")
+        checks.record(kname, name, f"logits {tag}", max_err(out, ref))
+        rows = (slice(None), n_past)
+        if kv:
+            record_kv8_rows(checks, kname, name, f"K/V row {tag}", [
+                (gpt.kv_view(kc, rows), gpt.kv_view(kc2, rows)),
+                (gpt.kv_view(vc, rows), gpt.kv_view(vc2, rows))])
+        else:
+            checks.record(kname, name, f"K/V row {tag}",
+                          rows_err(kc, kc2, vc, vc2, rows))
+        if win is not None and (float(out[:win[0]].abs().max()) != 0.0
+                                or float(out[win[1]:].abs().max()) != 0.0):
+            raise AssertionError(f"{kname}: logits outside lm_window are "
+                                 f"not zero")
+        if timed and n_past == 300 and kname != f"{K5}[q8_0]" and not kv:
+            tok_t = torch.tensor([1234], dtype=torch.int32, device=dev)
+            ms = cuda_ms(lambda: kdec.decode_step_fused(
+                cfg, p, tok_t, kc, vc, 300), 50)
+            plain = cuda_ms(lambda: kdec.decode_step_plain(
+                cfg, p, tok_t, kc, vc, 300), 3)
+            checks.times[kname] = (ms, plain, decode_cost(cfg, p, 300))
+        del kc, vc, kc2, vc2
+    del sem_q
+    torch.cuda.empty_cache()
+
+    # K2 at T 257, 887 (LM window) and 1024 (the whole context, LM
+    # window), and K6 in K2 at 887 on int8 caches: logits, cache rows,
+    # rows past T unwritten, in bf16 two runs bit-equal
+    for kname, cfg, p, T, win in (
+            ("prefill_fused", sem_cfg, sem_p, 257, None),
+            ("prefill_fused", coarse_cfg, coarse_p, 887, lmw),
+            ("prefill_fused", coarse_cfg, coarse_p, 1024, lmw),
+            (K6_K2, coarse_cfg, coarse_p, 887, lmw)):
+        kv = kname == K6_K2
+        x_emb = p["wte"][0][torch.randint(0, cfg.n_in_vocab, (T,),
+                                          generator=gen, device=dev)]
+
+        def caches():
+            if kv:
+                return tuple(gpt.kv_view(c, (slice(None), 0)) for c in
+                             gpt.init_kv_cache(cfg, None, dev, batch=1,
+                                               quant=True))
+            return gpt.init_kv_cache(cfg, dtype, dev)
+
+        (kc, vc), (kc2, vc2) = caches(), caches()
+        out = kpre.prefill_fused(cfg, p, x_emb, kc, vc, T, lm_window=win)
+        ref = kpre.prefill_plain(cfg, p, x_emb, kc2, vc2, T, win)
+        checks.record(kname, name, f"logits T {T}", max_err(out, ref))
+        if kv:
+            idx = (slice(None), slice(0, T))
+            record_kv8_rows(checks, kname, name, f"K/V rows T {T}", [
+                (gpt.kv_view(c, idx), gpt.kv_view(c2, idx))
+                for c, c2 in ((kc, kc2), (vc, vc2))], chained=True)
+        else:
+            checks.record(kname, name, f"K/V rows T {T}",
+                          rows_err(kc, kc2, vc, vc2, (slice(None),
+                                                      slice(0, T))))
+            prefill_rows_kept(kc, vc, [T], f"{kname} {name} T {T}",
+                              lanes=False)
+        if not f32:
+            kc3, vc3 = caches()
+            again = kpre.prefill_fused(cfg, p, x_emb, kc3, vc3, T,
+                                       lm_window=win)
+            same_bits(f"{kname} bf16 T {T}", (out, kc, vc),
+                      (again, kc3, vc3))
+        if timed and T == 887 and not kv:
+            ms = cuda_ms(lambda: kpre.prefill_fused(
+                cfg, p, x_emb, kc, vc, T, lm_window=win), 10)
+            plain = cuda_ms(lambda: kpre.prefill_plain(
+                cfg, p, x_emb, kc2, vc2, T, win), 3)
+            checks.times[kname] = (ms, plain, prefill_cost(cfg, p, T, win))
+        del x_emb, kc, vc, kc2, vc2
+    torch.cuda.empty_cache()
+
+    # K7 at B 1, 8 and 32 with n_past cycling 0/300/1023 (32 lanes: 16
+    # heads x 32 = 512 (head, lane) units, one a thread), K5-batched q8_0
+    # at B 8, K6 in K7 at B 32 (lanes at n_past 0 held to TOL_KV8_FIRST)
+    sem_q8 = random_qpack(sem_cfg, "q8_0", dtype, gen, dev)
+    for kname, p, B in ((K7, sem_p, 1), (K7, sem_p, 8), (K7, sem_p, 32),
+                        (f"{K5B}[q8_0]", sem_q8, 8), (K6_K7, sem_p, 32)):
+        kv = kname == K6_K7
+        n_past = [(0, 300, 1023)[b % 3] for b in range(B)]
+        toks = torch.randint(0, sem_cfg.n_in_vocab, (B,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        if kv:
+            kc, vc = kv8_cache(sem_cfg, 1023, gen, batch=B)
+            kc2, vc2 = kv8_clone(kc), kv8_clone(vc)
+        else:
+            kc, vc = filled_batched_cache(sem_cfg, B, 1023, dtype, gen)
+            kc2, vc2 = kc.clone(), vc.clone()
+        before = (kbdec.launches, kqb.launches)
+        out = kbdec.decode_step_fused_batched(sem_cfg, p, toks, kc, vc,
+                                              n_past)
+        packed = kname.startswith(K5B)
+        if (kbdec.launches - before[0], kqb.launches - before[1]) != (
+                (0, 1) if packed else (1, 0)):
+            raise AssertionError(f"{kname} B {B}: not one launch of its "
+                                 f"step")
+        ref = kbdec.decode_step_batched_plain(sem_cfg, p, toks, kc2, vc2,
+                                              n_past)
+        if kv:
+            for first in (False, True):
+                lanes = [b for b, n in enumerate(n_past) if (n == 0) == first]
+                what = f"B {B}, n_past {'0' if first else '> 0'} lanes"
+                checks.record(f"{K6_K7} n_past 0" if first else K6_K7, name,
+                              f"logits {what}",
+                              max_err(out[lanes], ref[lanes]),
+                              tol=TOL_KV8_FIRST if first else None)
+                record_kv8_rows(checks, K6_K7, name, f"K/V rows {what}", [
+                    (gpt.kv_view(c, (slice(None), b, n_past[b])),
+                     gpt.kv_view(c2, (slice(None), b, n_past[b])))
+                    for b in lanes for c, c2 in ((kc, kc2), (vc, vc2))],
+                    chained=first)
+        else:
+            checks.record(kname, name, f"logits B {B}", max_err(out, ref))
+            checks.record(kname, name, f"K/V rows B {B}", max(
+                rows_err(kc, kc2, vc, vc2, (slice(None), b, n))
+                for b, n in enumerate(n_past)))
+        del kc, vc, kc2, vc2
+        if timed and kname == K7 and B in (8, 32):
+            kc, vc = filled_batched_cache(sem_cfg, B, 300, dtype, gen)
+            kc2, vc2 = kc.clone(), vc.clone()
+            slots = _build.device_ints([300] * B, dev)
+            out = kbdec.decode_step_fused_batched(sem_cfg, p, toks, kc2, vc2,
+                                                  slots)
+            ref = kbdec.decode_step_batched_plain(sem_cfg, p, toks, kc, vc,
+                                                  [300] * B)
+            checks.record(kname, name, f"logits B {B} timed, n_past 300",
+                          max_err(out, ref))
+            del kc2, vc2
+            ms = cuda_ms(lambda: kbdec.decode_step_fused_batched(
+                sem_cfg, p, toks, kc, vc, slots), 50)
+            plain = cuda_ms(lambda: kbdec.decode_step_batched_plain(
+                sem_cfg, p, toks, kc, vc, [300] * B), 1)
+            checks.times[f"{K7}[B={B}]"] = (
+                ms, plain, decode_cost(sem_cfg, p, 300, lanes=B))
+            del kc, vc
+    del sem_q8
+    torch.cuda.empty_cache()
+
+    # K8 over 8 lanes of 257-887 rows and 8 of 887 (timed), LM window
+    for n_valid in (list(K6C_MIXED), [887] * 8):
+        B, T = len(n_valid), max(n_valid)
+        x_emb = coarse_p["wte"][0][torch.randint(
+            0, coarse_cfg.n_in_vocab, (B * T,), generator=gen,
+            device=dev)].reshape(B, T, -1)
+        kc, vc = gpt.init_kv_cache(coarse_cfg, dtype, dev, batch=B)
+        kc2, vc2 = gpt.init_kv_cache(coarse_cfg, dtype, dev, batch=B)
+        out = kbpre.prefill_fused_batched(coarse_cfg, coarse_p, x_emb, kc, vc,
+                                          n_valid, lm_window=lmw)
+        ref = kbpre.prefill_batched_plain(coarse_cfg, coarse_p, x_emb, kc2,
+                                          vc2, n_valid, lmw)
+        tag = f"{B} lanes, n_valid {min(n_valid)}-{max(n_valid)}"
+        checks.record("prefill_fused_batched", name, f"logits {tag}",
+                      max_err(out, ref))
+        checks.record("prefill_fused_batched", name, f"K/V rows {tag}", max(
+            rows_err(kc, kc2, vc, vc2, (slice(None), b, slice(0, n)))
+            for b, n in enumerate(n_valid)))
+        prefill_rows_kept(kc, vc, n_valid, f"K8 {name} {tag}")
+        if timed and n_valid == [887] * 8:
+            ms = cuda_ms(lambda: kbpre.prefill_fused_batched(
+                coarse_cfg, coarse_p, x_emb, kc, vc, n_valid, lm_window=lmw),
+                5)
+            plain = cuda_ms(lambda: kbpre.prefill_batched_plain(
+                coarse_cfg, coarse_p, x_emb, kc2, vc2, n_valid, lmw), 1)
+            checks.times["prefill_fused_batched"] = (
+                ms, plain, prefill_cost(coarse_cfg, coarse_p, n_valid, lmw))
+        del x_emb, kc, vc, kc2, vc2
+    torch.cuda.empty_cache()
+
+    # the step loops. Semantic: 257-row prompts (plain prefill), temp 0.7;
+    # coarse: random 887-row contexts (887, 700, 500, 257 across lanes)
+    # and random logits, LM window
+    def sem_start(B):
+        x_emb = sem_p["wte"][0][torch.randint(
+            0, sem_cfg.n_in_vocab, (B * 257,), generator=gen,
+            device=dev)].reshape(B, 257, -1)
+        kc, vc = gpt.init_kv_cache(sem_cfg, dtype, dev, batch=B)
+        logits = kbpre.prefill_batched_plain(sem_cfg, sem_p, x_emb, kc, vc,
+                                             [257] * B)
+        return logits, kc, vc
+
+    def coarse_start(B, kv=False):
+        logits = torch.randn((B, coarse_cfg.n_out_vocab), generator=gen,
+                             device=dev)
+        if kv:
+            return (logits, *kv8_cache(coarse_cfg, 887, gen, batch=B))
+        return (logits, *filled_batched_cache(coarse_cfg, B, 887, dtype,
+                                              gen))
+
+    lane0 = lambda c: gpt.kv_view(c, (slice(None), 0))  # noqa: E731
+    # K3: one lane, 16 steps; f32 also a chunk whose slots reach the clamp
+    # (count0 760 after 257 rows), and 16 steps on an int8 cache
+    noise = sampling.gumbel((1, 32, sem_cfg.n_out_vocab), gen, dev)
+    logits0, kc0, vc0 = sem_start(1)
+    for count0 in ((3, 760) if f32 else (3,)):
+        kc, vc = kc0.clone(), vc0.clone()
+        if count0 > 3:  # rows up to the chunk's first slot
+            for c in (kc, vc):
+                c[:, :, 257:257 + count0] = c[:, :, :count0]
+        start = (kc.clone(), vc.clone())
+        kw = dict(K=16, temp=0.7, semantic_vocab_size=svs)
+        args = (257, count0, noise[0], 2.0)
+        before = loop_counts()
+        toks, flags, lg = ksem.semantic_chunk_fused(
+            sem_cfg, sem_p, logits0[0], lane0(kc), lane0(vc), *args, **kw)
+        if loop_counts(before) != (1, 0):
+            raise AssertionError(f"K3 {name}: not one launch of the step "
+                                 f"loop and none of K1")
+        tag = f"K3 {name} count0 {count0}" + (" (clamp)" if count0 > 3
+                                               else "")
+        _, _, sample = ksem.chunk_loop(sem_cfg, 257, count0, 0.7, svs, 2.0)
+        slots = [min(257 + count0 + j, sem_cfg.block_size - 1)
+                 for j in range(16)]
+        if f32:
+            loop_steps_check(
+                tag, sem_cfg, sem_p, logits0[0], *map(lane0, start),
+                lane0(kc), lane0(vc), toks, flags, lg, slots, None, sample,
+                lambda j: noise[:, sample.noise_row(j, 32)])
+            continue
+        (rtoks, _, _), plain = once_ms(
+            lambda: ksem.semantic_chunk_plain(
+                sem_cfg, sem_p, logits0[0], lane0(start[0]),
+                lane0(start[1]), *args, **kw))
+        loop_first_step(checks, "semantic_chunk_fused", name, tag, toks,
+                        rtoks, (kc, vc), start, slots[:1])
+        if timed:
+            kc, vc = kc0.clone(), vc0.clone()
+            ms = cuda_ms(lambda: ksem.semantic_chunk_fused(
+                sem_cfg, sem_p, logits0[0], lane0(kc), lane0(vc), *args,
+                **kw), 3)
+            nb, fl = decode_cost(sem_cfg, sem_p, 257 + 3, steps=16)
+            checks.times["semantic_chunk_fused"] = (
+                ms, plain, (nb + 16 * sem_cfg.n_out_vocab * 4, fl))
+    del kc0, vc0
+    if f32:  # K3 on the int8 cache: tokens and flags equal
+        logits0 = torch.randn((sem_cfg.n_out_vocab,), generator=gen,
+                              device=dev)
+        kc, vc = (lane0(c) for c in kv8_cache(sem_cfg, 257, gen, batch=1))
+        kc2, vc2 = kv8_clone(kc), kv8_clone(vc)
+        kw = dict(K=16, temp=0.7, semantic_vocab_size=svs)
+        got = ksem.semantic_chunk_fused(sem_cfg, sem_p, logits0, kc, vc, 257,
+                                        3, noise[0], 2.0, **kw)
+        want = ksem.semantic_chunk_plain(sem_cfg, sem_p, logits0, kc2, vc2,
+                                         257, 3, noise[0], 2.0, **kw)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise AssertionError("K3 on the int8 cache: tokens/flags differ")
+        checks.record(K6_K3, name, "logits after 16 steps",
+                      max_err(got[2], want[2]))
+        del kc, vc, kc2, vc2
+    torch.cuda.empty_cache()
+
+    # K4: one lane, 60 steps at context 887; f32 both parities and 60
+    # steps on an int8 cache
+    noise = sampling.gumbel((60, 1, cbs), gen, dev)
+    logits0, kc0, vc0 = coarse_start(1)
+    kw = dict(sws=60, temp=0.7, semantic_vocab_size=svs, codebook_size=cbs,
+              lm_window=lmw)
+    for step0 in ((1, 0) if f32 else (1,)):
+        kc, vc = kc0.clone(), vc0.clone()
+        before = loop_counts()
+        toks = kwin.coarse_window_fused(coarse_cfg, coarse_p, logits0[0],
+                                        lane0(kc), lane0(vc), 887, step0,
+                                        noise[:, 0], **kw)
+        if loop_counts(before) != (1, 0):
+            raise AssertionError(f"K4 {name}: not one launch of the step "
+                                 f"loop and none of K1")
+        tag = f"K4 {name} parity {'odd' if step0 else 'even'}"
+        _, _, sample = kwin.window_loop(coarse_cfg, 887, step0, 0.7, svs,
+                                        cbs)
+        if f32:
+            loop_steps_check(
+                tag, coarse_cfg, coarse_p, logits0[0], lane0(kc0.clone()),
+                lane0(vc0.clone()), lane0(kc), lane0(vc), toks, None, None,
+                [887 + j for j in range(60)], lmw, sample,
+                lambda j: noise[sample.noise_row(j, 60)])
+            continue
+        k, v = kc0.clone(), vc0.clone()
+        rtoks, plain = once_ms(lambda: kwin.coarse_window_plain(
+            coarse_cfg, coarse_p, logits0[0], lane0(k), lane0(v), 887, step0,
+            noise[:, 0], **kw))
+        loop_first_step(checks, "coarse_window_fused", name, tag, toks,
+                        rtoks, (kc, vc), (k, v), [887])
+        if timed:
+            ms = cuda_ms(lambda: kwin.coarse_window_fused(
+                coarse_cfg, coarse_p, logits0[0], lane0(kc0), lane0(vc0),
+                887, 1, noise[:, 0], **kw), 2)
+            nb, fl = decode_cost(coarse_cfg, coarse_p, 887, lmw, steps=60)
+            checks.times["coarse_window_fused"] = (
+                ms, plain, (nb + 60 * cbs * 4, fl))
+    del kc0, vc0
+    if f32:  # K4 on the int8 cache: tokens equal
+        logits0, kc, vc = coarse_start(1, kv=True)
+        kc, vc = lane0(kc), lane0(vc)
+        kc2, vc2 = kv8_clone(kc), kv8_clone(vc)
+        toks = kwin.coarse_window_fused(coarse_cfg, coarse_p, logits0[0], kc,
+                                        vc, 887, 1, noise[:, 0], **kw)
+        rtoks = kwin.coarse_window_plain(coarse_cfg, coarse_p, logits0[0],
+                                         kc2, vc2, 887, 1, noise[:, 0], **kw)
+        if not torch.equal(toks, rtoks):
+            raise AssertionError("K4 on the int8 cache: tokens differ")
+        idx = (slice(None), slice(887, 947))
+        record_kv8_rows(checks, K6_K4, name, "K/V rows of a 60-step window",
+                        [(gpt.kv_view(c, idx), gpt.kv_view(c2, idx))
+                         for c, c2 in ((kc, kc2), (vc, vc2))], chained=True)
+        log(f"  K3 (16 steps) and K4 (60 steps) on the int8 cache, f32: "
+            f"tokens equal to their plain versions")
+        del kc, vc, kc2, vc2
+    torch.cuda.empty_cache()
+
+    # K9: 16 steps of 8 lanes after 257-row prompts
+    B = 8
+    noise = sampling.gumbel((B, 32, sem_cfg.n_out_vocab), gen, dev)
+    logits0, kc0, vc0 = sem_start(B)
+    kc, vc = kc0.clone(), vc0.clone()
+    kw = dict(K=16, temp=0.7, semantic_vocab_size=svs)
+    args = (257, 3, noise, 2.0)
+    before = lane_counts()
+    toks, flags, lg = kbsem.semantic_chunk_fused_batched(
+        sem_cfg, sem_p, logits0, kc, vc, *args, **kw)
+    if lane_counts(before) != (1, 0):
+        raise AssertionError(f"K9 {name}: not one launch of the batched "
+                             f"loop and none of K7's step")
+    slots, sample = kbsem.chunk_lane_loop(sem_cfg, 257, 3, 16, 0.7, svs, 2.0,
+                                          B)
+    tag = f"K9 {name} {B} lanes"
+    k, v = kc0.clone(), vc0.clone()
+    if f32:
+        loop_steps_check(
+            tag, sem_cfg, sem_p, logits0, k, v, kc, vc, toks, flags, lg,
+            slots, None, sample, lambda j: noise[:, sample.noise_row(j, 32)])
+    else:
+        (rtoks, _, _), plain = once_ms(
+            lambda: kbsem.semantic_chunk_batched_plain(
+                sem_cfg, sem_p, logits0, k, v, *args, **kw))
+        loop_first_step(checks, "semantic_chunk_fused_batched", name, tag,
+                        toks, rtoks, (kc, vc), (k, v), slots[:1])
+        if timed:
+            ms = cuda_ms(lambda: kbsem.semantic_chunk_fused_batched(
+                sem_cfg, sem_p, logits0, kc0, vc0, *args, **kw), 3)
+            nb, fl = decode_cost(sem_cfg, sem_p, 257 + 3, steps=16, lanes=B)
+            checks.times["semantic_chunk_fused_batched"] = (
+                ms, plain, (nb + B * 16 * sem_cfg.n_out_vocab * 4, fl))
+    del noise, kc0, vc0, kc, vc, k, v
+    torch.cuda.empty_cache()
+
+    # K10: 60 steps; f32 over 32 lanes (the batched path's largest
+    # window), bf16 over 8 (timed, beside its plain version)
+    B = 32 if f32 else 8
+    ctx_len = [(887, 700, 500, 257)[b % 4] for b in range(B)]
+    noise = sampling.gumbel((60, B, cbs), gen, dev)
+    logits0, kc0, vc0 = coarse_start(B)
+    kc, vc = kc0.clone(), vc0.clone()
+    kw = dict(sws=60, temp=0.7, semantic_vocab_size=svs, codebook_size=cbs,
+              lm_window=lmw)
+    before = lane_counts()
+    toks = kbwin.coarse_window_fused_batched(
+        coarse_cfg, coarse_p, logits0, kc, vc, ctx_len, 1, noise, **kw)
+    if lane_counts(before) != (1, 0):
+        raise AssertionError(f"K10 {name}: not one launch of the batched "
+                             f"loop and none of K7's step")
+    slots, sample = kbwin.window_lane_loop(ctx_len, 1, 60, 0.7, svs, cbs)
+    tag = f"K10 {name} {B} lanes"
+    k, v = kc0.clone(), vc0.clone()
+    if f32:
+        loop_steps_check(
+            tag, coarse_cfg, coarse_p, logits0, k, v, kc, vc, toks, None,
+            None, slots, lmw, sample,
+            lambda j: noise[sample.noise_row(j, 60)])
+    else:
+        rtoks, plain = once_ms(lambda: kbwin.coarse_window_batched_plain(
+            coarse_cfg, coarse_p, logits0, k, v, ctx_len, 1, noise, **kw))
+        loop_first_step(checks, "coarse_window_fused_batched", name, tag,
+                        toks, rtoks, (kc, vc), (k, v), slots[:1])
+        if timed:
+            ms = cuda_ms(lambda: kbwin.coarse_window_fused_batched(
+                coarse_cfg, coarse_p, logits0, kc0, vc0, ctx_len, 1, noise,
+                **kw), 2)
+            nb, fl = decode_cost(coarse_cfg, coarse_p, 887, lmw, steps=60,
+                                 lanes=B)
+            checks.times["coarse_window_fused_batched"] = (
+                ms, plain, (nb + 60 * B * cbs * 4, fl))
+    del noise, kc0, vc0, kc, vc, k, v
+    torch.cuda.empty_cache()
+
+
+def loop_first_step(checks, kname, name, what, toks, rtoks, run, plain,
+                    slots):
+    """A bf16 step loop beside its plain version run once on the same
+    inputs: its first step's tokens, sampled from the same logits, must be
+    equal and the K/V rows that step wrote (lane b's at slots[0][b], or
+    one lane's at slots[0]) within TOL; a near-tie argmax may flip a
+    later token, so the rest are counted, not held."""
+    toks, rtoks = toks.reshape(-1, toks.shape[-1]), rtoks.reshape(
+        -1, rtoks.shape[-1])
+    first = slots[0] if isinstance(slots[0], list) else [slots[0]]
+    if not bool((toks[:, 0] == rtoks[:, 0]).all()):
+        raise AssertionError(f"{what}: the first step's tokens differ")
+    (kc, vc), (kc2, vc2) = run, plain
+    lanes = kc.dim() == 4
+    err = max(max_err(c[:, b, n] if lanes else c[:, n],
+                      c2[:, b, n] if lanes else c2[:, n])
+              for b, n in enumerate(first) for c, c2 in ((kc, kc2),
+                                                         (vc, vc2)))
+    checks.record(kname, name, "K/V rows of the first step", err)
+    same = int((toks == rtoks).sum())
+    log(f"  {what}: tokens equal to the plain version's {same}/"
+        f"{toks.numel()}, the first step's all")
+
+
+def large_phase(smi: str) -> dict:
+    """Phase 4j: bark-large (24 layers, 16 heads, width 1024) on the card.
+    (a) `large_kernel_checks` in f32 (TF32 off) and bf16; (b) bench.py's
+    workload on bark-large's stages from a seed (`bark_stages`, random
+    bf16 weights): 3 dense requests (RTF from requests 2-3), 1 on the
+    int8 cache, 1 on q8_0 qpacks, and a `generate_audio_batch` of 8 dense
+    prompts (after a first batch of 2, not kept), each driven with the
+    launch counts set to 0 just before and read just after
+    (`bark_small_requests`, `bark_small_batch`: every chunk and window one
+    launch of the step loop), and no plain version run while they run.
+    Returns its record: seconds, peak memory (the checks', the dense and
+    int8 requests', the batch's; beside what was allocated before each,
+    earlier phases' included), the requests and the batch, its kernel rows
+    (`LARGE_ROWS`: ms, plain ms, bound, errors, launches in its runs)."""
+    import torch
+
+    t0 = time.perf_counter()
+    checks = Checks()
+    rec = dict(card=smi, peak_bytes={}, base_bytes={})
+
+    def peak_from(part):  # the peak from now on, and what was held before
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec["base_bytes"][part] = torch.cuda.memory_allocated()
+
+    def peak_of(part):
+        rec["peak_bytes"][part] = torch.cuda.max_memory_allocated()
+
+    peak_from("checks")
+    with full_f32():
+        for dtype in (torch.float32, torch.bfloat16):
+            log(f"phase 4j: bark-large kernels vs plain, {dtype}")
+            large_kernel_checks(checks, dtype, timed=dtype == torch.bfloat16)
+    peak_of("checks")
+    rec["checks_s"] = time.perf_counter() - t0
+    peak_from("requests")
+    need = ("prefill", "semantic", "window")
+    with counted_plain_calls() as plain:
+        stages = bark_stages(model="large")
+        dense, dense_counts = bark_small_requests(stages, 3, "bark-large",
+                                                  need)
+        kv8, kv8_counts = bark_small_requests(stages, 1, "bark-large kv8",
+                                              need + ("kv8",), kv8=True)
+        peak_of("requests")
+        bark_small_batch(stages, 2)  # first use of the batched path
+        peak_from("batch8")
+        batch = bark_small_batch(stages, 8)
+        peak_of("batch8")
+        del stages
+        torch.cuda.empty_cache()
+        q8, q8_counts = bark_small_requests(bark_stages("q8_0", "large"), 1,
+                                            "bark-large q8_0", need,
+                                            packed=True)
+    if any(plain.values()):
+        raise AssertionError(f"phase 4j: a plain version ran: {plain}")
+    torch.cuda.empty_cache()
+    runs = (dense_counts, kv8_counts, q8_counts, batch["launches"])
+    rec.update(requests=dense, rtf=rtf(dense[1:]), requests_kv8=kv8,
+               rtf_kv8=rtf(kv8), requests_q8_0=q8, rtf_q8_0=rtf(q8),
+               batch8=batch, launches={m: sum(c[m] for c in runs)
+                                       for m in runs[0]})
+    log(f"  bark-large RTF (dense bf16, requests 2-3): {rec['rtf']:.4f}; "
+        f"int8 cache {rec['rtf_kv8']:.4f}; q8_0 {rec['rtf_q8_0']:.4f} on "
+        f"{smi}")
+    log_requests("bark-large dense", dense)
+    log_requests("bark-large kv8", kv8)
+    log_requests("bark-large q8_0", q8)
+    log(f"  bark-large batch of 8: eval {batch['eval_s']:.3f} s = semantic "
+        f"{batch['semantic_s']:.3f} + coarse {batch['coarse_s']:.3f} + fine "
+        f"{batch['fine_s']:.3f} + codec/rest {batch['codec_s']:.3f} s; "
+        f"{batch['audio_s_per_wall_s']:.3f} audio-s per wall-s")
+    log("  bark-large peak memory (torch.cuda.max_memory_allocated; "
+        "allocated before it): " + ", ".join(
+            f"{k} {v / 2**30:.3f} GiB ({rec['base_bytes'][k] / 2**30:.3f})"
+            for k, v in rec["peak_bytes"].items()))
+    rows = []
+    for name, module in LARGE_ROWS:
+        src, replaces, _ = KERNELS[name]
+        ms, plain_ms, cost = checks.times[name]
+        bound_ms, bound_by = bound(cost, "bfloat16")
+        key = name.split("[B=")[0]
+        launches = rec["launches"][module]
+        log(f"  {LARGE} {name:30s} {ms:9.3f} ms  plain {plain_ms:9.3f} ms  "
+            f"bound {bound_ms:7.4f} ms ({bound_by})  launches {launches}")
+        rows.append(dict(
+            name=f"{LARGE} {name}", route="cuda", source=src,
+            replaces=replaces, launches=launches, state="ported",
+            max_abs_err=checks.errors[(key, "bfloat16")],
+            # None for a loop: held in f32 to its own steps, bit for bit
+            max_abs_err_f32=checks.errors.get((key, "float32")),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, bytes=cost[0], flops=cost[1], model=LARGE))
+    rec.update(kernels=rows, accuracy={
+        f"{k} {d}": e for (k, d), e in sorted(checks.errors.items())},
+        kv8_flips={f"{k} {d}": v for (k, d), v in
+                   sorted(checks.kv8_flips.items())})
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 # ------------------------------------------------------------ D1-D5
 
 
@@ -5188,10 +5856,10 @@ def warmup_child(warm: bool) -> int:
 
 
 def precompile_runs(dense_path: str, q8_path: str) -> list:
-    """Phase 5b: the precompile CLI in a subprocess on the small model's
-    files (its params patched to the small token space): dense, packed on
-    the q8_0 file, and --batch 8; each must exit 0 with both generate
-    lines. Returns each run's lines."""
+    """Phase 5b: the precompile CLI in subprocesses, three at once, on the
+    small model's files (its params patched to the small token space):
+    dense, packed on the q8_0 file, and --batch 8; each must exit 0 with
+    both generate lines. Returns each run's lines."""
     driver = (
         "import functools, sys\n"
         "import bark_tpu_torch.params as params_mod\n"
@@ -5200,13 +5868,16 @@ def precompile_runs(dense_path: str, q8_path: str) -> list:
         "params_mod.BarkContextParams = functools.partial(\n"
         "    params_mod.BarkContextParams, **chip_smoke.SMALL_PARAMS)\n"
         "sys.exit(precompile.main(sys.argv[1:]))\n")
+    configs = (("dense", ["-m", dense_path]),
+               ("q8_0 packed", ["-m", q8_path, "--packed"]),
+               ("dense --batch 8", ["-m", dense_path, "--batch", "8"]))
+    # the three processes at once: each checks lines, none is timed here
+    with concurrent.futures.ThreadPoolExecutor(len(configs)) as pool:
+        outs = list(pool.map(lambda c: run_child(
+            f"precompile {c[0]}", [sys.executable, "-c", driver, *c[1]]),
+            configs))
     runs = []
-    for label, args in (("dense", ["-m", dense_path]),
-                        ("q8_0 packed", ["-m", q8_path, "--packed"]),
-                        ("dense --batch 8", ["-m", dense_path, "--batch",
-                                             "8"])):
-        out = run_child(f"precompile {label}",
-                        [sys.executable, "-c", driver, *args])
+    for (label, _), out in zip(configs, outs):
         for want in ("first generate (compiles)",
                      "second generate (all cached)"):
             if want not in out:
@@ -5377,6 +6048,11 @@ def main() -> int:
         log(f"  phase 4i took {rec['seconds']:.1f} s")
         print(json.dumps({"fine_batch": rec}))
         return 0
+    if sys.argv[1:] == ["--large"]:
+        rec = large_phase(smi)
+        log(f"  phase 4j took {rec['seconds']:.1f} s")
+        print(json.dumps({"large": rec}))
+        return 0
 
     checks = Checks()
     with full_f32():
@@ -5491,7 +6167,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 4e: bark-small batched on q4_0 qpacks, B in {BATCHES} "
         f"(bf16 cache) and {KV8_BATCHES} (int8 cache); one batch of 8 in "
-        f"q8_0, q4_1 and q4_k")
+        f"q8_0, q4_1, q4_k and q5_0")
     stages = bark_small_stages("q4_0")
     bark_small_batch(stages, 2, packed=True)  # first use: not kept
     q_batches = [bark_small_batch(stages, B, packed=True) for B in BATCHES]
@@ -5500,7 +6176,7 @@ def main() -> int:
     del stages
     k5b_launches = {("q4_0", r["B"]): r["launches"]["qbdecode"]
                     for r in q_batches}
-    for fmt in ("q8_0", "q4_1", "q4_k"):
+    for fmt in ("q8_0", "q4_1", "q4_k", "q5_0"):
         r = bark_small_batch(bark_small_stages(fmt), 8, packed=True)
         k5b_launches[(fmt, 8)] = r["launches"]["qbdecode"]
         torch.cuda.empty_cache()
@@ -5530,6 +6206,12 @@ def main() -> int:
         f"profile at B 1 and 32 in a fresh process")
     fine_batch = fine_batch_phase(smi)
     log(f"  phase 4i took {fine_batch['seconds']:.1f} s")
+    log("phase 4j: bark-large (24 layers, 16 heads, width 1024): its "
+        "kernels vs plain in f32 and bf16, the step loops held to their "
+        "steps, 3 dense requests, 1 on the int8 cache, 1 on q8_0, a batch "
+        "of 8")
+    large = large_phase(smi)
+    log(f"  phase 4j took {large['seconds']:.1f} s")
     log(f"phase 5: the weight-stream probe D1-D5 at {DMA_MB} MB a pass, "
         f"every load method, stage size and ring, and its yardsticks")
     from bark_tpu_torch.probes import dma
@@ -5708,6 +6390,7 @@ def main() -> int:
             row["int8_flips"] = {d: checks.kv8_flips[(key, d)]
                                  for d in ("float32", "bfloat16")}
         table.append(row)
+    table += large["kernels"]
     for form, (name, replaces) in DMA_REPLACES.items():
         t = dma_timing[form]
         bound_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -5762,7 +6445,7 @@ def main() -> int:
                           batches_q4_0=q_batches,
                           batches_q4_0_kv8=kv8_q_batches, options=options,
                           streaming=streaming, multigpu=multigpu,
-                          fine_batch=fine_batch,
+                          fine_batch=fine_batch, large=large,
                           build_s=build_s,
                           build=build_record,
                           attention_alone={k: v[:2] for k, v in

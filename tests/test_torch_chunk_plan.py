@@ -6,10 +6,11 @@ of the step plan (dense), or its packed tiles' columns within the LM
 window (`decode.sample_slots`); it reduces them to a partial (best value
 and index, and for K3 the max and sum of exp of the EOS scale), and after
 one grid barrier every block folds all the partials alike
-(`decode.fold_partials`). Here, for bark-small's semantic head (10048
-slots) and both coarse codebook windows inside the LM window, at 132, 114,
-7 and 1 blocks, dense and packed plans: every slot of a window is sampled
-by exactly one block, within the logits it computes; the fold of the
+(`decode.fold_partials`). Here, for bark-small's and bark-large's
+semantic heads (10048 slots) and both coarse codebook windows inside the
+LM window, at 132, 114, 7 and 1 blocks, dense and packed plans: every
+slot of a window is sampled by exactly one block, within the logits it
+computes; the fold of the
 mirror's partials gives `ops.sampling.sample`'s token on seeded logits and
 noise, on exact ties across blocks, at temp 0 and on rows with NaN (the
 first NaN, as torch.argmax and jnp.argmax), and its EOS mass within 1e-5
@@ -33,7 +34,7 @@ from bark_tpu_torch.kernels import semantic as ksem
 from bark_tpu_torch.kernels import window as kwin
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
-from bark_tpu_torch.models.presets import BARK_SMALL
+from bark_tpu_torch.models.presets import BARK_LARGE, BARK_SMALL
 from bark_tpu_torch.ops import sampling
 
 from test_torch_e2e import one_torch_thread  # autouse
@@ -42,12 +43,20 @@ BLOCKS = (132, 114, 7, 1)
 SVS, CBS = 10000, 1024
 LMW = (SVS, SVS + 2 * CBS)
 SEM, COARSE = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+LARGE_SEM, LARGE_COARSE = BARK_LARGE["semantic"], BARK_LARGE["coarse"]
 
-# (id, stage, lm_window, the step's LoopSample)
+# (id, stage, lm_window, the step's LoopSample): bark-small's, then
+# bark-large's (width 1024: other LM tiles a block)
 SAMPLES = [
-    ("semantic", SEM, None, kdec.LoopSample(0.7, stop_token=SVS)),
-    ("coarse-even", COARSE, LMW, kdec.LoopSample(0.7, codebook=(SVS, CBS, 0))),
-    ("coarse-odd", COARSE, LMW, kdec.LoopSample(0.7, codebook=(SVS, CBS, 1))),
+    (f"{prefix}{name}", cfg, win, sample)
+    for prefix, sem, coarse in (("", SEM, COARSE),
+                                ("large-", LARGE_SEM, LARGE_COARSE))
+    for name, cfg, win, sample in (
+        ("semantic", sem, None, kdec.LoopSample(0.7, stop_token=SVS)),
+        ("coarse-even", coarse, LMW,
+         kdec.LoopSample(0.7, codebook=(SVS, CBS, 0))),
+        ("coarse-odd", coarse, LMW,
+         kdec.LoopSample(0.7, codebook=(SVS, CBS, 1))))
 ]
 
 
@@ -151,20 +160,23 @@ def test_fold_reads_each_steps_noise_row_and_window():
             for j in range(3)] == [SVS + CBS, SVS, SVS + CBS]
 
 
-@pytest.mark.parametrize("ctx_len,count0,K", [(257, 0, 16), (257, 752, 16),
-                                              (257, 766, 16), (1023, 0, 4)])
-def test_chunk_slots_clamp_as_the_plain_loop(ctx_len, count0, K):
+@pytest.mark.parametrize("sem,coarse,ctx_len,count0,K", [
+    pytest.param(sem, coarse, *case, id=prefix + "-".join(map(str, case)))
+    for prefix, sem, coarse in (("", SEM, COARSE),
+                                ("large-", LARGE_SEM, LARGE_COARSE))
+    for case in ((257, 0, 16), (257, 752, 16), (257, 766, 16), (1023, 0, 4))])
+def test_chunk_slots_clamp_as_the_plain_loop(sem, coarse, ctx_len, count0, K):
     """K3's step loop decodes step j at the plain chunk's slot
     min(ctx_len + count0 + j, block_size - 1), the clamp included; K4's at
     ctx_len + j."""
-    n_past0, clamp, sample = ksem.chunk_loop(SEM, ctx_len, count0, 0.7, SVS,
+    n_past0, clamp, sample = ksem.chunk_loop(sem, ctx_len, count0, 0.7, SVS,
                                              2.0)
     got = [kdec.loop_n_past(n_past0, clamp, j) for j in range(K)]
-    assert got == [min(ctx_len + count0 + j, SEM.block_size - 1)
+    assert got == [min(ctx_len + count0 + j, sem.block_size - 1)
                    for j in range(K)]
     assert sample.noise_row0 == count0 and sample.codebook is None
     assert sample.stop_token == SVS
-    n_past0, clamp, sample = kwin.window_loop(COARSE, 887, 5, 0.7, SVS, CBS)
+    n_past0, clamp, sample = kwin.window_loop(coarse, 887, 5, 0.7, SVS, CBS)
     assert [kdec.loop_n_past(n_past0, clamp, j) for j in range(60)] == [
         887 + j for j in range(60)]
     assert sample.codebook == (SVS, CBS, 5) and sample.noise_row0 == 0

@@ -7,10 +7,12 @@ the step's window to a partial (`decode.lane_sample_slots`,
 `decode.lane_sample_partials`: best value and index, and for K9 the max
 and sum of exp of the EOS scale), and after one grid barrier each block
 folds the partials of the lanes it embeds in tile order
-(`decode.lane_fold_partials`). Here, for bark-small's semantic head (10048
-slots) and both coarse codebook windows inside the LM window, at 1, 3, 8
-and 32 lanes and 132, 114, 7 and 1 blocks, dense and packed lane plans:
-every slot of a window is sampled exactly once, by the tile that holds it;
+(`decode.lane_fold_partials`). Here, for bark-small's and bark-large's
+semantic heads (10048 slots) and both coarse codebook windows inside the
+LM window, at 1, 3, 8 and 32 lanes and 132, 114, 7 and 1 blocks, dense and
+packed lane plans: every slot of a window is sampled exactly once, by the
+tile that holds it (bark-large's 16 heads at 32 lanes: 512 (head, lane)
+units, one for each of the step's threads);
 the mirror's fold gives `ops.sampling.sample`'s token for each lane on
 seeded logits and noise, on exact ties across tiles, at temp 0 and on rows
 with NaN, and its EOS mass within 1e-5 (another summation order). K9's
@@ -47,7 +49,7 @@ from bark_tpu_torch.kernels import decode as kdec
 from bark_tpu_torch.kernels import qbdecode
 from bark_tpu_torch.models import gpt
 from bark_tpu_torch.models.config import GPTConfig
-from bark_tpu_torch.models.presets import BARK_SMALL
+from bark_tpu_torch.models.presets import BARK_LARGE, BARK_SMALL
 from bark_tpu_torch.ops import sampling
 
 from test_torch_e2e import one_torch_thread  # autouse
@@ -58,13 +60,21 @@ LANES = (1, 3, 8, 32)
 SVS, CBS = 10000, 1024
 LMW = (SVS, SVS + 2 * CBS)
 SEM, COARSE = BARK_SMALL["semantic"], BARK_SMALL["coarse"]
+LARGE_SEM, LARGE_COARSE = BARK_LARGE["semantic"], BARK_LARGE["coarse"]
 LM = kdec.LANE_PHASES.index("lm")
 
-# (id, stage, lm_window, the step's LoopSample)
+# (id, stage, lm_window, the step's LoopSample): bark-small's, then
+# bark-large's (width 1024, 16 heads)
 SAMPLES = [
-    ("semantic", SEM, None, kdec.LoopSample(0.7, stop_token=SVS)),
-    ("coarse-even", COARSE, LMW, kdec.LoopSample(0.7, codebook=(SVS, CBS, 0))),
-    ("coarse-odd", COARSE, LMW, kdec.LoopSample(0.7, codebook=(SVS, CBS, 1))),
+    (f"{prefix}{name}", cfg, win, sample)
+    for prefix, sem, coarse in (("", SEM, COARSE),
+                                ("large-", LARGE_SEM, LARGE_COARSE))
+    for name, cfg, win, sample in (
+        ("semantic", sem, None, kdec.LoopSample(0.7, stop_token=SVS)),
+        ("coarse-even", coarse, LMW,
+         kdec.LoopSample(0.7, codebook=(SVS, CBS, 0))),
+        ("coarse-odd", coarse, LMW,
+         kdec.LoopSample(0.7, codebook=(SVS, CBS, 1))))
 ]
 
 
@@ -76,6 +86,11 @@ SAMPLES = [
 def test_each_slot_of_the_window_is_sampled_once(name, cfg, win, sample, G,
                                                  B, packed):
     plan = kdec.lane_plan(cfg, G, B, win, packed=packed)
+    # one (head, lane) unit a thread of the step: bark-large's 32 lanes
+    # take all 512
+    assert len(plan.pairs) == cfg.n_head * B <= kdec.MAX_UNITS
+    if cfg.n_head == 16 and B == 32:
+        assert len(plan.pairs) == kdec.MAX_UNITS == 512
     base, n = sample.window(0, cfg.n_out_vocab)
     slots = kdec.lane_sample_slots(plan, base, n)
     t0 = plan.tile0[LM]
@@ -153,15 +168,18 @@ def test_fold_gives_the_plain_sample(name, cfg, win, sample, temp, kind):
         assert got[0][0] == base + int(torch.argmax(logits[0, base:base + n]))
 
 
-@pytest.mark.parametrize("ctx_len,count0,K", [(257, 0, 16), (257, 752, 16),
-                                              (257, 766, 16), (1023, 0, 4)])
-def test_chunk_slots_clamp_and_window_slots_are_per_lane(ctx_len, count0, K):
+@pytest.mark.parametrize("sem,ctx_len,count0,K", [
+    pytest.param(sem, *case, id=prefix + "-".join(map(str, case)))
+    for prefix, sem in (("", SEM), ("large-", LARGE_SEM))
+    for case in ((257, 0, 16), (257, 752, 16), (257, 766, 16), (1023, 0, 4))])
+def test_chunk_slots_clamp_and_window_slots_are_per_lane(sem, ctx_len, count0,
+                                                         K):
     """K9's loop decodes step j of every lane at the shared slot
     min(ctx_len + count0 + j, block_size - 1), the clamp included; K10's
     lane b at ctx_len[b] + j."""
-    slots, sample = kbsem.chunk_lane_loop(SEM, ctx_len, count0, K, 0.7, SVS,
+    slots, sample = kbsem.chunk_lane_loop(sem, ctx_len, count0, K, 0.7, SVS,
                                           0.5, 3)
-    assert slots == [[min(ctx_len + count0 + j, SEM.block_size - 1)] * 3
+    assert slots == [[min(ctx_len + count0 + j, sem.block_size - 1)] * 3
                      for j in range(K)]
     assert (sample.noise_row0, sample.codebook, sample.stop_token,
             sample.min_eos_p) == (count0, None, SVS, 0.5)
