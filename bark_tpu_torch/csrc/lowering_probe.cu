@@ -20,10 +20,15 @@
 //    aligned group of table rows holding that token into shared memory, in
 //    the same block; the two-launch form writes the token to device memory
 //    and a second kernel reads it. Bound: the row read plus one table row.
-// P3 `probe_dynamic_leading_dma` (:162): one block sums the rows of g in
-//    order, each row a bulk copy at the loop's index, with the next row's
-//    copy in flight or not. Bound: one read of g; the copy's latency when
-//    nothing is in flight.
+// P3 `probe_dynamic_leading_dma` (:162): the rows of g summed in order.
+//    `block`: one block, each row a bulk copy at the loop's index, with the
+//    next row's copy in flight or not (the question: a row read's latency
+//    in a persistent kernel). `strips`: a block for each strip of 64
+//    columns, which issues a bulk copy of its strip of every row (a ring
+//    of 64-row stages past 256 rows) before it adds anything, so that the
+//    card's SMs, not one, read g with all of it in flight; each thread
+//    then sums its column in row order, as the plain version does (bit
+//    for bit). Bound: one read of g.
 // P4 `probe_dynamic_vmem_read` (:196): a block's columns of p in shared
 //    memory, read at a run-time layer index; the layer loop unrolled or
 //    not. Bound: one read of p; the question is registers and program size.
@@ -39,7 +44,15 @@
 //    and a run-time row offset), by bulk stores from shared memory or by
 //    plain 16-byte stores. A bulk copy takes 16-byte aligned addresses and
 //    sizes (hopper.cuh): a row of 16-byte multiples may start at any row,
-//    where the TPU's copies wanted 8-row windows. Bound: the rows written.
+//    where the TPU's copies wanted 8-row windows. `bulk` and `st16`: a
+//    block for each chunk of a lane's rows, every layer in turn, one round
+//    trip in flight. `ring`: a persistent grid (a block an SM), each block
+//    a contiguous run of the flattened (lane, layer, row) range, its layer
+//    and row found at run time; it keeps a ring of stages loading while
+//    earlier stages' bulk stores drain, so that megabytes, not a few
+//    hundred KB, are in flight across the card; one set of rows for every
+//    layer (src_ls 0) is read once and stored L times. Bound: the rows
+//    read and written.
 // P9 `probe_transposed_group_dot` (:391): x (M, K) against g slots of
 //    (N, K) weights read as one (g N, K) operand, contracting both on K.
 //    `simt`: f32 FMAs on the CUDA cores, any float type; `wgmma`: bf16,
@@ -234,6 +247,59 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+constexpr int STRIP_COLS = 64;   // columns a block of `strips` sums, one a thread
+constexpr int STRIP_ROWS = 64;   // rows a stage of a strip holds
+constexpr int STRIP_STAGES = 4;  // stages in flight: all of g up to 256 rows
+
+// out[c0 + c] = sum over j in order of g[j, c0 + c] for the block's strip
+// of columns (the last one may be narrower, 16 bytes at least). Group k of
+// STRIP_ROWS rows lands in stage k % stages, each row's strip a bulk copy
+// issued by a lane of the first warp; a stage is refilled after every
+// thread has summed it.
+__global__ void __launch_bounds__(STRIP_COLS)
+    rows_sum_strips_kernel(const float* g, int n_rows, int width, float* out) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  __shared__ __align__(8) uint64_t full[STRIP_STAGES];
+  const int c0 = blockIdx.x * STRIP_COLS, c = threadIdx.x;
+  const int cols = min(STRIP_COLS, width - c0);
+  const unsigned seg = (unsigned)cols * 4;  // a multiple of 16: width % 4 == 0
+  const int groups = (n_rows + STRIP_ROWS - 1) / STRIP_ROWS;
+  const int stages = min(groups, STRIP_STAGES);
+  const int lane = threadIdx.x & 31;
+  const bool issuer = threadIdx.x < 32;
+  const size_t stage_bytes = (size_t)STRIP_ROWS * STRIP_COLS * 4;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&](int k) {
+    const int s = k % stages, j0 = k * STRIP_ROWS;
+    const int nr = min(STRIP_ROWS, n_rows - j0);
+    if (lane == 0) mbar_expect_tx(&full[s], (unsigned)nr * seg);
+    __syncwarp();  // the arrival first; the copies' bytes count against it
+    for (int r = lane; r < nr; r += 32)
+      bulk_copy(dsm + s * stage_bytes + (size_t)r * STRIP_COLS * 4,
+                g + (size_t)(j0 + r) * width + c0, seg, &full[s]);
+  };
+  if (issuer)
+    for (int k = 0; k < stages; ++k) issue(k);
+  float acc = 0.0f;
+  for (int k = 0; k < groups; ++k) {
+    const int s = k % stages;
+    mbar_wait(&full[s], (k / stages) & 1);
+    const float* rows = reinterpret_cast<const float*>(dsm + s * stage_bytes);
+    const int nr = min(STRIP_ROWS, n_rows - k * STRIP_ROWS);
+    if (c < cols)
+      for (int r = 0; r < nr; ++r) acc = acc + rows[r * STRIP_COLS + c];
+    if (k + stages < groups) {
+      __syncthreads();  // every thread has read stage s
+      if (issuer) issue(k + stages);
+    }
+  }
+  if (c < cols) out[c0 + c] = acc;
+}
+
 // ------------------------------------------------------------ P4, P5
 
 constexpr int LP_COLS = 128;   // columns a block of P4/P5 takes, one a thread
@@ -415,14 +481,30 @@ constexpr int WRITE_THREADS = 128;
 constexpr int WRITE_SMEM = 32 * 1024;  // a block's rows in flight (bulk)
 constexpr int TARGET_BLOCKS = 132;
 
+constexpr int WRING_MAX = 16;  // `ring`: stages a block keeps
+
 struct RowWrite {
   const unsigned char* src;  // (L, B, rows) rows; src_ls 0: one set for all L
   long long src_ls, src_bs;  // bytes between layers, lanes
   unsigned char* dst;        // (L, B, S) rows
   long long dst_ls, dst_bs;
   const int* offs;           // B row offsets, or null (every offset 0)
-  int L, B, rows, row_bytes, S, align, chunk;
+  int L, B, rows, row_bytes, S, align;
+  int chunk;                 // rows a block (bulk, st16) or a stage (ring)
+  int stages;                // ring: 2 to WRING_MAX
+  unsigned long long* stamps;  // ring: 4 ns a block, or null (RING_STAMPS)
 };
+
+// the ring's stamps of a block: its start, its first and last piece
+// landed, its stores complete (%globaltimer)
+constexpr int RING_STAMPS = 4;
+
+// The first row of lane b's window, or -1 when the window leaves [0, S).
+__device__ __forceinline__ long long window_base(const RowWrite& p, int b) {
+  const long long off = p.offs != nullptr ? p.offs[b] : 0;
+  const long long base = off >= 0 ? off / p.align * p.align : -1;
+  return base >= 0 && base + p.rows <= p.S ? base : -1;
+}
 
 // Block (x, y) writes rows [x chunk, ...) of lane y into every layer, at
 // row (off // align) align + r of the lane; a lane whose rows would leave
@@ -435,9 +517,8 @@ __global__ void __launch_bounds__(WRITE_THREADS) row_write_kernel(RowWrite p) {
   __shared__ __align__(8) uint64_t full;
   const int b = blockIdx.y, r0 = blockIdx.x * p.chunk;
   const int nr = min(p.chunk, p.rows - r0);
-  const long long off = p.offs != nullptr ? p.offs[b] : 0;
-  const long long base = off >= 0 ? off / p.align * p.align : -1;
-  if (base < 0 || base + p.rows > p.S || nr <= 0) return;
+  const long long base = window_base(p, b);
+  if (base < 0 || nr <= 0) return;
   const unsigned bytes = (unsigned)nr * p.row_bytes;
   const unsigned char* src = p.src + b * p.src_bs + (long long)r0 * p.row_bytes;
   unsigned char* dst = p.dst + b * p.dst_bs + (base + r0) * p.row_bytes;
@@ -465,6 +546,91 @@ __global__ void __launch_bounds__(WRITE_THREADS) row_write_kernel(RowWrite p) {
       for (unsigned i = threadIdx.x; i < bytes / 16; i += WRITE_THREADS)
         d[i] = s[i];
     }
+  }
+}
+
+// wait until all but the newest of the thread's bulk groups have read
+// their shared memory
+__device__ __forceinline__ void bulk_wait_read_but_one() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+
+// `ring`: block x takes units [x U / grid, (x + 1) U / grid) of the U =
+// B x L' x rows units (lane, layer, row), L' = L, or 1 when src_ls is 0
+// (then each piece is stored into every layer). A piece is a run of at
+// most `chunk` rows of one lane and layer, or of one lane where its
+// layers lie end to end in src and in dst (a prefill's slabs); a lane
+// whose window leaves [0, S) has none. One thread keeps `stages` pieces
+// loading; after piece k's store it refills piece k - 1's stage, once
+// that store has read it.
+__global__ void __launch_bounds__(32) row_ring_kernel(RowWrite p) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  __shared__ __align__(8) uint64_t full[WRING_MAX];
+  __shared__ unsigned char* pdst[WRING_MAX];  // each stage's piece: its rows
+  __shared__ unsigned pbytes[WRING_MAX];      // in layer 0 (once) or its own
+  if (threadIdx.x != 0) return;
+  const unsigned long long t_start = global_ns();
+  unsigned long long t_first = 0, t_last = 0;
+  const bool once = p.src_ls == 0;
+  const long long layer_bytes = (long long)p.rows * p.row_bytes;
+  const bool flat = !once && p.src_ls == layer_bytes && p.dst_ls == layer_bytes;
+  const long long per_lane = (long long)(once ? 1 : p.L) * p.rows;
+  const long long total = per_lane * p.B;
+  const long long u1 = total * (blockIdx.x + 1) / gridDim.x;
+  long long u = total * blockIdx.x / gridDim.x;
+  const unsigned stage_bytes = (unsigned)p.chunk * p.row_bytes;
+  for (int s = 0; s < p.stages; ++s) mbar_init(&full[s], 1);
+  mbar_fence_init();
+  // the next piece of the run into stage k % stages; false past its end
+  auto load = [&](int k) -> bool {
+    while (u < u1) {
+      const int b = (int)(u / per_lane);
+      const long long base = window_base(p, b);
+      if (base < 0) {
+        u = min(u1, (b + 1) * per_lane);
+        continue;
+      }
+      const long long rem = u % per_lane;
+      const int l = (int)(rem / p.rows), r = (int)(rem % p.rows);
+      const long long left = flat ? per_lane - rem : p.rows - r;
+      const int n = (int)min(min((long long)p.chunk, left), u1 - u);
+      const int s = k % p.stages;
+      pdst[s] = p.dst + b * p.dst_bs + l * p.dst_ls + (base + r) * p.row_bytes;
+      pbytes[s] = (unsigned)n * p.row_bytes;
+      mbar_expect_tx(&full[s], pbytes[s]);
+      bulk_copy(dsm + (size_t)s * stage_bytes,
+                p.src + b * p.src_bs + l * p.src_ls + (long long)r * p.row_bytes,
+                pbytes[s], &full[s]);
+      u += n;
+      return true;
+    }
+    return false;
+  };
+  int loaded = 0;
+  while (loaded < p.stages && load(loaded)) ++loaded;
+  for (int k = 0; k < loaded; ++k) {
+    const int s = k % p.stages;
+    mbar_wait(&full[s], (k / p.stages) & 1);
+    if (p.stamps != nullptr) {
+      t_last = global_ns();
+      if (k == 0) t_first = t_last;
+    }
+    for (int l = 0; l < (once ? p.L : 1); ++l)
+      bulk_store(pdst[s] + l * p.dst_ls, dsm + (size_t)s * stage_bytes,
+                 pbytes[s]);
+    bulk_commit();
+    if (k > 0 && loaded == k - 1 + p.stages) {
+      bulk_wait_read_but_one();  // piece k - 1's stores have read its stage
+      if (load(loaded)) ++loaded;
+    }
+  }
+  bulk_wait();
+  if (p.stamps != nullptr) {
+    unsigned long long* t = p.stamps + (size_t)blockIdx.x * RING_STAMPS;
+    t[0] = t_start;
+    t[1] = t_first;
+    t[2] = t_last;
+    t[3] = global_ns();
   }
 }
 
@@ -675,19 +841,32 @@ extern "C" int bark_lp_row(int method, const float* v, int n,
   return (int)cudaGetLastError();
 }
 
-// P3: g (n_rows, width) f32 -> out (width) f32.
+// P3: g (n_rows, width) f32 -> out (width) f32. method 0: one block, a
+// row at a time; 1: one block, the next row in flight; 2: strips.
 extern "C" int bark_lp_rows_sum(const float* g, int n_rows, int width,
-                                int prefetch, float* out,
+                                int method, float* out,
                                 cudaStream_t stream) {
-  if (n_rows < 0 || width <= 0 || width % 4 || width > ROWSUM_COLS * 1024)
+  if (n_rows < 0 || width <= 0 || width % 4 || width > ROWSUM_COLS * 1024 ||
+      method < 0 || method > 2)
     return -1;
+  if (method == 2) {
+    const int groups = (n_rows + STRIP_ROWS - 1) / STRIP_ROWS;
+    const size_t smem = (size_t)std::max(1, std::min(groups, STRIP_STAGES)) *
+                        STRIP_ROWS * STRIP_COLS * 4;
+    int err = set_smem((const void*)rows_sum_strips_kernel, smem);
+    if (err) return err;
+    rows_sum_strips_kernel<<<(width + STRIP_COLS - 1) / STRIP_COLS,
+                             STRIP_COLS, smem, stream>>>(g, n_rows, width,
+                                                         out);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = 2 * (size_t)width * 4;
   const int threads = std::min(1024, (width + 31) / 32 * 32);
-  const void* k = prefetch ? (const void*)rows_sum_kernel<true>
-                           : (const void*)rows_sum_kernel<false>;
+  const void* k = method == 1 ? (const void*)rows_sum_kernel<true>
+                              : (const void*)rows_sum_kernel<false>;
   int err = set_smem(k, smem);
   if (err) return err;
-  if (prefetch)
+  if (method == 1)
     rows_sum_kernel<true><<<1, threads, smem, stream>>>(g, n_rows, width, out);
   else
     rows_sum_kernel<false><<<1, threads, smem, stream>>>(g, n_rows, width, out);
@@ -754,27 +933,46 @@ extern "C" int bark_lp_ring(int dtype, const void* w, int L, int T, int R,
 // P7, P8: rows of src (L or 1, B, rows, row_bytes; src_ls 0: one set of
 // rows for every layer) into dst (L, B, S, row_bytes) at each lane's row
 // (offs[b] // align) align (offs null: 0). method 0: bulk stores; 1: plain
-// 16-byte stores. Strides in bytes; every address and size a multiple of
-// 16.
+// 16-byte stores; 2: the ring, on at most `blocks` blocks with `stages`
+// stages of up to `stage_bytes` (whole rows, one at least), RING_STAMPS
+// ns a block into `stamps` when it is not null. Strides in bytes; every
+// address and size a multiple of 16.
 extern "C" int bark_lp_row_write(int method, const void* src,
                                  long long src_ls, long long src_bs,
                                  void* dst, long long dst_ls,
                                  long long dst_bs, const int* offs, int L,
                                  int B, int rows, int row_bytes, int S,
-                                 int align, cudaStream_t stream) {
-  if (method < 0 || method > 1 || L < 1 || B < 1 || B > 65535 || rows < 1 ||
+                                 int align, int blocks, int stages,
+                                 int stage_bytes, unsigned long long* stamps,
+                                 cudaStream_t stream) {
+  if (method < 0 || method > 2 || L < 1 || B < 1 || B > 65535 || rows < 1 ||
       row_bytes <= 0 || row_bytes % 16 || row_bytes > WRITE_SMEM ||
       rows > S || align < 1 || src_ls % 16 || src_bs % 16 || dst_ls % 16 ||
       dst_bs % 16 || (reinterpret_cast<uintptr_t>(src) |
                       reinterpret_cast<uintptr_t>(dst)) % 16)
     return -1;
+  if (method == 2) {
+    if (blocks < 1 || stages < 2 || stages > WRING_MAX) return -1;
+    const int stage_rows =
+        std::max(1, std::min(rows, stage_bytes / row_bytes));
+    const long long units = (long long)B * (src_ls == 0 ? 1 : L) * rows;
+    RowWrite p{static_cast<const unsigned char*>(src), src_ls, src_bs,
+               static_cast<unsigned char*>(dst), dst_ls, dst_bs, offs, L, B,
+               rows, row_bytes, S, align, stage_rows, stages, stamps};
+    const size_t smem = (size_t)stages * stage_rows * row_bytes;
+    int err = set_smem((const void*)row_ring_kernel, smem);
+    if (err) return err;
+    row_ring_kernel<<<(int)std::min<long long>(blocks, units), 32, smem,
+                      stream>>>(p);
+    return (int)cudaGetLastError();
+  }
   const int per_lane = std::max(1, (TARGET_BLOCKS + B - 1) / B);
   const int chunk = std::max(
       1, std::min({(rows + per_lane - 1) / per_lane, rows,
                    WRITE_SMEM / row_bytes}));
   RowWrite p{static_cast<const unsigned char*>(src), src_ls, src_bs,
              static_cast<unsigned char*>(dst), dst_ls, dst_bs, offs, L, B,
-             rows, row_bytes, S, align, chunk};
+             rows, row_bytes, S, align, chunk, 0, nullptr};
   const dim3 grid((rows + chunk - 1) / chunk, B);
   if (method == 0) {
     const size_t smem = (size_t)chunk * row_bytes;

@@ -220,7 +220,7 @@ _SIGNATURES = {
     "bark_lp_argmax": [_P, _I, _P, _P, _P],
     # (method, v, n, tbl, rows, row_bytes, group, out, tok, stream)
     "bark_lp_row": [_I, _P, _I, _P, _I, _I, _I, _P, _P, _P],
-    # (g, n_rows, width, prefetch, out, stream)
+    # (g, n_rows, width, method, out, stream)
     "bark_lp_rows_sum": [_P, _I, _I, _I, _P, _P],
     # (write, unroll, in, L, W, out, stream)
     "bark_lp_layers": [_I, _I, _P, _I, _I, _P, _P],
@@ -228,10 +228,10 @@ _SIGNATURES = {
     #  stream)
     "bark_lp_ring": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # (method, src, src_ls, src_bs, dst, dst_ls, dst_bs, offs, L, B, rows,
-    #  row_bytes, S, align, stream)
+    #  row_bytes, S, align, blocks, stages, stage_bytes, stamps, stream)
     "bark_lp_row_write": [_I, _P, ctypes.c_longlong, ctypes.c_longlong, _P,
                           ctypes.c_longlong, ctypes.c_longlong, _P, _I, _I,
-                          _I, _I, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # (method, dtype, x, w, M, NG, K, out, stream)
     "bark_lp_group_dot": [_I, _I, _P, _P, _I, _I, _I, _P, _P],
 }

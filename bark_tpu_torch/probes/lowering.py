@@ -27,10 +27,14 @@ not take raises a ValueError before any launch; nothing falls back.
   block; `two_launch`: P2's kernel writes the token, a second kernel reads
   it. Answers: what sampling and the next token's embedding in one kernel
   save (the semantic wte, (129600, 768) bf16).
-- P3 `probe_dynamic_leading_dma(g, prefetch)`: out = the rows of g summed
-  in order, each row a bulk copy at the loop's index; `prefetch` keeps the
-  next row's copy in flight. Answers: the latency of a noise row read per
-  step in a persistent kernel ((60, 10048) f32).
+- P3 `probe_dynamic_leading_dma(g, prefetch, method)`: out = the rows of
+  g summed in order. `block`: one block, each row a bulk copy at the
+  loop's index; `prefetch` keeps the next row's copy in flight. Answers:
+  the latency of a noise row read per step in a persistent kernel ((60,
+  10048) f32). `strips` (the default): a block for each strip of 64
+  columns, every row's strip in flight at once, each column summed in row
+  order (bit-equal to the plain version): the function at the card's
+  rate.
 - P4 `probe_dynamic_vmem_read(p, unroll)`: out = sum_l p[l, 0] + 2 p[l, 3]
   from shared memory at a run-time layer index, the layer loop unrolled or
   not. P5 `probe_dynamic_vmem_write(x, layers, unroll)`: out[l] = x + l,
@@ -50,10 +54,15 @@ not take raises a ValueError before any launch; nothing falls back.
   `probe_dynamic_hbm_write_rowoff(x, off, out, ...)`: the same into rows
   [base, base + R) of each layer, base = (off // align) align, only that
   window written into the caller's buffer; with x (L, B, R, W) and off (B,)
-  each lane at its own row. `bulk`: bulk stores from shared memory; `st16`:
-  16-byte stores. Answers: K/V row write-back at per-lane n_past, and its
+  each lane at its own row. `bulk`: bulk stores from shared memory, a
+  block a chunk of rows through every layer in turn; `st16`: 16-byte
+  stores. Answers: K/V row write-back at per-lane n_past, and its
   alignment rule: a bulk copy wants 16-byte addresses and sizes, which any
   row of a 768-wide bf16 cache meets, so no 8-row window is needed.
+  `ring` (P7's default; P8's stays `bulk`): a block an SM, each a
+  contiguous run of the (lane, layer, row) range, a ring of 4 stages of
+  32 KB loading while earlier stages' bulk stores drain: a prefill's K/V
+  slabs at the card's rate.
 - P9 `probe_transposed_group_dot(x, wt, method)`: out = x (M, K) against
   the g slots of wt (g, N, K) read as one (g N, K) operand, both
   contracted on K (the fused qkv or fc dot). `simt`: f32 FMAs, f32 or
@@ -82,7 +91,8 @@ import numpy as np
 import torch
 
 from bark_tpu_torch.kernels import _build
-from bark_tpu_torch.probes._timing import copies_for, mean_ms, profiled_us
+from bark_tpu_torch.probes._timing import (copies_for, evict_l2, mean_ms,
+                                           profiled_us)
 from bark_tpu_torch.probes.cache import _cuobjdump
 
 SOURCE = "lowering_probe.cu"
@@ -100,7 +110,8 @@ LABELS = dict(zip(NAMES, (
     "P8 dynamic HBM write + row offset", "P9 transposed group dot")))
 WHILE_METHODS = ("block", "grid", "host")
 ROW_METHODS = ("fused", "two_launch")
-WRITE_METHODS = ("bulk", "st16")
+LEADING_METHODS = ("strips", "block")
+WRITE_METHODS = ("bulk", "st16", "ring")
 DOT_METHODS = ("simt", "wgmma")
 
 NO_TOKEN = 1 << 30  # the reference's argmax where no lane equals the max
@@ -109,6 +120,12 @@ P4_ROWS, P5_ROWS, LP_COLS = 16, 8, 128
 ROWSUM_MAX = 16 * 1024     # P3's widest row
 RING_MAX, RING_MAX_W = 4, 1024
 WRITE_MAX_ROW = 32 * 1024  # P7/P8's widest row, in bytes
+# P7/P8 `ring`: stages a block (2 to 16), the bytes a stage holds (whole
+# rows, one at least), blocks an SM
+WRING_STAGES, WRING_STAGE_BYTES, WRING_BLOCKS_PER_SM = 4, 32 * 1024, 1
+# the sweep's other ring configurations: (blocks an SM, stages, KB a stage)
+WRING_CONFIGS = ((1, 4, 16), (1, 4, 32), (1, 6, 32), (1, 8, 16), (2, 4, 16),
+                 (2, 3, 32))
 WGMMA_MAX_M = 64
 # dynamic shared memory a block may take: 227 KB less the static barriers
 SMEM_BYTES = 227 * 1024 - 1024
@@ -295,18 +312,25 @@ def probe_dynamic_leading_dma_plain(g):
     return acc.reshape(1, -1)
 
 
-def probe_dynamic_leading_dma(g, prefetch: bool = False):
-    """P3: g (N, W) f32 -> (1, W) f32."""
+def probe_dynamic_leading_dma(g, prefetch: bool = False,
+                              method: str = "strips"):
+    """P3: g (N, W) f32 -> (1, W) f32. `prefetch` is the `block` method's
+    (`strips` has every row in flight)."""
     _want("g", g, (torch.float32,), ndim=2)
     if g.shape[0] < 1 or not 1 <= g.shape[1] <= ROWSUM_MAX or g.shape[1] % 4:
         raise ValueError(f"g: want (N >= 1, W) with W a multiple of 4 up to "
                          f"{ROWSUM_MAX}, got {tuple(g.shape)}")
+    if method not in LEADING_METHODS:
+        raise ValueError(f"method {method!r}: want one of {LEADING_METHODS}")
+    if prefetch and method != "block":
+        raise ValueError(f"prefetch is the block method's, not {method!r}'s")
     if not _on_cuda(g):
         return probe_dynamic_leading_dma_plain(g)
     _aligned("g", g)
     out = torch.empty((1, g.shape[1]), dtype=torch.float32, device=g.device)
+    code = 2 if method == "strips" else int(prefetch)
     rc = _build.lib().bark_lp_rows_sum(g.data_ptr(), g.shape[0], g.shape[1],
-                                       int(prefetch), out.data_ptr(),
+                                       code, out.data_ptr(),
                                        _build.stream_ptr(g.device))
     _check("probe_dynamic_leading_dma", rc)
     launches["probe_dynamic_leading_dma"] += 1
@@ -427,9 +451,11 @@ def probe_dyn_ring_stream(w, ring: int = 2, blocks: int = 1,
 
 
 def _row_write(name, method, src, src_ls, src_bs, dst, offs, L, B, rows, S,
-               align):
+               align, ring=None, stamps=None):
     """Launch P7/P8's kernel: rows of src into dst (L, B, S, W); src's
-    strides in elements."""
+    strides in elements. `ring`: the ring method's (blocks, stages, stage
+    bytes), by default a block an SM, WRING_STAGES of WRING_STAGE_BYTES;
+    `stamps`: a (blocks, 4) int64 tensor for the ring's stamps."""
     row_bytes = dst.shape[-1] * dst.element_size()
     if row_bytes % 16 or row_bytes > WRITE_MAX_ROW:
         raise ValueError(f"rows of {row_bytes} bytes: a bulk copy takes a "
@@ -438,11 +464,16 @@ def _row_write(name, method, src, src_ls, src_bs, dst, offs, L, B, rows, S,
     if offs is not None and not offs.is_contiguous():
         raise ValueError(f"{name}: off must be contiguous")
     item = dst.element_size()
+    blocks, stages, stage_bytes = ring or (
+        WRING_BLOCKS_PER_SM * _sm_count(dst.device), WRING_STAGES,
+        WRING_STAGE_BYTES)
     rc = _build.lib().bark_lp_row_write(
         WRITE_METHODS.index(method), src.data_ptr(), src_ls * item,
         src_bs * item, dst.data_ptr(), B * S * row_bytes, S * row_bytes,
         None if offs is None else offs.data_ptr(), L, B, rows, row_bytes, S,
-        align, _build.stream_ptr(dst.device))
+        align, blocks, stages, stage_bytes,
+        None if stamps is None else stamps.data_ptr(),
+        _build.stream_ptr(dst.device))
     _check(name, rc)
     launches[name] += 1
 
@@ -459,7 +490,7 @@ def probe_dynamic_hbm_write_plain(x, layers: int = 6):
     return x.clone()
 
 
-def probe_dynamic_hbm_write(x, layers: int = 6, method: str = "bulk"):
+def probe_dynamic_hbm_write(x, layers: int = 6, method: str = "ring"):
     """P7: x (R, W) -> (layers, R, W), every layer x; or x (L, R, W) ->
     (L, R, W), layer l x[l] (one slab a layer: a prefill's K/V rows)."""
     _want("x", x, tuple(DTYPE_CODES))
@@ -473,10 +504,35 @@ def probe_dynamic_hbm_write(x, layers: int = 6, method: str = "bulk"):
         raise ValueError(f"x: empty {tuple(x.shape)}")
     if not _on_cuda(x):
         return probe_dynamic_hbm_write_plain(x, layers)
+    return _hbm_write(x, L, method)
+
+
+def _hbm_write(x, L, method, ring=None, stamps=None):
+    """P7's kernel on the CUDA tensor x into L layers (`_row_write`'s
+    `ring` and `stamps`)."""
+    R, W = x.shape[-2:]
     out = torch.empty((L, R, W), dtype=x.dtype, device=x.device)
     _row_write("probe_dynamic_hbm_write", method, x,
-               0 if x.dim() == 2 else R * W, 0, out, None, L, 1, R, R, 1)
+               0 if x.dim() == 2 else R * W, 0, out, None, L, 1, R, R, 1,
+               ring, stamps)
     return out
+
+
+def ring_stamps_us(x) -> dict:
+    """P7's ring on the CUDA slabs x (L, R, W), stamped, after the L2 is
+    evicted: each block's start, first and last piece landed, and stores
+    complete, in µs from the first block's start; the median and the
+    slowest block of each."""
+    blocks = WRING_BLOCKS_PER_SM * _sm_count(x.device)
+    stamps = torch.zeros((blocks, 4), dtype=torch.int64, device=x.device)
+    evict_l2(x.device)
+    _hbm_write(x, x.shape[0], "ring", stamps=stamps)
+    t = stamps[stamps[:, 0] > 0].double()
+    t = (t - t[:, 0].min()) / 1e3
+    names = ("start", "first_landed", "last_landed", "stored")
+    return {name: dict(median=float(t[:, i].median()),
+                       slowest=float(t[:, i].max()))
+            for i, name in enumerate(names)}
 
 
 def _rowoff_form(x, off, out, layers, seq):
@@ -865,17 +921,25 @@ def sweep(device="cuda") -> dict:
                    lambda v=vs[i]: probe_scalar_dma_row_plain(v, wte, 1),
                    None), bytes_=b2, dtype="bfloat16")
 
-    # P3: 60 dependent row reads, the next in flight or not
+    # P3: one block's 60 dependent row reads, the next in flight or not;
+    # the strips with every row in flight
     g = inp["noise"]
     b3 = (g.numel() + g.shape[1]) * 4
     gs = _copies(g, copies_for(b3, 20))
     rec["P3"] = {("prefetch" if pf else "serial"): dict(us_per_iter=mean_ms(
-        [lambda g=g, pf=pf: probe_dynamic_leading_dma(g, pf) for g in gs])
-        * 1e3 / g.shape[0]) for pf in (False, True)}
-    row("probe_dynamic_leading_dma", f"prefetch, g {tuple(g.shape)} f32",
-        lambda i: (lambda g=gs[i]: probe_dynamic_leading_dma(g, True),
+        [lambda g=g, pf=pf: probe_dynamic_leading_dma(g, pf, "block")
+         for g in gs]) * 1e3 / g.shape[0]) for pf in (False, True)}
+    rec["P3"]["strips"] = dict(us=mean_ms(
+        [lambda g=g: probe_dynamic_leading_dma(g) for g in gs]) * 1e3)
+    row("probe_dynamic_leading_dma", f"strips, g {tuple(g.shape)} f32",
+        lambda i: (lambda g=gs[i]: probe_dynamic_leading_dma(g),
                    lambda g=gs[i]: probe_dynamic_leading_dma_plain(g),
                    lambda g=gs[i]: g.sum(0)), bytes_=b3)
+    rows["probe_dynamic_leading_dma"]["methods_ms"] = {
+        "block serial": rec["P3"]["serial"]["us_per_iter"] * g.shape[0] / 1e3,
+        "block prefetch":
+            rec["P3"]["prefetch"]["us_per_iter"] * g.shape[0] / 1e3,
+        "strips": rec["P3"]["strips"]["us"] / 1e3}
 
     # P4, P5: the layer loop unrolled or not
     b4, b5 = (2 * LAYERS + 1) * D * 4, (1 + LAYERS) * P5_ROWS * D * 4
@@ -926,9 +990,15 @@ def sweep(device="cuda") -> dict:
                    lambda w=ws[i]: w[:, :, 0].sum(dim=(0, 1),
                                                   dtype=torch.float32)),
         bytes_=b6, dtype="bfloat16", n=10)
+    # the like-for-like yardstick: one reduction that reads all of w
+    rows["probe_dyn_ring_stream"].update(
+        library_full_ms=mean_ms([lambda w=w: w.sum(dtype=torch.float32)
+                                 for w in ws], 10),
+        library_full_bytes=nbytes)
     del ws
 
-    # P7: a prefill's K/V slab a layer, each copy with its own library out
+    # P7: a prefill's K/V slab a layer, each copy with its own library out;
+    # the ring also at other grids and stage sizes
     slab = inp["slab"]
     b7 = 2 * slab.numel() * 2
     slabs = _copies(slab, copies_for(b7, 20))
@@ -936,11 +1006,20 @@ def sweep(device="cuda") -> dict:
     rec["P7"] = {m: dict(us=mean_ms(
         [lambda s=s, m=m: probe_dynamic_hbm_write(s, method=m)
          for s in slabs]) * 1e3) for m in WRITE_METHODS}
-    row("probe_dynamic_hbm_write", f"bulk, x {tuple(slab.shape)} bf16",
+    sms = _sm_count(dev)
+    rec["P7"]["ring configs"] = {
+        f"{k * sms} blocks, {st} x {kb} KB": dict(us=mean_ms(
+            [lambda s=s, c=(k * sms, st, kb * 1024):
+             _hbm_write(s, s.shape[0], "ring", c) for s in slabs]) * 1e3)
+        for k, st, kb in WRING_CONFIGS}
+    rec["P7"]["ring stamps"] = [ring_stamps_us(slabs[i]) for i in range(3)]
+    row("probe_dynamic_hbm_write", f"ring, x {tuple(slab.shape)} bf16",
         lambda i: (lambda s=slabs[i]: probe_dynamic_hbm_write(s),
                    lambda s=slabs[i]: probe_dynamic_hbm_write_plain(s),
                    lambda s=slabs[i], o=outs[i]: o.copy_(s)),
         bytes_=b7, dtype="bfloat16")
+    rows["probe_dynamic_hbm_write"]["methods_ms"] = {
+        m: rec["P7"][m]["us"] / 1e3 for m in WRITE_METHODS}
     del slabs, outs
 
     # P8: fresh K/V rows at n_past; copy i has its own rows and each lane's

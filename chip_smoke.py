@@ -223,9 +223,11 @@ Phases, each fatal on failure (exit code 1, and no result lines):
      ten probes at the reference's shapes must all pass (10/10), then its
      sweep at bark-small sizes with the launch counts set to 0 just before
      and read just after (P1's three ways of a dependent iteration, P2/P2b
-     over the semantic logits and wte, P3's noise rows, P4/P5's layer loop
-     unrolled or not with registers, spills and SASS lines, P6's weight
-     ring on every SM, P7/P8's K/V row stores, P9's qkv dot by simt, wgmma
+     over the semantic logits and wte, P3's noise rows by one block and by
+     strips, P4/P5's layer loop unrolled or not with registers, spills and
+     SASS lines, P6's weight ring on every SM beside one reduction over all
+     of its bytes, P7/P8's K/V row stores by bulk, st16 and the ring (P7's
+     ring also at other grids and stage sizes), P9's qkv dot by simt, wgmma
      and torch.matmul), every call on a copy of its inputs that is not in
      the L2 (`probes/_timing.py` `mean_ms`), so that a bound in bytes at
      3.35 TB/s is a floor; printed as one `lowering_probe` JSON line;
@@ -5627,16 +5629,27 @@ def lowering_kernel_checks(errors):
                      lp.probe_scalar_dma_row(v, tb, group, method),
                      lp.probe_scalar_dma_row_plain(v, tb, group), "exact")
     del wte
-    # P3: the reference's g, seeded, the semantic noise rows
+    # P3: the reference's g, seeded, the semantic noise rows; a last strip
+    # of 4 columns, one row, and rows past the strips' 4 stages of 64 (a
+    # ring); `block` both ways within the sum tolerance, `strips`
+    # bit-equal
     for what, g in (("reference (4, 128)",
                      ref["probe_dynamic_leading_dma"][0]),
                     ("seeded (4, 128)", randn(4, 128)),
-                    (f"seeded (60, {sem})", randn(60, sem))):
+                    (f"seeded (60, {sem})", randn(60, sem)),
+                    (f"seeded (60, {sem + 4}): a strip of 4 columns",
+                     randn(60, sem + 4)),
+                    (f"seeded (1, {sem + 4})", randn(1, sem + 4)),
+                    (f"seeded (600, {sem + 4}): a ring of stages",
+                     randn(600, sem + 4))):
         for pf in (False, True):
             lp_check(errors, "probe_dynamic_leading_dma",
-                     f"{what}, prefetch {pf}",
-                     lp.probe_dynamic_leading_dma(g, pf),
+                     f"{what}, block, prefetch {pf}",
+                     lp.probe_dynamic_leading_dma(g, pf, "block"),
                      lp.probe_dynamic_leading_dma_plain(g), "sum")
+        lp_check(errors, "probe_dynamic_leading_dma", f"{what}, strips",
+                 lp.probe_dynamic_leading_dma(g),
+                 lp.probe_dynamic_leading_dma_plain(g), "exact")
     # P4, P5: the reference's 6 layers of 128, 12 of 768, 16 of 256
     p_cases = (("reference (6, 16, 128)",
                 ref["probe_dynamic_vmem_read"][0]),
@@ -5680,18 +5693,30 @@ def lowering_kernel_checks(errors):
                  lp.probe_dyn_ring_stream(ww, ring, blocks, pf),
                  lp.probe_dyn_ring_stream_plain(ww, blocks), "sum")
     del w
-    # P7: the reference's x into 6 layers; a prefill's K/V slabs
+    # P7: the reference's x into 6 layers; a prefill's K/V slabs; one
+    # layer; 263 rows a layer, which the ring's 132 blocks and 21-row
+    # stages do not divide; one slab into 24 layers
     slab = randn(2 * lp.LAYERS, lp.PREFILL_ROWS, lp.D,
                  dtype=torch.bfloat16)
+    odd = randn(2 * lp.LAYERS, lp.PREFILL_ROWS + 6, lp.D,
+                dtype=torch.bfloat16)
     for method in lp.WRITE_METHODS:
-        for what, x in (("reference (8, 128), 6 layers",
-                         ref["probe_dynamic_hbm_write"][0]),
-                        (f"slabs {tuple(slab.shape)} bf16", slab)):
+        for what, x, L in (("reference (8, 128), 6 layers",
+                            ref["probe_dynamic_hbm_write"][0], 6),
+                           (f"slabs {tuple(slab.shape)} bf16", slab, 0),
+                           (f"slabs {tuple(slab[:1].shape)} bf16",
+                            slab[:1], 0),
+                           (f"x {tuple(slab[0].shape)} bf16, 1 layer",
+                            slab[0], 1),
+                           (f"slabs {tuple(odd.shape)} bf16", odd, 0),
+                           (f"x {tuple(slab[0].shape)} bf16, "
+                            f"{2 * lp.LAYERS} layers", slab[0],
+                            2 * lp.LAYERS)):
             lp_check(errors, "probe_dynamic_hbm_write",
                      f"{what}, {method}",
-                     lp.probe_dynamic_hbm_write(x, method=method),
-                     lp.probe_dynamic_hbm_write_plain(x), "exact")
-    del slab
+                     lp.probe_dynamic_hbm_write(x, L, method=method),
+                     lp.probe_dynamic_hbm_write_plain(x, L), "exact")
+    del slab, odd
     # P8: offsets on, off and outside the reference's (4, 32) grid, the
     # rest of a sentinel buffer untouched; per-lane K/V rows at n_past
     x8 = ref["probe_dynamic_hbm_write_rowoff"][0]
@@ -6426,14 +6451,17 @@ def main() -> int:
                                    t["dtype"] if t["flops"] else "bfloat16")
         log(f"  {row_name:30s} {t['ms']:9.5f} ms  plain {t['plain_ms']:9.5f} "
             f"ms  bound {bound_ms:.2e} ms ({bound_by})  launches "
-            f"{lowering_launches[name]}  ({t['config']})")
+            f"{lowering_launches[name]}  ({t['config']}; library "
+            f"{t['library_ms']}, methods {t.get('methods_ms')})")
         table.append(dict(
             name=row_name, route="cuda", source=LOWERING_SOURCE,
             replaces=replaces, launches=lowering_launches[name],
             state="ported", max_abs_err=lowering_errors[name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=t["library_ms"], bytes=t["bytes"], flops=t["flops"],
-            config=t["config"]))
+            config=t["config"],
+            **{k: t[k] for k in ("methods_ms", "library_full_ms",
+                                 "library_full_bytes") if k in t}))
     accuracy = {f"{k} {d}": e for (k, d), e in sorted(checks.errors.items())}
     print(json.dumps(dict(rtf=rtf(timed), requests=results,
                           rtf_q4_0=rtf(q_results), requests_q4_0=q_results,

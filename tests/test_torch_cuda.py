@@ -43,9 +43,11 @@ at widths 768, 1024 and 128, T 1 to 1024, dense and int8 caches: within
 unwritten; a misaligned weight refused before any launch.
 P1-P9, the lowering probe: each kernel against its plain version at the
 reference's shapes and at bark-small's (P1 all three ways, P2b fused and
-in two launches, P6 on 132 blocks, P8 leaving the rows outside its
-windows as they were, P9 by simt and wgmma), bit-equal where they move
-data, and the refusals launching nothing. Marked `cuda`;
+in two launches, P3 by one block and by strips (bit-equal; a narrow last
+strip, one row, a ring of stages), P6 on 132 blocks, P7/P8 by bulk,
+st16 and the ring, P8 leaving the rows outside its windows as they were,
+P9 by simt and wgmma), bit-equal where they move data, and the refusals
+launching nothing. Marked `cuda`;
 without a GPU they skip. On the machine with the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -2087,16 +2089,26 @@ def test_lowering_argmax_and_row_kernels(dev, width, method):
             assert torch.equal(got[0], tbl[width // 3])
 
 
-@pytest.mark.parametrize("shape", [(4, 128), (60, 10048)])
-@pytest.mark.parametrize("prefetch", [False, True])
-def test_lowering_leading_dma_kernel(dev, shape, prefetch):
+@pytest.mark.parametrize("shape", [
+    (4, 128), (60, 10048),
+    (60, 10052), (1, 10052), (600, 10052),  # a strip of 4 columns; a ring
+])
+@pytest.mark.parametrize("method,prefetch", [
+    ("block", False), ("block", True), ("strips", False)])
+def test_lowering_leading_dma_kernel(dev, shape, method, prefetch):
+    """P3: `block` within rtol 1e-6 of the plain version, `strips`
+    bit-equal (each column summed in row order)."""
     from bark_tpu_torch.probes import lowering as lp
 
     g = _lp_randn(dev, *shape, seed=3)
-    got, want = _lp_run(lp, "probe_dynamic_leading_dma",
-                        lambda: lp.probe_dynamic_leading_dma(g, prefetch),
-                        lambda: lp.probe_dynamic_leading_dma_plain(g))
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    got, want = _lp_run(
+        lp, "probe_dynamic_leading_dma",
+        lambda: lp.probe_dynamic_leading_dma(g, prefetch, method),
+        lambda: lp.probe_dynamic_leading_dma_plain(g))
+    if method == "strips":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("L,W", [(6, 128), (12, 768), (16, 256)])
@@ -2137,20 +2149,23 @@ def test_lowering_ring_stream_kernel(dev, shape, dtype, blocks, ring,
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("method", ["bulk", "st16"])
+@pytest.mark.parametrize("method", ["bulk", "st16", "ring"])
 def test_lowering_hbm_write_kernels(dev, method):
-    """P7 (every layer x; one slab a layer) and P8 (the reference's
+    """P7 (every layer x; one slab a layer; one layer; 263 rows a layer,
+    which the ring's grid does not divide) and P8 (the reference's
     offsets, and K/V rows of 8 lanes at n_past), bit-equal, the rows
     outside each window untouched."""
     from bark_tpu_torch.probes import lowering as lp
 
     x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128)
     slab = _lp_randn(dev, 24, 257, 768, dtype=torch.bfloat16, seed=7)
-    for xx in (x, slab):
+    odd = _lp_randn(dev, 24, 263, 768, dtype=torch.bfloat16, seed=10)
+    for xx, L in ((x, 6), (slab, 0), (slab[:1], 0), (slab[0], 1), (odd, 0),
+                  (slab[0], 24)):
         got, want = _lp_run(
             lp, "probe_dynamic_hbm_write",
-            lambda: lp.probe_dynamic_hbm_write(xx, method=method),
-            lambda: lp.probe_dynamic_hbm_write_plain(xx))
+            lambda: lp.probe_dynamic_hbm_write(xx, L, method=method),
+            lambda: lp.probe_dynamic_hbm_write_plain(xx, L))
         assert torch.equal(got, want)
     sentinel = _lp_randn(dev, 4, 32, 128, seed=8)
     for o in (19, 0, 7, 24, 33, -1):
@@ -2219,10 +2234,16 @@ def test_lowering_probes_refuse_what_the_kernels_do_not_take(dev):
         lambda: lp.probe_scalar_dma_row(torch.zeros((1, 8), **f32),
                                         torch.zeros((8, 6), **f32)),  # 24 B rows
         lambda: lp.probe_dynamic_leading_dma(torch.zeros((4, 6), **f32)),
+        lambda: lp.probe_dynamic_leading_dma(torch.zeros((4, 8), **f32),
+                                             method="rows"),
+        lambda: lp.probe_dynamic_leading_dma(torch.zeros((4, 8), **f32),
+                                             True, "strips"),
         lambda: lp.probe_dynamic_vmem_read(torch.zeros((6, 16, 100), **f32)),
         lambda: lp.probe_dyn_ring_stream(torch.zeros((2, 2, 8, 128), **f32),
                                          blocks=10 ** 4),
         lambda: lp.probe_dynamic_hbm_write(torch.zeros((8, 6), **f32)),
+        lambda: lp.probe_dynamic_hbm_write(torch.zeros((8, 128), **f32),
+                                           method="st4"),
         lambda: lp.probe_dynamic_hbm_write_rowoff(
             torch.zeros((8, 128), **f32), torch.zeros((1, 1), dtype=torch.int32),
         ),  # off on the CPU

@@ -15,6 +15,8 @@ the CPU, where each probe runs its plain version.
   condition reads an SMEM scratch value the body writes, a write the
   interpreter does not show the condition), and a hang would cost the
   whole suite its time limit.
+- Every method of P3 (`strips`, `block`), P7 and P8 (`bulk`, `st16`,
+  `ring`) on CPU tensors: the plain version, the captured output.
 - The refusals, and the CLI at --device cpu.
 
 The kernels themselves run only on the card (`tests/test_torch_cuda.py`).
@@ -96,6 +98,28 @@ def assert_matches(name, got, want):
 def test_plain_matches_the_captured_reference(ref, name):
     _, inputs, want = ref[name]
     assert_matches(name, port(name, *inputs), want)
+
+
+METHOD_CASES = [("probe_dynamic_leading_dma", dict(method=m))
+                for m in lp.LEADING_METHODS]
+METHOD_CASES += [("probe_dynamic_leading_dma",
+                  dict(prefetch=True, method="block"))]
+METHOD_CASES += [(name, dict(method=m)) for m in lp.WRITE_METHODS
+                 for name in ("probe_dynamic_hbm_write",
+                              "probe_dynamic_hbm_write_rowoff")]
+
+
+@pytest.mark.parametrize("name,kw", METHOD_CASES,
+                         ids=[f"{n}-{'-'.join(map(str, kw.values()))}"
+                              for n, kw in METHOD_CASES])
+def test_every_method_gives_the_captured_reference_on_the_cpu(ref, name,
+                                                              kw):
+    """On CPU tensors each method runs the plain version: the captured
+    output at the reference's inputs (P3 rtol 1e-6, P7/P8 exact)."""
+    _, inputs, want = ref[name]
+    got = getattr(lp, name)(*(torch.from_numpy(np.array(a)) for a in inputs),
+                            **kw).numpy()
+    assert_matches(name, got, want)
 
 
 def _seeded(name, inputs, rng):
@@ -236,6 +260,10 @@ REFUSALS = [
     (lambda: lp.probe_scalar_dma_row(torch.zeros((1, 8)), torch.zeros((8, 4)),
                                      group=0), "group"),
     (lambda: lp.probe_dynamic_leading_dma(torch.zeros((4, 6))), "multiple"),
+    (lambda: lp.probe_dynamic_leading_dma(torch.zeros((4, 8)),
+                                          method="rows"), "method"),
+    (lambda: lp.probe_dynamic_leading_dma(torch.zeros((4, 8)), True),
+     "prefetch"),
     (lambda: lp.probe_dynamic_vmem_read(torch.zeros((6, 8, 128))), "16"),
     (lambda: lp.probe_dynamic_vmem_read(torch.zeros((17, 16, 128))),
      "layers"),
@@ -248,6 +276,9 @@ REFUSALS = [
     (lambda: lp.probe_dynamic_hbm_write_rowoff(
         torch.zeros((8, 128)), torch.zeros((1, 1), dtype=torch.int64)),
      "off"),
+    (lambda: lp.probe_dynamic_hbm_write_rowoff(
+        torch.zeros((8, 128)), torch.zeros((1, 1), dtype=i32),
+        method="strips"), "method"),
     (lambda: lp.probe_dynamic_hbm_write_rowoff(
         torch.zeros((2, 3, 1, 128)), torch.zeros(3, dtype=i32)), "given out"),
     (lambda: lp.probe_transposed_group_dot(torch.zeros((1, 128)),
